@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with a CUDA card and the CUDA
+toolkit. It
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all at once) and prints the build time;
+3. holds each kernel against its plain PyTorch version at the main path's
+   shapes, in float32 and bfloat16, and times the kernel, the plain version
+   and ``F.scaled_dot_product_attention`` on the same work (a yardstick the
+   port never calls), beside the least time the card could take;
+4. runs the paper's edge request on full-width gemma3-270m (random weights
+   from a seed), in bf16 and in fp32: client A misses (Case 1) and uploads,
+   client B resumes a partial hit (Case 4), then adopts A's full prompt
+   (Case 5), and a poisoned catalog falls back to local prefill; it checks
+   the cases and the tokens and that both kernels ran on that path;
+5. checks the card's fp32 logits against the same model on the CPU;
+6. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
+
+Any failed check raises: the script then exits non-zero and prints no
+result line. It needs the card and the repository beside it.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO / "src"))
+
+MEM_BW = 3.35e12                   # H100 SXM HBM3, bytes/s
+PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FLOP/s: fp32 FMA, bf16 TC
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+PREFILL_SHAPES = [(512, 0), (64, 448)]          # (Sq, q_offset), kv_len 512
+DECODE_KV_LENS = [1, 300, 1024]
+CACHE_LEN, H, KV, DH = 1024, 4, 1, 256
+MAX_NEW = 16
+
+
+def device_line():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script runs on a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    return smi
+
+
+def build_phase():
+    from repro_torch import clock
+    from repro_torch.kernels import build
+    t0 = clock.monotonic()
+    logs = build.build_all()
+    dt = clock.monotonic() - t0
+    print(f"build: {dt:.1f} s for {sorted(build.KERNELS)} "
+          f"(built now: {sorted(logs)})")
+    for name, log in sorted(logs.items()):
+        regs = [int(w) for line in log.splitlines() if "Used" in line
+                for w in [line.split("Used")[1].split()[0]]]
+        spills = [line.strip() for line in log.splitlines()
+                  if "spill" in line and " 0 bytes spill stores" not in line]
+        print(f"  {name}: {len(regs)} kernels, max {max(regs or [0])} "
+              f"registers/thread, spilling: {spills[:3] or 'none'}")
+
+
+def time_ms(fn, iters=50, warmup=5):
+    """Median of per-call CUDA-event times, in ms. For a call whose host
+    work outlasts its kernels this is the host's dispatch time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def _dev_us(e):
+    """Self device time of a profiler row (the name differs by version)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _device_rows(prof):
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+
+
+def device_ms(fn, iters=20, tries=3):
+    """Device time per call, in ms: the profiler's kernel and copy time
+    over ``iters`` back-to-back calls (warm L2), divided by ``iters``.
+    The profiler now and then records no device event for a window; such
+    a window is measured again, and three empty windows fail the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_dev_us(e) for e in _device_rows(prof))
+        if us > 0:
+            return us / iters / 1e3
+    raise RuntimeError("the profiler recorded no device time")
+
+
+def bound(nbytes, flops, dtype):
+    t_b, t_f = nbytes / MEM_BW * 1e3, flops / PEAK[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def kernel_checks():
+    """Each kernel against its plain version at the main path's shapes.
+    Returns the per-kernel rows for the JSON line (timed at the serving
+    dtype, bf16, and the main path's typical shape)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    rows = {"flash_prefill": {"max_abs_err": 0.0},
+            "flash_decode": {"max_abs_err": 0.0}}
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        k = torch.randn((1, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
+        v = torch.randn((1, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
+        es = k.element_size()
+        for sq, off in PREFILL_SHAPES:
+            q = torch.randn((1, sq, H, DH), generator=gen).to(dev, dt)
+            kv_len = off + sq
+            args = dict(q_offset=off, kv_len=kv_len)
+            out = flash_prefill(q, k, v, **args)
+            ref = flash_prefill_plain(q, k, v, **args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = torch.allclose(out.float(), ref.float(), atol=TOL[dname],
+                                rtol=TOL[dname])
+            ms = device_ms(lambda: flash_prefill(q, k, v, **args))
+            call_ms = time_ms(lambda: flash_prefill(q, k, v, **args))
+            plain_ms = device_ms(lambda: flash_prefill_plain(q, k, v,
+                                                             **args))
+            # yardstick: SDPA on the live keys with the same causal mask
+            qpos = off + torch.arange(sq, device=dev)
+            mask = torch.arange(kv_len, device=dev)[None, :] <= qpos[:, None]
+            qs = q.transpose(1, 2)
+            ks, vs = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True))
+            pairs = sum(min(kv_len, off + i + 1) for i in range(sq))
+            nbytes = es * (2 * q.numel() + 2 * kv_len * KV * DH)
+            b_ms, b_by = bound(nbytes, 4 * DH * H * pairs, dname)
+            print(f"flash_prefill {dname} Sq={sq} q_offset={off} "
+                  f"kv_len={kv_len}: max_abs_err={err:.3g} (tol "
+                  f"{TOL[dname]}) device ms: kernel {ms:.4f} plain "
+                  f"{plain_ms:.4f} sdpa {lib_ms:.4f} bound {b_ms:.5f} "
+                  f"({b_by}); kernel call {call_ms:.4f} ms (events)")
+            if not ok:
+                raise AssertionError(f"flash_prefill {dname} Sq={sq} "
+                                     f"off={off}: max err {err}")
+            r = rows["flash_prefill"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if dname == "bfloat16" and off == 0:
+                r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        q1 = torch.randn((1, H, DH), generator=gen).to(dev, dt)
+        for kv_len in DECODE_KV_LENS:
+            out = flash_decode(q1, k, v, kv_len=kv_len)
+            ref = flash_decode_plain(q1, k, v, kv_len=kv_len)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = torch.allclose(out.float(), ref.float(), atol=TOL[dname],
+                                rtol=TOL[dname])
+            ms = device_ms(lambda: flash_decode(q1, k, v, kv_len=kv_len))
+            call_ms = time_ms(lambda: flash_decode(q1, k, v, kv_len=kv_len))
+            plain_ms = device_ms(
+                lambda: flash_decode_plain(q1, k, v, kv_len=kv_len))
+            qs = q1[:, :, None]
+            ks, vs = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, enable_gqa=True))
+            nbytes = es * (2 * q1.numel() + 2 * kv_len * KV * DH)
+            b_ms, b_by = bound(nbytes, 4 * DH * H * kv_len, dname)
+            print(f"flash_decode {dname} kv_len={kv_len}: max_abs_err="
+                  f"{err:.3g} (tol {TOL[dname]}) device ms: kernel {ms:.4f}"
+                  f" plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound "
+                  f"{b_ms:.5f} ({b_by}); kernel call {call_ms:.4f} ms "
+                  f"(events)")
+            if not ok:
+                raise AssertionError(f"flash_decode {dname} kv_len={kv_len}"
+                                     f": max err {err}")
+            r = rows["flash_decode"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if dname == "bfloat16" and kv_len == 300:
+                r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
+def edge_path(model, label, max_len=1024):
+    """The paper's edge request through the port's EdgeClient. Returns
+    the results and the launch counts of this run."""
+    import numpy as np
+    import torch
+    from repro_torch.config import CacheConfig
+    from repro_torch.core.client import EdgeClient
+    from repro_torch.core.server import CacheServer
+    from repro_torch.data.mmlu import MMLUGenerator
+    from repro_torch.data.tokenizer import WordHashTokenizer
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = model.cfg
+    gen = MMLUGenerator(WordHashTokenizer(cfg.vocab), n_shot=5)
+    p_a = gen.prompt("astronomy", 0).segments
+    p_b = gen.prompt("astronomy", 1).segments
+    p_c = gen.prompt("virology", 7).segments
+    server = CacheServer(CacheConfig())
+
+    def client(name, srv=server):
+        return EdgeClient(name, InferenceEngine(model, max_len=max_len),
+                          srv, CacheConfig())
+
+    # warm-up on a throwaway server: cuBLAS handles, allocator, kernels
+    client("warm", CacheServer(CacheConfig())).infer(
+        gen.prompt("anatomy", 3).segments, max_new_tokens=2)
+
+    flash_prefill.launches = 0
+    flash_decode.launches = 0
+    a, b = client("A"), client("B")
+    r_miss = a.infer(p_a, MAX_NEW)
+    b.sync_catalog()
+    r_part = b.infer(p_b, MAX_NEW)
+    r_full = b.infer(p_a, MAX_NEW)
+    poisoned = client("P")
+    for key in p_c.keys(poisoned.meta):
+        poisoned.catalog.register(key.digest)
+    r_fp = poisoned.infer(p_c, MAX_NEW, upload_on_miss=False)
+    launches = {"flash_prefill": flash_prefill.launches,
+                "flash_decode": flash_decode.launches}
+
+    # references outside the counted run: cold local prefills of B and C
+    cold = client("cold", CacheServer(CacheConfig()))
+    r_cold_b = cold.infer(p_b, MAX_NEW, upload_on_miss=False)
+    r_cold_c = cold.infer(p_c, MAX_NEW, upload_on_miss=False)
+
+    got = [r.case for r in (r_miss, r_part, r_full, r_fp)]
+    print(f"[{label}] prompt tokens A={len(p_a.token_ids)} "
+          f"B={len(p_b.token_ids)} C={len(p_c.token_ids)}; cases {got}")
+    for tag, r in (("A miss", r_miss), ("B partial", r_part),
+                   ("B full", r_full), ("P false-positive", r_fp),
+                   ("B cold", r_cold_b)):
+        t = r.timings
+        print(f"[{label}] {tag}: case {r.case} matched {r.matched_tokens}/"
+              f"{r.prompt_tokens} ttft {r.ttft_s * 1e3:.2f} ms ttlt "
+              f"{r.ttlt_s * 1e3:.2f} ms up {r.blob_bytes_up} B down "
+              f"{r.blob_bytes_down} B fp={r.false_positive} | fetch "
+              f"{t['fetch_s'] * 1e3:.2f} restore {t['restore_s'] * 1e3:.2f}"
+              f" prefill {t['prefill_s'] * 1e3:.2f} decode "
+              f"{t['decode_s'] * 1e3:.2f} ms for {len(r.output_tokens)} tok"
+              f" ({t['decode_s'] / max(len(r.output_tokens), 1) * 1e3:.2f} "
+              f"ms/tok) upload {t['upload_s'] * 1e3:.2f} ms")
+    print(f"[{label}] launches on the main path: {launches}")
+    if got != [1, 4, 5, 1] or not r_fp.false_positive:
+        raise AssertionError(f"[{label}] cases {got}, fp {r_fp.false_positive}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[{label}] a kernel never ran: {launches}")
+
+    # what a full hit's restore costs, phase by phase (A's full blob)
+    from repro_torch import clock
+    from repro_torch.core import packer, state_io
+    full_key = p_a.keys(a.meta)[0]
+    blob = server.get(full_key.digest)
+    template = InferenceEngine(model, max_len=max_len).new_cache()
+    torch.cuda.synchronize()
+    t0 = clock.monotonic()
+    raw = state_io._decompress(blob)
+    t1 = clock.monotonic()
+    payload = packer.unpackb(raw)
+    t2 = clock.monotonic()
+    state_io.restore_state(payload, template)
+    torch.cuda.synchronize()                        # waits for the copies
+    t3 = clock.monotonic()
+    print(f"[{label}] full-hit restore of a {len(blob)} B blob ({len(raw)} B "
+          f"raw): zlib {(t1 - t0) * 1e3:.2f} ms, msgpack decode "
+          f"{(t2 - t1) * 1e3:.2f} ms, host->device restore "
+          f"{(t3 - t2) * 1e3:.2f} ms")
+
+    # resumed vs cold logits for B, outside the client
+    eng = InferenceEngine(model, max_len=max_len)
+    toks = np.asarray(p_b.token_ids, np.int32)[None]
+    cold_st = eng.start({"tokens": toks})
+    pre = eng.start({"tokens": toks[:, :r_part.matched_tokens]})
+    res_st = eng.resume({"tokens": toks[:, r_part.matched_tokens:]},
+                        pre.cache, r_part.matched_tokens)
+    dlogit = float(np.abs(res_st.last_logits - cold_st.last_logits).max())
+    agree = {
+        "resumed_vs_cold": sum(x == y for x, y in zip(
+            r_part.output_tokens, r_cold_b.output_tokens)),
+        "adopted_vs_cold": sum(x == y for x, y in zip(
+            r_full.output_tokens, r_miss.output_tokens)),
+        "fallback_vs_cold": sum(x == y for x, y in zip(
+            r_fp.output_tokens, r_cold_c.output_tokens)),
+    }
+    print(f"[{label}] tokens agreeing of {MAX_NEW}: {agree}; max |logit| "
+          f"resumed-vs-cold {dlogit:.3g}")
+    lg = cold_st.last_logits
+    if lg.shape != (1, cfg.vocab) or not np.isfinite(lg).all() or not all(
+            len(r.output_tokens) == MAX_NEW
+            and all(0 <= t < cfg.vocab for t in r.output_tokens)
+            for r in (r_miss, r_part, r_full, r_fp)):
+        raise AssertionError(f"[{label}] malformed output: logits "
+                             f"{lg.shape}, finite {np.isfinite(lg).all()}")
+    if label == "fp32" and min(agree.values()) != MAX_NEW:
+        raise AssertionError(f"[fp32] resumed/adopted/fallback outputs "
+                             f"differ from cold: {agree}")
+    return launches, p_a, p_b, cold_st
+
+
+def where_time_goes(model, prompt):
+    """Device time by kernel over one prefill and 8 decode steps (bf16)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import clock
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(model, max_len=1024)
+    toks = np.asarray(prompt.token_ids, np.int32)[None]
+    for _ in range(2):
+        eng.generate(eng.start({"tokens": toks}), 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = clock.monotonic()
+        st = eng.start({"tokens": toks})
+        t1 = clock.monotonic()
+        eng.generate(st, 8)
+        torch.cuda.synchronize()
+        t2 = clock.monotonic()
+    kern = sorted(((_dev_us(e), e.key, e.count) for e in _device_rows(prof)),
+                  reverse=True)
+    busy = sum(us for us, _, _ in kern)
+    wall_us = (t2 - t0) * 1e6
+    print(f"profile (bf16, prefill {toks.shape[1]} tok + 8 decode steps): "
+          f"wall {wall_us / 1e3:.2f} ms (prefill {(t1 - t0) * 1e3:.2f} ms, "
+          f"decode {(t2 - t1) / 8 * 1e3:.2f} ms/step under the profiler),"
+          f" device busy {busy / 1e3:.3f} ms, idle share "
+          f"{1 - busy / wall_us:.3f}")
+    for us, key, n in kern[:12]:
+        print(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
+    host = sorted(((e.self_cpu_time_total, e.key, e.count)
+                   for e in prof.key_averages()), reverse=True)
+    print("  host (self CPU time, same window):")
+    for us, key, n in host[:8]:
+        print(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
+    # the tied head alone: [1, 640] x [262144, 640]^T in bf16
+    x = torch.randn((1, 1, model.cfg.d_model), device="cuda",
+                    dtype=model.dtype)
+    head_ms = device_ms(lambda: x @ model.embed.t())
+    head_bytes = model.embed.numel() * model.embed.element_size()
+    print(f"tied head matmul alone: {head_ms:.4f} ms on the device for {head_bytes / 1e6:.1f}"
+          f" MB of weights (bytes bound {head_bytes / MEM_BW * 1e3:.4f} ms)")
+
+
+def cpu_cross_check(model_fp32, prompt, cuda_cold):
+    import numpy as np
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import InferenceEngine
+    cpu = Model(model_fp32.cfg, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in
+                         model_fp32.state_dict().items()})
+    eng = InferenceEngine(cpu, max_len=1024)
+    toks = np.asarray(prompt.token_ids, np.int32)[None]
+    st = eng.start({"tokens": toks})
+    err = float(np.abs(st.last_logits - cuda_cold.last_logits).max())
+    scale = float(np.abs(st.last_logits).max())
+    same = int(st.last_logits.argmax()) == int(cuda_cold.last_logits.argmax())
+    print(f"cpu cross-check (fp32, {toks.shape[1]} tokens): max |logit "
+          f"cuda - cpu| {err:.3g} (max |logit| {scale:.3g}, tol 1e-4) "
+          f"argmax equal {same}")
+    if err > 1e-4 or not same:
+        raise AssertionError(f"card and CPU disagree: {err}")
+
+
+def main():
+    device_line()
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_phase()
+    rows = kernel_checks()
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("gemma3-270m")
+    m32 = Model(cfg, dtype=torch.float32, seed=0)          # on the card
+    m16 = Model(cfg, dtype=torch.bfloat16, seed=0)
+    m16.load_state_dict(m32.state_dict())
+    print(f"model {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.dh} ff={cfg.d_ff} "
+          f"vocab={cfg.vocab}, {sum(t.numel() for t in m32.parameters()) / 1e6:.1f}"
+          f"M params, random weights (seed 0)")
+    launches, _, _, _ = edge_path(m16, "bf16")
+    launches32, p_a, p_b, cold_b32 = edge_path(m32, "fp32")
+    where_time_goes(m16, p_a)
+    cpu_cross_check(m32, p_b, cold_b32)
+
+    src = {"flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
+                             "src/repro/kernels/flash_prefill.py:84"),
+           "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                            "src/repro/kernels/flash_decode.py:67")}
+    out = []
+    for name in ("flash_prefill", "flash_decode"):
+        r = rows[name]
+        out.append({"name": name, "route": "cuda", "source": src[name][0],
+                    "replaces": src[name][1], "launches": launches[name],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(f"fp32 main-path launches: {launches32}")
+    print(json.dumps({"kernels": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

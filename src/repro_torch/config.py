@@ -1,0 +1,71 @@
+"""Model and prompt-cache configuration (dense models).
+
+A copy of the dense part of ``repro.config``: the same field names and
+defaults, so :func:`repro_torch.core.keys.model_meta` hashes a config to
+the same bytes as the reference does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # this port runs "dense"
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    act: str = "silu"             # silu | gelu | relu2
+    gated_mlp: bool = True
+    norm: str = "rmsnorm"         # rmsnorm | layernorm
+    qk_norm: bool = False
+    attn_bias: bool = False
+    rope: str = "standard"        # standard | none
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    window: Optional[int] = None  # sliding-window size (None = full attention)
+    n_meta_tokens: int = 0        # learned prefix tokens (not in this port)
+    source: str = ""              # citation for the config
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """The reference's tiny same-family variant for CPU tests."""
+        kw = dict(
+            name=self.name + "-reduced",
+            n_layers=2,
+            d_model=min(self.d_model, 128),
+            n_heads=min(self.n_heads, 4),
+            n_kv_heads=min(self.n_kv_heads, 2),
+            head_dim=32 if self.head_dim else 0,
+            d_ff=min(self.d_ff, 256) if self.d_ff else 0,
+            vocab=min(self.vocab, 512),
+        )
+        if self.window is not None:
+            kw["window"] = min(self.window, 16)
+        return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class CacheConfig:
+    """Distributed prompt cache configuration (paper §3-§4)."""
+    bloom_capacity: int = 1_000_000   # paper: 1M entries
+    bloom_fp_rate: float = 0.01       # paper: 1% target FP ratio
+    compress: bool = True             # zlib-compressed state blobs
+    compress_level: int = 1
+    max_ranges: int = 4               # prompt ranges registered per upload
+    range_stride: int = 0             # >0: also register every k tokens
+    min_match_tokens: int = 4         # minimum prefix worth fetching
+    sync_interval_s: float = 1.0      # catalog sync period

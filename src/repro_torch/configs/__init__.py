@@ -1,0 +1,12 @@
+"""Model configs the port can run."""
+from repro_torch.config import ModelConfig
+from repro_torch.configs.gemma3_270m import CONFIG as _GEMMA3_270M
+
+ARCHS = {_GEMMA3_270M.name: _GEMMA3_270M}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown config {name!r}; the port knows "
+                       f"{sorted(ARCHS)}")
+    return ARCHS[name]

@@ -1,0 +1,106 @@
+"""Causal GQA flash-attention prefill with prefix resume.
+
+Replaces the TPU kernel ``repro/kernels/flash_prefill.py::flash_prefill``
+(pallas_call at :115). ``Sq`` suffix queries at absolute positions
+``q_offset..`` attend over a KV cache ``[B, Sk, KV, dh]`` that already
+holds the downloaded prefix; the key at ``kpos`` is live when
+``kpos <= qpos``, ``kpos < kv_len`` and, with a window,
+``kpos > qpos - window``. A row with no live key gives 0.
+
+On the card the wrapper launches the hand-written CUDA kernel
+(``csrc/flash_prefill.cu``; its header says what bounds it and how the
+design answers). On the CPU it runs :func:`flash_prefill_plain`, the
+reference's einsum form. A CUDA tensor never falls back to the plain
+version: an input the kernel does not take raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_prefill_plain(q, k, v, *, q_offset: int = 0,
+                        kv_len: Optional[int] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: [B,Sq,H,dh]; k,v: [B,Sk,KV,dh]. fp32 math, output in q's dtype."""
+    B, Sq, H, dh = q.shape
+    _, Sk, KV, _ = k.shape
+    rep = H // KV
+    kv_len = Sk if kv_len is None else kv_len
+    qf = q.float().reshape(B, Sq, KV, rep, dh)
+    s = torch.einsum("bqgrd,bsgd->bgrqs", qf, k.float()) * (1.0 / math.sqrt(dh))
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < kv_len)
+    if window is not None and window > 0:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)             # fully masked rows -> 0
+    o = torch.einsum("bgrqs,bsgd->bqgrd", p, v.float())
+    return o.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def flash_prefill(q, k, v, *, q_offset: int = 0,
+                  kv_len: Optional[int] = None,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """q: [B,Sq,H,dh]; k,v: [B,Sk,KV,dh] (the cache, read in place).
+    ``q_offset``, ``kv_len`` and ``window`` (None for none) are runtime
+    values. Returns [B,Sq,H,dh] in q's dtype."""
+    B, Sq, H, dh = q.shape
+    _, Sk, KV, _ = k.shape
+    kv_len = Sk if kv_len is None else int(kv_len)
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, q_offset=q_offset, kv_len=kv_len,
+                                   window=window)
+    _check(q, k, v, H, KV, dh, q_offset, kv_len)
+    out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        build.launch(
+            "flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KV, dh,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            int(q_offset), kv_len, -1 if not window else int(window),
+            1.0 / math.sqrt(dh), stream)
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0
+
+
+def _check(q, k, v, H, KV, dh, q_offset, kv_len) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill: no kernel for device {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_prefill: q, k, v on different devices")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_prefill: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}; the kernel takes float32 or bfloat16")
+    if dh not in HEAD_DIMS or k.shape[3] != dh or v.shape != k.shape:
+        raise ValueError(f"flash_prefill: head dim {dh} / k {tuple(k.shape)}"
+                         f" / v {tuple(v.shape)}; dh must be in {HEAD_DIMS}")
+    if H % KV or q.shape[0] != k.shape[0]:
+        raise ValueError("flash_prefill: H must be a multiple of KV and "
+                         "batches must agree")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_prefill: the head dim must be contiguous")
+    vec = 16 // q.element_size()           # the kernel loads 16-byte rows
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+            raise ValueError("flash_prefill: q, k and v rows must start on "
+                             "16-byte boundaries (strides a multiple of "
+                             f"{vec} elements)")
+    if q_offset < 0 or not 0 <= kv_len <= k.shape[1]:
+        raise ValueError(f"flash_prefill: q_offset={q_offset}, "
+                         f"kv_len={kv_len}, Sk={k.shape[1]}")
