@@ -4,21 +4,28 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit. It
+toolkit. It re-executes itself with ``PYTHONHASHSEED=0`` when that is
+unset, so the MMLU-style prompts (seeded from ``hash()``) have the same
+lengths in every run. It
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and prints the build time;
-3. holds each kernel against its plain PyTorch version at the main path's
+3. holds each kernel against its plain PyTorch version at its path's
    shapes, in float32 and bfloat16, and times the kernel, the plain version
-   and ``F.scaled_dot_product_attention`` on the same work (a yardstick the
-   port never calls), beside the least time the card could take;
-4. runs the paper's edge request on full-width gemma3-270m (random weights
-   from a seed), in bf16 and in fp32: client A misses (Case 1) and uploads,
-   client B resumes a partial hit (Case 4), then adopts A's full prompt
-   (Case 5), and a poisoned catalog falls back to local prefill; it checks
-   the cases and the tokens and that both kernels ran on that path;
-5. checks the card's fp32 logits against the same model on the CPU;
+   and, for attention, ``F.scaled_dot_product_attention`` on the same work
+   (a yardstick the port never calls), beside the least time the card
+   could take;
+4. runs the paper's edge request on full-width gemma3-270m and on
+   full-width, full-depth mamba2-780m (random weights from a seed), each
+   in bf16 and in fp32: client A misses (Case 1) and uploads, client B
+   resumes a partial hit (Case 4), then adopts A's full prompt (Case 5),
+   and a poisoned catalog falls back to local prefill; it checks the cases
+   and the tokens and that the path's kernels ran on it (counts set to 0
+   just before each path and read just after);
+5. profiles a prefill and 8 decode steps of each model, and checks the
+   card's fp32 logits against the same model on the CPU (mamba2-780m cut
+   to 4 layers there);
 6. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -27,6 +34,7 @@ result line. It needs the card and the repository beside it.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -41,7 +49,19 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PREFILL_SHAPES = [(512, 0), (64, 448)]          # (Sq, q_offset), kv_len 512
 DECODE_KV_LENS = [1, 300, 1024]
 CACHE_LEN, H, KV, DH = 1024, 4, 1, 256
+# ssd_scan at mamba2-780m's widths: (S, random h0); chunk 256, one B/C group
+SSD_SHAPES = [(271, False), (48, True), (1024, True)]
+SSD_H, SSD_P, SSD_N, SSD_G, SSD_CHUNK = 48, 64, 128, 1, 256
+SSD_TOL = dict(atol=2e-4, rtol=1e-3)           # tests/test_kernels.py:86-89
 MAX_NEW = 16
+SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
+    "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_prefill.py:84"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:67"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:66"),
+}
 
 
 def device_line():
@@ -108,16 +128,18 @@ def _device_rows(prof):
             if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
 
 
-def device_ms(fn, iters=20, tries=3):
+def device_ms(fn, iters=20, windows=3):
     """Device time per call, in ms: the profiler's kernel and copy time
-    over ``iters`` back-to-back calls (warm L2), divided by ``iters``.
-    The profiler now and then records no device event for a window; such
-    a window is measured again, and three empty windows fail the run."""
+    over ``iters`` back-to-back calls (warm L2), divided by ``iters``; the
+    median of ``windows`` windows. The profiler now and then records none
+    or only part of a window's device events, so no window is trusted
+    alone: an empty one is left out, and all empty fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    times = []
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -125,8 +147,10 @@ def device_ms(fn, iters=20, tries=3):
             torch.cuda.synchronize()
         us = sum(_dev_us(e) for e in _device_rows(prof))
         if us > 0:
-            return us / iters / 1e3
-    raise RuntimeError("the profiler recorded no device time")
+            times.append(us / iters / 1e3)
+    if not times:
+        raise RuntimeError("the profiler recorded no device time")
+    return statistics.median(times)
 
 
 def bound(nbytes, flops, dtype):
@@ -224,9 +248,84 @@ def kernel_checks():
     return rows
 
 
-def edge_path(model, label, max_len=1024):
-    """The paper's edge request through the port's EdgeClient. Returns
-    the results and the launch counts of this run."""
+def ssd_inputs(S, dtype, random_h0, gen):
+    """ssd_scan's inputs as mamba2-780m's prefill gives them: x, B and C
+    are views of one conv output [1, S, H*P + 2*G*N] in the model dtype;
+    dt and A follow the model's init (dt in [0.001, 0.1], A = -1..-48)."""
+    import math
+    import torch
+    dev = torch.device("cuda")
+    hp, gn = SSD_H * SSD_P, SSD_G * SSD_N
+    xbc = (torch.randn((1, S, hp + 2 * gn), generator=gen) * 0.5).to(
+        dev, dtype)
+    x = xbc[..., :hp].unflatten(-1, (SSD_H, SSD_P))
+    B_ = xbc[..., hp:hp + gn].unflatten(-1, (SSD_G, SSD_N))
+    C_ = xbc[..., hp + gn:].unflatten(-1, (SSD_G, SSD_N))
+    lo, hi = math.log(0.001), math.log(0.1)
+    dt = torch.exp(torch.rand((1, S, SSD_H), generator=gen) * (hi - lo)
+                   + lo).to(dev)
+    A = -torch.arange(1, SSD_H + 1, dtype=torch.float32, device=dev)
+    h0 = torch.randn((1, SSD_H, SSD_P, SSD_N), generator=gen) * 0.2 \
+        if random_h0 else torch.zeros((1, SSD_H, SSD_P, SSD_N))
+    return x, dt, A, B_, C_, h0.to(dev)
+
+
+def ssd_work(S, es):
+    """(bytes, flops) the chunked scan needs for S positions: each input
+    read once, each output written once; per chunk of L positions the
+    causal half of C.B once per group, and per head the scores times x,
+    C.h_in and the state update."""
+    H, P, N, G = SSD_H, SSD_P, SSD_N, SSD_G
+    nbytes = (es * S * (H * P + 2 * G * N) + 4 * S * H + 4 * H
+              + 4 * S * H * P + 2 * 4 * H * P * N)
+    flops = 0
+    for t0 in range(0, S, SSD_CHUNK):
+        L = min(SSD_CHUNK, S - t0)
+        flops += G * L * (L + 1) * N + H * (L * (L + 1) * P + 4 * L * N * P)
+    return nbytes, flops
+
+
+def ssd_checks():
+    """ssd_scan against ssd_scan_plain at mamba2-780m's shapes. Returns
+    the row for the JSON line (timed in bf16 at S=271, the cold path)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    row = {"max_abs_err": 0.0, "library_ms": None}
+    for dname, dt_ in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        for S, random_h0 in SSD_SHAPES:
+            args = ssd_inputs(S, dt_, random_h0, gen)
+            y, h = ssd_scan(*args, chunk=SSD_CHUNK)
+            yr, hr = ssd_scan_plain(*args, chunk=SSD_CHUNK)
+            torch.cuda.synchronize()
+            err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
+            ok = torch.allclose(y, yr, **SSD_TOL) and \
+                torch.allclose(h, hr, **SSD_TOL)
+            ms = device_ms(lambda: ssd_scan(*args, chunk=SSD_CHUNK))
+            call_ms = time_ms(lambda: ssd_scan(*args, chunk=SSD_CHUNK))
+            plain_ms = device_ms(lambda: ssd_scan_plain(*args,
+                                                        chunk=SSD_CHUNK))
+            b_ms, b_by = bound(*ssd_work(S, args[0].element_size()), dname)
+            print(f"ssd_scan {dname} S={S} h0={'random' if random_h0 else 0}"
+                  f": max_abs_err={err:.3g} (atol 2e-4, rtol 1e-3; max |y| "
+                  f"{yr.abs().max().item():.3g}) device ms: kernel {ms:.4f} "
+                  f"plain {plain_ms:.4f} bound {b_ms:.5f} ({b_by}); kernel "
+                  f"call {call_ms:.4f} ms (events)")
+            if not ok:
+                raise AssertionError(f"ssd_scan {dname} S={S}: max err {err}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if dname == "bfloat16" and S == 271:
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by)
+    return row
+
+
+def edge_path(model, label, kernels, max_len=1024):
+    """The paper's edge request through the port's EdgeClient. ``kernels``
+    are the wrappers of this model's path: their counts are set to 0 just
+    before the requests and read just after. Returns the launch counts,
+    the prompts and the cold fp32-comparable state of B."""
     import numpy as np
     import torch
     from repro_torch.config import CacheConfig
@@ -234,8 +333,7 @@ def edge_path(model, label, max_len=1024):
     from repro_torch.core.server import CacheServer
     from repro_torch.data.mmlu import MMLUGenerator
     from repro_torch.data.tokenizer import WordHashTokenizer
-    from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models.model import padded_vocab
     from repro_torch.serving.engine import InferenceEngine
 
     cfg = model.cfg
@@ -251,10 +349,11 @@ def edge_path(model, label, max_len=1024):
 
     # warm-up on a throwaway server: cuBLAS handles, allocator, kernels
     client("warm", CacheServer(CacheConfig())).infer(
-        gen.prompt("anatomy", 3).segments, max_new_tokens=2)
+        gen.prompt("anatomy", 3).segments, max_new_tokens=2,
+        upload_on_miss=False)
 
-    flash_prefill.launches = 0
-    flash_decode.launches = 0
+    for k in kernels:
+        k.launches = 0
     a, b = client("A"), client("B")
     r_miss = a.infer(p_a, MAX_NEW)
     b.sync_catalog()
@@ -264,8 +363,7 @@ def edge_path(model, label, max_len=1024):
     for key in p_c.keys(poisoned.meta):
         poisoned.catalog.register(key.digest)
     r_fp = poisoned.infer(p_c, MAX_NEW, upload_on_miss=False)
-    launches = {"flash_prefill": flash_prefill.launches,
-                "flash_decode": flash_decode.launches}
+    launches = {k.__name__: k.launches for k in kernels}
 
     # references outside the counted run: cold local prefills of B and C
     cold = client("cold", CacheServer(CacheConfig()))
@@ -289,6 +387,9 @@ def edge_path(model, label, max_len=1024):
               f" ({t['decode_s'] / max(len(r.output_tokens), 1) * 1e3:.2f} "
               f"ms/tok) upload {t['upload_s'] * 1e3:.2f} ms")
     print(f"[{label}] launches on the main path: {launches}")
+    print(f"[{label}] A's blobs on the server (tokens: bytes): "
+          + ", ".join(f"{k.n_tokens}: {len(server.get(k.digest))}"
+                      for k in p_a.keys(a.meta)))
     if got != [1, 4, 5, 1] or not r_fp.false_positive:
         raise AssertionError(f"[{label}] cases {got}, fp {r_fp.false_positive}")
     if min(launches.values()) <= 0:
@@ -333,16 +434,18 @@ def edge_path(model, label, max_len=1024):
     print(f"[{label}] tokens agreeing of {MAX_NEW}: {agree}; max |logit| "
           f"resumed-vs-cold {dlogit:.3g}")
     lg = cold_st.last_logits
-    if lg.shape != (1, cfg.vocab) or not np.isfinite(lg).all() or not all(
-            len(r.output_tokens) == MAX_NEW
-            and all(0 <= t < cfg.vocab for t in r.output_tokens)
-            for r in (r_miss, r_part, r_full, r_fp)):
+    well_formed = (lg.shape == (1, padded_vocab(cfg.vocab))
+                   and np.isfinite(lg).all()
+                   and all(len(r.output_tokens) == MAX_NEW
+                           and all(0 <= t < cfg.vocab for t in r.output_tokens)
+                           for r in (r_miss, r_part, r_full, r_fp)))
+    if not well_formed:
         raise AssertionError(f"[{label}] malformed output: logits "
                              f"{lg.shape}, finite {np.isfinite(lg).all()}")
-    if label == "fp32" and min(agree.values()) != MAX_NEW:
-        raise AssertionError(f"[fp32] resumed/adopted/fallback outputs "
+    if model.dtype == torch.float32 and min(agree.values()) != MAX_NEW:
+        raise AssertionError(f"[{label}] resumed/adopted/fallback outputs "
                              f"differ from cold: {agree}")
-    return launches, p_a, p_b, cold_st
+    return launches, p_a, p_b
 
 
 def where_time_goes(model, prompt):
@@ -369,7 +472,8 @@ def where_time_goes(model, prompt):
                   reverse=True)
     busy = sum(us for us, _, _ in kern)
     wall_us = (t2 - t0) * 1e6
-    print(f"profile (bf16, prefill {toks.shape[1]} tok + 8 decode steps): "
+    print(f"profile ({model.cfg.name} bf16, prefill {toks.shape[1]} tok + 8 "
+          f"decode steps): "
           f"wall {wall_us / 1e3:.2f} ms (prefill {(t1 - t0) * 1e3:.2f} ms, "
           f"decode {(t2 - t1) / 8 * 1e3:.2f} ms/step under the profiler),"
           f" device busy {busy / 1e3:.3f} ms, idle share "
@@ -381,7 +485,7 @@ def where_time_goes(model, prompt):
     print("  host (self CPU time, same window):")
     for us, key, n in host[:8]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
-    # the tied head alone: [1, 640] x [262144, 640]^T in bf16
+    # the tied head alone: [1, d] x [vocab, d]^T in bf16
     x = torch.randn((1, 1, model.cfg.d_model), device="cuda",
                     dtype=model.dtype)
     head_ms = device_ms(lambda: x @ model.embed.t())
@@ -390,59 +494,85 @@ def where_time_goes(model, prompt):
           f" MB of weights (bytes bound {head_bytes / MEM_BW * 1e3:.4f} ms)")
 
 
-def cpu_cross_check(model_fp32, prompt, cuda_cold):
+def cpu_cross_check(model_fp32, prompt, n_layers):
+    """The first ``n_layers`` of the fp32 model on the card and on the CPU
+    (the plain path), on the same prompt: last logits within 1e-4."""
     import numpy as np
     import torch
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import InferenceEngine
-    cpu = Model(model_fp32.cfg, dtype=torch.float32, device="cpu")
-    cpu.load_state_dict({k: t.cpu() for k, t in
-                         model_fp32.state_dict().items()})
-    eng = InferenceEngine(cpu, max_len=1024)
+    cfg = model_fp32.cfg.replace(n_layers=n_layers)
+    sd = {k: (t[:n_layers] if k.startswith("segments.") else t)
+          for k, t in model_fp32.state_dict().items()}
     toks = np.asarray(prompt.token_ids, np.int32)[None]
-    st = eng.start({"tokens": toks})
-    err = float(np.abs(st.last_logits - cuda_cold.last_logits).max())
-    scale = float(np.abs(st.last_logits).max())
-    same = int(st.last_logits.argmax()) == int(cuda_cold.last_logits.argmax())
-    print(f"cpu cross-check (fp32, {toks.shape[1]} tokens): max |logit "
-          f"cuda - cpu| {err:.3g} (max |logit| {scale:.3g}, tol 1e-4) "
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        m = Model(cfg, dtype=torch.float32, device=dev)
+        m.load_state_dict({k: t.to(dev) for k, t in sd.items()})
+        logits[dev] = InferenceEngine(m, max_len=1024).start(
+            {"tokens": toks}).last_logits
+    err = float(np.abs(logits["cpu"] - logits["cuda"]).max())
+    scale = float(np.abs(logits["cpu"][:, :cfg.vocab]).max())
+    same = int(logits["cpu"].argmax()) == int(logits["cuda"].argmax())
+    print(f"cpu cross-check ({cfg.name} fp32, {n_layers} of "
+          f"{model_fp32.cfg.n_layers} layers, {toks.shape[1]} tokens): max "
+          f"|logit cuda - cpu| {err:.3g} (max |logit| {scale:.3g}, tol 1e-4) "
           f"argmax equal {same}")
     if err > 1e-4 or not same:
         raise AssertionError(f"card and CPU disagree: {err}")
 
 
+def model_pair(name):
+    """fp32 and bf16 copies of one randomly initialised model on the card
+    (seed 0; the bf16 copy keeps the parameters the model holds in fp32)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(name)
+    m32 = Model(cfg, dtype=torch.float32, seed=0)
+    m16 = Model(cfg, dtype=torch.bfloat16, seed=0)
+    m16.load_state_dict(m32.state_dict())
+    n = sum(t.numel() for t in m32.parameters()) / 1e6
+    print(f"model {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.dh} ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} ssm={cfg.ssm if cfg.family == 'ssm' else None},"
+          f" {n:.1f}M params, random weights (seed 0)")
+    return m32, m16
+
+
 def main():
+    if os.environ.get("PYTHONHASHSEED") is None:     # pin prompt lengths
+        os.execve(sys.executable, [sys.executable] + sys.argv,
+                  dict(os.environ, PYTHONHASHSEED="0"))
     device_line()
     import torch
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.ssd_scan import ssd_scan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
     rows = kernel_checks()
+    rows["ssd_scan"] = ssd_checks()
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import Model
-    cfg = get_config("gemma3-270m")
-    m32 = Model(cfg, dtype=torch.float32, seed=0)          # on the card
-    m16 = Model(cfg, dtype=torch.bfloat16, seed=0)
-    m16.load_state_dict(m32.state_dict())
-    print(f"model {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
-          f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.dh} ff={cfg.d_ff} "
-          f"vocab={cfg.vocab}, {sum(t.numel() for t in m32.parameters()) / 1e6:.1f}"
-          f"M params, random weights (seed 0)")
-    launches, _, _, _ = edge_path(m16, "bf16")
-    launches32, p_a, p_b, cold_b32 = edge_path(m32, "fp32")
-    where_time_goes(m16, p_a)
-    cpu_cross_check(m32, p_b, cold_b32)
+    launches, launches32 = {}, {}
+    for name, kernels, cross_layers in (
+            ("gemma3-270m", (flash_prefill, flash_decode), None),
+            ("mamba2-780m", (ssd_scan,), 4)):
+        m32, m16 = model_pair(name)
+        launches.update(edge_path(m16, f"{name} bf16", kernels)[0])
+        got, p_a, p_b = edge_path(m32, f"{name} fp32", kernels)
+        launches32.update(got)
+        where_time_goes(m16, p_a)
+        cpu_cross_check(m32, p_b, cross_layers or m32.cfg.n_layers)
+        del m32, m16
+        torch.cuda.empty_cache()
 
-    src = {"flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
-                             "src/repro/kernels/flash_prefill.py:84"),
-           "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
-                            "src/repro/kernels/flash_decode.py:67")}
     out = []
-    for name in ("flash_prefill", "flash_decode"):
+    for name in ("flash_prefill", "flash_decode", "ssd_scan"):
         r = rows[name]
-        out.append({"name": name, "route": "cuda", "source": src[name][0],
-                    "replaces": src[name][1], "launches": launches[name],
+        out.append({"name": name, "route": "cuda", "source": SOURCES[name][0],
+                    "replaces": SOURCES[name][1], "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

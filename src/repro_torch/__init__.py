@@ -6,8 +6,9 @@ reference so each counterpart is easy to find. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on the CPU every
 kernel wrapper takes its plain PyTorch version.
 
-Slice 1 covers the paper's edge request on a dense model: prompt keys,
-the Bloom catalog, the cache server, v2 state blobs, prefill with
-prefix resume, greedy decode, and the hand-written Hopper attention
-kernels (``kernels/csrc``).
+It covers the paper's edge request on a dense model and on an SSM:
+prompt keys, the Bloom catalog, the cache server, v2 state blobs,
+prefill with prefix resume (from a recurrent state for the SSM), greedy
+decode, and the hand-written Hopper kernels (``kernels/csrc``: attention
+prefill and decode, the SSD chunk scan).
 """

@@ -1,20 +1,30 @@
-"""Model and prompt-cache configuration (dense models).
+"""Model and prompt-cache configuration (dense and SSM models).
 
-A copy of the dense part of ``repro.config``: the same field names and
-defaults, so :func:`repro_torch.core.keys.model_meta` hashes a config to
-the same bytes as the reference does.
+A copy of the dense and SSM parts of ``repro.config``: the same field
+names and defaults, so :func:`repro_torch.core.keys.model_meta` hashes a
+config to the same bytes as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    d_conv: int = 4
+    chunk: int = 64               # SSD chunk length
+    n_groups: int = 1             # B/C groups (mamba2 "G")
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # this port runs "dense"
+    family: str                   # this port runs "dense" and "ssm"
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,11 +42,20 @@ class ModelConfig:
     tie_embeddings: bool = False
     window: Optional[int] = None  # sliding-window size (None = full attention)
     n_meta_tokens: int = 0        # learned prefix tokens (not in this port)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
     source: str = ""              # citation for the config
 
     @property
     def dh(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm.expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm.head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -53,6 +72,10 @@ class ModelConfig:
             d_ff=min(self.d_ff, 256) if self.d_ff else 0,
             vocab=min(self.vocab, 512),
         )
+        if self.family == "ssm":
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=min(self.ssm.d_state, 16),
+                head_dim=16, chunk=16)
         if self.window is not None:
             kw["window"] = min(self.window, 16)
         return self.replace(**kw)

@@ -1,8 +1,9 @@
 """Model configs the port can run."""
 from repro_torch.config import ModelConfig
 from repro_torch.configs.gemma3_270m import CONFIG as _GEMMA3_270M
+from repro_torch.configs.mamba2_780m import CONFIG as _MAMBA2_780M
 
-ARCHS = {_GEMMA3_270M.name: _GEMMA3_270M}
+ARCHS = {c.name: c for c in (_GEMMA3_270M, _MAMBA2_780M)}
 
 
 def get_config(name: str) -> ModelConfig:

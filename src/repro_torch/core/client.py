@@ -14,6 +14,13 @@ server. Given a structured prompt, the client
      miss it prefills the whole prompt and uploads a v2 blob per range;
   5. decodes the response greedily.
 
+A model whose cache is recurrent state (an SSM) differs in three ways:
+its state is not cut to a prefix, so each shorter range's state is
+rebuilt at upload time by prefilling boundary by boundary; every blob it
+uploads carries its logits; and a blob without logits is not resumed at
+``matched - 1`` (that would run the prefix's last token through the
+state twice) but skipped like a miss.
+
 Times are wall seconds on this process's clock, with the device
 synchronised at each step's end. TTFT runs to the first output token's
 logits on the host; TTLT to the last token. Uploads run after the
@@ -79,6 +86,7 @@ class EdgeClient:
                            self.cache_cfg.range_stride)
         tm = {"bloom_s": 0.0, "fetch_s": 0.0, "restore_s": 0.0,
               "prefill_s": 0.0, "decode_s": 0.0, "upload_s": 0.0}
+        recurrent = self.engine.model.has_recurrent_state
 
         # Step 2: catalog probe, longest range first
         min_match = self.cache_cfg.min_match_tokens
@@ -96,6 +104,8 @@ class EdgeClient:
             blob = resp["blob"]
             tr = clock.monotonic()
             payload = state_io.parse_state(blob, self.meta)
+            if recurrent and not payload.get("logits"):
+                continue               # a state cannot re-run its last token
             state = state_io.restore_state(payload, self.engine.new_cache())
             tm["restore_s"] = clock.monotonic() - tr
             matched, down_bytes = cand.n_tokens, len(blob)
@@ -120,6 +130,10 @@ class EdgeClient:
             tm["prefill_s"] = st.timings["prefill_wall"]
         prompt_logits = st.last_logits
         ttft = clock.monotonic() - t0
+        upload = matched == 0 and upload_on_miss
+        prompt_cache = st.cache
+        if upload and recurrent:       # decode advances the state in place
+            prompt_cache = _clone(st.cache)
 
         # Step 4: decode the response
         out = self.engine.generate(st, max_new_tokens, sampler, rng=rng)
@@ -127,9 +141,10 @@ class EdgeClient:
         ttlt = clock.monotonic() - t0
 
         up = 0
-        if matched == 0 and upload_on_miss:
+        if upload:
             tu = clock.monotonic()
-            up = self._upload_ranges(prompt, keys, st.cache, prompt_logits)
+            up = self._upload_ranges(prompt, keys, prompt_cache,
+                                     prompt_logits)
             tm["upload_s"] = clock.monotonic() - tu
         return InferResult(
             case=self._case_of(prompt, matched), matched_tokens=matched,
@@ -139,19 +154,43 @@ class EdgeClient:
             timings=tm)
 
     # ------------------------------------------------------------------
+    def _range_states(self, prompt: PromptSegments, keys: List[PromptKey],
+                      cache, logits: np.ndarray):
+        """(key, cache, logits or None) for every prefix range. A KV cache
+        is cut to each range when serialized, so the prompt's cache serves
+        them all, with logits on the full prompt's range only. A recurrent
+        state is not: each shorter range's state is rebuilt by prefilling
+        the prompt boundary by boundary on a fresh cache, each piece
+        resuming from the last, and carries its own logits."""
+        n = len(prompt.token_ids)
+        if not self.engine.model.has_recurrent_state:
+            for k in keys:
+                yield k, cache, logits if k.n_tokens == n else None
+            return
+        tokens = np.asarray(prompt.token_ids, np.int32)[None]
+        st = None
+        for k in sorted(keys, key=lambda k: k.n_tokens):
+            if k.n_tokens == n:
+                yield k, cache, logits
+                continue
+            if st is None:
+                st = self.engine.start({"tokens": tokens[:, :k.n_tokens]})
+            else:
+                st = self.engine.resume(
+                    {"tokens": tokens[:, st.pos:k.n_tokens]}, st.cache, st.pos)
+            yield k, st.cache, st.last_logits
+
     def _upload_ranges(self, prompt: PromptSegments, keys: List[PromptKey],
                        cache, logits: np.ndarray) -> int:
         """Register every prefix range of the prompt (paper Fig. 3): one v2
-        blob per range, cut to that range; logits only on the full
-        prompt's blob."""
+        blob per range, holding that range's state."""
         model = self.engine.model
-        n = len(prompt.token_ids)
         total = 0
-        for k in keys:
+        for k, range_cache, range_logits in self._range_states(
+                prompt, keys, cache, logits):
             blob = state_io.extract_state(
-                cache, model.cache_len(k.n_tokens), self.meta,
-                logits=logits if k.n_tokens == n else None,
-                compress=self.cache_cfg.compress,
+                range_cache, model.cache_len(k.n_tokens), self.meta,
+                logits=range_logits, compress=self.cache_cfg.compress,
                 level=self.cache_cfg.compress_level)
             resp, _, _ = self.transport.request(
                 "put", {"key": k.digest, "blob": blob})
@@ -173,3 +212,8 @@ class EdgeClient:
         except ValueError:
             return 1
         return min(2 + i, 4)
+
+
+def _clone(cache):
+    return {"segments": [{name: t.clone() for name, t in seg.items()}
+                         for seg in cache["segments"]]}

@@ -9,9 +9,11 @@ writes and reads the reference's v2 format byte for byte:
   ``{version: 2, meta_hash, n_eff, logits, leaves}``;
 * one leaf per cache tensor, in JAX's flatten order (dict keys sorted),
   at paths such as ``segments/0/k``; sequence leaves (``k``, ``v``) are
-  cut to ``n_eff`` positions along axis 2 of ``[L, B, S, KV, dh]``;
-* dtype strings ``float32`` / ``bfloat16`` (bf16 travels as the raw
-  16-bit pattern, through an ``int16`` view, since numpy has no bf16);
+  cut to ``n_eff`` positions along axis 2 of ``[L, B, S, KV, dh]``, and
+  state leaves (an SSM's ``conv`` and ``ssd``) ship whole;
+* each leaf's own dtype string, ``float32`` / ``bfloat16`` (an SSM's
+  ``ssd`` stays fp32 in a bf16 cache; bf16 travels as the raw 16-bit
+  pattern, through an ``int16`` view, since numpy has no bf16);
 * logits as float16 bytes; ``meta_hash = blake2b(meta, 16)``.
 
 A JAX peer reads this port's blobs and the other way round. The ``ZST``
@@ -81,6 +83,13 @@ def _decompress(blob: bytes) -> bytes:
     raise ValueError("bad state blob tag")
 
 
+def _fp16_bytes(logits) -> bytes:
+    """Logits as float16 bytes. The masked tail of a padded vocab (-1e30)
+    becomes -inf, as in the reference's blobs."""
+    with np.errstate(over="ignore"):
+        return np.asarray(logits, np.float16).tobytes()
+
+
 def extract_state(cache, n_eff: int, meta: bytes,
                   logits: Optional[np.ndarray] = None,
                   compress: bool = True, level: int = 1) -> bytes:
@@ -98,7 +107,7 @@ def extract_state(cache, n_eff: int, meta: bytes,
         "n_eff": int(n_eff),
         "logits": (None if logits is None else {
             "shape": list(np.shape(logits)),
-            "data": np.asarray(logits, np.float16).tobytes(),
+            "data": _fp16_bytes(logits),
         }),
         "leaves": leaves,
     }

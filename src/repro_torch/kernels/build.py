@@ -21,7 +21,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("flash_prefill", "flash_decode")
+KERNELS = ("flash_prefill", "flash_decode", "ssd_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -39,6 +39,7 @@ SIGNATURES = {
     "flash_decode": (
         [_c_p] * 7 + [_c_i] * 8 + [_c_i64] * 8
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
+    "ssd_scan": [_c_p] * 8 + [_c_i] * 8 + [_c_i64] * 12 + [_c_p],
 }
 
 

@@ -1,15 +1,17 @@
-"""Model facade for dense decoder-only models: prefill with prefix resume,
-and one-token decode.
+"""Model facade for decoder-only models (the dense and SSM families):
+prefill with prefix resume, and one-token decode.
 
 Counterpart of ``repro.models.model.Model`` (serving modes only). The
 parameters live in this ``nn.Module`` under the reference's tree paths,
 with ``.`` for ``/`` (``segments.0.attn.wq`` is the reference's
 ``segments/0/attn/wq``, same ``[L, d, H, dh]`` layout), so
 :func:`repro_torch.params.from_jax_params` is a copy. The cache returned
-by :meth:`init_cache` has the reference's structure and layout,
-``{"segments": [{"k": [L,B,S,KV,dh], "v": ...}]}``: it is the state the
-paper ships between devices (``core/state_io.py``). :meth:`prefill` and
-:meth:`decode_step` update it IN PLACE and return it.
+by :meth:`init_cache` has the reference's structure, layout and per-leaf
+dtypes, ``{"segments": [{"k": [L,B,S,KV,dh], "v": ...}]}`` for a dense
+model and ``{"segments": [{"conv": [L,B,K-1,C], "ssd": [L,B,H,P,N] fp32}]}``
+for an SSM: it is the state the paper ships between devices
+(``core/state_io.py``). :meth:`prefill` and :meth:`decode_step` update it
+IN PLACE and return it.
 """
 from __future__ import annotations
 
@@ -41,11 +43,12 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, seed: int = 0):
         super().__init__()
-        if cfg.family != "dense" or cfg.n_meta_tokens:
+        if cfg.family not in ("dense", "ssm") or cfg.n_meta_tokens:
             raise NotImplementedError(
                 f"family {cfg.family!r} (meta tokens: {cfg.n_meta_tokens}) "
                 "is not in this port yet (ROADMAP Queue 1, item 7)")
         self.cfg = cfg
+        self.segment_specs = tf.segments_for(cfg)
         self.dtype = dtype
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
@@ -58,9 +61,18 @@ class Model(nn.Module):
             self.head = nn.Parameter(
                 embed_init((cfg.d_model, vp), dtype, gen, device=self.device),
                 requires_grad=False)
-        seg = tf.init_segment(cfg, dtype, gen, device=self.device)
         self.segments = nn.ModuleList([nn.ModuleDict(
-            {group: _pdict(ps) for group, ps in seg.items()})])
+            {group: _pdict(ps) for group, ps in tf.init_segment(
+                cfg, spec, dtype, gen, device=self.device).items()})
+            for spec in self.segment_specs])
+
+    @property
+    def has_recurrent_state(self) -> bool:
+        """True when the cache is a state that every token advances (an
+        SSM's conv window and SSD state) rather than per-position K/V: it
+        cannot take padding or a re-run token, and it is not cut to a
+        prefix when serialized."""
+        return any(s.kind == "ssm" for s in self.segment_specs)
 
     # ------------------------------------------------------------------
     def cache_len(self, n_tokens: int) -> int:
@@ -68,7 +80,8 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype=None):
         return {"segments": [tf.init_segment_cache(
-            self.cfg, batch, max_len, dtype or self.dtype, self.device)]}
+            self.cfg, spec, batch, max_len, dtype or self.dtype, self.device)
+            for spec in self.segment_specs]}
 
     def _segment_params(self, si: int):
         return {group: dict(ps.items())
@@ -105,8 +118,9 @@ class Model(nn.Module):
         pos1 = start_pos + torch.arange(S, device=self.device)
         positions = pos1.expand(B, S)
         for si, sc in enumerate(cache["segments"]):
-            x = tf.stack_prefill(self._segment_params(si), self.cfg, x,
-                                 positions, sc, start_pos)
+            x = tf.stack_prefill(self._segment_params(si), self.cfg,
+                                 self.segment_specs[si], x, positions, sc,
+                                 start_pos)
         last = x[:, -1:] if last_index is None else \
             x[:, last_index:last_index + 1]
         return self._head(last)[:, 0], cache
@@ -117,6 +131,6 @@ class Model(nn.Module):
         ``(logits [B, V] fp32, cache)``."""
         x1 = F.embedding(self._tokens(tokens), self.embed)
         for si, sc in enumerate(cache["segments"]):
-            x1 = tf.stack_decode(self._segment_params(si), self.cfg, x1,
-                                 pos, sc)
+            x1 = tf.stack_decode(self._segment_params(si), self.cfg,
+                                 self.segment_specs[si], x1, pos, sc)
         return self._head(x1)[:, 0], cache

@@ -8,12 +8,14 @@ Counterpart of ``repro.serving.engine.InferenceEngine``:
   * ``adopt(cache, n_tokens, logits)``   — full hit (Case 5): no compute
   * ``generate(state, n, sampler)``      — greedy decode loop
 
-Prefill inputs are padded to power-of-two buckets, as in the reference.
-The padding writes junk K/V past the true length; the next prefill or
-decode starts at the true length and the kernels mask by ``kv_len``, so
-it is never read. Unlike the reference, the bucket is also capped at the
-room left in the cache after ``start_pos``, so a resume near the end of
-the cache never writes past it.
+Prefill inputs of a dense model are padded to power-of-two buckets, as
+in the reference. The padding writes junk K/V past the true length; the
+next prefill or decode starts at the true length and the kernels mask by
+``kv_len``, so it is never read. Unlike the reference, the bucket is also
+capped at the room left in the cache after ``start_pos``, so a resume
+near the end of the cache never writes past it. A model whose cache holds
+recurrent state (an SSM) is never padded: every pad token would advance
+its state (the reference pads it; ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -59,8 +61,8 @@ class InferenceEngine:
         if n > room:
             raise ValueError(f"{n} tokens at position {start_pos} do not fit "
                              f"a cache of {self.max_len}")
-        if self.model.cfg.window:      # ring caches cannot take padding
-            return inputs, n
+        if self.model.cfg.window or self.model.has_recurrent_state:
+            return inputs, n           # ring caches and states take no padding
         b = min(_bucket(n), room)
         if b == n:
             return inputs, n

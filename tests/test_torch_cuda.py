@@ -6,16 +6,21 @@ on a machine without the reference package:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 1e-5 (the same fp32 arithmetic in another order; exp
-differs in the last bits), bf16 2e-2 (both outputs rounded to bf16 once
-from fp32 results, up to 2^-8 relative each).
+Tolerances: attention fp32 1e-5 (the same fp32 arithmetic in another
+order; exp differs in the last bits), bf16 2e-2 (both outputs rounded to
+bf16 once from fp32 results, up to 2^-8 relative each); ``ssd_scan``
+atol 2e-4, rtol 1e-3, the reference's kernel tolerance (fp32 outputs in
+both dtypes; the chunked products sum in another order).
 """
+import math
+
 import pytest
 import torch
 
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 PREFILL_CASES = [
     # B, Sq, Sk, H, KV, dh, off, win  (the reference's kernel cases)
@@ -127,3 +132,66 @@ def test_unsupported_inputs_raise_on_the_card(cuda_device):
     kv32 = torch.zeros((1, 16, 1, 32), device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         flash_prefill(q_off, kv32, kv32, kv_len=4)
+
+
+SSD_CASES = [
+    # S, random h0, chunk, H, P, N, G
+    (271, False, 256, 48, 64, 128, 1),     # mamba2-780m cold prompt, ragged
+    (48, True, 256, 48, 64, 128, 1),       # mamba2-780m suffix resume
+    (1024, True, 256, 48, 64, 128, 1),     # four full chunks
+    (100, True, 32, 4, 32, 16, 2),         # reduced widths, two groups
+]
+
+
+def _ssd_inputs(gen, S, random_h0, H, P, N, G, dtype, dev):
+    """x, B and C as views of one conv output, as the model passes them;
+    dt and A as the model initialises them."""
+    xbc = (torch.randn((1, S, H * P + 2 * G * N), generator=gen) * 0.5).to(
+        dev, dtype)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    B_ = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    C_ = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+    lo, hi = math.log(0.001), math.log(0.1)
+    dt = torch.exp(torch.rand((1, S, H), generator=gen) * (hi - lo) + lo)
+    A = -torch.arange(1, H + 1, dtype=torch.float32)
+    h0 = torch.randn((1, H, P, N), generator=gen) * 0.2 if random_h0 \
+        else torch.zeros((1, H, P, N))
+    return x, dt.to(dev), A.to(dev), B_, C_, h0.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_cuda_vs_plain(case, dtype, cuda_device):
+    S, random_h0, chunk, H, P, N, G = case
+    gen = torch.Generator().manual_seed(13)
+    args = _ssd_inputs(gen, S, random_h0, H, P, N, G, dtype, cuda_device)
+    n0 = ssd_scan.launches
+    y, h = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n0 + 1
+    yr, hr = ssd_scan_plain(*args, chunk=chunk)
+    torch.testing.assert_close(y, yr, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(h, hr, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(1)
+    x, dt, A, B_, C_, h0 = _ssd_inputs(gen, 40, True, 4, 32, 16, 1,
+                                       torch.float32, cuda_device)
+    n0 = ssd_scan.launches
+    big = _ssd_inputs(gen, 300, False, 4, 32, 16, 1, torch.float32,
+                      cuda_device)
+    with pytest.raises(ValueError, match="chunk up to 256"):
+        ssd_scan(*big, chunk=300)
+    with pytest.raises(ValueError, match="dtypes"):
+        ssd_scan(x.half(), dt, A, B_.half(), C_.half(), h0, chunk=16)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(x, dt, A, B_, C_, h0.bfloat16(), chunk=16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_scan(x[..., :24], dt, A, B_, C_, h0[..., :24, :], chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x, dt, A, B_, C_, h0.transpose(2, 3).contiguous()
+                 .transpose(2, 3), chunk=16)
+    assert ssd_scan.launches == n0
