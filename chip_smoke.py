@@ -11,21 +11,22 @@ lengths in every run. It
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and prints the build time;
-3. holds each kernel against its plain PyTorch version at its path's
+3. holds each kernel against its plain PyTorch version at its paths'
    shapes, in float32 and bfloat16, and times the kernel, the plain version
    and, for attention, ``F.scaled_dot_product_attention`` on the same work
    (a yardstick the port never calls), beside the least time the card
    could take;
-4. runs the paper's edge request on full-width gemma3-270m and on
-   full-width, full-depth mamba2-780m (random weights from a seed), each
-   in bf16 and in fp32: client A misses (Case 1) and uploads, client B
-   resumes a partial hit (Case 4), then adopts A's full prompt (Case 5),
-   and a poisoned catalog falls back to local prefill; it checks the cases
-   and the tokens and that the path's kernels ran on it (counts set to 0
-   just before each path and read just after);
+4. runs the paper's edge request on full-width gemma3-270m, on full-width,
+   full-depth mamba2-780m and on full-width deepseek-v3-671b cut to its
+   three dense MLA layers (random weights from a seed), each in bf16 and
+   in fp32: client A misses (Case 1) and uploads, client B resumes a
+   partial hit (Case 4), then adopts A's full prompt (Case 5), and a
+   poisoned catalog falls back to local prefill; it checks the cases and
+   the tokens and that the path's kernels ran on it as often as the path
+   needs (counts set to 0 just before each path and read just after);
 5. profiles a prefill and 8 decode steps of each model, and checks the
    card's fp32 logits against the same model on the CPU (mamba2-780m cut
-   to 4 layers there);
+   to 4 layers there, deepseek-v3-671b to 1);
 6. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -49,6 +50,11 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PREFILL_SHAPES = [(512, 0), (64, 448)]          # (Sq, q_offset), kv_len 512
 DECODE_KV_LENS = [1, 300, 1024]
 CACHE_LEN, H, KV, DH = 1024, 4, 1, 256
+# flash_prefill at MLA's widths: deepseek-v3's 128 heads, keys 192, values 128
+MLA_PREFILL = dict(H=128, KV=128, dh=192, dv=128)
+# mla_decode at deepseek-v3's widths: (kv_len, window) over a 1024 cache
+MLA_H, MLA_R, MLA_DR, MLA_SCALE = 128, 512, 64, 1.0 / 192 ** 0.5
+MLA_DECODE_CASES = [(1, None), (300, None), (1024, None), (700, 256)]
 # ssd_scan at mamba2-780m's widths: (S, random h0); chunk 256, one B/C group
 SSD_SHAPES = [(271, False), (48, True), (1024, True)]
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_CHUNK = 48, 64, 128, 1, 256
@@ -61,7 +67,13 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
                      "src/repro/kernels/flash_decode.py:67"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:66"),
+    "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
+                   "src/repro/kernels/mla_decode.py:25"),
 }
+# the configurations the paths run, with the depth each is cut to (None:
+# the config's own) and the depth of the CPU cross-check
+PATHS = [("gemma3-270m", None, None), ("mamba2-780m", None, 4),
+         ("deepseek-v3-671b", 3, 1)]
 
 
 def device_line():
@@ -158,70 +170,95 @@ def bound(nbytes, flops, dtype):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def _err(out, ref, atol, rtol):
+    """(max |out - ref|, whether every element is within atol + rtol|ref|)."""
+    import torch
+    torch.cuda.synchronize()
+    return ((out.float() - ref.float()).abs().max().item(),
+            torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol))
+
+
+def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag):
+    """flash_prefill against its plain version over a [1, cache_len, KV, .]
+    cache, at each (Sq, q_offset) with kv_len = q_offset + Sq. Returns
+    {(Sq, q_offset): row}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_plain)
+    dev = torch.device("cuda")
+    k = torch.randn((1, cache_len, KV, dh), generator=gen).to(dev, dt)
+    v = torch.randn((1, cache_len, KV, dv), generator=gen).to(dev, dt)
+    es = k.element_size()
+    rows = {}
+    for sq, off in shapes:
+        q = torch.randn((1, sq, H, dh), generator=gen).to(dev, dt)
+        kv_len = off + sq
+        args = dict(q_offset=off, kv_len=kv_len)
+        err, ok = _err(flash_prefill(q, k, v, **args),
+                       flash_prefill_plain(q, k, v, **args), TOL[dname],
+                       TOL[dname])
+        ms = device_ms(lambda: flash_prefill(q, k, v, **args))
+        call_ms = time_ms(lambda: flash_prefill(q, k, v, **args))
+        plain_ms = device_ms(lambda: flash_prefill_plain(q, k, v, **args))
+        # yardstick: SDPA on the live keys with the same causal mask
+        qpos = off + torch.arange(sq, device=dev)
+        mask = torch.arange(kv_len, device=dev)[None, :] <= qpos[:, None]
+        qs = q.transpose(1, 2)
+        ks, vs = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        pairs = sum(min(kv_len, off + i + 1) for i in range(sq))
+        nbytes = es * (q.numel() + sq * H * dv + kv_len * KV * (dh + dv))
+        b_ms, b_by = bound(nbytes, 2 * (dh + dv) * H * pairs, dname)
+        print(f"flash_prefill {tag} {dname} Sq={sq} q_offset={off} "
+              f"kv_len={kv_len}: max_abs_err={err:.3g} (tol {TOL[dname]}) "
+              f"device ms: kernel {ms:.4f} plain {plain_ms:.4f} sdpa "
+              f"{lib_ms:.4f} bound {b_ms:.5f} ({b_by}); kernel call "
+              f"{call_ms:.4f} ms (events)")
+        if not ok:
+            raise AssertionError(f"flash_prefill {tag} {dname} Sq={sq} "
+                                 f"off={off}: max err {err}")
+        rows[(sq, off)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=b_ms,
+                               bound_by=b_by)
+    return rows
+
+
 def kernel_checks():
-    """Each kernel against its plain version at the main path's shapes.
-    Returns the per-kernel rows for the JSON line (timed at the serving
-    dtype, bf16, and the main path's typical shape)."""
+    """The attention kernels against their plain versions at their paths'
+    shapes. Returns the per-kernel rows for the JSON line (timed at the
+    serving dtype, bf16, and the gemma3-270m path's cold prefill and
+    300-key decode)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain)
-    from repro_torch.kernels.flash_prefill import (flash_prefill,
-                                                   flash_prefill_plain)
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
     rows = {"flash_prefill": {"max_abs_err": 0.0},
             "flash_decode": {"max_abs_err": 0.0}}
     for dname, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
+        r = rows["flash_prefill"]
+        for tag, geo, cache_len in (
+                ("(256, 256)", dict(H=H, KV=KV, dh=DH, dv=DH), CACHE_LEN),
+                ("(192, 128)", MLA_PREFILL, 512)):
+            got = prefill_checks(dname, dt, gen, **geo, cache_len=cache_len,
+                                 shapes=PREFILL_SHAPES, tag=tag)
+            r["max_abs_err"] = max([r["max_abs_err"]]
+                                   + [g["max_abs_err"] for g in got.values()])
+            if dname == "bfloat16" and geo["dh"] == DH:
+                r.update({k: v for k, v in got[(512, 0)].items()
+                          if k != "max_abs_err"})
         k = torch.randn((1, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
         v = torch.randn((1, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
         es = k.element_size()
-        for sq, off in PREFILL_SHAPES:
-            q = torch.randn((1, sq, H, DH), generator=gen).to(dev, dt)
-            kv_len = off + sq
-            args = dict(q_offset=off, kv_len=kv_len)
-            out = flash_prefill(q, k, v, **args)
-            ref = flash_prefill_plain(q, k, v, **args)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = torch.allclose(out.float(), ref.float(), atol=TOL[dname],
-                                rtol=TOL[dname])
-            ms = device_ms(lambda: flash_prefill(q, k, v, **args))
-            call_ms = time_ms(lambda: flash_prefill(q, k, v, **args))
-            plain_ms = device_ms(lambda: flash_prefill_plain(q, k, v,
-                                                             **args))
-            # yardstick: SDPA on the live keys with the same causal mask
-            qpos = off + torch.arange(sq, device=dev)
-            mask = torch.arange(kv_len, device=dev)[None, :] <= qpos[:, None]
-            qs = q.transpose(1, 2)
-            ks, vs = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
-            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, enable_gqa=True))
-            pairs = sum(min(kv_len, off + i + 1) for i in range(sq))
-            nbytes = es * (2 * q.numel() + 2 * kv_len * KV * DH)
-            b_ms, b_by = bound(nbytes, 4 * DH * H * pairs, dname)
-            print(f"flash_prefill {dname} Sq={sq} q_offset={off} "
-                  f"kv_len={kv_len}: max_abs_err={err:.3g} (tol "
-                  f"{TOL[dname]}) device ms: kernel {ms:.4f} plain "
-                  f"{plain_ms:.4f} sdpa {lib_ms:.4f} bound {b_ms:.5f} "
-                  f"({b_by}); kernel call {call_ms:.4f} ms (events)")
-            if not ok:
-                raise AssertionError(f"flash_prefill {dname} Sq={sq} "
-                                     f"off={off}: max err {err}")
-            r = rows["flash_prefill"]
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if dname == "bfloat16" and off == 0:
-                r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
         q1 = torch.randn((1, H, DH), generator=gen).to(dev, dt)
         for kv_len in DECODE_KV_LENS:
-            out = flash_decode(q1, k, v, kv_len=kv_len)
-            ref = flash_decode_plain(q1, k, v, kv_len=kv_len)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = torch.allclose(out.float(), ref.float(), atol=TOL[dname],
-                                rtol=TOL[dname])
+            err, ok = _err(flash_decode(q1, k, v, kv_len=kv_len),
+                           flash_decode_plain(q1, k, v, kv_len=kv_len),
+                           TOL[dname], TOL[dname])
             ms = device_ms(lambda: flash_decode(q1, k, v, kv_len=kv_len))
             call_ms = time_ms(lambda: flash_decode(q1, k, v, kv_len=kv_len))
             plain_ms = device_ms(
@@ -246,6 +283,62 @@ def kernel_checks():
                 r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
     return rows
+
+
+def mla_checks():
+    """mla_decode against mla_decode_plain at deepseek-v3's widths (128
+    heads, R 512, Dr 64) over a 1024-position latent cache. Returns the
+    row for the JSON line (timed in bf16 at kv_len 300). The yardstick is
+    SDPA on [q_lat; q_rope] against [ckv; krope] with v = ckv, one kv
+    head, the same scale; the concatenations are made outside the timing."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mla_decode import mla_decode, mla_decode_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    row = {"max_abs_err": 0.0}
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        ckv, krope = (torch.randn((1, CACHE_LEN, w), generator=gen).to(dev, dt)
+                      for w in (MLA_R, MLA_DR))
+        q_lat, q_rope = (torch.randn((1, MLA_H, w), generator=gen).to(dev, dt)
+                         for w in (MLA_R, MLA_DR))
+        es = ckv.element_size()
+        for kv_len, win in MLA_DECODE_CASES:
+            args = dict(kv_len=kv_len, window=win, scale=MLA_SCALE)
+            err, ok = _err(mla_decode(q_lat, q_rope, ckv, krope, **args),
+                           mla_decode_plain(q_lat, q_rope, ckv, krope, **args),
+                           TOL[dname], TOL[dname])
+            ms = device_ms(lambda: mla_decode(q_lat, q_rope, ckv, krope,
+                                              **args))
+            call_ms = time_ms(lambda: mla_decode(q_lat, q_rope, ckv, krope,
+                                                 **args))
+            plain_ms = device_ms(lambda: mla_decode_plain(
+                q_lat, q_rope, ckv, krope, **args))
+            lo = max(0, kv_len - win) if win else 0
+            qs = torch.cat([q_lat, q_rope], -1)[:, :, None]
+            ks = torch.cat([ckv, krope], -1)[:, None, lo:kv_len]
+            vs = ckv[:, None, lo:kv_len]
+            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, scale=MLA_SCALE, enable_gqa=True))
+            live = kv_len - lo
+            nbytes = es * (MLA_H * (2 * MLA_R + MLA_DR)
+                           + live * (MLA_R + MLA_DR))
+            flops = MLA_H * live * (2 * (MLA_R + MLA_DR) + 2 * MLA_R)
+            b_ms, b_by = bound(nbytes, flops, dname)
+            print(f"mla_decode {dname} H={MLA_H} R={MLA_R} Dr={MLA_DR} "
+                  f"kv_len={kv_len} window={win}: max_abs_err={err:.3g} "
+                  f"(tol {TOL[dname]}) device ms: kernel {ms:.4f} plain "
+                  f"{plain_ms:.4f} sdpa {lib_ms:.4f} bound {b_ms:.5f} "
+                  f"({b_by}); kernel call {call_ms:.4f} ms (events)")
+            if not ok:
+                raise AssertionError(f"mla_decode {dname} kv_len={kv_len} "
+                                     f"window={win}: max err {err}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if dname == "bfloat16" and kv_len == 300:
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+    return row
 
 
 def ssd_inputs(S, dtype, random_h0, gen):
@@ -321,11 +414,11 @@ def ssd_checks():
     return row
 
 
-def edge_path(model, label, kernels, max_len=1024):
-    """The paper's edge request through the port's EdgeClient. ``kernels``
-    are the wrappers of this model's path: their counts are set to 0 just
-    before the requests and read just after. Returns the launch counts,
-    the prompts and the cold fp32-comparable state of B."""
+def edge_path(model, label, expect, max_len=1024):
+    """The paper's edge request through the port's EdgeClient. ``expect``
+    maps the wrappers of this model's path to the launches the requests
+    need: their counts are set to 0 just before the requests and read just
+    after, and must equal it. Returns the launch counts and the prompts."""
     import numpy as np
     import torch
     from repro_torch.config import CacheConfig
@@ -352,7 +445,7 @@ def edge_path(model, label, kernels, max_len=1024):
         gen.prompt("anatomy", 3).segments, max_new_tokens=2,
         upload_on_miss=False)
 
-    for k in kernels:
+    for k in expect:
         k.launches = 0
     a, b = client("A"), client("B")
     r_miss = a.infer(p_a, MAX_NEW)
@@ -363,7 +456,7 @@ def edge_path(model, label, kernels, max_len=1024):
     for key in p_c.keys(poisoned.meta):
         poisoned.catalog.register(key.digest)
     r_fp = poisoned.infer(p_c, MAX_NEW, upload_on_miss=False)
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {k.__name__: k.launches for k in expect}
 
     # references outside the counted run: cold local prefills of B and C
     cold = client("cold", CacheServer(CacheConfig()))
@@ -392,8 +485,10 @@ def edge_path(model, label, kernels, max_len=1024):
                       for k in p_a.keys(a.meta)))
     if got != [1, 4, 5, 1] or not r_fp.false_positive:
         raise AssertionError(f"[{label}] cases {got}, fp {r_fp.false_positive}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"[{label}] a kernel never ran: {launches}")
+    want = {k.__name__: n for k, n in expect.items()}
+    if launches != want or min(launches.values()) <= 0:
+        raise AssertionError(f"[{label}] launches {launches}, the path "
+                             f"needs {want}")
 
     # what a full hit's restore costs, phase by phase (A's full blob)
     from repro_torch import clock
@@ -432,7 +527,9 @@ def edge_path(model, label, kernels, max_len=1024):
             r_fp.output_tokens, r_cold_c.output_tokens)),
     }
     print(f"[{label}] tokens agreeing of {MAX_NEW}: {agree}; max |logit| "
-          f"resumed-vs-cold {dlogit:.3g}")
+          f"resumed-vs-cold {dlogit:.3g}; B's suffix prefill again, outside "
+          f"the client: {res_st.timings['prefill_wall'] * 1e3:.2f} ms (the "
+          f"client's: {r_part.timings['prefill_s'] * 1e3:.2f} ms)")
     lg = cold_st.last_logits
     well_formed = (lg.shape == (1, padded_vocab(cfg.vocab))
                    and np.isfinite(lg).all()
@@ -485,13 +582,16 @@ def where_time_goes(model, prompt):
     print("  host (self CPU time, same window):")
     for us, key, n in host[:8]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
-    # the tied head alone: [1, d] x [vocab, d]^T in bf16
+    # the head alone: [1, d] x [d, vocab] in bf16
     x = torch.randn((1, 1, model.cfg.d_model), device="cuda",
                     dtype=model.dtype)
-    head_ms = device_ms(lambda: x @ model.embed.t())
-    head_bytes = model.embed.numel() * model.embed.element_size()
-    print(f"tied head matmul alone: {head_ms:.4f} ms on the device for {head_bytes / 1e6:.1f}"
-          f" MB of weights (bytes bound {head_bytes / MEM_BW * 1e3:.4f} ms)")
+    tied = model.cfg.tie_embeddings
+    w = model.embed.t() if tied else model.head
+    head_ms = device_ms(lambda: x @ w)
+    head_bytes = w.numel() * w.element_size()
+    print(f"{'tied' if tied else 'untied'} head matmul alone: "
+          f"{head_ms:.4f} ms on the device for {head_bytes / 1e6:.1f} MB "
+          f"of weights (bytes bound {head_bytes / MEM_BW * 1e3:.4f} ms)")
 
 
 def cpu_cross_check(model_fp32, prompt, n_layers):
@@ -501,13 +601,13 @@ def cpu_cross_check(model_fp32, prompt, n_layers):
     import torch
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import InferenceEngine
-    cfg = model_fp32.cfg.replace(n_layers=n_layers)
+    cfg = cut(model_fp32.cfg, n_layers)
     sd = {k: (t[:n_layers] if k.startswith("segments.") else t)
           for k, t in model_fp32.state_dict().items()}
     toks = np.asarray(prompt.token_ids, np.int32)[None]
     logits = {}
     for dev in ("cuda", "cpu"):
-        m = Model(cfg, dtype=torch.float32, device=dev)
+        m = Model(cfg, dtype=torch.float32, device=dev, seed=None)
         m.load_state_dict({k: t.to(dev) for k, t in sd.items()})
         logits[dev] = InferenceEngine(m, max_len=1024).start(
             {"tokens": toks}).last_logits
@@ -522,21 +622,39 @@ def cpu_cross_check(model_fp32, prompt, n_layers):
         raise AssertionError(f"card and CPU disagree: {err}")
 
 
-def model_pair(name):
+def cut(cfg, n_layers):
+    """``cfg`` at ``n_layers`` layers; a deepseek-style config keeps them
+    all dense MLA (its MoE segment empty)."""
+    if cfg.family == "moe":
+        from repro_torch.configs.deepseek_v3_671b import dense_cut
+        return dense_cut(cfg, n_layers)
+    return cfg.replace(n_layers=n_layers)
+
+
+def model_pair(name, n_layers=None):
     """fp32 and bf16 copies of one randomly initialised model on the card
-    (seed 0; the bf16 copy keeps the parameters the model holds in fp32)."""
+    (seed 0, drawn once on the host; the bf16 copy is the fp32 one cast,
+    and keeps the parameters the model holds in fp32), at its config's
+    depth or cut to ``n_layers``."""
     import torch
+    from repro_torch import clock
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     cfg = get_config(name)
+    if n_layers is not None:
+        cfg = cut(cfg, n_layers)
+    t0 = clock.monotonic()
     m32 = Model(cfg, dtype=torch.float32, seed=0)
-    m16 = Model(cfg, dtype=torch.bfloat16, seed=0)
+    m16 = Model(cfg, dtype=torch.bfloat16, seed=None)
     m16.load_state_dict(m32.state_dict())
     n = sum(t.numel() for t in m32.parameters()) / 1e6
+    extra = {"ssm": cfg.ssm} if cfg.family == "ssm" else \
+        {"mla": cfg.mla, "dense_ff": cfg.moe.dense_ff} if cfg.uses_mla else {}
     print(f"model {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
           f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.dh} ff={cfg.d_ff} "
-          f"vocab={cfg.vocab} ssm={cfg.ssm if cfg.family == 'ssm' else None},"
-          f" {n:.1f}M params, random weights (seed 0)")
+          f"vocab={cfg.vocab} tied={cfg.tie_embeddings} {extra}, "
+          f"{n:.1f}M params, random weights (seed 0), made in "
+          f"{clock.monotonic() - t0:.1f} s")
     return m32, m16
 
 
@@ -548,35 +666,49 @@ def main():
     import torch
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.mla_decode import mla_decode
     from repro_torch.kernels.ssd_scan import ssd_scan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
     rows = kernel_checks()
     rows["ssd_scan"] = ssd_checks()
+    rows["mla_decode"] = mla_checks()
+
+    def needs(cfg):
+        """Launches each path needs: 4 requests of MAX_NEW decode steps;
+        3 prefills with a KV cache (A's miss, B's suffix, the fallback),
+        6 with a recurrent state (and A's 3 shorter ranges at upload)."""
+        L, steps = cfg.n_layers, 4 * MAX_NEW
+        if cfg.family == "ssm":
+            return {ssd_scan: 6 * L}
+        decode = mla_decode if cfg.uses_mla else flash_decode
+        return {flash_prefill: 3 * L, decode: steps * L}
 
     launches, launches32 = {}, {}
-    for name, kernels, cross_layers in (
-            ("gemma3-270m", (flash_prefill, flash_decode), None),
-            ("mamba2-780m", (ssd_scan,), 4)):
-        m32, m16 = model_pair(name)
-        launches.update(edge_path(m16, f"{name} bf16", kernels)[0])
-        got, p_a, p_b = edge_path(m32, f"{name} fp32", kernels)
-        launches32.update(got)
+    for name, n_layers, cross_layers in PATHS:
+        m32, m16 = model_pair(name, n_layers)
+        expect = needs(m32.cfg)
+        for k, n in edge_path(m16, f"{name} bf16", expect)[0].items():
+            launches[k] = launches.get(k, 0) + n
+        got, p_a, p_b = edge_path(m32, f"{name} fp32", expect)
+        for k, n in got.items():
+            launches32[k] = launches32.get(k, 0) + n
         where_time_goes(m16, p_a)
         cpu_cross_check(m32, p_b, cross_layers or m32.cfg.n_layers)
         del m32, m16
         torch.cuda.empty_cache()
 
     out = []
-    for name in ("flash_prefill", "flash_decode", "ssd_scan"):
+    for name in ("flash_prefill", "flash_decode", "ssd_scan", "mla_decode"):
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": SOURCES[name][0],
                     "replaces": SOURCES[name][1], "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(f"fp32 main-path launches: {launches32}")
+    print(f"main-path launches, all paths: bf16 {launches}, fp32 "
+          f"{launches32}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,27 @@
-"""Model and prompt-cache configuration (dense and SSM models).
+"""Model and prompt-cache configuration (dense, SSM and MLA models).
 
-A copy of the dense and SSM parts of ``repro.config``: the same field
-names and defaults, so :func:`repro_torch.core.keys.model_meta` hashes a
-config to the same bytes as the reference does.
+A copy of the dense, SSM, MoE and MLA parts of ``repro.config``: the
+same field names and defaults, so :func:`repro_torch.core.keys.model_meta`
+hashes a config to the same bytes as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0            # routed experts
+    top_k: int = 0
+    n_shared: int = 0             # shared (always-on) experts
+    expert_ff: int = 0            # hidden dim of each routed expert
+    shared_ff: int = 0            # hidden dim of the shared expert(s)
+    first_k_dense: int = 0        # leading dense layers (deepseek-v3 style)
+    dense_ff: int = 0             # ff of those leading dense layers
+    aux_coef: float = 0.01        # load-balance aux loss coefficient
+    capacity_factor: float = 2.0  # EP dispatch capacity slack
 
 
 @dataclass(frozen=True)
@@ -22,9 +35,19 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # this port runs "dense" and "ssm"
+    family: str                   # this port runs "dense", "ssm" and "moe"
+                                  # with no MoE layer
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,12 +65,20 @@ class ModelConfig:
     tie_embeddings: bool = False
     window: Optional[int] = None  # sliding-window size (None = full attention)
     n_meta_tokens: int = 0        # learned prefix tokens (not in this port)
+    mtp: bool = False             # deepseek multi-token prediction head
+    moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
+    mla: MLAConfig = field(default_factory=MLAConfig)
     source: str = ""              # citation for the config
 
     @property
     def dh(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def uses_mla(self) -> bool:
+        return self.family == "moe" and self.mla.kv_lora_rank > 0 and \
+            self.name.startswith("deepseek")
 
     @property
     def ssm_d_inner(self) -> int:
@@ -72,6 +103,16 @@ class ModelConfig:
             d_ff=min(self.d_ff, 256) if self.d_ff else 0,
             vocab=min(self.vocab, 512),
         )
+        if self.family == "moe":
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                expert_ff=min(self.moe.expert_ff, 128),
+                shared_ff=min(self.moe.shared_ff, 128) if self.moe.shared_ff else 0,
+                first_k_dense=min(self.moe.first_k_dense, 1),
+                dense_ff=min(self.moe.dense_ff, 128) if self.moe.dense_ff else 0,
+            )
         if self.family == "ssm":
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=min(self.ssm.d_state, 16),

@@ -8,9 +8,11 @@ writes and reads the reference's v2 format byte for byte:
 * a 3-byte codec tag, ``ZLB`` (zlib) or ``RAW``, then a msgpack map
   ``{version: 2, meta_hash, n_eff, logits, leaves}``;
 * one leaf per cache tensor, in JAX's flatten order (dict keys sorted),
-  at paths such as ``segments/0/k``; sequence leaves (``k``, ``v``) are
-  cut to ``n_eff`` positions along axis 2 of ``[L, B, S, KV, dh]``, and
-  state leaves (an SSM's ``conv`` and ``ssd``) ship whole;
+  at paths such as ``segments/0/k``; sequence leaves (``k``, ``v`` and
+  MLA's ``ckv``, ``krope``) are cut to ``n_eff`` positions along axis 2
+  of ``[L, B, S, ...]``, and state leaves (an SSM's ``conv`` and ``ssd``)
+  ship whole; a leaf with no elements (an empty MoE segment's, ``L = 0``)
+  is written as an empty buffer of its shape;
 * each leaf's own dtype string, ``float32`` / ``bfloat16`` (an SSM's
   ``ssd`` stays fp32 in a bf16 cache; bf16 travels as the raw 16-bit
   pattern, through an ``int16`` view, since numpy has no bf16);
@@ -31,7 +33,7 @@ import torch
 from repro_torch.core import packer
 from repro_torch.device import dtype_from_name, dtype_name
 
-SEQ_LEAVES = {"k", "v"}
+SEQ_LEAVES = {"k", "v", "ckv", "krope"}
 FORMAT_VERSION = 2
 CHUNK_MAGIC = b"PC3"
 

@@ -21,7 +21,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("flash_prefill", "flash_decode", "ssd_scan")
+KERNELS = ("flash_prefill", "flash_decode", "ssd_scan", "mla_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -34,12 +34,14 @@ _c_p, _c_i, _c_i64, _c_f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # library also exports <name>_error_string(int) -> const char*
 SIGNATURES = {
     "flash_prefill": (
-        [_c_p] * 4 + [_c_i] * 7 + [_c_i64] * 9
+        [_c_p] * 4 + [_c_i] * 8 + [_c_i64] * 9
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "flash_decode": (
         [_c_p] * 7 + [_c_i] * 8 + [_c_i64] * 8
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "ssd_scan": [_c_p] * 8 + [_c_i] * 8 + [_c_i64] * 12 + [_c_p],
+    "mla_decode": (
+        [_c_p] * 8 + [_c_i] * 9 + [_c_i64] * 8 + [_c_f, _c_p]),
 }
 
 
@@ -52,8 +54,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path; its name hashes the source, the shared headers
+    it may include and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

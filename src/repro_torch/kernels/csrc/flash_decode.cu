@@ -23,14 +23,16 @@
 // lane + 32 i of q, k and v (coalesced row reads), the warp reduces each
 // head's dot product with shuffles, and keeps its own (m, l, acc) per head.
 // The 4 warps merge through shared memory and the CTA writes one partial
-// (m, l, acc) per head. A second small kernel merges the splits:
-//   M = max m_s,  L = sum l_s e^(m_s - M),  out = sum acc_s e^(m_s - M) / L.
+// (m, l, acc) per head. A second small kernel (split_merge.cuh) merges the
+// splits.
 // The cache is read in place through its strides.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "split_merge.cuh"
 
 namespace {
 
@@ -39,8 +41,6 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -145,30 +145,6 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T>
-__global__ void flash_decode_combine_kernel(const float* __restrict__ pm,
-                                            const float* __restrict__ pl,
-                                            const float* __restrict__ pacc,
-                                            T* __restrict__ out, int H,
-                                            int nsplit, int dv) {
-    const int h = blockIdx.x, b = blockIdx.y;
-    const int64_t row0 = ((int64_t)b * H + h) * nsplit;
-    float M = -INFINITY;
-    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, pm[row0 + s]);
-    for (int d = threadIdx.x; d < dv; d += blockDim.x) {
-        float L = 0.f, A = 0.f;
-        if (M != -INFINITY) {
-            for (int s = 0; s < nsplit; ++s) {
-                const float ms = pm[row0 + s];
-                const float e = ms == -INFINITY ? 0.f : expf(ms - M);
-                L += pl[row0 + s] * e;
-                A += pacc[(row0 + s) * dv + d] * e;
-            }
-        }
-        store(out + ((int64_t)b * H + h) * dv + d, L > 0.f ? A / L : 0.f);
-    }
-}
-
 struct Args {
     const void *q, *k, *v;
     void* out;
@@ -189,7 +165,7 @@ cudaError_t launch(const Args& a) {
         a.scale);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    flash_decode_combine_kernel<T><<<dim3(a.H, a.B), 128, 0, a.stream>>>(
+    split_merge_kernel<T><<<dim3(a.H, a.B), 128, 0, a.stream>>>(
         a.pm, a.pl, a.pacc, (T*)a.out, a.H, a.nsplit, DV);
     return cudaGetLastError();
 }

@@ -1,4 +1,6 @@
 // Causal GQA flash-attention prefill with prefix resume, for Hopper (sm_90a).
+// The value width DV may differ from the key width DH: MLA's prefill attends
+// with (DH, DV) = (192, 128), keys [k_nope; k_rope] against v_dim values.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_prefill.py::flash_prefill
 // (body _kernel :32, pallas_call :115). Sq suffix queries sit at absolute
@@ -16,7 +18,7 @@
 //
 // Design: one CTA of 4 warps per (16-query tile, head, batch). Each warp owns
 // 4 query rows; a lane owns dims lane + 32 i of each row's accumulator, so a
-// row's acc lives in DH / 32 registers per lane. The CTA walks 32-key tiles
+// row's acc lives in DV / 32 registers per lane. The CTA walks 32-key tiles
 // of K and V staged in shared memory (converted to fp32; each thread keeps up
 // to 16 independent 16-byte loads in flight, so a tile costs about one
 // memory latency rather than one per element), from the window's
@@ -73,12 +75,19 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-template <int DH>
+template <int DH, int DV>
 constexpr size_t smem_bytes() {
-    return sizeof(float) * (size_t)(BQ * DH + BK * (DH + 4) + BK * DH);
+    return sizeof(float) * (size_t)(BQ * DH + BK * (DH + 4) + BK * DV);
 }
 
-template <typename T, int DH>
+// the largest divisor of n that is at most 16: loads kept in flight at once
+__host__ __device__ constexpr int group_of(int n) {
+    for (int g = 16; g > 1; --g)
+        if (n % g == 0) return g;
+    return 1;
+}
+
+template <typename T, int DH, int DV>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
@@ -87,17 +96,18 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int64_t k_sb, int64_t k_ss, int64_t k_sh,
                      int64_t v_sb, int64_t v_ss, int64_t v_sh,
                      int q_offset, int kv_len, int window, float scale) {
-    constexpr int NI = DH / 32;        // accumulator dims per lane
+    constexpr int NI = DV / 32;        // accumulator dims per lane
     constexpr int KSTR = DH + 4;       // padded K row, in floats
     constexpr int NT = NWARPS * 32;    // threads
     constexpr int VEC = 16 / sizeof(T);             // elements per 16-byte load
-    constexpr int NVT = BK * DH / VEC / NT;         // loads per thread per tile
-    constexpr int GRP = NVT < 8 ? NVT : 8;          // loads in flight at once
-    static_assert(NVT * VEC * NT == BK * DH && NVT % GRP == 0, "tile split");
+    constexpr int NKV = BK * DH / VEC;              // K vectors per tile
+    constexpr int NVT = (NKV + BK * DV / VEC) / NT; // K+V loads per thread
+    constexpr int GRP = group_of(NVT);              // loads in flight at once
+    static_assert(NKV % NT == 0 && (BK * DV / VEC) % NT == 0, "tile split");
     extern __shared__ float4 smem4[];
     float* sQ = reinterpret_cast<float*>(smem4);   // [BQ][DH]
     float* sK = sQ + BQ * DH;                      // [BK][KSTR]
-    float* sV = sK + BK * KSTR;                    // [BK][DH]
+    float* sV = sK + BK * KSTR;                    // [BK][DV]
 
     const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int kvh = h / rep;
@@ -136,25 +146,33 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int k0 = k_begin; k0 < k_end; k0 += BK) {
         __syncthreads();               // the previous tile is consumed
-        // GRP independent 16-byte loads of K and of V in flight per thread,
-        // then widen to fp32 into shared memory
+        // GRP independent 16-byte loads in flight per thread (the K tile's
+        // vectors first, then V's; whether a slot is K or V is known at
+        // compile time), then widen to fp32 into shared memory
 #pragma unroll
         for (int g = 0; g < NVT; g += GRP) {
-            uint4 rk[GRP], rv[GRP];
+            uint4 raw[GRP];
 #pragma unroll
             for (int u = 0; u < GRP; ++u) {
-                const int e = (tid + (g + u) * NT) * VEC;
-                const int kp = k0 + e / DH, d = e % DH;
-                const bool in = kp < k_end;
-                rk[u] = in ? load16(kb + (int64_t)kp * k_ss + d) : make_uint4(0u, 0u, 0u, 0u);
-                rv[u] = in ? load16(vb + (int64_t)kp * v_ss + d) : make_uint4(0u, 0u, 0u, 0u);
+                const int e = tid + (g + u) * NT;
+                const bool is_k = (g + u) * NT < NKV;
+                const int x = (is_k ? e : e - NKV) * VEC;
+                const int w = is_k ? DH : DV;
+                const int kp = k0 + x / w, d = x % w;
+                raw[u] = kp >= k_end ? make_uint4(0u, 0u, 0u, 0u)
+                         : is_k ? load16(kb + (int64_t)kp * k_ss + d)
+                                : load16(vb + (int64_t)kp * v_ss + d);
             }
 #pragma unroll
             for (int u = 0; u < GRP; ++u) {
-                const int e = (tid + (g + u) * NT) * VEC;
-                const int j = e / DH, d = e % DH;
-                widen(rk[u], sK + j * KSTR + d, T());
-                widen(rv[u], sV + j * DH + d, T());
+                const int e = tid + (g + u) * NT;
+                if ((g + u) * NT < NKV) {
+                    const int x = e * VEC;
+                    widen(raw[u], sK + (x / DH) * KSTR + x % DH, T());
+                } else {
+                    const int x = (e - NKV) * VEC;
+                    widen(raw[u], sV + x, T());
+                }
             }
         }
         __syncthreads();
@@ -198,7 +216,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < BK; ++j) {
             float vv[NI];
 #pragma unroll
-            for (int i = 0; i < NI; ++i) vv[i] = sV[j * DH + lane + 32 * i];
+            for (int i = 0; i < NI; ++i) vv[i] = sV[j * DV + lane + 32 * i];
 #pragma unroll
             for (int r = 0; r < ROWS; ++r) {
                 const float pj = __shfl_sync(FULL, s[r], j);
@@ -213,19 +231,19 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qi = q0 + warp * ROWS + r;
         if (qi >= Sq) continue;
         const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-        T* o = out + (((int64_t)b * Sq + qi) * H + h) * DH;
+        T* o = out + (((int64_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
         for (int i = 0; i < NI; ++i) store(o + lane + 32 * i, acc[r][i] * inv);
     }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Sk, int H, int KV,
                    const int64_t* st, int q_offset, int kv_len, int window,
                    float scale, cudaStream_t stream) {
-    auto kern = flash_prefill_kernel<T, DH>;
-    constexpr size_t smem = smem_bytes<DH>();
+    auto kern = flash_prefill_kernel<T, DH, DV>;
+    constexpr size_t smem = smem_bytes<DH, DV>();
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -238,27 +256,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 template <typename T>
-cudaError_t dispatch(int dh, const void* q, const void* k, const void* v,
+cudaError_t dispatch(int dh, int dv, const void* q, const void* k, const void* v,
                      void* out, int B, int Sq, int Sk, int H, int KV,
                      const int64_t* st, int q_offset, int kv_len, int window,
                      float scale, cudaStream_t s) {
-    switch (dh) {
-        case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
-        case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
-        case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
-        case 256: return launch<T, 256>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
-        default: return cudaErrorInvalidValue;
+    if (dh == dv) {
+        switch (dh) {
+            case 32: return launch<T, 32, 32>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
+            case 64: return launch<T, 64, 64>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
+            case 128: return launch<T, 128, 128>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
+            case 256: return launch<T, 256, 256>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
+        }
     }
+    if (dh == 192 && dv == 128)        // MLA: [k_nope; k_rope] against v
+        return launch<T, 192, 128>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last axis
-// of q, k and v must be contiguous. out is a contiguous [B, Sq, H, dh].
+// of q, k and v must be contiguous. q and k are dh wide, v dv wide; out is a
+// contiguous [B, Sq, H, dv].
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_prefill_launch(
     const void* q, const void* k, const void* v, void* out,
-    int dtype, int B, int Sq, int Sk, int H, int KV, int dh,
+    int dtype, int B, int Sq, int Sk, int H, int KV, int dh, int dv,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -267,9 +290,9 @@ extern "C" int flash_prefill_launch(
     const int64_t st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
     cudaStream_t s = (cudaStream_t)stream;
     if (dtype == 0)
-        return dispatch<float>(dh, q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
+        return dispatch<float>(dh, dv, q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
     if (dtype == 1)
-        return dispatch<__nv_bfloat16>(dh, q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
+        return dispatch<__nv_bfloat16>(dh, dv, q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
     return cudaErrorInvalidValue;
 }
 

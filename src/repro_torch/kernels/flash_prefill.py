@@ -5,7 +5,9 @@ Replaces the TPU kernel ``repro/kernels/flash_prefill.py::flash_prefill``
 ``q_offset..`` attend over a KV cache ``[B, Sk, KV, dh]`` that already
 holds the downloaded prefix; the key at ``kpos`` is live when
 ``kpos <= qpos``, ``kpos < kv_len`` and, with a window,
-``kpos > qpos - window``. A row with no live key gives 0.
+``kpos > qpos - window``. A row with no live key gives 0. The values
+may be narrower than the keys: MLA attends with keys ``[k_nope; k_rope]``
+192 wide and values 128 wide, at the scale ``1/sqrt(192)``.
 
 On the card the wrapper launches the hand-written CUDA kernel
 (``csrc/flash_prefill.cu``; its header says what bounds it and how the
@@ -22,16 +24,19 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128, 256)
+# (dh, dv) pairs the CUDA kernel is compiled for
+WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_prefill_plain(q, k, v, *, q_offset: int = 0,
                         kv_len: Optional[int] = None,
                         window: Optional[int] = None) -> torch.Tensor:
-    """q: [B,Sq,H,dh]; k,v: [B,Sk,KV,dh]. fp32 math, output in q's dtype."""
+    """q: [B,Sq,H,dh]; k: [B,Sk,KV,dh]; v: [B,Sk,KV,dv]. fp32 math, output
+    [B,Sq,H,dv] in q's dtype."""
     B, Sq, H, dh = q.shape
     _, Sk, KV, _ = k.shape
+    dv = v.shape[-1]
     rep = H // KV
     kv_len = Sk if kv_len is None else kv_len
     qf = q.float().reshape(B, Sq, KV, rep, dh)
@@ -45,28 +50,29 @@ def flash_prefill_plain(q, k, v, *, q_offset: int = 0,
     p = torch.softmax(s, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)             # fully masked rows -> 0
     o = torch.einsum("bgrqs,bsgd->bqgrd", p, v.float())
-    return o.reshape(B, Sq, H, dh).to(q.dtype)
+    return o.reshape(B, Sq, H, dv).to(q.dtype)
 
 
 def flash_prefill(q, k, v, *, q_offset: int = 0,
                   kv_len: Optional[int] = None,
                   window: Optional[int] = None) -> torch.Tensor:
-    """q: [B,Sq,H,dh]; k,v: [B,Sk,KV,dh] (the cache, read in place).
-    ``q_offset``, ``kv_len`` and ``window`` (None for none) are runtime
-    values. Returns [B,Sq,H,dh] in q's dtype."""
+    """q: [B,Sq,H,dh]; k: [B,Sk,KV,dh]; v: [B,Sk,KV,dv] (the cache, read
+    in place). ``q_offset``, ``kv_len`` and ``window`` (None for none) are
+    runtime values. Returns [B,Sq,H,dv] in q's dtype."""
     B, Sq, H, dh = q.shape
     _, Sk, KV, _ = k.shape
+    dv = v.shape[-1]
     kv_len = Sk if kv_len is None else int(kv_len)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, q_offset=q_offset, kv_len=kv_len,
                                    window=window)
-    _check(q, k, v, H, KV, dh, q_offset, kv_len)
-    out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
+    _check(q, k, v, H, KV, dh, dv, q_offset, kv_len)
+    out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         build.launch(
             "flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KV, dh,
+            out.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KV, dh, dv,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -79,7 +85,7 @@ def flash_prefill(q, k, v, *, q_offset: int = 0,
 flash_prefill.launches = 0
 
 
-def _check(q, k, v, H, KV, dh, q_offset, kv_len) -> None:
+def _check(q, k, v, H, KV, dh, dv, q_offset, kv_len) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: no kernel for device {q.device}")
     if k.device != q.device or v.device != q.device:
@@ -87,9 +93,11 @@ def _check(q, k, v, H, KV, dh, q_offset, kv_len) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_prefill: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; the kernel takes float32 or bfloat16")
-    if dh not in HEAD_DIMS or k.shape[3] != dh or v.shape != k.shape:
+    if (dh, dv) not in WIDTHS or k.shape[3] != dh or \
+            v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_prefill: head dim {dh} / k {tuple(k.shape)}"
-                         f" / v {tuple(v.shape)}; dh must be in {HEAD_DIMS}")
+                         f" / v {tuple(v.shape)}; (dh, dv) must be in "
+                         f"{WIDTHS}")
     if H % KV or q.shape[0] != k.shape[0]:
         raise ValueError("flash_prefill: H must be a multiple of KV and "
                          "batches must agree")

@@ -16,10 +16,14 @@ import torch
 import torch.nn.functional as F
 
 
-def dense_init(shape, dtype, gen: torch.Generator,
+def dense_init(shape, dtype, gen: Optional[torch.Generator],
                scale: Optional[float] = None, device=None) -> torch.Tensor:
     """Truncated normal in [-2, 2] times 1/sqrt(fan_in) (fan_in is the
-    first axis), as the reference initialises its dense weights."""
+    first axis), as the reference initialises its dense weights. With no
+    generator the tensor is allocated and left unset, for a caller that
+    loads a state dict into it next."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.empty(shape, dtype=torch.float32)
@@ -27,7 +31,9 @@ def dense_init(shape, dtype, gen: torch.Generator,
     return (w * std).to(device=device, dtype=dtype)
 
 
-def embed_init(shape, dtype, gen: torch.Generator, device=None):
+def embed_init(shape, dtype, gen: Optional[torch.Generator], device=None):
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32) * 0.02
     return w.to(device=device, dtype=dtype)
 

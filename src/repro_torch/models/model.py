@@ -1,5 +1,6 @@
-"""Model facade for decoder-only models (the dense and SSM families):
-prefill with prefix resume, and one-token decode.
+"""Model facade for decoder-only models (the dense and SSM families, and
+deepseek-v3 cut to its dense MLA layers): prefill with prefix resume, and
+one-token decode.
 
 Counterpart of ``repro.models.model.Model`` (serving modes only). The
 parameters live in this ``nn.Module`` under the reference's tree paths,
@@ -8,9 +9,10 @@ with ``.`` for ``/`` (``segments.0.attn.wq`` is the reference's
 :func:`repro_torch.params.from_jax_params` is a copy. The cache returned
 by :meth:`init_cache` has the reference's structure, layout and per-leaf
 dtypes, ``{"segments": [{"k": [L,B,S,KV,dh], "v": ...}]}`` for a dense
-model and ``{"segments": [{"conv": [L,B,K-1,C], "ssd": [L,B,H,P,N] fp32}]}``
-for an SSM: it is the state the paper ships between devices
-(``core/state_io.py``). :meth:`prefill` and :meth:`decode_step` update it
+model, ``{"segments": [{"conv": [L,B,K-1,C], "ssd": [L,B,H,P,N] fp32}]}``
+for an SSM and ``{"segments": [{"ckv": [L,B,S,R], "krope": [L,B,S,Dr]},
+...]}`` for MLA (an empty MoE segment has ``L = 0``): it is the state the
+paper ships between devices (``core/state_io.py``). :meth:`prefill` and :meth:`decode_step` update it
 IN PLACE and return it.
 """
 from __future__ import annotations
@@ -40,18 +42,25 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Model(nn.Module):
+    """``seed`` draws the random weights; ``seed=None`` allocates them
+    unset, for a caller that loads a state dict next."""
+
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: Optional[int] = 0):
         super().__init__()
-        if cfg.family not in ("dense", "ssm") or cfg.n_meta_tokens:
+        if cfg.family not in ("dense", "ssm", "moe") or cfg.n_meta_tokens:
             raise NotImplementedError(
                 f"family {cfg.family!r} (meta tokens: {cfg.n_meta_tokens}) "
                 "is not in this port yet (ROADMAP Queue 1, item 7)")
+        if cfg.mtp:
+            raise NotImplementedError(
+                "the MTP head is a training head; serve the model with "
+                "mtp=False (training: ROADMAP Queue 1, item 8)")
         self.cfg = cfg
         self.segment_specs = tf.segments_for(cfg)
         self.dtype = dtype
         self.device = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
         vp = padded_vocab(cfg.vocab)
         self.embed = nn.Parameter(
             embed_init((vp, cfg.d_model), dtype, gen, device=self.device),

@@ -5,7 +5,9 @@ The reference's parameters are a pytree keyed by path
 the same layouts under the same names with ``.`` for ``/``, so the
 conversion is a copy: give :func:`from_jax_params` the tree with its
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and load
-the result with ``model.load_state_dict``.
+the result with ``model.load_state_dict``. Leaves with no elements (an
+empty MoE segment's ``[0, ...]`` stacks) come across as empty tensors of
+the same shape.
 """
 from __future__ import annotations
 

@@ -8,8 +8,9 @@ Counterpart of ``repro.serving.engine.InferenceEngine``:
   * ``adopt(cache, n_tokens, logits)``   — full hit (Case 5): no compute
   * ``generate(state, n, sampler)``      — greedy decode loop
 
-Prefill inputs of a dense model are padded to power-of-two buckets, as
-in the reference. The padding writes junk K/V past the true length; the
+Prefill inputs of a dense or MLA model are padded to power-of-two
+buckets, as in the reference. The padding writes junk K/V (or latents)
+past the true length; the
 next prefill or decode starts at the true length and the kernels mask by
 ``kv_len``, so it is never read. Unlike the reference, the bucket is also
 capped at the room left in the cache after ``start_pos``, so a resume

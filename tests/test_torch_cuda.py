@@ -6,7 +6,8 @@ on a machine without the reference package:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: attention fp32 1e-5 (the same fp32 arithmetic in another
+Tolerances: attention (``flash_prefill``, ``flash_decode``, ``mla_decode``)
+fp32 1e-5 (the same fp32 arithmetic in another
 order; exp differs in the last bits), bf16 2e-2 (both outputs rounded to
 bf16 once from fp32 results, up to 2^-8 relative each); ``ssd_scan``
 atol 2e-4, rtol 1e-3, the reference's kernel tolerance (fp32 outputs in
@@ -20,6 +21,7 @@ import torch
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
+from repro_torch.kernels.mla_decode import mla_decode, mla_decode_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 PREFILL_CASES = [
@@ -82,6 +84,34 @@ def test_flash_prefill_cuda_vs_plain(case, dtype, cuda_device):
                                rtol=TOL[dtype])
 
 
+MLA_PREFILL_CASES = [
+    # B, Sq, Sk, H, off, win  (dh 192, dv 128: MLA's prefill)
+    (1, 512, 512, 128, 0, None),           # deepseek-v3 heads, cold prompt
+    (1, 33, 300, 128, 267, None),          # resume of a 33-token suffix
+    (2, 40, 64, 4, 0, 16),                 # sliding window, two rows
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA_PREFILL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_narrow_values_cuda_vs_plain(case, dtype, cuda_device):
+    B, Sq, Sk, H, off, win = case
+    gen = torch.Generator().manual_seed(5)
+    q = _rand(gen, (B, Sq, H, 192), dtype, cuda_device)
+    k = _rand(gen, (B, Sk, H, 192), dtype, cuda_device)
+    v = _rand(gen, (B, Sk, H, 128), dtype, cuda_device)
+    kv_len = min(off + Sq, Sk)
+    n0 = flash_prefill.launches
+    out = flash_prefill(q, k, v, q_offset=off, kv_len=kv_len, window=win)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == n0 + 1 and out.shape == (B, Sq, H, 128)
+    plain = flash_prefill_plain(q, k, v, q_offset=off, kv_len=kv_len,
+                                window=win)
+    torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 @pytest.mark.cuda
 def test_flash_prefill_reads_a_strided_cache(cuda_device):
     """The kernel reads one layer of a stacked [L, B, S, KV, dh] cache in
@@ -132,6 +162,65 @@ def test_unsupported_inputs_raise_on_the_card(cuda_device):
     kv32 = torch.zeros((1, 16, 1, 32), device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         flash_prefill(q_off, kv32, kv32, kv_len=4)
+
+
+MLA_DECODE_CASES = [
+    # B, S, H, R, Dr, kv_len, win
+    (1, 1024, 128, 512, 64, 1, None),      # deepseek-v3 widths
+    (1, 1024, 128, 512, 64, 300, None),
+    (1, 1024, 128, 512, 64, 1024, None),
+    (1, 1024, 128, 512, 64, 700, 256),     # windowed
+    (1, 64, 128, 512, 64, 0, None),        # no live key -> 0
+    (2, 128, 4, 64, 16, 100, None),        # tests/test_kernels.py widths
+    (2, 128, 4, 64, 16, 100, 32),
+    (1, 256, 8, 128, 32, 256, None),
+    (1, 256, 8, 128, 32, 256, 40),
+    (1, 192, 2, 32, 16, 150, 64),
+    (1, 192, 2, 32, 16, 150, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA_DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_decode_cuda_vs_plain(case, dtype, cuda_device):
+    B, S, H, R, Dr, kv_len, win = case
+    gen = torch.Generator().manual_seed(17)
+    q_lat, q_rope = (_rand(gen, (B, H, w), dtype, cuda_device)
+                     for w in (R, Dr))
+    ckv, krope = (_rand(gen, (B, S, w), dtype, cuda_device) for w in (R, Dr))
+    args = dict(kv_len=kv_len, window=win, scale=1.0 / 192 ** 0.5)
+    n0 = mla_decode.launches
+    out = mla_decode(q_lat, q_rope, ckv, krope, **args)
+    torch.cuda.synchronize()
+    assert mla_decode.launches == n0 + 1 and out.shape == (B, H, R)
+    plain = mla_decode_plain(q_lat, q_rope, ckv, krope, **args)
+    torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if kv_len == 0:
+        assert torch.count_nonzero(out) == 0
+
+
+@pytest.mark.cuda
+def test_mla_decode_reads_the_cache_in_place(cuda_device):
+    """One layer of a stacked [L, B, S, .] latent cache, and a q_rope that
+    is the tail of each head's [q_nope; q_rope] row."""
+    gen = torch.Generator().manual_seed(19)
+    dt = torch.bfloat16
+    ckv = _rand(gen, (3, 2, 256, 512), dt, cuda_device)
+    krope = _rand(gen, (3, 2, 256, 64), dt, cuda_device)
+    q_lat = _rand(gen, (2, 128, 512), dt, cuda_device)
+    q_rope = _rand(gen, (2, 128, 192), dt, cuda_device)[..., 128:]
+    args = dict(kv_len=200, scale=1.0 / 192 ** 0.5)
+    out = mla_decode(q_lat, q_rope, ckv[1], krope[1], **args)
+    plain = mla_decode_plain(q_lat, q_rope, ckv[1], krope[1], **args)
+    torch.testing.assert_close(out.float(), plain.float(), atol=2e-2,
+                               rtol=2e-2)
+    with pytest.raises(ValueError, match="built for"):
+        mla_decode(q_lat[..., :256], q_rope, ckv[1, ..., :256], krope[1],
+                   **args)
+    with pytest.raises(ValueError, match="dtypes"):
+        mla_decode(q_lat.float(), q_rope, ckv[1], krope[1], **args)
 
 
 SSD_CASES = [
