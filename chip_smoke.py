@@ -14,8 +14,9 @@ lengths in every run. It
 3. holds each kernel against its plain PyTorch version at its paths'
    shapes, in float32 and bfloat16, and times the kernel, the plain version
    and, for attention, ``F.scaled_dot_product_attention`` on the same work
-   (a yardstick the port never calls), beside the least time the card
-   could take;
+   (a yardstick the port never calls; for a prefill from position 0 also
+   with ``is_causal``, and the faster of the two counts), beside the least
+   time the card could take, with the prefill's TFLOP/s and share of it;
 4. runs the paper's edge request on full-width gemma3-270m, on full-width,
    full-depth mamba2-780m and on full-width deepseek-v3-671b cut to its
    three dense MLA layers (random weights from a seed), each in bf16 and
@@ -24,7 +25,8 @@ lengths in every run. It
    poisoned catalog falls back to local prefill; it checks the cases and
    the tokens and that the path's kernels ran on it as often as the path
    needs (counts set to 0 just before each path and read just after);
-5. profiles a prefill and 8 decode steps of each model, and checks the
+5. profiles a prefill and 8 decode steps of each model, then one prefill
+   alone (its device time and its attention kernel's share), and checks the
    card's fp32 logits against the same model on the CPU (mamba2-780m cut
    to 4 layers there, deepseek-v3-671b to 1);
 6. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
@@ -101,12 +103,41 @@ def build_phase():
     print(f"build: {dt:.1f} s for {sorted(build.KERNELS)} "
           f"(built now: {sorted(logs)})")
     for name, log in sorted(logs.items()):
-        regs = [int(w) for line in log.splitlines() if "Used" in line
-                for w in [line.split("Used")[1].split()[0]]]
-        spills = [line.strip() for line in log.splitlines()
-                  if "spill" in line and " 0 bytes spill stores" not in line]
-        print(f"  {name}: {len(regs)} kernels, max {max(regs or [0])} "
-              f"registers/thread, spilling: {spills[:3] or 'none'}")
+        funcs = ptxas_report(log)
+        spilled = [f"{fn} ({n} B)" for fn, _, n in funcs if n]
+        print(f"  {name}: {len(funcs)} kernels, max "
+              f"{max([r for _, r, _ in funcs] or [0])} registers/thread, "
+              f"spilling: {', '.join(spilled) or 'none'}")
+        for fn, regs, _ in funcs:
+            print(f"    {fn}: {regs} registers")
+
+
+def ptxas_report(log):
+    """[(kernel, registers, spill-store bytes)] from ``nvcc -Xptxas -v``:
+    each "Compiling entry function" line, with the registers and spills
+    reported after it. Kernel names are cut to their template arguments."""
+    import re
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+kernel)I(\w*?)EEvP", m.group(1))
+            name = m.group(1)
+            if k:
+                args = k.group(2).replace("13__nv_bfloat16", "bf16,")
+                args = re.sub(r"Li(\d+)E", r"\1,", re.sub(r"^f", "float,", args))
+                name = f"{k.group(1)}<{args.rstrip(',')}>"
+            out.append([name, 0, 0])
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[-1][2] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1][1] = int(m.group(1))
+    return [tuple(f) for f in out]
 
 
 def time_ms(fn, iters=50, warmup=5):
@@ -201,21 +232,33 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag):
         ms = device_ms(lambda: flash_prefill(q, k, v, **args))
         call_ms = time_ms(lambda: flash_prefill(q, k, v, **args))
         plain_ms = device_ms(lambda: flash_prefill_plain(q, k, v, **args))
-        # yardstick: SDPA on the live keys with the same causal mask
+        # yardstick: SDPA on the live keys with the same causal mask and,
+        # when the queries start at 0, with is_causal (no explicit mask, so
+        # its fused backends may run); the faster call is library_ms
         qpos = off + torch.arange(sq, device=dev)
         mask = torch.arange(kv_len, device=dev)[None, :] <= qpos[:, None]
         qs = q.transpose(1, 2)
         ks, vs = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
-        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        libs = {"sdpa mask": device_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True))}
+        if off == 0:
+            libs["sdpa is_causal"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True))
+        lib_name = min(libs, key=libs.get)
+        lib_ms = libs[lib_name]
         pairs = sum(min(kv_len, off + i + 1) for i in range(sq))
         nbytes = es * (q.numel() + sq * H * dv + kv_len * KV * (dh + dv))
-        b_ms, b_by = bound(nbytes, 2 * (dh + dv) * H * pairs, dname)
+        flops = 2 * (dh + dv) * H * pairs
+        b_ms, b_by = bound(nbytes, flops, dname)
         print(f"flash_prefill {tag} {dname} Sq={sq} q_offset={off} "
               f"kv_len={kv_len}: max_abs_err={err:.3g} (tol {TOL[dname]}) "
-              f"device ms: kernel {ms:.4f} plain {plain_ms:.4f} sdpa "
-              f"{lib_ms:.4f} bound {b_ms:.5f} ({b_by}); kernel call "
-              f"{call_ms:.4f} ms (events)")
+              f"device ms: kernel {ms:.4f} plain {plain_ms:.4f} "
+              + " ".join(f"{n} {t:.4f}" for n, t in libs.items())
+              + f" bound {b_ms:.5f} ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s,"
+              f" {b_ms / ms:.3f} of the bound, {ms / lib_ms:.2f}x the "
+              f"best library call ({lib_name}); kernel call {call_ms:.4f} ms"
+              f" (events)")
         if not ok:
             raise AssertionError(f"flash_prefill {tag} {dname} Sq={sq} "
                                  f"off={off}: max err {err}")
@@ -582,6 +625,19 @@ def where_time_goes(model, prompt):
     print("  host (self CPU time, same window):")
     for us, key, n in host[:8]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
+    # one prefill alone: its device time and the attention kernel's share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = clock.monotonic()
+        eng.start({"tokens": toks})
+        torch.cuda.synchronize()
+        t1 = clock.monotonic()
+    rows = _device_rows(prof)
+    att = sum(_dev_us(e) for e in rows if "flash_prefill" in e.key
+              or "ssd_scan" in e.key)
+    print(f"  prefill alone: wall {(t1 - t0) * 1e3:.2f} ms, device busy "
+          f"{sum(_dev_us(e) for e in rows) / 1e3:.3f} ms, of which "
+          f"flash_prefill / ssd_scan {att / 1e3:.3f} ms")
     # the head alone: [1, d] x [d, vocab] in bf16
     x = torch.randn((1, 1, model.cfg.d_model), device="cuda",
                     dtype=model.dtype)

@@ -34,10 +34,10 @@ _c_p, _c_i, _c_i64, _c_f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # library also exports <name>_error_string(int) -> const char*
 SIGNATURES = {
     "flash_prefill": (
-        [_c_p] * 4 + [_c_i] * 8 + [_c_i64] * 9
+        [_c_p] * 4 + [_c_i] * 9 + [_c_i64] * 9
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "flash_decode": (
-        [_c_p] * 7 + [_c_i] * 8 + [_c_i64] * 8
+        [_c_p] * 8 + [_c_i] * 8 + [_c_i64] * 8
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "ssd_scan": [_c_p] * 8 + [_c_i] * 8 + [_c_i64] * 12 + [_c_p],
     "mla_decode": (

@@ -6,11 +6,13 @@ Replaces the TPU kernel ``repro/kernels/flash_decode.py::flash_decode``
 a row with no live key gives 0. ``v`` may be wider or narrower than
 ``k`` (MLA's latent decode) and ``scale`` overrides ``1/sqrt(dh)``.
 
-On the card the wrapper launches the hand-written CUDA kernels
-(``csrc/flash_decode.cu``: a split kernel and a merge kernel, one
-launch each). On the CPU it runs :func:`flash_decode_plain`, the
-reference's einsum form. A CUDA tensor never falls back to the plain
-version: an input the kernel does not take raises.
+On the card the wrapper launches the hand-written CUDA kernel
+(``csrc/flash_decode.cu``, one launch: key splits over CTAs, and the last
+CTA of each head group merges them). On the CPU it runs
+:func:`flash_decode_plain`, the reference's einsum form. A CUDA tensor
+never falls back to the plain version: an input the kernel does not take
+raises. The kernel's arrival counters are one buffer per device, left at
+0 by every launch, so launches on one device are ordered on one stream.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from repro_torch.kernels import build
 WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (576, 512))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 N_SM = 132                 # H100 SXM streaming multiprocessors
-MIN_CHUNK = 32             # fewest keys a split CTA takes
+TILE = 32                  # keys of a CTA's tile: 2 parts of 16, 2 lanes a key
+_COUNTERS = {}             # device -> int32 arrival counters, all 0
 
 
 def flash_decode_plain(q, k, v, *, kv_len: int,
@@ -50,16 +53,26 @@ def flash_decode_plain(q, k, v, *, kv_len: int,
 
 
 def split_plan(B: int, H: int, KV: int, live: int):
-    """(heads per CTA, number of KV splits, keys per split). Enough CTAs
-    for about two waves over the SMs, each with at least ``MIN_CHUNK``
-    keys."""
+    """(heads per CTA, number of KV splits, keys per split). Up to one CTA
+    per SM, each split a whole number of ``TILE``-key tiles, so a CTA walks
+    few tiles and the last CTA's merge reads few partials."""
     rep = H // KV
     hg = next(g for g in (4, 2, 1) if rep % g == 0)
-    base = B * (H // hg)
-    want = max(1, (2 * N_SM) // base)
-    chunk = max(MIN_CHUNK, -(-live // want))
+    want = max(1, N_SM // (B * (H // hg)))
+    tiles = max(1, -(-live // TILE))
+    chunk = TILE * -(-tiles // want)
     nsplit = max(1, -(-live // chunk))
     return hg, nsplit, chunk
+
+
+def _counters(dev, n: int) -> torch.Tensor:
+    """``n`` arrival counters on ``dev``, zero (each launch resets those it
+    used)."""
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = buf
+    return buf
 
 
 def flash_decode(q, k, v, *, kv_len: int, window: Optional[int] = None,
@@ -82,12 +95,14 @@ def flash_decode(q, k, v, *, kv_len: int, window: Optional[int] = None,
     pm = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pacc = torch.empty((B, H, nsplit, dv), dtype=torch.float32, device=dev)
+    counters = _counters(dev, B * (H // hg))
     scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.launch(
             "flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
+            counters.data_ptr(),
             _DTYPES[q.dtype], B, H, KV, dh, dv, hg, nsplit,
             q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), k.stride(2),
@@ -116,5 +131,11 @@ def _check(q, k, v, H, KV, dh, dv, kv_len) -> None:
                          "k, v, q shapes must agree")
     if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_decode: the head dim must be contiguous")
+    vec = 16 // k.element_size()           # the kernel loads 16-byte rows
+    for t in (k, v):
+        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+            raise ValueError("flash_decode: k and v rows must start on "
+                             "16-byte boundaries (strides a multiple of "
+                             f"{vec} elements)")
     if not 0 <= kv_len <= k.shape[1]:
         raise ValueError(f"flash_decode: kv_len={kv_len}, Sk={k.shape[1]}")

@@ -9,11 +9,15 @@ holds the downloaded prefix; the key at ``kpos`` is live when
 may be narrower than the keys: MLA attends with keys ``[k_nope; k_rope]``
 192 wide and values 128 wide, at the scale ``1/sqrt(192)``.
 
-On the card the wrapper launches the hand-written CUDA kernel
-(``csrc/flash_prefill.cu``; its header says what bounds it and how the
-design answers). On the CPU it runs :func:`flash_prefill_plain`, the
-reference's einsum form. A CUDA tensor never falls back to the plain
-version: an input the kernel does not take raises.
+On the card the wrapper launches a hand-written CUDA kernel
+(``csrc/flash_prefill.cu``; its header says what bounds each and how the
+design answers): bf16 runs on the tensor cores (``mma.sync``, 64 rows a
+CTA, query heads that share a kv head packed into one CTA), fp32 on
+scalar FMAs (16 queries of one head a CTA). :func:`grid_plan` gives
+either's CTA shape and grid. On the CPU it runs
+:func:`flash_prefill_plain`, the reference's einsum form. A CUDA tensor
+never falls back to the plain version: an input the kernel does not take
+raises.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from repro_torch.kernels import build
 # (dh, dv) pairs the CUDA kernel is compiled for
 WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_ROWS = 64               # rows of a bf16 CTA: 4 warps x 16
+FP32_ROWS = 16             # queries of an fp32 CTA (one head)
 
 
 def flash_prefill_plain(q, k, v, *, q_offset: int = 0,
@@ -53,6 +59,21 @@ def flash_prefill_plain(q, k, v, *, q_offset: int = 0,
     return o.reshape(B, Sq, H, dv).to(q.dtype)
 
 
+def grid_plan(dtype: torch.dtype, B: int, Sq: int, H: int, KV: int):
+    """(rows per CTA, query heads packed per CTA, grid (x, y, z)) of the
+    kernel for ``dtype``. A bf16 CTA takes 64 rows: ``hp`` heads that
+    share a kv head (4, 2 or 1, dividing ``H / KV``) times ``64 / hp``
+    queries, so each K/V tile is loaded once for all of them. An fp32 CTA
+    takes 16 queries of one head."""
+    if dtype == torch.bfloat16:
+        rep = H // KV
+        rows, hp = TC_ROWS, next(g for g in (4, 2, 1) if rep % g == 0)
+    else:
+        rows, hp = FP32_ROWS, 1
+    per = rows // hp
+    return rows, hp, (-(-Sq // per), H // hp, B)
+
+
 def flash_prefill(q, k, v, *, q_offset: int = 0,
                   kv_len: Optional[int] = None,
                   window: Optional[int] = None) -> torch.Tensor:
@@ -68,11 +89,12 @@ def flash_prefill(q, k, v, *, q_offset: int = 0,
                                    window=window)
     _check(q, k, v, H, KV, dh, dv, q_offset, kv_len)
     out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
+    _, hp, _ = grid_plan(q.dtype, B, Sq, H, KV)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         build.launch(
             "flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KV, dh, dv,
+            out.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KV, dh, dv, hp,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),

@@ -18,6 +18,7 @@ import math
 import pytest
 import torch
 
+from repro_torch.kernels import flash_decode as decode_mod
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
@@ -34,6 +35,12 @@ PREFILL_CASES = [
     (1, 512, 1024, 4, 1, 256, 0, None),    # gemma3-270m, cold prefill
     (1, 64, 1024, 4, 1, 256, 448, None),   # gemma3-270m, resume
     (1, 16, 64, 4, 1, 256, 0, None),       # kv_len 16 of a 64 cache
+    (1, 65, 256, 8, 2, 64, 0, None),       # Sq 65; 4 heads packed per CTA
+    (1, 100, 300, 4, 1, 128, 77, None),    # kv_len 177 ends mid-tile
+    (1, 50, 256, 4, 2, 64, 100, 40),       # resume, window across tiles
+    (2, 33, 128, 8, 2, 32, 20, 24),        # GQA H=8 KV=2 with a window
+    (1, 40, 64, 4, 1, 64, 40, 8),          # rows at qpos >= 72 see no key
+    (1, 37, 512, 4, 1, 256, 300, None),    # gemma3-270m widths, ragged Sq
 ]
 
 DECODE_CASES = [
@@ -47,6 +54,10 @@ DECODE_CASES = [
     (1, 1024, 4, 1, 256, 256, 1024, None),
     (1, 1024, 4, 1, 256, 256, 0, None),    # no live key -> 0
     (1, 200, 16, 1, 576, 512, 150, None),  # MLA latent widths, dv != dh
+    (1, 300, 2, 2, 576, 512, 1, None),     # one split, one head a CTA
+    (1, 1024, 4, 1, 256, 256, 700, 100),   # gemma3-270m with a window
+    (2, 2048, 4, 1, 128, 128, 2000, None),  # 63 splits per head group
+    (1, 4096, 4, 1, 64, 64, 4096, None),   # 128 splits in one merge
 ]
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -89,6 +100,7 @@ MLA_PREFILL_CASES = [
     (1, 512, 512, 128, 0, None),           # deepseek-v3 heads, cold prompt
     (1, 33, 300, 128, 267, None),          # resume of a 33-token suffix
     (2, 40, 64, 4, 0, 16),                 # sliding window, two rows
+    (1, 33, 200, 128, 100, None),          # 33 queries at q_offset 100
 ]
 
 
@@ -147,6 +159,8 @@ def test_flash_decode_cuda_vs_plain(case, dtype, cuda_device):
                                rtol=TOL[dtype])
     if kv_len == 0:
         assert torch.count_nonzero(out) == 0
+    # the last CTA of each head group left its arrival counter at 0
+    assert torch.count_nonzero(decode_mod._COUNTERS[out.device]) == 0
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.flash_prefill import flash_prefill as jax_flash_prefill
 from repro.kernels.ref import flash_decode_ref, flash_prefill_ref
 from repro_torch.kernels.flash_decode import flash_decode, split_plan
-from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.flash_prefill import flash_prefill, grid_plan
 
 PREFILL_CASES = [
     # B, Sq, Sk, H, KV, dh, off, win  (tests/test_kernels.py:19-26)
@@ -135,13 +135,35 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 @pytest.mark.parametrize("B,H,KV,live,want", [
-    (1, 4, 1, 1024, (4, 32, 32)),     # main path: 32 splits of 32 keys
+    (1, 4, 1, 1024, (4, 32, 32)),     # main path: 32 splits of one tile
     (1, 4, 1, 1, (4, 1, 32)),
     (1, 4, 1, 0, (4, 1, 32)),         # no live key: one empty split
-    (2, 8, 8, 512, (1, 16, 32)),
+    (2, 8, 8, 512, (1, 8, 64)),       # 16 CTAs of heads: 8 splits each
     (1, 16, 1, 300, (4, 10, 32)),     # rep 16 -> groups of 4 heads
 ])
 def test_split_plan(B, H, KV, live, want):
     hg, nsplit, chunk = split_plan(B, H, KV, live)
     assert (hg, nsplit, chunk) == want
     assert nsplit * chunk >= live and (H // KV) % hg == 0
+
+
+@pytest.mark.parametrize("dtype,B,Sq,H,KV,want", [
+    # gemma3-270m: 16 queries x 4 heads a CTA; cold prompt and a resume
+    (torch.bfloat16, 1, 512, 4, 1, (64, 4, (32, 1, 1))),
+    (torch.bfloat16, 1, 64, 4, 1, (64, 4, (4, 1, 1))),
+    # the deepseek-v3 cut, (192, 128): 64 queries of one head a CTA
+    (torch.bfloat16, 1, 512, 128, 128, (64, 1, (8, 128, 1))),
+    (torch.bfloat16, 1, 64, 128, 128, (64, 1, (1, 128, 1))),
+    # the reference test shapes: rep 2, rep 8 (4 heads of 8), rep 1, Sq 37
+    (torch.bfloat16, 2, 64, 4, 2, (64, 2, (2, 2, 2))),
+    (torch.bfloat16, 2, 128, 8, 1, (64, 4, (8, 2, 2))),
+    (torch.bfloat16, 1, 37, 4, 4, (64, 1, (1, 4, 1))),
+    (torch.bfloat16, 1, 65, 8, 2, (64, 4, (5, 2, 1))),
+    # fp32 keeps the scalar kernel: 16 queries of one head a CTA
+    (torch.float32, 1, 512, 4, 1, (16, 1, (32, 4, 1))),
+    (torch.float32, 1, 512, 128, 128, (16, 1, (32, 128, 1))),
+])
+def test_prefill_grid_plan(dtype, B, Sq, H, KV, want):
+    rows, hp, grid = grid_plan(dtype, B, Sq, H, KV)
+    assert (rows, hp, grid) == want
+    assert (H // KV) % hp == 0 and grid[0] * (rows // hp) >= Sq
