@@ -121,7 +121,7 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+kernel)I(\w*?)EEvP", m.group(1))
+            k = re.search(r"\d+([a-z_]+kernel)I(\w*?)EEv", m.group(1))
             name = m.group(1)
             if k:
                 args = k.group(2).replace("13__nv_bfloat16", "bf16,")
@@ -194,6 +194,21 @@ def device_ms(fn, iters=20, windows=3):
     if not times:
         raise RuntimeError("the profiler recorded no device time")
     return statistics.median(times)
+
+
+def kernels_per_call(fn, iters=5):
+    """CUDA kernels one call of ``fn`` launches, from the profiler's device
+    rows over ``iters`` calls (0 if the profiler recorded none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in _device_rows(prof)) / iters
 
 
 def bound(nbytes, flops, dtype):
@@ -354,6 +369,8 @@ def mla_checks():
                            TOL[dname], TOL[dname])
             ms = device_ms(lambda: mla_decode(q_lat, q_rope, ckv, krope,
                                               **args))
+            n_k = kernels_per_call(lambda: mla_decode(q_lat, q_rope, ckv,
+                                                      krope, **args))
             call_ms = time_ms(lambda: mla_decode(q_lat, q_rope, ckv, krope,
                                                  **args))
             plain_ms = device_ms(lambda: mla_decode_plain(
@@ -373,7 +390,9 @@ def mla_checks():
                   f"kv_len={kv_len} window={win}: max_abs_err={err:.3g} "
                   f"(tol {TOL[dname]}) device ms: kernel {ms:.4f} plain "
                   f"{plain_ms:.4f} sdpa {lib_ms:.4f} bound {b_ms:.5f} "
-                  f"({b_by}); kernel call {call_ms:.4f} ms (events)")
+                  f"({b_by}); {flops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.3f}"
+                  f" of the bound, {n_k:g} CUDA kernels a call; kernel call "
+                  f"{call_ms:.4f} ms (events)")
             if not ok:
                 raise AssertionError(f"mla_decode {dname} kv_len={kv_len} "
                                      f"window={win}: max err {err}")
@@ -439,15 +458,19 @@ def ssd_checks():
             ok = torch.allclose(y, yr, **SSD_TOL) and \
                 torch.allclose(h, hr, **SSD_TOL)
             ms = device_ms(lambda: ssd_scan(*args, chunk=SSD_CHUNK))
+            n_k = kernels_per_call(lambda: ssd_scan(*args, chunk=SSD_CHUNK))
             call_ms = time_ms(lambda: ssd_scan(*args, chunk=SSD_CHUNK))
             plain_ms = device_ms(lambda: ssd_scan_plain(*args,
                                                         chunk=SSD_CHUNK))
-            b_ms, b_by = bound(*ssd_work(S, args[0].element_size()), dname)
+            nbytes, flops = ssd_work(S, args[0].element_size())
+            b_ms, b_by = bound(nbytes, flops, dname)
             print(f"ssd_scan {dname} S={S} h0={'random' if random_h0 else 0}"
                   f": max_abs_err={err:.3g} (atol 2e-4, rtol 1e-3; max |y| "
                   f"{yr.abs().max().item():.3g}) device ms: kernel {ms:.4f} "
-                  f"plain {plain_ms:.4f} bound {b_ms:.5f} ({b_by}); kernel "
-                  f"call {call_ms:.4f} ms (events)")
+                  f"plain {plain_ms:.4f} bound {b_ms:.5f} ({b_by}); "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.3f} of the "
+                  f"bound, {n_k:g} CUDA kernels a call; kernel call "
+                  f"{call_ms:.4f} ms (events)")
             if not ok:
                 raise AssertionError(f"ssd_scan {dname} S={S}: max err {err}")
             row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -634,10 +657,10 @@ def where_time_goes(model, prompt):
         t1 = clock.monotonic()
     rows = _device_rows(prof)
     att = sum(_dev_us(e) for e in rows if "flash_prefill" in e.key
-              or "ssd_scan" in e.key)
+              or "ssd_" in e.key)
     print(f"  prefill alone: wall {(t1 - t0) * 1e3:.2f} ms, device busy "
           f"{sum(_dev_us(e) for e in rows) / 1e3:.3f} ms, of which "
-          f"flash_prefill / ssd_scan {att / 1e3:.3f} ms")
+          f"flash_prefill / ssd_scan's kernels {att / 1e3:.3f} ms")
     # the head alone: [1, d] x [d, vocab] in bf16
     x = torch.randn((1, 1, model.cfg.d_model), device="cuda",
                     dtype=model.dtype)

@@ -28,7 +28,8 @@ WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (576, 512))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 N_SM = 132                 # H100 SXM streaming multiprocessors
 TILE = 32                  # keys of a CTA's tile: 2 parts of 16, 2 lanes a key
-_COUNTERS = {}             # device -> int32 arrival counters, all 0
+_COUNTERS = {}             # device -> int32 arrival counters, all 0 (shared
+                           # with mla_decode: launches on one stream)
 
 
 def flash_decode_plain(q, k, v, *, kv_len: int,
@@ -65,7 +66,7 @@ def split_plan(B: int, H: int, KV: int, live: int):
     return hg, nsplit, chunk
 
 
-def _counters(dev, n: int) -> torch.Tensor:
+def arrival_counters(dev, n: int) -> torch.Tensor:
     """``n`` arrival counters on ``dev``, zero (each launch resets those it
     used)."""
     buf = _COUNTERS.get(dev)
@@ -95,7 +96,7 @@ def flash_decode(q, k, v, *, kv_len: int, window: Optional[int] = None,
     pm = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pacc = torch.empty((B, H, nsplit, dv), dtype=torch.float32, device=dev)
-    counters = _counters(dev, B * (H // hg))
+    counters = arrival_counters(dev, B * (H // hg))
     scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -12,13 +12,16 @@ window), in fp32, with the output in q's dtype and 0 for a row with no
 live key. ``ckv`` is key and value at once; ``krope`` is the shared rotary
 key; ``scale`` is ``1/sqrt(qk_nope + qk_rope)``.
 
-On the card the wrapper launches the hand-written CUDA kernels
-(``csrc/mla_decode.cu``: a split kernel and a merge kernel). They read
-``ckv`` and ``krope`` through their own pointers and strides, so the
-layer's slices of the ``[L, B, S, .]`` cache are read in place, with no
-concatenation. On the CPU it runs :func:`mla_decode_plain`. A CUDA tensor
-never falls back to the plain version: an input the kernel does not take
-raises.
+On the card the wrapper launches the hand-written CUDA kernel
+(``csrc/mla_decode.cu``, one launch: each key split is a cluster of CTAs
+of 16 heads that share every cache tile, and the last CTA of each head
+group merges the splits). It reads ``ckv`` and ``krope`` through their
+own pointers and strides, so the layer's slices of the ``[L, B, S, .]``
+cache are read in place, once, with no concatenation. On the CPU it runs
+:func:`mla_decode_plain`. A CUDA tensor never falls back to the plain
+version: an input the kernel does not take raises. The kernel's arrival
+counters are ``flash_decode``'s buffer of the device, left at 0 by every
+launch, so launches on one device are ordered on one stream.
 """
 from __future__ import annotations
 
@@ -27,12 +30,20 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_decode import arrival_counters
 
 # (R, Dr) pairs the CUDA kernel is compiled for: deepseek-v3's (512, 64)
 # and the reference kernel tests' widths (tests/test_kernels.py MLA_CASES)
 WIDTHS = ((512, 64), (64, 16), (128, 32), (32, 16))
-HEAD_GROUP = 16            # query heads per CTA (they share the key tile)
-BLOCK_K = 32               # keys per shared-memory tile
+HEAD_GROUP = 16            # query heads per CTA: one m16 tile
+MAX_CLUSTER = 8            # CTAs of a cluster: 128 heads share a cache tile
+# keys of a shared-memory tile: bf16, 8 per warp of 8; fp32, one per lane
+BLOCK_K = {torch.bfloat16: 64, torch.float32: 32}
+# splits at most: the last CTA of a head group reads 32 KB a split back to
+# merge them, and a split is a cluster of 8 CTAs with ~170-185 KB of shared
+# memory each, of which about 14 fit on the card at once; fp32's slower
+# tiles pay for more splits than bf16's
+MAX_SPLITS = {torch.bfloat16: 8, torch.float32: 12}
 N_SM = 132                 # H100 SXM streaming multiprocessors
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,14 +65,21 @@ def mla_decode_plain(q_lat, q_rope, ckv, krope, *, kv_len: int,
     return torch.einsum("bhs,bsr->bhr", p, ckv.float()).to(q_lat.dtype)
 
 
-def split_plan(B: int, H: int, live: int):
-    """(number of key splits, keys per split): about two CTAs per SM, each
-    split a whole number of ``BLOCK_K`` tiles."""
-    groups = B * -(-H // HEAD_GROUP)
-    want = max(1, (2 * N_SM) // groups)
-    tiles = max(1, -(-live // BLOCK_K))
-    chunk = BLOCK_K * -(-tiles // want)
-    return max(1, -(-live // chunk)), chunk
+def split_plan(B: int, H: int, live: int, dtype=torch.bfloat16):
+    """(cluster size, head groups, number of key splits, keys per split).
+    A head group is one CTA of ``HEAD_GROUP`` heads; a split is one
+    cluster of up to ``MAX_CLUSTER`` of them (the head groups are rounded
+    up to a whole number of clusters). Splits take whole tiles of
+    ``BLOCK_K[dtype]`` keys, and there are at most ``MAX_SPLITS[dtype]`` of
+    them and about one CTA per SM: the last CTA of each head group reads
+    every split's partial back to merge them."""
+    groups = -(-H // HEAD_GROUP)
+    csize = min(groups, MAX_CLUSTER)
+    groups = -(-groups // csize) * csize
+    want = max(1, min(MAX_SPLITS[dtype], N_SM // (B * groups)))
+    tiles = max(1, -(-live // BLOCK_K[dtype]))
+    chunk = BLOCK_K[dtype] * -(-tiles // want)
+    return csize, groups, max(1, -(-live // chunk)), chunk
 
 
 def mla_decode(q_lat, q_rope, ckv, krope, *, kv_len: int, scale: float,
@@ -76,19 +94,22 @@ def mla_decode(q_lat, q_rope, ckv, krope, *, kv_len: int, scale: float,
     B, H, R = q_lat.shape
     kv_end = int(kv_len)
     kv_start = max(0, kv_end - window) if window and window > 0 else 0
-    nsplit, chunk = split_plan(B, H, kv_end - kv_start)
+    csize, groups, nsplit, chunk = split_plan(B, H, kv_end - kv_start,
+                                              q_lat.dtype)
     dev = q_lat.device
     out = torch.empty((B, H, R), dtype=q_lat.dtype, device=dev)
     pm = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pacc = torch.empty((B, H, nsplit, R), dtype=torch.float32, device=dev)
+    counters = arrival_counters(dev, B * groups)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.launch(
             "mla_decode", q_lat.data_ptr(), q_rope.data_ptr(),
             ckv.data_ptr(), krope.data_ptr(), out.data_ptr(), pm.data_ptr(),
-            pl.data_ptr(), pacc.data_ptr(), _DTYPES[q_lat.dtype], B, H, R,
-            q_rope.shape[2], nsplit, chunk, kv_start, kv_end,
+            pl.data_ptr(), pacc.data_ptr(), counters.data_ptr(),
+            _DTYPES[q_lat.dtype], B, H, R, q_rope.shape[2], groups, csize,
+            nsplit, chunk, kv_start, kv_end,
             q_lat.stride(0), q_lat.stride(1), q_rope.stride(0),
             q_rope.stride(1), ckv.stride(0), ckv.stride(1),
             krope.stride(0), krope.stride(1), float(scale), stream)

@@ -16,13 +16,17 @@ B and C are grouped, ``[B, S, G, N]`` with ``G`` dividing ``H``; head
 per-head contract). They, and ``x``, may be strided views (the model
 passes slices of its conv output): nothing is copied or padded.
 
-On the card the wrapper launches the hand-written CUDA kernel
-(``csrc/ssd_scan.cu``). On the CPU it runs :func:`ssd_scan_plain`, the
+On the card the wrapper launches the hand-written CUDA kernels
+(``csrc/ssd_scan.cu``: C·B once per group and chunk, each chunk's own
+state, then the state passing and the outputs; three launches, one
+wrapper call). On the CPU it runs :func:`ssd_scan_plain`, the
 reference model's chunked einsum form (``repro/models/ssm.py:90``). A
 CUDA tensor never falls back to the plain version: an input the kernel
 does not take raises.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -31,7 +35,8 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 256            # chunk positions the kernel's scan holds
 MAX_STATE = 128            # N the kernel's shared-memory tiles hold
-P_TILE = 16                # state rows per CTA
+P_TILE = 16                # state rows of a warp's tile
+TILE = 64                  # positions (and state rows p) of a CTA's tile
 
 
 def ssd_scan_plain(x, dt, A, B_, C_, h0, *, chunk: int):
@@ -83,6 +88,29 @@ def ssd_scan_plain(x, dt, A, B_, C_, h0, *, chunk: int):
     return y, h
 
 
+def scratch_plan(B: int, S: int, H: int, G: int, P: int, N: int,
+                 chunk: int):
+    """Shapes of the three parts of the kernel's fp32 scratch, kept in
+    one buffer in this order: C·B of each (batch, group, chunk), ``[B, G,
+    nc, QP, QP]`` with ``QP`` the chunk rounded up to ``TILE``; each
+    chunk's own state, ``[B, H, nc, P, N]``; and each chunk's decay
+    ``exp(cum_last)``, ``[B, H, nc]``."""
+    Q = min(int(chunk), S)
+    nc = -(-S // Q)
+    QP = -(-Q // TILE) * TILE
+    return (B, G, nc, QP, QP), (B, H, nc, P, N), (B, H, nc)
+
+
+def rows_vectorizable(x, B_, C_) -> bool:
+    """Whether the kernel may read the rows of x, B and C as 16-byte
+    vectors: each starts on 16 bytes, every stride but the last is a
+    whole number of 16-byte vectors, and so is N (P is a multiple of 16)."""
+    vec = 16 // x.element_size()
+    return B_.shape[3] % vec == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s % vec == 0 for s in t.stride()[:3])
+        for t in (x, B_, C_))
+
+
 def ssd_scan(x, dt, A, B_, C_, h0, *, chunk: int):
     """See :func:`ssd_scan_plain`. ``S`` and ``chunk`` are runtime
     values; the kernel takes ``min(chunk, S) <= 256``, ``N <= 128`` and
@@ -96,12 +124,17 @@ def ssd_scan(x, dt, A, B_, C_, h0, *, chunk: int):
     dev = x.device
     y = torch.empty((Bsz, S, H, Pd), dtype=torch.float32, device=dev)
     h = torch.empty((Bsz, H, Pd, N), dtype=torch.float32, device=dev)
+    scratch = torch.empty(sum(math.prod(p) for p in scratch_plan(
+        Bsz, S, H, G, Pd, N, Q)), dtype=torch.float32, device=dev)
+    if h0.data_ptr() % 16:             # the kernel reads h0 as float4
+        h0 = h0.clone()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.launch(
             "ssd_scan", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
             B_.data_ptr(), C_.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            h.data_ptr(), _DTYPES[x.dtype], Bsz, S, H, G, Pd, N, Q,
+            h.data_ptr(), scratch.data_ptr(), _DTYPES[x.dtype],
+            Bsz, S, H, G, Pd, N, Q, int(rows_vectorizable(x, B_, C_)),
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2),
             B_.stride(0), B_.stride(1), B_.stride(2),

@@ -23,7 +23,8 @@ from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
 from repro_torch.kernels.mla_decode import mla_decode, mla_decode_plain
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (rows_vectorizable, ssd_scan,
+                                          ssd_scan_plain)
 
 PREFILL_CASES = [
     # B, Sq, Sk, H, KV, dh, off, win  (the reference's kernel cases)
@@ -191,6 +192,10 @@ MLA_DECODE_CASES = [
     (1, 256, 8, 128, 32, 256, 40),
     (1, 192, 2, 32, 16, 150, 64),
     (1, 192, 2, 32, 16, 150, None),
+    (1, 1024, 128, 512, 64, 33, None),     # kv_len ends inside a split
+    (1, 1024, 128, 512, 64, 257, None),
+    (1, 256, 40, 512, 64, 200, None),      # 40 heads: 3 CTAs, the last half full
+    (2, 192, 24, 64, 16, 150, 64),         # two rows of 24 heads, windowed
 ]
 
 
@@ -213,6 +218,8 @@ def test_mla_decode_cuda_vs_plain(case, dtype, cuda_device):
                                rtol=TOL[dtype])
     if kv_len == 0:
         assert torch.count_nonzero(out) == 0
+    # the last CTA of each head group left its arrival counter at 0
+    assert torch.count_nonzero(decode_mod._COUNTERS[out.device]) == 0
 
 
 @pytest.mark.cuda
@@ -243,6 +250,11 @@ SSD_CASES = [
     (48, True, 256, 48, 64, 128, 1),       # mamba2-780m suffix resume
     (1024, True, 256, 48, 64, 128, 1),     # four full chunks
     (100, True, 32, 4, 32, 16, 2),         # reduced widths, two groups
+    (300, True, 64, 48, 64, 128, 1),       # state passed over 5 chunks
+    (1, True, 256, 48, 64, 128, 1),        # one position
+    (100, True, 32, 4, 32, 16, 4),         # G = H, the TPU kernel's contract
+    (200, True, 100, 8, 64, 128, 2),       # chunks end mid-tile (100 = 64 + 36)
+    (130, True, 64, 2, 128, 64, 1),        # two 64-row p blocks, N = 64
 ]
 
 
@@ -274,6 +286,30 @@ def test_ssd_scan_cuda_vs_plain(case, dtype, cuda_device):
     torch.cuda.synchronize()
     assert ssd_scan.launches == n0 + 1
     yr, hr = ssd_scan_plain(*args, chunk=chunk)
+    torch.testing.assert_close(y, yr, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(h, hr, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_unaligned_rows(dtype, cuda_device):
+    """x, B and C one element off 16 bytes: the kernel reads them element
+    by element instead of as 16-byte vectors, with the same result."""
+    gen = torch.Generator().manual_seed(23)
+    H, P, N, G, S = 8, 32, 16, 2, 150
+    xbc = (torch.randn((1, S, 1 + H * P + 2 * G * N), generator=gen)
+           * 0.5).to(cuda_device, dtype)[..., 1:]
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    B_ = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    C_ = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+    _, dt, A, _, _, h0 = _ssd_inputs(gen, S, True, H, P, N, G, dtype,
+                                     cuda_device)
+    assert not rows_vectorizable(x, B_, C_)
+    n0 = ssd_scan.launches
+    y, h = ssd_scan(x, dt, A, B_, C_, h0, chunk=64)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n0 + 1
+    yr, hr = ssd_scan_plain(x, dt, A, B_, C_, h0, chunk=64)
     torch.testing.assert_close(y, yr, atol=2e-4, rtol=1e-3)
     torch.testing.assert_close(h, hr, atol=2e-4, rtol=1e-3)
 

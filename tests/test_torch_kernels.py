@@ -18,6 +18,9 @@ from repro.kernels.flash_prefill import flash_prefill as jax_flash_prefill
 from repro.kernels.ref import flash_decode_ref, flash_prefill_ref
 from repro_torch.kernels.flash_decode import flash_decode, split_plan
 from repro_torch.kernels.flash_prefill import flash_prefill, grid_plan
+from repro_torch.kernels.mla_decode import split_plan as mla_split_plan
+from repro_torch.kernels.ssd_scan import rows_vectorizable
+from repro_torch.kernels.ssd_scan import scratch_plan as ssd_scratch_plan
 
 PREFILL_CASES = [
     # B, Sq, Sk, H, KV, dh, off, win  (tests/test_kernels.py:19-26)
@@ -167,3 +170,62 @@ def test_prefill_grid_plan(dtype, B, Sq, H, KV, want):
     rows, hp, grid = grid_plan(dtype, B, Sq, H, KV)
     assert (rows, hp, grid) == want
     assert (H // KV) % hp == 0 and grid[0] * (rows // hp) >= Sq
+
+
+@pytest.mark.parametrize("dtype,B,H,live,want", [
+    # deepseek-v3, 128 heads: one cluster of 8 CTAs of 16 heads a split;
+    # bf16 64-key tiles up to 8 splits, fp32 32-key tiles up to 12
+    (torch.bfloat16, 1, 128, 1, (8, 8, 1, 64)),
+    (torch.bfloat16, 1, 128, 300, (8, 8, 5, 64)),      # a tile a split
+    (torch.bfloat16, 1, 128, 1024, (8, 8, 8, 128)),
+    (torch.bfloat16, 1, 128, 256, (8, 8, 4, 64)),      # the 256-key window
+    (torch.bfloat16, 1, 128, 0, (8, 8, 1, 64)),        # no live key
+    (torch.float32, 1, 128, 300, (8, 8, 10, 32)),
+    (torch.float32, 1, 128, 1024, (8, 8, 11, 96)),
+    # 40 heads: 3 CTAs a cluster, the last one half full
+    (torch.bfloat16, 1, 40, 200, (3, 3, 4, 64)),
+    (torch.float32, 2, 24, 64, (2, 2, 2, 32)),
+    # the reference's test widths: a single CTA a split
+    (torch.bfloat16, 2, 4, 100, (1, 1, 2, 64)),
+    (torch.float32, 1, 2, 150, (1, 1, 5, 32)),
+])
+def test_mla_split_plan(dtype, B, H, live, want):
+    csize, groups, nsplit, chunk = mla_split_plan(B, H, live, dtype)
+    assert (csize, groups, nsplit, chunk) == want
+    assert groups % csize == 0 and groups * 16 >= H and csize <= 8
+    assert nsplit * chunk >= live and (nsplit - 1) * chunk < max(live, 1)
+
+
+@pytest.mark.parametrize("args,want", [
+    # (B, S, H, G, P, N, chunk) -> C·B, chunk states, chunk decays
+    ((1, 271, 48, 1, 64, 128, 256),                  # mamba2-780m, cold
+     ((1, 1, 2, 256, 256), (1, 48, 2, 64, 128), (1, 48, 2))),
+    ((1, 48, 48, 1, 64, 128, 256),                   # a resumed suffix
+     ((1, 1, 1, 64, 64), (1, 48, 1, 64, 128), (1, 48, 1))),
+    ((1, 300, 48, 1, 64, 128, 64),                   # five chunks
+     ((1, 1, 5, 64, 64), (1, 48, 5, 64, 128), (1, 48, 5))),
+    ((2, 200, 8, 2, 64, 128, 100),                   # chunk ends mid-tile
+     ((2, 2, 2, 128, 128), (2, 8, 2, 64, 128), (2, 8, 2))),
+])
+def test_ssd_scratch_plan(args, want):
+    assert ssd_scratch_plan(*args) == want
+
+
+def test_ssd_rows_vectorizable():
+    """The kernel reads x, B and C as 16-byte vectors only where every row
+    starts on 16 bytes: views of a conv output [1, S, H*P + 2*G*N] are, and
+    the same views one element further on are not."""
+    H, P, N, G = 4, 32, 16, 1
+    width = H * P + 2 * G * N
+
+    def views(xbc):
+        x = xbc[..., :H * P].unflatten(-1, (H, P))
+        B_ = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+        C_ = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+        return x, B_, C_
+
+    for dtype in (torch.float32, torch.bfloat16):
+        assert rows_vectorizable(*views(torch.zeros((1, 10, width),
+                                                    dtype=dtype)))
+        assert not rows_vectorizable(*views(torch.zeros(
+            (1, 10, width + 1), dtype=dtype)[..., 1:]))
