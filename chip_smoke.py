@@ -24,7 +24,17 @@ lengths in every run. It
    partial hit (Case 4), then adopts A's full prompt (Case 5), and a
    poisoned catalog falls back to local prefill; it checks the cases and
    the tokens and that the path's kernels ran on it as often as the path
-   needs (counts set to 0 just before each path and read just after);
+   needs (counts set to 0 just before each path and read just after).
+   Then, per model and dtype: A's uploads must be v3 ``PC3`` containers
+   (chunks and bytes per range printed); A's full blob is restored phase
+   by phase (container split, header decode, digests, inflate, unpack,
+   placement on the card); B's partial hit runs again monolithic and
+   streamed (``overlap=True``: the suffix prefill layer group by layer
+   group as the chunks land), with TTFT, transfer-visible, restore,
+   compute and hidden seconds, launch counts that must be equal, and in
+   fp32 the same 16 tokens as the monolithic and the cold run; and B
+   against a server whose every blob has one flipped byte must fall back
+   to local prefill (the cold run's tokens in fp32);
 5. profiles a prefill and 8 decode steps of each model, then one prefill
    alone (its device time and its attention kernel's share), and checks the
    card's fp32 logits against the same model on the CPU (mamba2-780m cut
@@ -484,7 +494,10 @@ def edge_path(model, label, expect, max_len=1024):
     """The paper's edge request through the port's EdgeClient. ``expect``
     maps the wrappers of this model's path to the launches the requests
     need: their counts are set to 0 just before the requests and read just
-    after, and must equal it. Returns the launch counts and the prompts."""
+    after, and must equal it. Then the PC3 uploads, the full-hit restore by
+    phase, B's streamed Case 4 beside the monolithic one and a request
+    against corrupt chunks. Returns the main path's launch counts, the
+    streamed path's, and the prompts."""
     import numpy as np
     import torch
     from repro_torch.config import CacheConfig
@@ -502,9 +515,9 @@ def edge_path(model, label, expect, max_len=1024):
     p_c = gen.prompt("virology", 7).segments
     server = CacheServer(CacheConfig())
 
-    def client(name, srv=server):
+    def client(name, srv=server, overlap=False):
         return EdgeClient(name, InferenceEngine(model, max_len=max_len),
-                          srv, CacheConfig())
+                          srv, CacheConfig(), overlap=overlap)
 
     # warm-up on a throwaway server: cuBLAS handles, allocator, kernels
     client("warm", CacheServer(CacheConfig())).infer(
@@ -546,9 +559,6 @@ def edge_path(model, label, expect, max_len=1024):
               f" ({t['decode_s'] / max(len(r.output_tokens), 1) * 1e3:.2f} "
               f"ms/tok) upload {t['upload_s'] * 1e3:.2f} ms")
     print(f"[{label}] launches on the main path: {launches}")
-    print(f"[{label}] A's blobs on the server (tokens: bytes): "
-          + ", ".join(f"{k.n_tokens}: {len(server.get(k.digest))}"
-                      for k in p_a.keys(a.meta)))
     if got != [1, 4, 5, 1] or not r_fp.false_positive:
         raise AssertionError(f"[{label}] cases {got}, fp {r_fp.false_positive}")
     want = {k.__name__: n for k, n in expect.items()}
@@ -556,25 +566,109 @@ def edge_path(model, label, expect, max_len=1024):
         raise AssertionError(f"[{label}] launches {launches}, the path "
                              f"needs {want}")
 
-    # what a full hit's restore costs, phase by phase (A's full blob)
+    # A's uploads: every range a PC3 container
     from repro_torch import clock
-    from repro_torch.core import packer, state_io
-    full_key = p_a.keys(a.meta)[0]
-    blob = server.get(full_key.digest)
+    from repro_torch.core import state_io
+    sizes = []
+    for key in p_a.keys(a.meta):
+        blob = server.get(key.digest)
+        if not state_io.is_chunked(blob):
+            raise AssertionError(f"[{label}] A's {key.n_tokens}-token blob "
+                                 f"is not a PC3 container")
+        sizes.append(f"{key.n_tokens}: {len(state_io.split_container(blob)) - 1}"
+                     f" chunks, {len(blob)} B")
+    print(f"[{label}] A's PC3 uploads (codec {state_io.default_codec()}, "
+          f"{CacheConfig().chunk_layers} layer a chunk; tokens: data chunks, "
+          f"bytes): " + "; ".join(sizes))
+
+    # what a full hit's restore costs, phase by phase (A's full blob)
+    blob = server.get(p_a.keys(a.meta)[0].digest)
     template = InferenceEngine(model, max_len=max_len).new_cache()
     torch.cuda.synchronize()
     t0 = clock.monotonic()
-    raw = state_io._decompress(blob)
+    chunks = state_io.split_container(blob)
     t1 = clock.monotonic()
-    payload = packer.unpackb(raw)
+    rest = state_io.ChunkedRestorer(a.meta)
+    for c in chunks:
+        rest.feed(c)
     t2 = clock.monotonic()
-    state_io.restore_state(payload, template)
+    rest.result(template)
     torch.cuda.synchronize()                        # waits for the copies
     t3 = clock.monotonic()
-    print(f"[{label}] full-hit restore of a {len(blob)} B blob ({len(raw)} B "
-          f"raw): zlib {(t1 - t0) * 1e3:.2f} ms, msgpack decode "
-          f"{(t2 - t1) * 1e3:.2f} ms, host->device restore "
-          f"{(t3 - t2) * 1e3:.2f} ms")
+    ph = {k: v * 1e3 for k, v in rest.phase_s.items()}
+    print(f"[{label}] full-hit restore of a {len(blob)} B PC3 blob "
+          f"({len(chunks) - 1} data chunks, {rest.bytes_inflated} B "
+          f"inflated): container split {(t1 - t0) * 1e3:.2f} ms, header "
+          f"decode {ph['header']:.2f} ms, digests {ph['digest']:.2f} ms, "
+          f"inflate {ph['inflate']:.2f} ms, unpack {ph['unpack']:.2f} ms, "
+          f"placement (host->device, synchronised) {(t3 - t2) * 1e3:.2f} ms;"
+          f" total {(t3 - t0) * 1e3:.2f} ms")
+
+    # a streamed Case 4 for B beside the monolithic one, each path's
+    # launches counted alone
+    for k in expect:
+        k.launches = 0
+    mono = client("M")
+    mono.sync_catalog()
+    r_mono = mono.infer(p_b, MAX_NEW, upload_on_miss=False)
+    mono_launches = {k.__name__: k.launches for k in expect}
+    for k in expect:
+        k.launches = 0
+    stream = client("S", overlap=True)
+    stream.sync_catalog()
+    r_str = stream.infer(p_b, MAX_NEW, upload_on_miss=False)
+    str_launches = {k.__name__: k.launches for k in expect}
+    for tag, r, ln in (("monolithic", r_mono, mono_launches),
+                       ("streamed", r_str, str_launches)):
+        t = r.timings
+        print(f"[{label}] B partial, {tag}: case {r.case} matched "
+              f"{r.matched_tokens} ttft {r.ttft_s * 1e3:.2f} ms | fetch "
+              f"(transfer-visible) {t['fetch_s'] * 1e3:.2f} restore "
+              f"{t['restore_s'] * 1e3:.2f} prefill (compute) "
+              f"{t['prefill_s'] * 1e3:.2f} hidden "
+              f"{t.get('hidden_s', 0.0) * 1e3:.2f} stream "
+              f"{t.get('stream_s', 0.0) * 1e3:.2f} ms; {r.chunks_down} chunks;"
+              f" launches {ln}")
+    str_agree = {
+        "streamed_vs_monolithic": sum(x == y for x, y in zip(
+            r_str.output_tokens, r_mono.output_tokens)),
+        "streamed_vs_cold": sum(x == y for x, y in zip(
+            r_str.output_tokens, r_cold_b.output_tokens))}
+    print(f"[{label}] streamed tokens agreeing of {MAX_NEW}: {str_agree}")
+    if not r_str.streamed or (r_str.case, r_mono.case) != (4, 4) or \
+            r_str.matched_tokens != r_mono.matched_tokens:
+        raise AssertionError(f"[{label}] streamed Case 4: streamed "
+                             f"{r_str.streamed}, cases {r_str.case}/"
+                             f"{r_mono.case}")
+    if str_launches != mono_launches or min(str_launches.values()) <= 0:
+        raise AssertionError(f"[{label}] streamed launches {str_launches}, "
+                             f"monolithic {mono_launches}")
+    if model.dtype == torch.float32 and min(str_agree.values()) != MAX_NEW:
+        raise AssertionError(f"[{label}] streamed tokens differ: "
+                             f"{str_agree}")
+
+    # one byte of a stored chunk flipped in every blob: local prefill
+    bad_server = CacheServer(CacheConfig())
+    for key, blob in server.store.items():
+        chunks = state_io.split_container(blob)
+        i = len(chunks) // 2                        # a data chunk
+        c = bytearray(chunks[i])
+        c[len(c) // 2] ^= 0xFF
+        chunks[i] = bytes(c)
+        bad_server.put(key, state_io.pack_container(chunks))
+    bad = client("X", srv=bad_server, overlap=True)
+    bad.sync_catalog()
+    r_bad = bad.infer(p_b, MAX_NEW, upload_on_miss=False)
+    bad_agree = sum(x == y for x, y in zip(r_bad.output_tokens,
+                                           r_cold_b.output_tokens))
+    print(f"[{label}] corrupt chunks: case {r_bad.case} matched "
+          f"{r_bad.matched_tokens} unreadable blobs {r_bad.unreadable_blobs}"
+          f" ttft {r_bad.ttft_s * 1e3:.2f} ms; tokens agreeing with cold "
+          f"{bad_agree} of {MAX_NEW}")
+    if r_bad.case != 1 or r_bad.matched_tokens or not r_bad.unreadable_blobs:
+        raise AssertionError(f"[{label}] a corrupt chunk was not a miss")
+    if model.dtype == torch.float32 and bad_agree != MAX_NEW:
+        raise AssertionError(f"[{label}] fallback tokens differ from cold")
 
     # resumed vs cold logits for B, outside the client
     eng = InferenceEngine(model, max_len=max_len)
@@ -608,7 +702,7 @@ def edge_path(model, label, expect, max_len=1024):
     if model.dtype == torch.float32 and min(agree.values()) != MAX_NEW:
         raise AssertionError(f"[{label}] resumed/adopted/fallback outputs "
                              f"differ from cold: {agree}")
-    return launches, p_a, p_b
+    return launches, str_launches, p_a, p_b
 
 
 def where_time_goes(model, prompt):
@@ -768,11 +862,11 @@ def main():
     for name, n_layers, cross_layers in PATHS:
         m32, m16 = model_pair(name, n_layers)
         expect = needs(m32.cfg)
-        for k, n in edge_path(m16, f"{name} bf16", expect)[0].items():
-            launches[k] = launches.get(k, 0) + n
-        got, p_a, p_b = edge_path(m32, f"{name} fp32", expect)
-        for k, n in got.items():
-            launches32[k] = launches32.get(k, 0) + n
+        for m, total in ((m16, launches), (m32, launches32)):
+            got, streamed, p_a, p_b = edge_path(
+                m, f"{name} {'bf16' if m is m16 else 'fp32'}", expect)
+            for k in got:
+                total[k] = total.get(k, 0) + got[k] + streamed[k]
         where_time_goes(m16, p_a)
         cpu_cross_check(m32, p_b, cross_layers or m32.cfg.n_layers)
         del m32, m16

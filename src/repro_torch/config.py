@@ -127,8 +127,12 @@ class CacheConfig:
     """Distributed prompt cache configuration (paper §3-§4)."""
     bloom_capacity: int = 1_000_000   # paper: 1M entries
     bloom_fp_rate: float = 0.01       # paper: 1% target FP ratio
-    compress: bool = True             # zlib-compressed state blobs
+    compress: bool = True             # compressed state blobs
     compress_level: int = 1
+    # blob codec: 'auto' picks zstd where zstandard imports, else zlib
+    compress_codec: str = "auto"
+    quantize: bool = False            # int8 K/V and latent leaves
+    chunk_layers: int = 1             # layers per v3 stream chunk
     max_ranges: int = 4               # prompt ranges registered per upload
     range_stride: int = 0             # >0: also register every k tokens
     min_match_tokens: int = 4         # minimum prefix worth fetching

@@ -2,8 +2,9 @@
 
 A lean copy of ``repro.core.server``: the blob store (key -> state blob)
 and the master catalog, with incremental catalog sync. ``handle(op,
-payload)`` is the single entry point the transport calls. Chunked GETs,
-eviction and tombstones are not in this port yet.
+payload)`` is the single entry point the transport calls. ``get_chunks``
+serves a stored blob as its chunk sequence, for a streaming fetch.
+Eviction and tombstones are not in this port yet.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.config import CacheConfig
 from repro_torch.core.bloom import BloomFilter
+from repro_torch.core.chunkfmt import split_container
 
 
 class CacheServer:
@@ -64,6 +66,17 @@ class CacheServer:
         if op == "get":
             blob = self.get(payload["key"])
             return {"ok": blob is not None, "blob": blob}
+        if op == "get_chunks":
+            # a streaming GET: the chunks go out one at a time. A stored
+            # v2 blob streams as one chunk; a corrupt container is a miss
+            blob = self.get(payload["key"])
+            if blob is None:
+                return {"ok": False, "chunks": []}
+            try:
+                chunks = split_container(blob)
+            except ValueError as e:
+                return {"ok": False, "chunks": [], "error": repr(e)}
+            return {"ok": True, "chunks": chunks}
         if op == "sync":
             keys, v = self.sync(payload.get("since", 0))
             return {"ok": True, "keys": keys, "version": v}

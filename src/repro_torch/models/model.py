@@ -121,18 +121,53 @@ class Model(nn.Module):
         models, which this port does not run). ``last_index`` picks the
         position whose logits return (bucket-padded prompts). Returns
         ``(logits [B, V] fp32, cache)``."""
+        x, positions, eff_start = self.prefill_stream_embed(inputs, start_pos)
+        for si, spec in enumerate(self.segment_specs):
+            x, _ = self.prefill_stream_group(
+                x, positions, cache["segments"][si], eff_start, si=si, lo=0,
+                hi=spec.n_layers)
+        return self.prefill_stream_head(x, last_index), cache
+
+    # -- layer-streamed prefill ------------------------------------------
+    # The prefill in three pieces, so a streamed resume runs layers
+    # [lo:hi) of the suffix as soon as that layer group's cache chunks
+    # have landed. Running [0:k) then [k:L) is the same layer loop as
+    # running [0:L): the same kernels, launched layer by layer.
+
+    @property
+    def supports_layer_stream(self) -> bool:
+        return True                    # every family this port runs
+
+    @torch.no_grad()
+    def prefill_stream_embed(self, inputs, start_pos: int):
+        """The suffix's hidden states and positions: ``(x, positions,
+        eff_start)``, as :meth:`prefill` computes them."""
         tokens = self._tokens(inputs["tokens"])
         B, S = tokens.shape
         x = F.embedding(tokens, self.embed)
         pos1 = start_pos + torch.arange(S, device=self.device)
-        positions = pos1.expand(B, S)
-        for si, sc in enumerate(cache["segments"]):
-            x = tf.stack_prefill(self._segment_params(si), self.cfg,
-                                 self.segment_specs[si], x, positions, sc,
-                                 start_pos)
+        return x, pos1.expand(B, S), start_pos + self.cfg.n_meta_tokens
+
+    @torch.no_grad()
+    def prefill_stream_group(self, x, positions, cache_group, eff_start: int,
+                             *, si: int, lo: int, hi: int):
+        """Layers ``[lo:hi)`` of segment ``si`` on ``x``, over that
+        segment's parameters cut to those layers and ``cache_group``, its
+        cache leaves cut to them (updated in place). Returns ``(x,
+        cache_group)``."""
+        sp = {group: {name: t[lo:hi] for name, t in ps.items()}
+              for group, ps in self.segments[si].items()}
+        spec = self.segment_specs[si]._replace(n_layers=hi - lo)
+        x = tf.stack_prefill(sp, self.cfg, spec, x, positions, cache_group,
+                             eff_start)
+        return x, cache_group
+
+    @torch.no_grad()
+    def prefill_stream_head(self, x, last_index: Optional[int] = None):
+        """Last-token logits ``[B, V]`` fp32 (or those at ``last_index``)."""
         last = x[:, -1:] if last_index is None else \
             x[:, last_index:last_index + 1]
-        return self._head(last)[:, 0], cache
+        return self._head(last)[:, 0]
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos: int):

@@ -6,6 +6,10 @@ Counterpart of ``repro.serving.engine.InferenceEngine``:
   * ``resume(inputs, cache, n_prefix)``  — continue from a downloaded
                                            prefix (Cases 2-4)
   * ``adopt(cache, n_tokens, logits)``   — full hit (Case 5): no compute
+  * ``resume_streamed(inputs, n_prefix, groups, template)``
+                                         — a resume run one layer group at
+                                           a time, as the groups' cache
+                                           chunks land
   * ``generate(state, n, sampler)``      — greedy decode loop
 
 Prefill inputs of a dense or MLA model are padded to power-of-two
@@ -21,9 +25,10 @@ its state (the reference pads it; ROADMAP Queue 3).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Iterable, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import clock
 from repro_torch.serving.sampler import greedy
@@ -84,6 +89,59 @@ class InferenceEngine:
         """Full hit: adopt a downloaded state with no model execution."""
         return EngineState(cache=cache, pos=n_tokens, last_logits=logits)
 
+    def resume_streamed(self, inputs, n_prefix: int,
+                        groups: Iterable[Tuple[int, int, int, Any]],
+                        template) -> EngineState:
+        """A resume from a prefix of ``n_prefix`` tokens that runs the
+        suffix one layer group at a time, as the groups' cache chunks land.
+
+        ``groups`` yields ``(si, lo, hi, cache_group)`` in compute order
+        (segment by segment, ascending layers, together covering every
+        layer), typically from a generator that blocks on a
+        :class:`~repro_torch.core.state_io.ChunkedRestorer`: layers
+        ``[lo:hi)`` of segment ``si`` run while the chunks of later layers
+        are still arriving. ``cache_group`` holds that segment's leaves cut
+        to those layers, views of ``template`` with the stored prefix
+        already in them; the layers write the suffix into them in place,
+        so the state's cache is ``template`` itself. A group out of order,
+        or a stream that ends before every layer ran, raises ``ValueError``.
+        The input is padded as :meth:`resume` pads it. ``prefill_wall`` is
+        the compute alone (the device synchronised after each group);
+        ``stream_wall`` the whole call, waits for chunks included."""
+        model = self.model
+        t0 = clock.monotonic()
+        padded, true_n = self._pad_inputs(inputs, n_prefix)
+        specs = model.segment_specs
+        compute = 0.0
+        tc = clock.monotonic()
+        x, positions, eff_start = model.prefill_stream_embed(padded, n_prefix)
+        _sync(x)
+        compute += clock.monotonic() - tc
+        next_layer = [0] * len(specs)
+        for si, lo, hi, cache_group in groups:
+            if not 0 <= si < len(specs) or lo != next_layer[si] or \
+                    not lo <= hi <= specs[si].n_layers:
+                raise ValueError(f"stream group (segment {si}, layers "
+                                 f"{lo}:{hi}) out of order")
+            tc = clock.monotonic()
+            x, _ = model.prefill_stream_group(x, positions, cache_group,
+                                              eff_start, si=si, lo=lo, hi=hi)
+            _sync(x)
+            compute += clock.monotonic() - tc
+            next_layer[si] = hi
+        for si, spec in enumerate(specs):
+            if next_layer[si] != spec.n_layers:
+                raise ValueError(f"stream ended with segment {si} at layer "
+                                 f"{next_layer[si]}/{spec.n_layers}")
+        tc = clock.monotonic()
+        logits = model.prefill_stream_head(x, true_n - 1).cpu().numpy()
+        compute += clock.monotonic() - tc
+        st = EngineState(cache=template, pos=n_prefix + true_n,
+                         last_logits=logits)
+        st.timings["prefill_wall"] = compute
+        st.timings["stream_wall"] = clock.monotonic() - t0
+        return st
+
     def _run_prefill(self, inputs, cache, start_pos, *, resume):
         t0 = clock.monotonic()
         padded, true_n = self._pad_inputs(inputs, start_pos)
@@ -116,3 +174,10 @@ class InferenceEngine:
             logits = self.decode_one(st, tok[:, None])
         st.timings["decode_wall"] = clock.monotonic() - t0
         return np.stack(out, axis=1)
+
+
+def _sync(t: torch.Tensor) -> None:
+    """Wait for the device work behind ``t`` (nothing to wait for on the
+    CPU)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and nothing of the JAX package, and its
-entry points run on the card unless told otherwise."""
+"""The port stands alone: no module of it imports JAX, msgpack or
+anything of the JAX package, and its entry points run on the card unless
+told otherwise."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-BANNED = ("jax", "jaxlib", "repro")
+BANNED = ("jax", "jaxlib", "msgpack", "repro")
 
 
 def _port_files():

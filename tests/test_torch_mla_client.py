@@ -116,14 +116,25 @@ def test_range_blobs_are_cut_latents_with_empty_moe_leaves(world):
                               model.init_cache(1, MAX_LEN))
     resumed = 0
     for key in p_a.keys(a.meta):
-        payload = state_io.parse_state(server.get(key.digest), a.meta)
-        leaves = {d["path"]: d for d in payload["leaves"]}
+        blob = server.get(key.digest)
+        assert state_io.is_chunked(blob)
+        payload = state_io.parse_state(blob, a.meta)
+        pieces = _pieces(payload)
         n = key.n_tokens
-        assert leaves["segments/0/ckv"]["shape"] == [2, 1, n, 512]
-        assert leaves["segments/0/krope"]["shape"] == [2, 1, n, 64]
         for leaf, w in (("ckv", 512), ("krope", 64)):
-            d = leaves[f"segments/1/{leaf}"]
-            assert d["shape"] == [0, 1, n, w] and len(d["data"]) == 0
+            # the layers' latents, cut to n positions in bands
+            got = pieces[f"segments/0/{leaf}"]
+            for lo in (0, 1):
+                bands = sorted((off, shape) for glo, _, off, shape in got
+                               if glo == lo)
+                assert [off for off, _ in bands] == \
+                    [0] + list(np.cumsum([s[2] for _, s in bands])[:-1])
+                assert sum(s[2] for _, s in bands) == n
+                assert all(s[:2] == [1, 1] and s[3] == w for _, s in bands)
+            # the empty segment: one empty piece in a lo = hi = 0 group
+            (lo, hi, off, shape), = pieces[f"segments/1/{leaf}"]
+            assert (lo, hi, off) == (0, 0, 0) and shape[0] == 0 \
+                and shape[3] == w
         assert (payload["logits"] is not None) == (n == toks_a.shape[1])
         cache, n_eff, _ = state_io.restore_state(payload, eng.new_cache())
         assert n_eff == n
@@ -136,37 +147,73 @@ def test_range_blobs_are_cut_latents_with_empty_moe_leaves(world):
     assert resumed > 0
 
 
+def _pieces(payload):
+    """path -> [(lo, hi, off, shape)] of a PC3 payload's stored pieces."""
+    out = {}
+    for man in payload["_restorer"].header["chunks"]:
+        for ent in man["pieces"]:
+            out.setdefault(ent["path"], []).append(
+                (man["lo"], man["hi"], ent["off"], ent["shape"]))
+    return out
+
+
 def test_port_blob_of_the_cut_resumes_in_the_reference(world):
-    """Port prefill -> v2 blob (with the empty segment) -> the reference's
+    """Port prefill -> PC3 container (its empty segment as one lo = hi = 0
+    chunk of empty pieces), and the v2 blob too -> the reference's
     parse_state + restore_state -> the reference's resume equals the
-    port's cold prefill; the reference cannot write this blob itself."""
+    port's cold prefill. The reference's v2 writer cannot write this
+    blob, and it cannot restore the PC3 blob it writes itself."""
     jm, jp, model, _ = world
     meta = model_meta(model.cfg, "float32")
     toks = np.random.default_rng(2).integers(3, 512, (1, 40)).astype(
         np.int32)
     lg, pre = model.prefill({"tokens": toks[:, :25]},
                             model.init_cache(1, 64))
-    blob = state_io.extract_state(pre, 25, meta, logits=lg.numpy())
-    jcache, n_eff, jlogits = jax_state_io.restore_state(
-        jax_state_io.parse_state(blob, meta), jm.init_cache(1, 64))
-    assert n_eff == 25
-    np.testing.assert_allclose(jlogits, lg.numpy(), rtol=2 ** -11, atol=TOL)
-    assert jcache["segments"][1]["ckv"].shape == (0, 1, 64, 512)
-    jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, 25:])}, jcache,
-                       25, resume=True)
     cold, _ = model.prefill({"tokens": toks}, model.init_cache(1, 64))
-    np.testing.assert_allclose(cold.numpy(), np.asarray(jl), atol=TOL,
-                               rtol=TOL)
-    # the reference's own writer fails on the zero-size leaves
+    pc3 = state_io.pack_container(state_io.extract_state_chunks(
+        pre, 25, meta, logits=lg.numpy()))
+    v2 = state_io.extract_state(pre, 25, meta, logits=lg.numpy())
+    for blob in (pc3, v2):
+        jcache, n_eff, jlogits = jax_state_io.restore_state(
+            jax_state_io.parse_state(blob, meta), jm.init_cache(1, 64))
+        assert n_eff == 25
+        np.testing.assert_allclose(jlogits, lg.numpy(), rtol=2 ** -11,
+                                   atol=TOL)
+        assert jcache["segments"][1]["ckv"].shape == (0, 1, 64, 512)
+        jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, 25:])},
+                           jcache, 25, resume=True)
+        np.testing.assert_allclose(cold.numpy(), np.asarray(jl), atol=TOL,
+                                   rtol=TOL)
+    # the reference's own writers: v2 fails on the zero-size leaves; PC3
+    # writes no chunk for them, and its reader then refuses the blob
     jpre = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :25])},
                       jm.init_cache(1, 64))[1]
     with pytest.raises((TypeError, ValueError)):
         jax_state_io.extract_state(jpre, 25, meta, codec="zlib")
+    jpc3 = jax_state_io.pack_container(jax_state_io.extract_state_chunks(
+        jpre, 25, meta))
+    with pytest.raises(jax_state_io.ChunkError, match="missing leaves"):
+        jax_state_io.restore_state(jax_state_io.parse_state(jpc3, meta),
+                                   jm.init_cache(1, 64))
+    # on the same cache, every chunk but the empty segment's is the
+    # reference's, byte for byte, and that one comes last
+    same = {"segments": [{k: torch.from_numpy(np.array(v))
+                          for k, v in seg.items()}
+                         for seg in jpre["segments"]]}
+    mine = state_io.extract_state_chunks(same, 25, meta)
+    ref = jax_state_io.extract_state_chunks(jpre, 25, meta)
+    assert mine[1:-1] == ref[1:]
+    mans = state_io.parse_state(state_io.pack_container(mine), meta)[
+        "_restorer"].header["chunks"]
+    assert mans[:-1] == jax_state_io.parse_state(
+        jax_state_io.pack_container(ref), meta)["_restorer"].header["chunks"]
+    assert (mans[-1]["seg"], mans[-1]["lo"], mans[-1]["hi"]) == \
+        ("segments/1", 0, 0)
 
 
 def test_bf16_blob_of_the_cut_reads_back_bit_for_bit(world):
-    """A bf16 latent cache with its empty segment: the port and the
-    reference read the same bits back."""
+    """A bf16 latent cache with its empty segment, as a v2 blob and as a
+    PC3 container: the port and the reference read the same bits back."""
     jm, _, model, _ = world
     cfg = model.cfg
     template = Model(cfg, dtype=torch.bfloat16, device="cpu",
@@ -177,22 +224,24 @@ def test_bf16_blob_of_the_cut_reads_back_bit_for_bit(world):
             t.copy_(torch.from_numpy(
                 rng.normal(size=tuple(t.shape)).astype(np.float32)))
     meta = model_meta(cfg, "bfloat16")
-    blob = state_io.extract_state(template, 9, meta)
-    fresh = Model(cfg, dtype=torch.bfloat16, device="cpu",
-                  seed=None).init_cache(1, 16)
-    back, _, _ = state_io.restore_state(state_io.parse_state(blob, meta),
-                                        fresh)
-    jback, _, _ = jax_state_io.restore_state(
-        jax_state_io.parse_state(blob, meta),
-        jm.init_cache(1, 16, dtype=jnp.bfloat16))
-    for si, seg in enumerate(template["segments"]):
-        for leaf, t in seg.items():
-            got = back["segments"][si][leaf]
-            assert got.dtype == torch.bfloat16
-            assert torch.equal(got[:, :, :9], t[:, :, :9])
-            assert torch.count_nonzero(got[:, :, 9:]) == 0
-            j = np.asarray(jback["segments"][si][leaf])
-            assert j.shape == tuple(t.shape)
-            np.testing.assert_array_equal(
-                j[:, :, :9].view(np.int16),
-                t[:, :, :9].contiguous().view(torch.int16).numpy())
+    for blob in (state_io.extract_state(template, 9, meta),
+                 state_io.pack_container(state_io.extract_state_chunks(
+                     template, 9, meta))):
+        fresh = Model(cfg, dtype=torch.bfloat16, device="cpu",
+                      seed=None).init_cache(1, 16)
+        back, _, _ = state_io.restore_state(
+            state_io.parse_state(blob, meta), fresh)
+        jback, _, _ = jax_state_io.restore_state(
+            jax_state_io.parse_state(blob, meta),
+            jm.init_cache(1, 16, dtype=jnp.bfloat16))
+        for si, seg in enumerate(template["segments"]):
+            for leaf, t in seg.items():
+                got = back["segments"][si][leaf]
+                assert got.dtype == torch.bfloat16
+                assert torch.equal(got[:, :, :9], t[:, :, :9])
+                assert torch.count_nonzero(got[:, :, 9:]) == 0
+                j = np.asarray(jback["segments"][si][leaf])
+                assert j.shape == tuple(t.shape)
+                np.testing.assert_array_equal(
+                    j[:, :, :9].view(np.int16),
+                    t[:, :, :9].contiguous().view(torch.int16).numpy())

@@ -101,6 +101,7 @@ def test_range_blobs_hold_their_own_state_and_logits(world):
     eng = InferenceEngine(model, max_len=MAX_LEN)
     for key in p_a.keys(a.meta):
         blob = server.get(key.digest)
+        assert state_io.is_chunked(blob)
         cache, n_eff, logits = state_io.restore_state(
             state_io.parse_state(blob, a.meta), eng.new_cache())
         cold_logits, cold_cache = _cold(model, toks_a[:, :key.n_tokens])
@@ -258,3 +259,36 @@ def test_bf16_cache_blob_keeps_its_fp32_state():
     conv = np.asarray(jback["segments"][0]["conv"])
     assert np.array_equal(conv.view(np.int16),
                           tc["segments"][0]["conv"].view(torch.int16).numpy())
+
+
+def test_bf16_resume_gap_matches_the_reference():
+    """bf16 on full-width mamba2-780m cut to 4 layers, same params and
+    prompt (284 tokens, 253 of them a restored prefix): the resumed-vs-
+    cold max |logit| gap is bf16 rounding, and the port's equals the
+    reference's within a factor of 2 (both 0.03125 here; 0.0156 at 2
+    layers and ~0.05 at 8 layers in each package, so it grows with depth:
+    the card's 48-layer gap is not a fault of the port)."""
+    jcfg = jax_get_config("mamba2-780m").replace(n_layers=4)
+    jm = JaxModel(jcfg, dtype=jnp.bfloat16)
+    jp = jm.init(jax.random.PRNGKey(0))
+    model = Model(get_config("mamba2-780m").replace(n_layers=4),
+                  dtype=torch.bfloat16, device="cpu", seed=None)
+    model.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jp)))
+    toks = np.random.default_rng(0).integers(3, jcfg.vocab, (1, 284)).astype(
+        np.int32)
+    n, V = 253, jcfg.vocab
+    jl_cold, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)},
+                            jm.init_cache(1, 512))
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :n])},
+                       jm.init_cache(1, 512))
+    jl_res, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, n:])}, jc, n,
+                           resume=True)
+    gap_ref = float(np.abs(np.asarray(jl_res)[:, :V]
+                           - np.asarray(jl_cold)[:, :V]).max())
+    tl_cold, _ = model.prefill({"tokens": toks}, model.init_cache(1, 512))
+    _, tc = model.prefill({"tokens": toks[:, :n]}, model.init_cache(1, 512))
+    tl_res, _ = model.prefill({"tokens": toks[:, n:]}, tc, n, resume=True)
+    gap_port = float((tl_res[:, :V] - tl_cold[:, :V]).abs().max())
+    assert 0 < gap_ref < 0.25 and 0 < gap_port < 0.25
+    assert gap_port <= 2 * gap_ref and gap_ref <= 2 * gap_port, \
+        (gap_port, gap_ref)

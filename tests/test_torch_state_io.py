@@ -151,12 +151,22 @@ def test_meta_hash_mismatch_is_refused(world):
         jax_state_io.parse_state(blob, other)
 
 
-def test_unsupported_containers_raise(world):
+def test_unsupported_containers_raise(world, monkeypatch):
+    """A ZST blob where zstandard does not import, and a corrupt PC3
+    container, raise ValueError (ChunkError for PC3): the client's miss."""
     cfg, je, te, meta, toks = world
+    st = te.start({"tokens": toks[:, :20]})
+    zst = state_io.pack_container(state_io.extract_state_chunks(
+        st.cache, 20, meta, codec="zstd")) if state_io.zstd else None
+    monkeypatch.setattr(state_io, "zstd", None)
     with pytest.raises(ValueError, match="zstd"):
         state_io.parse_state(b"ZST" + b"\0" * 8, meta)
-    with pytest.raises(NotImplementedError, match="PC3"):
-        state_io.parse_state(b"PC3" + b"\0" * 8, meta)
+    if zst is not None:
+        with pytest.raises(ValueError, match="zstd"):
+            state_io.parse_state(zst, meta)
+    for bad in (b"PC3" + b"\0" * 8, b"PC3", b"PC3\x91\xc4\x03abc"):
+        with pytest.raises(state_io.ChunkError):
+            state_io.parse_state(bad, meta)
 
 
 def test_restore_refuses_a_prefix_longer_than_the_cache(world):
