@@ -17,6 +17,9 @@ lengths in every run. It
    (a yardstick the port never calls; for a prefill from position 0 also
    with ``is_causal``, and the faster of the two counts), beside the least
    time the card could take, with the prefill's TFLOP/s and share of it;
+   flash_prefill also at B=4 (the batched prefill), and the two decode
+   kernels with one kv_len a row read from device memory (four slots of
+   0, 1, 300 and 1024 keys, with and without a window);
 4. runs the paper's edge request on full-width gemma3-270m, on full-width,
    full-depth mamba2-780m and on full-width deepseek-v3-671b cut to its
    three dense MLA layers (random weights from a seed), each in bf16 and
@@ -39,7 +42,14 @@ lengths in every run. It
    alone (its device time and its attention kernel's share), and checks the
    card's fp32 logits against the same model on the CPU (mamba2-780m cut
    to 4 layers there, deepseek-v3-671b to 1);
-6. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
+6. serves 8 requests over a pool of 4 slots (``BatchedEngine`` and the
+   continuous-batching ``Scheduler``) on each of those models and on
+   full-width, full-depth gemma3-1b, in bf16 and fp32: prompts cut to
+   mixed lengths, so slots decode at their own positions and recycle; fp32
+   tokens must equal sequential runs; it prints tokens/s, TTFT and TTLT
+   percentiles and decode ms per step at B=1 and B=4, and checks that a
+   decode step launches the decode kernel once a layer;
+7. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. It needs the card and the repository beside it.
@@ -67,11 +77,21 @@ MLA_PREFILL = dict(H=128, KV=128, dh=192, dv=128)
 # mla_decode at deepseek-v3's widths: (kv_len, window) over a 1024 cache
 MLA_H, MLA_R, MLA_DR, MLA_SCALE = 128, 512, 64, 1.0 / 192 ** 0.5
 MLA_DECODE_CASES = [(1, None), (300, None), (1024, None), (700, 256)]
+# the decode kernels with one kv_len a row: four slots at their own
+# positions (a row of 0 keys among them), with and without a window
+ROW_KV_LENS, ROW_WINDOWS = [0, 1, 300, 1024], [None, 256]
+PREFILL_BATCH = 4                  # flash_prefill as the batched prefill runs it
 # ssd_scan at mamba2-780m's widths: (S, random h0); chunk 256, one B/C group
 SSD_SHAPES = [(271, False), (48, True), (1024, True)]
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_CHUNK = 48, 64, 128, 1, 256
 SSD_TOL = dict(atol=2e-4, rtol=1e-3)           # tests/test_kernels.py:86-89
 MAX_NEW = 16
+# the batched phase: a pool of BATCH slots serves one request per entry of
+# BATCH_CUTS, its prompt cut to that many tokens (None: the whole prompt)
+BATCH = 4
+BATCH_CUTS = [None, 64, 200, None, 128, 250, None, 96]
+BATCH_DOMAINS = ["astronomy", "virology", "anatomy", "nutrition"]
+DECODE_STEPS = 20                  # timed decode_batch steps at B=1 and B=4
 SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill.py:84"),
@@ -82,10 +102,15 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
     "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
                    "src/repro/kernels/mla_decode.py:25"),
 }
-# the configurations the paths run, with the depth each is cut to (None:
-# the config's own) and the depth of the CPU cross-check
-PATHS = [("gemma3-270m", None, None), ("mamba2-780m", None, 4),
-         ("deepseek-v3-671b", 3, 1)]
+# the configurations the paths run: the depth each is cut to (None: the
+# config's own), the depth of the CPU cross-check, whether the edge request
+# runs on it, and the depth of its batched phase (every configuration runs
+# one; mamba2-780m's is cut to keep the script's time: its full-depth
+# decode and one-at-a-time prefills cost ~25 s more in both dtypes)
+PATHS = [("gemma3-270m", None, None, True, None),
+         ("mamba2-780m", None, 4, True, 8),
+         ("deepseek-v3-671b", 3, 1, True, None),
+         ("gemma3-1b", None, None, False, None)]
 
 
 def device_line():
@@ -206,9 +231,9 @@ def device_ms(fn, iters=20, windows=3):
     return statistics.median(times)
 
 
-def kernels_per_call(fn, iters=5):
-    """CUDA kernels one call of ``fn`` launches, from the profiler's device
-    rows over ``iters`` calls (0 if the profiler recorded none)."""
+def profile_call(fn, iters=5):
+    """(CUDA kernels, device ms) of one call of ``fn``, from the profiler's
+    device rows over ``iters`` calls (0 if the profiler recorded none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -218,7 +243,14 @@ def kernels_per_call(fn, iters=5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in _device_rows(prof)) / iters
+    rows = _device_rows(prof)
+    return (sum(e.count for e in rows) / iters,
+            sum(_dev_us(e) for e in rows) / iters / 1e3)
+
+
+def kernels_per_call(fn, iters=5):
+    """CUDA kernels one call of ``fn`` launches (profiler device rows)."""
+    return profile_call(fn, iters)[0]
 
 
 def bound(nbytes, flops, dtype):
@@ -234,8 +266,9 @@ def _err(out, ref, atol, rtol):
             torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol))
 
 
-def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag):
-    """flash_prefill against its plain version over a [1, cache_len, KV, .]
+def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
+                   B=1):
+    """flash_prefill against its plain version over a [B, cache_len, KV, .]
     cache, at each (Sq, q_offset) with kv_len = q_offset + Sq. Returns
     {(Sq, q_offset): row}."""
     import torch
@@ -243,12 +276,12 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag):
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_plain)
     dev = torch.device("cuda")
-    k = torch.randn((1, cache_len, KV, dh), generator=gen).to(dev, dt)
-    v = torch.randn((1, cache_len, KV, dv), generator=gen).to(dev, dt)
+    k = torch.randn((B, cache_len, KV, dh), generator=gen).to(dev, dt)
+    v = torch.randn((B, cache_len, KV, dv), generator=gen).to(dev, dt)
     es = k.element_size()
     rows = {}
     for sq, off in shapes:
-        q = torch.randn((1, sq, H, dh), generator=gen).to(dev, dt)
+        q = torch.randn((B, sq, H, dh), generator=gen).to(dev, dt)
         kv_len = off + sq
         args = dict(q_offset=off, kv_len=kv_len)
         err, ok = _err(flash_prefill(q, k, v, **args),
@@ -273,10 +306,10 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag):
         lib_name = min(libs, key=libs.get)
         lib_ms = libs[lib_name]
         pairs = sum(min(kv_len, off + i + 1) for i in range(sq))
-        nbytes = es * (q.numel() + sq * H * dv + kv_len * KV * (dh + dv))
-        flops = 2 * (dh + dv) * H * pairs
+        nbytes = es * B * (sq * H * (dh + dv) + kv_len * KV * (dh + dv))
+        flops = 2 * (dh + dv) * H * pairs * B
         b_ms, b_by = bound(nbytes, flops, dname)
-        print(f"flash_prefill {tag} {dname} Sq={sq} q_offset={off} "
+        print(f"flash_prefill {tag} {dname} B={B} Sq={sq} q_offset={off} "
               f"kv_len={kv_len}: max_abs_err={err:.3g} (tol {TOL[dname]}) "
               f"device ms: kernel {ms:.4f} plain {plain_ms:.4f} "
               + " ".join(f"{n} {t:.4f}" for n, t in libs.items())
@@ -285,8 +318,8 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag):
               f"best library call ({lib_name}); kernel call {call_ms:.4f} ms"
               f" (events)")
         if not ok:
-            raise AssertionError(f"flash_prefill {tag} {dname} Sq={sq} "
-                                 f"off={off}: max err {err}")
+            raise AssertionError(f"flash_prefill {tag} {dname} B={B} "
+                                 f"Sq={sq} off={off}: max err {err}")
         rows[(sq, off)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                library_ms=lib_ms, bound_ms=b_ms,
                                bound_by=b_by)
@@ -319,6 +352,11 @@ def kernel_checks():
             if dname == "bfloat16" and geo["dh"] == DH:
                 r.update({k: v for k, v in got[(512, 0)].items()
                           if k != "max_abs_err"})
+            # the batched fresh prefill: B rows from position 0
+            got = prefill_checks(dname, dt, gen, **geo, cache_len=cache_len,
+                                 shapes=PREFILL_SHAPES[:1], tag=tag,
+                                 B=PREFILL_BATCH)
+            r["max_abs_err"] = max(r["max_abs_err"], got[(512, 0)]["max_abs_err"])
         k = torch.randn((1, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
         v = torch.randn((1, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
         es = k.element_size()
@@ -350,7 +388,52 @@ def kernel_checks():
             if dname == "bfloat16" and kv_len == 300:
                 r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
+        r = rows["flash_decode"]
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               decode_rows_check(dname, dt, gen))
     return rows
+
+
+def decode_rows_check(dname, dt, gen):
+    """flash_decode with one kv_len a row, read from device memory: a pool
+    of len(ROW_KV_LENS) slots at (256, 256) against the plain version, with
+    and without a window. Returns the largest error."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain,
+                                                  live_mask)
+    dev = torch.device("cuda")
+    B = len(ROW_KV_LENS)
+    k = torch.randn((B, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
+    v = torch.randn((B, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
+    q = torch.randn((B, H, DH), generator=gen).to(dev, dt)
+    lens = torch.tensor(ROW_KV_LENS, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for win in ROW_WINDOWS:
+        args = dict(kv_len=lens, window=win, kv_max=max(ROW_KV_LENS))
+        err, ok = _err(flash_decode(q, k, v, **args),
+                       flash_decode_plain(q, k, v, kv_len=lens, window=win),
+                       TOL[dname], TOL[dname])
+        ms = device_ms(lambda: flash_decode(q, k, v, **args))
+        plain_ms = device_ms(lambda: flash_decode_plain(q, k, v, kv_len=lens,
+                                                        window=win))
+        mask = live_mask(lens, CACHE_LEN, win, dev)[:, None, None, :]
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        live = int(live_mask(lens, CACHE_LEN, win, "cpu").sum())
+        nbytes = k.element_size() * (2 * q.numel() + 2 * live * KV * DH)
+        b_ms, b_by = bound(nbytes, 4 * DH * H * live, dname)
+        print(f"flash_decode {dname} B={B} kv_len per row {ROW_KV_LENS} "
+              f"window={win}: max_abs_err={err:.3g} (tol {TOL[dname]}) "
+              f"device ms: kernel {ms:.4f} plain {plain_ms:.4f} sdpa (mask) "
+              f"{lib_ms:.4f} bound {b_ms:.5f} ({b_by})")
+        if not ok:
+            raise AssertionError(f"flash_decode {dname} per-row kv_len "
+                                 f"window={win}: max err {err}")
+        worst = max(worst, err)
+    return worst
 
 
 def mla_checks():
@@ -410,7 +493,58 @@ def mla_checks():
             if dname == "bfloat16" and kv_len == 300:
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by)
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 mla_rows_check(dname, dt, gen))
     return row
+
+
+def mla_rows_check(dname, dt, gen):
+    """mla_decode with one kv_len a row, read from device memory: a pool of
+    len(ROW_KV_LENS) slots at deepseek-v3's widths against the plain
+    version, with and without a window. Returns the largest error."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import live_mask
+    from repro_torch.kernels.mla_decode import mla_decode, mla_decode_plain
+    dev = torch.device("cuda")
+    B = len(ROW_KV_LENS)
+    ckv, krope = (torch.randn((B, CACHE_LEN, w), generator=gen).to(dev, dt)
+                  for w in (MLA_R, MLA_DR))
+    q_lat, q_rope = (torch.randn((B, MLA_H, w), generator=gen).to(dev, dt)
+                     for w in (MLA_R, MLA_DR))
+    lens = torch.tensor(ROW_KV_LENS, dtype=torch.int32, device=dev)
+    qs = torch.cat([q_lat, q_rope], -1)[:, :, None]
+    ks = torch.cat([ckv, krope], -1)[:, None]
+    worst = 0.0
+    for win in ROW_WINDOWS:
+        args = dict(kv_len=lens, window=win, scale=MLA_SCALE)
+        err, ok = _err(
+            mla_decode(q_lat, q_rope, ckv, krope, kv_max=max(ROW_KV_LENS),
+                       **args),
+            mla_decode_plain(q_lat, q_rope, ckv, krope, **args),
+            TOL[dname], TOL[dname])
+        ms = device_ms(lambda: mla_decode(q_lat, q_rope, ckv, krope,
+                                          kv_max=max(ROW_KV_LENS), **args))
+        plain_ms = device_ms(lambda: mla_decode_plain(q_lat, q_rope, ckv,
+                                                      krope, **args))
+        mask = live_mask(lens, CACHE_LEN, win, dev)[:, None, None, :]
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, ckv[:, None], attn_mask=mask, scale=MLA_SCALE,
+            enable_gqa=True))
+        live = int(live_mask(lens, CACHE_LEN, win, "cpu").sum())
+        nbytes = ckv.element_size() * (B * MLA_H * (2 * MLA_R + MLA_DR)
+                                       + live * (MLA_R + MLA_DR))
+        flops = MLA_H * live * (2 * (MLA_R + MLA_DR) + 2 * MLA_R)
+        b_ms, b_by = bound(nbytes, flops, dname)
+        print(f"mla_decode {dname} B={B} H={MLA_H} kv_len per row "
+              f"{ROW_KV_LENS} window={win}: max_abs_err={err:.3g} (tol "
+              f"{TOL[dname]}) device ms: kernel {ms:.4f} plain {plain_ms:.4f}"
+              f" sdpa (mask) {lib_ms:.4f} bound {b_ms:.5f} ({b_by})")
+        if not ok:
+            raise AssertionError(f"mla_decode {dname} per-row kv_len "
+                                 f"window={win}: max err {err}")
+        worst = max(worst, err)
+    return worst
 
 
 def ssd_inputs(S, dtype, random_h0, gen):
@@ -705,6 +839,129 @@ def edge_path(model, label, expect, max_len=1024):
     return launches, str_launches, p_a, p_b
 
 
+def batched_path(model, label, max_len=1024):
+    """Continuous batching: ``BatchedEngine(batch_size=BATCH)`` and the
+    ``Scheduler`` serve one request per entry of BATCH_CUTS (MMLU-style
+    prompts, some cut, so that slots sit at different positions and
+    recycle), MAX_NEW tokens each. The counts are set to 0 just before the
+    run and read just after: each decode step launches the decode kernel
+    once a layer, the prefills launch flash_prefill once a layer per
+    batched prefill (an SSM: ssd_scan once a layer per request, each
+    prompt prefilled alone at its exact length). The tokens are held
+    against sequential ``InferenceEngine`` runs (equal in fp32, counted in
+    bf16). Then one decode_batch step's launches, and decode ms per step
+    at B=1 and B=BATCH. Returns the run's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import clock
+    from repro_torch.data.mmlu import MMLUGenerator
+    from repro_torch.data.tokenizer import WordHashTokenizer
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.serving.engine import BatchedEngine, InferenceEngine
+    from repro_torch.serving.scheduler import Request, Scheduler
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    kernels = (flash_prefill, flash_decode, ssd_scan, mla_decode)
+    decode_k = None if model.has_recurrent_state else \
+        mla_decode if cfg.uses_mla else flash_decode
+    gen = MMLUGenerator(WordHashTokenizer(cfg.vocab), n_shot=5)
+    prompts = []
+    for i, cut_to in enumerate(BATCH_CUTS):
+        toks = np.asarray(gen.prompt(BATCH_DOMAINS[i % len(BATCH_DOMAINS)],
+                                     i).segments.token_ids, np.int32)
+        prompts.append(toks[:cut_to])
+    eng = BatchedEngine(model, max_len, BATCH)
+    Scheduler(eng).run([Request(tokens=p, max_new_tokens=2)       # warm-up
+                        for p in prompts[:BATCH]])
+    torch.cuda.synchronize()
+
+    for k in kernels:
+        k.launches = 0
+    sched = Scheduler(eng)
+    stats = sched.run([Request(tokens=p, max_new_tokens=MAX_NEW)
+                       for p in prompts])
+    launches = {k.__name__: k.launches for k in kernels}
+    rep = sched.report()
+    outs = [stats[i].output_tokens for i in range(len(prompts))]
+
+    single = InferenceEngine(model, max_len=max_len)
+    for p in prompts:              # warm-up: each prompt's shapes once
+        single.generate(single.start({"tokens": p[None]}), 1)
+    torch.cuda.synchronize()
+    t0 = clock.monotonic()
+    seq = [single.generate(single.start({"tokens": p[None]}),
+                           MAX_NEW)[0].tolist() for p in prompts]
+    seq_s = clock.monotonic() - t0
+    agree = [sum(x == y for x, y in zip(a, b)) for a, b in zip(outs, seq)]
+    print(f"[{label}] batched: {len(prompts)} requests over {BATCH} slots, "
+          f"prompts {[len(p) for p in prompts]} tokens, {MAX_NEW} new each;"
+          f" {sched.n_steps} decode steps, wall {rep.wall_s * 1e3:.2f} ms, "
+          f"{rep.throughput_tok_s:.1f} tokens/s (sequential engine: "
+          f"{len(prompts) * MAX_NEW / seq_s:.1f} tokens/s, "
+          f"{seq_s * 1e3:.2f} ms); TTFT p50/p90/p99 "
+          f"{rep.ttft_p50 * 1e3:.2f}/{rep.ttft_p90 * 1e3:.2f}/"
+          f"{rep.ttft_p99 * 1e3:.2f} ms, TTLT p50/p99 "
+          f"{rep.latency_p50 * 1e3:.2f}/{rep.latency_p99 * 1e3:.2f} ms, "
+          f"queue wait p50 {rep.queue_wait_p50 * 1e3:.2f} ms")
+    print(f"[{label}] batched tokens agreeing with sequential runs, of "
+          f"{MAX_NEW} a request: {agree}; launches {launches}")
+    well_formed = all(len(o) == MAX_NEW and all(0 <= t < cfg.vocab
+                                                for t in o) for o in outs)
+    if not well_formed or rep.n_requests != len(prompts):
+        raise AssertionError(f"[{label}] batched outputs malformed")
+    if model.dtype == torch.float32 and outs != seq:
+        raise AssertionError(f"[{label}] batched tokens differ from "
+                             f"sequential runs: {agree}")
+    if decode_k is None:
+        want = {"ssd_scan": len(prompts) * L}
+    else:
+        want = {decode_k.__name__: sched.n_steps * L}
+        n_pre = launches["flash_prefill"]
+        if n_pre <= 0 or n_pre % L:
+            raise AssertionError(f"[{label}] flash_prefill launched {n_pre}"
+                                 f" times, not a multiple of {L} layers")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"[{label}] {name} launched "
+                                 f"{launches[name]} times, the run needs {n}")
+
+    def step_ms(B):
+        """Median wall ms of a decode_batch step of B slots (the logits
+        reach the host each step), the decode launches of one step, and
+        one step's CUDA kernels and device ms (profiler)."""
+        e = BatchedEngine(model, max_len, B)
+        e.prefill_slots(list(range(B)), prompts[:B])
+        toks = np.full(B, 5, np.int32)
+        for _ in range(3):
+            e.decode_batch(toks)
+        n0 = decode_k.launches if decode_k else 0
+        e.decode_batch(toks)
+        one = (decode_k.launches - n0) if decode_k else 0
+        times = []
+        for _ in range(DECODE_STEPS):
+            t0 = clock.monotonic()
+            e.decode_batch(toks)
+            times.append(clock.monotonic() - t0)
+        n_k, dev_ms = profile_call(lambda: e.decode_batch(toks))
+        return statistics.median(times) * 1e3, one, n_k, dev_ms
+
+    (ms1, one1, k1, d1), (ms4, one4, k4, d4) = step_ms(1), step_ms(BATCH)
+    print(f"[{label}] decode_batch ms per step (median of {DECODE_STEPS}): "
+          f"B=1 {ms1:.2f}, B={BATCH} {ms4:.2f}; one step's CUDA kernels / "
+          f"device ms: B=1 {k1:g} / {d1:.3f}, B={BATCH} {k4:g} / {d4:.3f} "
+          f"(idle share {1 - d1 / ms1:.3f}, {1 - d4 / ms4:.3f}); decode "
+          f"launches in one step: B=1 {one1}, B={BATCH} {one4} ({L} layers)")
+    if decode_k is not None and (one1, one4) != (L, L):
+        raise AssertionError(f"[{label}] one decode step launched "
+                             f"{decode_k.__name__} {one1} / {one4} times, "
+                             f"not once a layer ({L})")
+    return launches
+
+
 def where_time_goes(model, prompt):
     """Device time by kernel over one prefill and 8 decode steps (bf16)."""
     import numpy as np
@@ -771,17 +1028,12 @@ def cpu_cross_check(model_fp32, prompt, n_layers):
     """The first ``n_layers`` of the fp32 model on the card and on the CPU
     (the plain path), on the same prompt: last logits within 1e-4."""
     import numpy as np
-    import torch
-    from repro_torch.models.model import Model
     from repro_torch.serving.engine import InferenceEngine
-    cfg = cut(model_fp32.cfg, n_layers)
-    sd = {k: (t[:n_layers] if k.startswith("segments.") else t)
-          for k, t in model_fp32.state_dict().items()}
     toks = np.asarray(prompt.token_ids, np.int32)[None]
     logits = {}
     for dev in ("cuda", "cpu"):
-        m = Model(cfg, dtype=torch.float32, device=dev, seed=None)
-        m.load_state_dict({k: t.to(dev) for k, t in sd.items()})
+        m = cut_model(model_fp32, n_layers, dev)
+        cfg = m.cfg
         logits[dev] = InferenceEngine(m, max_len=1024).start(
             {"tokens": toks}).last_logits
     err = float(np.abs(logits["cpu"] - logits["cuda"]).max())
@@ -793,6 +1045,18 @@ def cpu_cross_check(model_fp32, prompt, n_layers):
           f"argmax equal {same}")
     if err > 1e-4 or not same:
         raise AssertionError(f"card and CPU disagree: {err}")
+
+
+def cut_model(model, n_layers, device="cuda"):
+    """``model`` cut to its first ``n_layers`` layers (its weights and
+    dtypes) on ``device``."""
+    from repro_torch.models.model import Model
+    m = Model(cut(model.cfg, n_layers), dtype=model.dtype, device=device,
+              seed=None)
+    m.load_state_dict({k: (t[:n_layers] if k.startswith("segments.")
+                           else t).to(device)
+                       for k, t in model.state_dict().items()})
+    return m
 
 
 def cut(cfg, n_layers):
@@ -858,17 +1122,27 @@ def main():
         decode = mla_decode if cfg.uses_mla else flash_decode
         return {flash_prefill: 3 * L, decode: steps * L}
 
-    launches, launches32 = {}, {}
-    for name, n_layers, cross_layers in PATHS:
+    launches = {k: 0 for k in SOURCES}
+    launches32 = dict(launches)
+    for name, n_layers, cross_layers, edge, batched_layers in PATHS:
         m32, m16 = model_pair(name, n_layers)
         expect = needs(m32.cfg)
         for m, total in ((m16, launches), (m32, launches32)):
-            got, streamed, p_a, p_b = edge_path(
-                m, f"{name} {'bf16' if m is m16 else 'fp32'}", expect)
-            for k in got:
-                total[k] = total.get(k, 0) + got[k] + streamed[k]
-        where_time_goes(m16, p_a)
-        cpu_cross_check(m32, p_b, cross_layers or m32.cfg.n_layers)
+            label = f"{name} {'bf16' if m is m16 else 'fp32'}"
+            if edge:
+                got, streamed, p_a, p_b = edge_path(m, label, expect)
+                for k in got:
+                    total[k] += got[k] + streamed[k]
+            if batched_layers:
+                label += (f" at {batched_layers} of {m.cfg.n_layers} layers"
+                          " (cut to keep the script's time)")
+                m = cut_model(m, batched_layers)
+            for k, n in batched_path(m, label).items():
+                total[k] += n
+            del m
+        if edge:
+            where_time_goes(m16, p_a)
+            cpu_cross_check(m32, p_b, cross_layers or m32.cfg.n_layers)
         del m32, m16
         torch.cuda.empty_cache()
 

@@ -1,0 +1,133 @@
+"""Per-request and aggregate (percentile) statistics of the serving layer.
+
+The port's copy of what the scheduler reads from ``repro/core/metrics.py``
+(:163-326): :func:`percentile`, :class:`RequestStats`,
+:class:`TenantStats` and :class:`ServingReport`. The paper's Table-3
+``Breakdown``, the fabric's ``PeerStats`` and
+``ServingReport.from_infer_results`` wait for the client's fabric
+(ROADMAP Queue 1, item 7): ``per_peer`` stays empty here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+
+def percentile(xs: Sequence[float], q: float) -> float:
+    """Linear-interpolated percentile; 0.0 on empty input."""
+    if not len(xs):
+        return 0.0
+    return float(np.percentile(np.asarray(xs, float), q))
+
+
+@dataclass
+class RequestStats:
+    """Wall-clock accounting of one request through the Scheduler."""
+    req_id: int
+    prompt_tokens: int
+    output_tokens: List[int] = field(default_factory=list)
+    submit_t: float = 0.0
+    admit_t: float = 0.0           # when a slot was allocated (prefill start)
+    first_token_t: float = 0.0
+    finish_t: float = 0.0
+    finish_reason: str = ""        # "eos" | "length"
+    tenant: str = ""               # gateway multi-tenancy ("" = untagged)
+
+    @property
+    def ttft(self) -> float:
+        return self.first_token_t - self.submit_t
+
+    @property
+    def queue_wait(self) -> float:
+        return self.admit_t - self.submit_t
+
+    @property
+    def latency(self) -> float:
+        return self.finish_t - self.submit_t
+
+    @property
+    def n_out(self) -> int:
+        return len(self.output_tokens)
+
+
+@dataclass
+class TenantStats:
+    """Per-tenant slice of a serving run (gateway multi-tenancy)."""
+    tenant: str
+    n_requests: int = 0            # completed requests
+    total_output_tokens: int = 0
+    ttft_p50: float = 0.0
+    ttft_p95: float = 0.0
+    latency_p50: float = 0.0
+    latency_p95: float = 0.0
+    shed: int = 0                  # admissions refused (429/503)
+
+    def as_dict(self) -> Dict[str, float]:
+        return dict(self.__dict__)
+
+    @classmethod
+    def from_requests(cls, tenant: str, reqs: Sequence[RequestStats],
+                      shed: int = 0) -> "TenantStats":
+        ttfts = [r.ttft for r in reqs]
+        lats = [r.latency for r in reqs]
+        return cls(tenant=tenant, n_requests=len(reqs),
+                   total_output_tokens=sum(r.n_out for r in reqs),
+                   ttft_p50=percentile(ttfts, 50),
+                   ttft_p95=percentile(ttfts, 95),
+                   latency_p50=percentile(lats, 50),
+                   latency_p95=percentile(lats, 95), shed=shed)
+
+
+@dataclass
+class ServingReport:
+    """Aggregate over a batch of completed requests."""
+    n_requests: int
+    total_output_tokens: int
+    wall_s: float
+    throughput_tok_s: float        # aggregate generated tokens / wall
+    ttft_p50: float
+    ttft_p90: float
+    ttft_p99: float
+    latency_p50: float
+    latency_p99: float
+    queue_wait_p50: float
+    per_peer: Dict[str, object] = field(default_factory=dict)
+    overlap_hidden_s: float = 0.0
+    chunks_down: int = 0
+    per_tenant: Dict[str, TenantStats] = field(default_factory=dict)
+    shed_requests: int = 0
+
+    @classmethod
+    def from_requests(cls, reqs: Sequence[RequestStats], wall_s: float,
+                      shed: Dict[str, int] = None) -> "ServingReport":
+        """``shed`` maps tenant -> admissions refused; shed requests
+        never completed, so they appear only in the shed counters, not
+        the latency percentiles (which cover admitted work)."""
+        shed = dict(shed or {})
+        by_tenant: Dict[str, List[RequestStats]] = {}
+        for r in reqs:
+            by_tenant.setdefault(r.tenant, []).append(r)
+        per_tenant = {}
+        if shed or any(t for t in by_tenant):
+            for t in sorted(set(by_tenant) | set(shed)):
+                per_tenant[t] = TenantStats.from_requests(
+                    t, by_tenant.get(t, ()), shed=shed.get(t, 0))
+        ttfts = [r.ttft for r in reqs]
+        lats = [r.latency for r in reqs]
+        total = sum(r.n_out for r in reqs)
+        return cls(
+            n_requests=len(reqs), total_output_tokens=total, wall_s=wall_s,
+            throughput_tok_s=total / wall_s if wall_s > 0 else 0.0,
+            ttft_p50=percentile(ttfts, 50), ttft_p90=percentile(ttfts, 90),
+            ttft_p99=percentile(ttfts, 99),
+            latency_p50=percentile(lats, 50),
+            latency_p99=percentile(lats, 99),
+            queue_wait_p50=percentile([r.queue_wait for r in reqs], 50),
+            per_tenant=per_tenant, shed_requests=sum(shed.values()))
+
+    def as_dict(self) -> Dict[str, object]:
+        d = dict(self.__dict__)
+        d["per_tenant"] = {k: v.as_dict() for k, v in self.per_tenant.items()}
+        return d

@@ -37,11 +37,11 @@ SIGNATURES = {
         [_c_p] * 4 + [_c_i] * 9 + [_c_i64] * 9
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "flash_decode": (
-        [_c_p] * 8 + [_c_i] * 8 + [_c_i64] * 8
+        [_c_p] * 9 + [_c_i] * 8 + [_c_i64] * 8
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "ssd_scan": [_c_p] * 9 + [_c_i] * 9 + [_c_i64] * 12 + [_c_p],
     "mla_decode": (
-        [_c_p] * 9 + [_c_i] * 11 + [_c_i64] * 8 + [_c_f, _c_p]),
+        [_c_p] * 10 + [_c_i] * 11 + [_c_i64] * 8 + [_c_f, _c_p]),
 }
 
 

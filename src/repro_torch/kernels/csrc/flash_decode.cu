@@ -4,7 +4,10 @@
 // Replaces the TPU kernel src/repro/kernels/flash_decode.py::flash_decode
 // (body _kernel :22, pallas_call :89). For each (b, h) the query attends to
 // keys kpos < kv_len (and kpos > kv_len - 1 - window when a window is set)
-// with an online fp32 softmax; a row with no live key gives 0. The value
+// with an online fp32 softmax; a row with no live key gives 0. kv_len is one
+// value for every row or, read from device memory, one per row (a batch of
+// slots at their own positions: each CTA reads its row's kv_len and window
+// start; a split past its row's live keys leaves an empty partial). The value
 // width dv may differ from the key width dh and the scale may be overridden,
 // as MLA's absorbed decode needs.
 //
@@ -32,7 +35,11 @@
 //    arrival on a per-(b, head group) counter with one acq_rel atomic; the
 //    last CTA to arrive merges the splits in one pass (m, l and acc of
 //    several splits in flight at once, combined online) and resets the
-//    counter to 0. With one split the CTA writes the output directly.
+//    counter to 0. With one split the CTA writes the output directly. An
+//    empty split (m = -inf, l = 0, acc = 0) weighs 0 in the merge, and a
+//    row whose splits are all empty gives 0.
+//  - The grid is planned on the host from an upper bound of the rows'
+//    kv_len (kv_cap), so the same launch serves every row of a batch.
 // The cache is read in place through its strides. m is kept in the log2
 // domain (scale folded into log2 e), so the softmax runs on exp2.
 
@@ -109,8 +116,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
                     float* __restrict__ pm, float* __restrict__ pl,
                     float* __restrict__ pacc, int* __restrict__ counters,
+                    const int* __restrict__ kv_lens,
                     int H, int rep, int nsplit, int chunk,
-                    int kv_start, int kv_end,
+                    int kv_cap, int window,
                     int64_t q_sb, int64_t q_sh,
                     int64_t k_sb, int64_t k_ss, int64_t k_sh,
                     int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -136,6 +144,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int tid = threadIdx.x, lane = tid & 31;
     const int part = tid / HT, htid = tid % HT, hwarp = htid >> 5;
 
+    // this row's live keys [kv_start, kv_end): kv_len from device memory
+    // (never past kv_cap, which the grid covers) or kv_cap for every row
+    const int kv_end = kv_lens ? min(max(__ldg(kv_lens + b), 0), kv_cap) : kv_cap;
+    const int kv_start = window > 0 ? max(0, kv_end - window) : 0;
     const int j0 = kv_start + split * chunk;
     const int j1 = min(j0 + chunk, kv_end);
     const int ntiles = j1 > j0 ? (j1 - j0 + TK - 1) / TK : 0;
@@ -414,7 +426,8 @@ struct Args {
     void* out;
     float *pm, *pl, *pacc;
     int* counters;
-    int B, H, KV, hg, nsplit, chunk, kv_start, kv_end;
+    const int* kv_lens;
+    int B, H, KV, hg, nsplit, chunk, kv_cap, window;
     int64_t st[8];
     float scale;
     cudaStream_t stream;
@@ -431,8 +444,8 @@ cudaError_t launch(const Args& a) {
     dim3 grid(a.nsplit, a.H / HG, a.B);
     kern<<<grid, NT, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out,
-        a.pm, a.pl, a.pacc, a.counters,
-        a.H, a.H / a.KV, a.nsplit, a.chunk, a.kv_start, a.kv_end,
+        a.pm, a.pl, a.pacc, a.counters, a.kv_lens,
+        a.H, a.H / a.KV, a.nsplit, a.chunk, a.kv_cap, a.window,
         a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.st[6], a.st[7],
         a.scale * LOG2E);
     return cudaGetLastError();
@@ -468,22 +481,26 @@ cudaError_t by_width(int dh, int dv, const Args& a) {
 // v [B, Sk, KV, dv], each with a contiguous last axis (strides in elements;
 // k and v rows on 16 bytes). out is a contiguous [B, H, dv]. pm, pl
 // ([B, H, nsplit]) and pacc ([B, H, nsplit, dv]) are fp32 scratch;
-// counters ([B, H / hg] ints) must be 0 and are left 0. Split s covers keys
-// [kv_start + s * chunk, min(kv_start + (s + 1) * chunk, kv_end)); hg query
-// heads (dividing H / KV, at most 4) share a CTA.
+// counters ([B, H / hg] ints) must be 0 and are left 0. Row b's live keys
+// end at kv_end = min(kv_lens[b], kv_cap) when kv_lens (int32 [B] in device
+// memory) is given, else at kv_cap, and start at max(0, kv_end - window)
+// when window > 0, else at 0. Split s covers keys [kv_start + s * chunk,
+// min(kv_start + (s + 1) * chunk, kv_end)), so nsplit * chunk must cover
+// min(kv_cap, window). hg query heads (dividing H / KV, at most 4) share a
+// CTA.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_decode_launch(
     const void* q, const void* k, const void* v, void* out,
-    void* pm, void* pl, void* pacc, void* counters,
+    void* pm, void* pl, void* pacc, void* counters, const void* kv_lens,
     int dtype, int B, int H, int KV, int dh, int dv, int hg, int nsplit,
     int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
-    int chunk, int kv_start, int kv_end, float scale, void* stream) {
+    int chunk, int kv_cap, int window, float scale, void* stream) {
     if (B <= 0 || H <= 0 || KV <= 0 || H % KV || hg <= 0 || (H / KV) % hg ||
-        nsplit <= 0)
+        nsplit <= 0 || chunk <= 0 || kv_cap < 0)
         return cudaErrorInvalidValue;
     Args a{q, k, v, out, (float*)pm, (float*)pl, (float*)pacc, (int*)counters,
-           B, H, KV, hg, nsplit, chunk, kv_start, kv_end,
+           (const int*)kv_lens, B, H, KV, hg, nsplit, chunk, kv_cap, window,
            {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh},
            scale, (cudaStream_t)stream};
     if (dtype == 0) return by_width<float>(dh, dv, a);

@@ -6,9 +6,10 @@
 // k = [ckv; krope] with one kv head and v = ckv. For each (b, h):
 //   o[b,h,:] = softmax_s((q_lat[b,h]·ckv[b,s] + q_rope[b,h]·krope[b,s]) * scale)
 //              · ckv[b,s,:]
-// over keys kv_start <= s < kv_end (the wrapper turns kv_len and the window
-// into that range), with an online fp32 softmax; the output is in q's dtype
-// and a row with no live key gives 0.
+// over keys kv_start <= s < kv_end, with kv_end = kv_len (one value for every
+// row or, read from device memory, one per row) and kv_start the window's
+// start, with an online fp32 softmax; the output is in q's dtype and a row
+// with no live key gives 0.
 //
 // What bounds it on this card: bytes on paper, latency in practice.
 // deepseek-v3 decodes 128 heads against a cache row of 576 values (R = 512
@@ -46,6 +47,13 @@
 //    last CTA of the group merges the splits (the first batch of
 //    accumulators in flight while every split's weight forms) and resets
 //    the counter to 0. With one split the CTA writes the output directly.
+//  - With kv_len per row, the grid is planned from a host bound of the rows'
+//    kv_len. A cluster's CTAs share one row and one split, so they read the
+//    same kv_end and agree on which tiles are live: a split past its row's
+//    keys is left by the whole cluster together, before any mbarrier wait
+//    or cluster barrier (only the set-up barrier, which every CTA passes),
+//    with an empty partial (m = -inf, l = 0, acc = 0) that weighs 0 in the
+//    merge.
 // ckv and krope are read in place through their own pointers and strides
 // (views of the [L, B, S, .] cache), with no concatenation.
 
@@ -148,7 +156,8 @@ struct Args {
     void* out;
     float *pm, *pl, *pacc;
     int* counters;
-    int H, nsplit, chunk, kv_start, kv_end, csize;
+    const int* kv_lens;
+    int H, nsplit, chunk, kv_cap, window, csize;
     int64_t ql_sb, ql_sh, qr_sb, qr_sh, c_sb, c_ss, r_sb, r_ss;
     float scale_log2;
 };
@@ -312,8 +321,13 @@ __global__ void __launch_bounds__(NT) mla_decode_kernel(const Args a) {
     const int rows = max(0, min(HG, a.H - h0));          // live heads of this CTA
     const int rank = (int)cluster_rank();
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int j0 = a.kv_start + split * a.chunk;
-    const int j1 = min(j0 + a.chunk, a.kv_end);
+    // this row's live keys [kv_start, kv_end): kv_len from device memory
+    // (never past kv_cap, which the grid covers) or kv_cap for every row;
+    // the same for every CTA of the cluster (one row, one split)
+    const int kv_end = a.kv_lens ? min(max(__ldg(a.kv_lens + b), 0), a.kv_cap) : a.kv_cap;
+    const int kv_start = a.window > 0 ? max(0, kv_end - a.window) : 0;
+    const int j0 = kv_start + split * a.chunk;
+    const int j1 = min(j0 + a.chunk, kv_end);
     const int ntiles = j1 > j0 ? (j1 - j0 + BK - 1) / BK : 0;
     const T* cb = (const T*)a.ckv + b * a.c_sb;
     const T* rb = (const T*)a.krope + b * a.r_sb;
@@ -713,25 +727,31 @@ cudaError_t by_width(int R, int Dr, const Args& a, int B, int groups, cudaStream
 // ckv (sb, ss), krope (sb, ss)). out is a contiguous [B, H, R]. pm, pl
 // ([B, H, nsplit]) and pacc ([B, H, nsplit, R]) are fp32 scratch; counters
 // ([B, groups] ints) must be 0 and are left 0. groups (a multiple of csize,
-// at least ceil(H / 16)) CTAs of 16 heads form clusters of csize <= 8. Split
-// s (of nsplit <= 64) covers keys [kv_start + s * chunk, min(kv_start + (s +
-// 1) * chunk, kv_end)), chunk a multiple of the tile (64 keys bf16, 32
-// fp32). One launch; returns its cudaError_t (0 on success).
+// at least ceil(H / 16)) CTAs of 16 heads form clusters of csize <= 8. Row
+// b's live keys end at kv_end = min(kv_lens[b], kv_cap) when kv_lens (int32
+// [B] in device memory) is given, else at kv_cap, and start at max(0,
+// kv_end - window) when window > 0, else at 0. Split s (of nsplit <= 64)
+// covers keys [kv_start + s * chunk, min(kv_start + (s + 1) * chunk,
+// kv_end)), chunk a multiple of the tile (64 keys bf16, 32 fp32), so nsplit
+// * chunk must cover min(kv_cap, window). One launch; returns its
+// cudaError_t (0 on success).
 extern "C" int mla_decode_launch(
     const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
     void* out, void* pm, void* pl, void* pacc, void* counters,
+    const void* kv_lens,
     int dtype, int B, int H, int R, int Dr, int groups, int csize, int nsplit,
-    int chunk, int kv_start, int kv_end,
+    int chunk, int kv_cap, int window,
     int64_t ql_sb, int64_t ql_sh, int64_t qr_sb, int64_t qr_sh,
     int64_t c_sb, int64_t c_ss, int64_t r_sb, int64_t r_ss,
     float scale, void* stream) {
-    if (B <= 0 || H <= 0 || nsplit <= 0 || chunk <= 0 || kv_start < 0 ||
-        kv_end < kv_start || csize <= 0 || csize > 8 || groups % csize ||
+    if (B <= 0 || H <= 0 || nsplit <= 0 || chunk <= 0 || kv_cap < 0 ||
+        csize <= 0 || csize > 8 || groups % csize ||
         nsplit > MAX_SPLITS ||
         groups * HG < H)
         return cudaErrorInvalidValue;
     Args a{q_lat, q_rope, ckv, krope, out, (float*)pm, (float*)pl, (float*)pacc,
-           (int*)counters, H, nsplit, chunk, kv_start, kv_end, csize,
+           (int*)counters, (const int*)kv_lens, H, nsplit, chunk, kv_cap, window,
+           csize,
            ql_sb, ql_sh, qr_sb, qr_sh, c_sb, c_ss, r_sb, r_ss, scale * LOG2E};
     if (dtype == 0) return by_width<float>(R, Dr, a, B, groups, (cudaStream_t)stream);
     if (dtype == 1) return by_width<bf16>(R, Dr, a, B, groups, (cudaStream_t)stream);

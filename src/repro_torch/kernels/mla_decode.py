@@ -9,8 +9,10 @@ Replaces the TPU kernel ``repro/kernels/mla_decode.py::mla_decode_kernel``
 
 over the keys ``s < kv_len`` (and ``s > kv_len - 1 - window`` with a
 window), in fp32, with the output in q's dtype and 0 for a row with no
-live key. ``ckv`` is key and value at once; ``krope`` is the shared rotary
-key; ``scale`` is ``1/sqrt(qk_nope + qk_rope)``.
+live key. ``kv_len`` is a host int for every row, or a CUDA int32 tensor
+``[B]`` that the kernel reads from device memory, one per row. ``ckv`` is
+key and value at once; ``krope`` is the shared rotary key; ``scale`` is
+``1/sqrt(qk_nope + qk_rope)``.
 
 On the card the wrapper launches the hand-written CUDA kernel
 (``csrc/mla_decode.cu``, one launch: each key split is a cluster of CTAs
@@ -30,7 +32,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_decode import arrival_counters
+from repro_torch.kernels.flash_decode import (KvLen, arrival_counters,
+                                              check_kv_lens, decode_span,
+                                              live_mask)
 
 # (R, Dr) pairs the CUDA kernel is compiled for: deepseek-v3's (512, 64)
 # and the reference kernel tests' widths (tests/test_kernels.py MLA_CASES)
@@ -48,18 +52,17 @@ N_SM = 132                 # H100 SXM streaming multiprocessors
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def mla_decode_plain(q_lat, q_rope, ckv, krope, *, kv_len: int,
-                     scale: float, window: Optional[int] = None
-                     ) -> torch.Tensor:
+def mla_decode_plain(q_lat, q_rope, ckv, krope, *, kv_len: KvLen,
+                     scale: float, window: Optional[int] = None,
+                     kv_max: Optional[int] = None) -> torch.Tensor:
     """q_lat: [B,H,R]; q_rope: [B,H,Dr]; ckv: [B,S,R]; krope: [B,S,Dr]
-    -> [B,H,R] in q_lat's dtype (fp32 math)."""
+    -> [B,H,R] in q_lat's dtype (fp32 math). ``kv_len``: an int, or one
+    per row ([B]) capped at ``kv_max``, as in :func:`mla_decode`."""
     s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
          + torch.einsum("bhk,bsk->bhs", q_rope.float(), krope.float()))
     s = s * scale
-    kpos = torch.arange(ckv.shape[1], device=ckv.device)
-    mask = kpos < kv_len
-    if window is not None and window > 0:
-        mask = mask & (kpos > (kv_len - 1) - window)
+    mask = live_mask(kv_len, ckv.shape[1], window, ckv.device,
+                     kv_max)[:, None, :]
     p = torch.nan_to_num(torch.softmax(s.masked_fill(~mask, float("-inf")),
                                        dim=-1), nan=0.0)
     return torch.einsum("bhs,bsr->bhr", p, ckv.float()).to(q_lat.dtype)
@@ -82,20 +85,24 @@ def split_plan(B: int, H: int, live: int, dtype=torch.bfloat16):
     return csize, groups, max(1, -(-live // chunk)), chunk
 
 
-def mla_decode(q_lat, q_rope, ckv, krope, *, kv_len: int, scale: float,
-               window: Optional[int] = None) -> torch.Tensor:
+def mla_decode(q_lat, q_rope, ckv, krope, *, kv_len: KvLen, scale: float,
+               window: Optional[int] = None,
+               kv_max: Optional[int] = None) -> torch.Tensor:
     """q_lat: [B,H,R]; q_rope: [B,H,Dr]; ckv: [B,S,R]; krope: [B,S,Dr]
-    (the layer's cache slices, read in place). ``kv_len`` and ``window``
-    (None for none) are runtime values. Returns [B,H,R] in q's dtype."""
+    (the layer's cache slices, read in place). ``kv_len`` is a host int,
+    or an int32 tensor ``[B]`` on q's device; with a tensor, ``kv_max`` (a
+    host int, default ``S``) sizes the grid and must be at least every
+    row's ``kv_len``: a row past it reads only the keys below ``kv_max``,
+    here and in the plain version alike. ``window`` is None for none.
+    Returns [B,H,R] in q's dtype."""
     if q_lat.device.type == "cpu":
         return mla_decode_plain(q_lat, q_rope, ckv, krope, kv_len=kv_len,
-                                scale=scale, window=window)
-    _check(q_lat, q_rope, ckv, krope, kv_len)
+                                scale=scale, window=window, kv_max=kv_max)
+    cap, win, live = decode_span(kv_len, kv_max, ckv.shape[1], window)
+    _check(q_lat, q_rope, ckv, krope, cap)
     B, H, R = q_lat.shape
-    kv_end = int(kv_len)
-    kv_start = max(0, kv_end - window) if window and window > 0 else 0
-    csize, groups, nsplit, chunk = split_plan(B, H, kv_end - kv_start,
-                                              q_lat.dtype)
+    per_row = check_kv_lens("mla_decode", kv_len, B, q_lat.device)
+    csize, groups, nsplit, chunk = split_plan(B, H, live, q_lat.dtype)
     dev = q_lat.device
     out = torch.empty((B, H, R), dtype=q_lat.dtype, device=dev)
     pm = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
@@ -108,8 +115,9 @@ def mla_decode(q_lat, q_rope, ckv, krope, *, kv_len: int, scale: float,
             "mla_decode", q_lat.data_ptr(), q_rope.data_ptr(),
             ckv.data_ptr(), krope.data_ptr(), out.data_ptr(), pm.data_ptr(),
             pl.data_ptr(), pacc.data_ptr(), counters.data_ptr(),
+            kv_len.data_ptr() if per_row else None,
             _DTYPES[q_lat.dtype], B, H, R, q_rope.shape[2], groups, csize,
-            nsplit, chunk, kv_start, kv_end,
+            nsplit, chunk, cap, win,
             q_lat.stride(0), q_lat.stride(1), q_rope.stride(0),
             q_rope.stride(1), ckv.stride(0), ckv.stride(1),
             krope.stride(0), krope.stride(1), float(scale), stream)
@@ -120,7 +128,7 @@ def mla_decode(q_lat, q_rope, ckv, krope, *, kv_len: int, scale: float,
 mla_decode.launches = 0
 
 
-def _check(q_lat, q_rope, ckv, krope, kv_len) -> None:
+def _check(q_lat, q_rope, ckv, krope, kv_cap) -> None:
     ts = (q_lat, q_rope, ckv, krope)
     if q_lat.device.type != "cuda":
         raise ValueError(f"mla_decode: no kernel for device {q_lat.device}")
@@ -153,5 +161,6 @@ def _check(q_lat, q_rope, ckv, krope, kv_len) -> None:
             raise ValueError("mla_decode: rows must start on 16-byte "
                              f"boundaries (strides a multiple of {vec} "
                              "elements)")
-    if not 0 <= kv_len <= ckv.shape[1]:
-        raise ValueError(f"mla_decode: kv_len={kv_len}, S={ckv.shape[1]}")
+    if not 0 <= kv_cap <= ckv.shape[1]:
+        raise ValueError(f"mla_decode: kv_len (or kv_max) = {kv_cap}, "
+                         f"S={ckv.shape[1]}")

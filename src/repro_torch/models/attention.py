@@ -5,7 +5,10 @@ Counterpart of ``repro.models.attention``. The ``cache`` of
 server (``start_pos`` > 0); only the suffix queries run, through the
 ``flash_prefill`` kernel with ``q_offset=start_pos``. Decode runs
 through ``flash_decode`` with ``kv_len=pos+1``, the mask the reference's
-``ring_positions(size, pos+1)`` gives a linear cache.
+``ring_positions(size, pos+1)`` gives a linear cache. ``pos`` is one int
+for the batch, or a ``[B]`` int tensor on the device, one position a row
+(the batched engine's slots): rope, the cache write and ``kv_len`` then
+follow each row's position, in one launch each.
 
 Unlike the reference, these functions write the new K/V entries into
 the cache tensors IN PLACE and the kernels read that layer's cache slice
@@ -14,7 +17,7 @@ raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -23,6 +26,7 @@ from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models.common import apply_rope, dense_init, rmsnorm
 
 Params = Dict[str, torch.Tensor]
+Pos = Union[int, torch.Tensor]     # one position, or one a row ([B])
 
 
 def init_attention(cfg, dtype, gen: torch.Generator, device=None) -> Params:
@@ -102,14 +106,34 @@ def cache_write_prefill(cache, k_new, v_new, start_pos: int, window) -> None:
     cache["v"][:, start_pos:start_pos + S] = v_new
 
 
-def cache_write_decode(cache, k1, v1, pos: int, window) -> None:
-    """Write one entry at ``pos`` IN PLACE (linear cache)."""
-    size = _linear_cache(cache, window)
-    if not 0 <= pos < size:
+def decode_positions(pos: Pos, B: int, device) -> torch.Tensor:
+    """[B, 1] positions of a one-token step: ``pos`` for every row, or
+    row b's ``pos[b]``."""
+    if torch.is_tensor(pos):
+        return pos[:, None]
+    return torch.full((B, 1), pos, dtype=torch.long, device=device)
+
+
+def write_rows(leaf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
+    """``leaf[b, pos] = new[b]`` IN PLACE for a ``[B, S, ...]`` leaf: at
+    one position, or at row b's ``pos[b]`` in one indexed store. A
+    position tensor is not checked against ``S`` on the host (that would
+    wait for the device); its caller keeps it in range."""
+    if torch.is_tensor(pos):
+        rows = torch.arange(leaf.shape[0], device=leaf.device)
+        leaf.index_put_((rows, pos), new)
+        return
+    if not 0 <= pos < leaf.shape[1]:
         raise ValueError(f"decode at position {pos} overflows a cache of "
-                         f"{size} positions")
-    cache["k"][:, pos] = k1[:, 0]
-    cache["v"][:, pos] = v1[:, 0]
+                         f"{leaf.shape[1]} positions")
+    leaf[:, pos] = new
+
+
+def cache_write_decode(cache, k1, v1, pos: Pos, window) -> None:
+    """Write one entry a row at ``pos`` IN PLACE (linear cache)."""
+    _linear_cache(cache, window)
+    write_rows(cache["k"], k1[:, 0], pos)
+    write_rows(cache["v"], v1[:, 0], pos)
 
 
 def attn_prefill(p: Params, cfg, x, positions, cache, start_pos: int, *,
@@ -126,15 +150,16 @@ def attn_prefill(p: Params, cfg, x, positions, cache, start_pos: int, *,
     return out_proj(p, cfg, o), cache
 
 
-def attn_decode(p: Params, cfg, x1, pos: int, cache, *,
-                window: Optional[int] = None):
-    """One-token decode: x1 [B, 1, D] at position ``pos``. Returns
-    ``(y, cache)``; ``cache`` is updated in place."""
-    positions = torch.full((x1.shape[0], 1), pos, dtype=torch.long,
-                           device=x1.device)
+def attn_decode(p: Params, cfg, x1, pos: Pos, cache, *,
+                window: Optional[int] = None,
+                kv_max: Optional[int] = None):
+    """One-token decode: x1 [B, 1, D] at position ``pos`` (an int, or an
+    int32 ``[B]`` tensor with ``kv_max`` a host bound of ``pos + 1``).
+    Returns ``(y, cache)``; ``cache`` is updated in place."""
+    positions = decode_positions(pos, x1.shape[0], x1.device)
     q, k1, v1 = project_qkv(p, cfg, x1, positions)
     w = window or cfg.window
     cache_write_decode(cache, k1, v1, pos, w)
     o = flash_decode(q[:, 0], cache["k"], cache["v"], kv_len=pos + 1,
-                     window=w)
+                     window=w, kv_max=kv_max)
     return out_proj(p, cfg, o[:, None]), cache

@@ -15,7 +15,8 @@ state the prompt cache ships.
   attends in latent space to the layer's ``ckv``/``krope`` slices, read
   in place by the ``mla_decode`` kernel with ``kv_len = pos + 1``, and the
   latent output goes through ``wv_b`` and ``wo``. The scale is
-  ``1/sqrt(qk_nope + qk_rope)``, the width before absorption.
+  ``1/sqrt(qk_nope + qk_rope)``, the width before absorption. ``pos`` is
+  one int for the batch or a ``[B]`` int32 tensor, one position a row.
 
 Both write the new latents into the cache tensors IN PLACE. A windowed
 MLA cache (a ring) is not in this port and raises.
@@ -28,7 +29,8 @@ import torch
 
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.mla_decode import mla_decode as mla_decode_kernel
-from repro_torch.models.attention import out_proj
+from repro_torch.models.attention import (Pos, decode_positions, out_proj,
+                                          write_rows)
 from repro_torch.models.common import apply_rope, dense_init, rmsnorm
 
 Params = Dict[str, torch.Tensor]
@@ -126,22 +128,23 @@ def mla_prefill(p: Params, cfg, x, positions, cache, start_pos: int, *,
     return out_proj(p, cfg, o), cache
 
 
-def mla_decode(p: Params, cfg, x1, pos: int, cache, *,
-               window: Optional[int] = None):
-    """Absorbed one-token decode: x1 [B, 1, D] at position ``pos``.
-    Returns ``(y, cache)``; ``cache`` is updated in place."""
+def mla_decode(p: Params, cfg, x1, pos: Pos, cache, *,
+               window: Optional[int] = None, kv_max: Optional[int] = None):
+    """Absorbed one-token decode: x1 [B, 1, D] at position ``pos`` (an
+    int, or an int32 ``[B]`` tensor with ``kv_max`` a host bound of
+    ``pos + 1``). Returns ``(y, cache)``; ``cache`` is updated in place."""
     m = cfg.mla
-    positions = torch.full((x1.shape[0], 1), pos, dtype=torch.long,
-                           device=x1.device)
+    positions = decode_positions(pos, x1.shape[0], x1.device)
     q_nope, q_rope = _queries(p, cfg, x1, positions)
     ckv1, krope1 = _latents(p, cfg, x1, positions)
-    _write(cache, ckv1, krope1, pos)
+    write_rows(cache["ckv"], ckv1[:, 0], pos)
+    write_rows(cache["krope"], krope1[:, 0], pos)
     # q_lat[b, h] = q_nope[b, h] @ wk_b[:, h]^T, as one batched matmul
     q_lat = torch.matmul(q_nope[:, 0].transpose(0, 1),
                          p["wk_b"].permute(1, 2, 0)).transpose(0, 1)
     o_lat = mla_decode_kernel(
         q_lat.contiguous(), q_rope[:, 0], cache["ckv"], cache["krope"],
-        kv_len=pos + 1, window=window or cfg.window,
+        kv_len=pos + 1, window=window or cfg.window, kv_max=kv_max,
         scale=1.0 / (m.qk_nope_dim + m.qk_rope_dim) ** 0.5)
     o = torch.matmul(o_lat.transpose(0, 1), p["wv_b"].transpose(0, 1))
     return out_proj(p, cfg, o.transpose(0, 1)[:, None]), cache

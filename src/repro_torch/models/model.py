@@ -113,14 +113,14 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, inputs, cache, start_pos: int = 0,
-                last_index: Optional[int] = None, *, resume: bool = False):
+    def prefill(self, inputs, cache, start_pos: int = 0, last_index=None,
+                *, resume: bool = False):
         """Prefill ``inputs["tokens"]`` ([B, S]) at ``start_pos``; with
         ``start_pos`` > 0 the cache already holds that prefix (the paper's
         partial-match resume; ``resume`` only matters for meta-token
         models, which this port does not run). ``last_index`` picks the
-        position whose logits return (bucket-padded prompts). Returns
-        ``(logits [B, V] fp32, cache)``."""
+        position whose logits return (bucket-padded prompts): one for
+        every row, or one a row. Returns ``(logits [B, V] fp32, cache)``."""
         x, positions, eff_start = self.prefill_stream_embed(inputs, start_pos)
         for si, spec in enumerate(self.segment_specs):
             x, _ = self.prefill_stream_group(
@@ -163,18 +163,28 @@ class Model(nn.Module):
         return x, cache_group
 
     @torch.no_grad()
-    def prefill_stream_head(self, x, last_index: Optional[int] = None):
-        """Last-token logits ``[B, V]`` fp32 (or those at ``last_index``)."""
-        last = x[:, -1:] if last_index is None else \
-            x[:, last_index:last_index + 1]
+    def prefill_stream_head(self, x, last_index=None):
+        """Last-token logits ``[B, V]`` fp32, or those at ``last_index``:
+        an int for every row, or a sequence of one index a row."""
+        if last_index is None:
+            last = x[:, -1:]
+        elif np.ndim(last_index):
+            idx = torch.as_tensor(np.asarray(last_index), dtype=torch.long,
+                                  device=x.device)
+            last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+        else:
+            last = x[:, last_index:last_index + 1]
         return self._head(last)[:, 0]
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens, pos: int):
-        """tokens: [B, 1]; pos: the token's position. Returns
+    def decode_step(self, cache, tokens, pos, kv_max: Optional[int] = None):
+        """tokens: [B, 1]; pos: the tokens' position, an int for every row
+        or an int32 ``[B]`` tensor on the model's device, one a row; then
+        ``kv_max`` (a host int, default the cache's length) bounds every
+        ``pos + 1`` and sizes the decode kernels' grids. Returns
         ``(logits [B, V] fp32, cache)``."""
         x1 = F.embedding(self._tokens(tokens), self.embed)
         for si, sc in enumerate(cache["segments"]):
             x1 = tf.stack_decode(self._segment_params(si), self.cfg,
-                                 self.segment_specs[si], x1, pos, sc)
+                                 self.segment_specs[si], x1, pos, sc, kv_max)
         return self._head(x1)[:, 0], cache

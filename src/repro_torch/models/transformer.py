@@ -152,15 +152,18 @@ def layer_prefill(lp, cfg, seg: Segment, x, positions, lc, start_pos: int):
     return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["ln2"], x))
 
 
-def layer_decode(lp, cfg, seg: Segment, x1, pos: int, lc):
+def layer_decode(lp, cfg, seg: Segment, x1, pos: attn.Pos, lc,
+                 kv_max: Optional[int] = None):
+    """One token a row at ``pos`` (an int, or one a row with ``kv_max`` a
+    host bound of ``pos + 1``); an SSM layer takes no position."""
     h = apply_norm(lp["ln1"], x1)
     if seg.kind == "ssm":
         y, _ = ssm_mod.ssm_decode(lp["ssm"], cfg, h, lc)
         return x1 + y
     if seg.kind.startswith("mla_"):
-        y, _ = mla_mod.mla_decode(lp["mla"], cfg, h, pos, lc)
+        y, _ = mla_mod.mla_decode(lp["mla"], cfg, h, pos, lc, kv_max=kv_max)
     else:
-        y, _ = attn.attn_decode(lp["attn"], cfg, h, pos, lc)
+        y, _ = attn.attn_decode(lp["attn"], cfg, h, pos, lc, kv_max=kv_max)
     x1 = x1 + y
     return x1 + mlp_forward(lp["mlp"], cfg, apply_norm(lp["ln2"], x1))
 
@@ -179,8 +182,9 @@ def stack_prefill(sp, cfg, seg: Segment, x, positions, cache,
     return x
 
 
-def stack_decode(sp, cfg, seg: Segment, x1, pos: int, cache):
+def stack_decode(sp, cfg, seg: Segment, x1, pos: attn.Pos, cache,
+                 kv_max: Optional[int] = None):
     for i in range(seg.n_layers):
         x1 = layer_decode(layer_params(sp, i), cfg, seg, x1, pos,
-                          _layer_cache(cache, i))
+                          _layer_cache(cache, i), kv_max)
     return x1

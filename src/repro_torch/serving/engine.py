@@ -1,4 +1,5 @@
-"""Single-request inference engine, the substrate the edge client drives.
+"""Inference engines: one request at a time (the edge client's), and a
+pool of slots for continuous batching (the scheduler's).
 
 Counterpart of ``repro.serving.engine.InferenceEngine``:
 
@@ -21,16 +22,21 @@ capped at the room left in the cache after ``start_pos``, so a resume
 near the end of the cache never writes past it. A model whose cache holds
 recurrent state (an SSM) is never padded: every pad token would advance
 its state (the reference pads it; ROADMAP Queue 3).
+
+:class:`BatchedEngine` is the counterpart of
+``repro.serving.engine.BatchedEngine``: a fixed pool of cache slots, each
+at its own position.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterable, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import clock
+from repro_torch.kernels.flash_decode import arrival_counters
 from repro_torch.serving.sampler import greedy
 
 
@@ -181,3 +187,157 @@ def _sync(t: torch.Tensor) -> None:
     CPU)."""
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
+
+
+# ---------------------------------------------------------------------------
+# batched engine (continuous batching substrate)
+# ---------------------------------------------------------------------------
+
+class BatchedEngine:
+    """Fixed pool of ``batch_size`` cache slots with per-slot positions.
+
+    The reference vmaps its single-row decode over the cache's batch axis
+    to give every slot its own position. Here the model's decode step
+    takes the positions as one int32 ``[B]`` tensor on the device, and
+    the decode kernels read each row's ``kv_len`` from it: every slot
+    decodes at its own position in one launch per layer, whatever the
+    batch size.
+
+    Slot lifecycle (driven by the Scheduler):
+      ``prefill_slots``  — batched prefill of fresh prompts
+      ``prefill_slot``   — exact single-row prefill, fresh or from a
+                           downloaded prefix (``cache1``, ``start_pos``)
+      ``adopt_slot``     — install a restored state (full hit)
+      ``decode_batch``   — advance every active slot one token
+      ``free_slot``      — recycle on EOS or length (stale K/V needs no
+                           scrub: the next request's positions mask it)
+
+    The pool cache is one allocation, made here. Slot writes are indexed
+    copies into its batch axis (axis 1 of every ``[L, B, ...]`` leaf), and
+    :meth:`slot_cache` is a view of one slot. ``prefill_slots`` pads the
+    prompts to one power-of-two bucket and runs them as one batch of
+    ``len(slots)`` rows into a cache of ``bucket`` positions (eager
+    PyTorch has no compile count to bound, so the batch is not padded to
+    ``batch_size`` as the reference pads it), then copies the rows into
+    the pool. A model with recurrent state (an SSM), or with a window
+    shorter than ``max_len``, takes exact per-row prefill instead: padding
+    would run through the state (the reference pads an SSM; ROADMAP Queue
+    3), and a ring cache cannot take it (the reference falls back only for
+    windows). ``prefill_slot`` runs in place on the slot's view.
+
+    The cache takes the model's dtype, which the decode kernels need of
+    it. Their arrival counters are reserved here for the pool's largest
+    grid (``batch_size * n_heads``), so no later launch moves the buffer.
+    """
+
+    def __init__(self, model, max_len: int, batch_size: int):
+        cfg = model.cfg
+        self.model = model
+        self.max_len = max_len
+        self.batch_size = batch_size
+        self._pad_prefill = not (model.has_recurrent_state or
+                                 (cfg.window and cfg.window < max_len))
+        self.cache = model.init_cache(batch_size, model.cache_len(max_len))
+        self.pos = np.zeros(batch_size, np.int32)     # next token position
+        arrival_counters(model.device, batch_size * cfg.n_heads)
+
+    # -- slot plumbing ---------------------------------------------------
+    def slot_cache(self, slot: int):
+        """A B=1 view of one slot's cache (for state_io extraction)."""
+        return {"segments": [{name: t[:, slot:slot + 1]
+                              for name, t in seg.items()}
+                             for seg in self.cache["segments"]]}
+
+    def free_slot(self, slot: int) -> None:
+        self.pos[slot] = 0
+
+    def _put(self, rows, slots) -> None:
+        """Copy ``rows`` (a cache of ``len(slots)`` rows, its leaves
+        ``[L, k, s, ...]``) into the pool's rows ``slots``, over the
+        first ``s`` entries of each leaf's third axis."""
+        idx = torch.as_tensor(np.asarray(slots), dtype=torch.long,
+                              device=self.model.device)
+        for big_seg, seg in zip(self.cache["segments"], rows["segments"]):
+            for name, big in big_seg.items():
+                new = seg[name]
+                big[:, idx, :new.shape[2]] = new.to(big.device, big.dtype)
+
+    def adopt_slot(self, slot: int, cache1, n_tokens: int) -> None:
+        """Install a restored B=1 cache (full prompt-cache hit)."""
+        self._put(cache1, [slot])
+        self.pos[slot] = n_tokens
+
+    # -- prefill ---------------------------------------------------------
+    def prefill_slots(self, slots: Sequence[int],
+                      token_rows: Sequence[np.ndarray]) -> np.ndarray:
+        """Prefill fresh prompts into ``slots``: rows edge-padded to one
+        power-of-two bucket in one batch, or one exact prefill a row (see
+        the class docstring). Returns the true last-token logits
+        ``[len(slots), V]``."""
+        k = len(slots)
+        if not 0 < k <= self.batch_size or len(token_rows) != k:
+            raise ValueError(f"{k} slots for {len(token_rows)} prompts in a "
+                             f"pool of {self.batch_size}")
+        rows = [np.asarray(t).reshape(-1) for t in token_rows]
+        lens = [len(r) for r in rows]
+        if max(lens) > self.max_len:
+            raise ValueError(f"a {max(lens)}-token prompt does not fit a "
+                             f"cache of {self.max_len}")
+        if not self._pad_prefill:
+            return np.concatenate([self.prefill_slot(s, r)
+                                   for s, r in zip(slots, rows)])
+        bucket = min(_bucket(max(lens)), self.max_len)
+        toks = np.stack([np.pad(r, (0, bucket - len(r)), mode="edge")
+                         for r in rows])
+        fresh = self.model.init_cache(k, self.model.cache_len(bucket))
+        logits, fresh = self.model.prefill({"tokens": toks}, fresh, 0,
+                                           [n - 1 for n in lens])
+        self._put(fresh, slots)
+        self.pos[list(slots)] = lens
+        return logits.cpu().numpy()
+
+    def prefill_slot(self, slot: int, tokens: np.ndarray,
+                     cache1=None, start_pos: int = 0) -> np.ndarray:
+        """Exact-length single-row prefill into ``slot``, in place on its
+        view of the pool. ``cache1``/``start_pos``: resume from a
+        downloaded prefix state (a B=1 cache holding ``start_pos``
+        tokens), copied into the slot first; without one, a recurrent
+        state starts from zero. Returns logits [1, V]."""
+        toks = np.asarray(tokens).reshape(1, -1)
+        n = toks.shape[1]
+        if start_pos + n > self.max_len:
+            raise ValueError(f"{n} tokens at position {start_pos} do not fit "
+                             f"a cache of {self.max_len}")
+        if cache1 is not None:
+            self._put(cache1, [slot])
+        elif self.model.has_recurrent_state:
+            for seg in self.cache["segments"]:
+                for t in seg.values():
+                    t[:, slot].zero_()
+        logits, _ = self.model.prefill({"tokens": toks}, self.slot_cache(slot),
+                                       start_pos, n - 1,
+                                       resume=start_pos > 0)
+        self.pos[slot] = start_pos + n
+        return logits.cpu().numpy()
+
+    # -- decode ------------------------------------------------------------
+    def decode_batch(self, tokens: np.ndarray,
+                     active: Optional[np.ndarray] = None) -> np.ndarray:
+        """One decode step for the whole pool. ``tokens``: [B] (pad rows
+        arbitrary); ``active``: [B] bool mask. The positions go to the
+        device as one int32 ``[B]`` tensor; an inactive row steps at
+        position 0 and its (junk) write is overwritten or masked on the
+        slot's next use. Returns logits [B, V]; advances active positions.
+        """
+        if active is None:
+            active = np.ones(self.batch_size, bool)
+        pos = np.where(active, self.pos, 0).astype(np.int32)
+        if pos.max() >= self.max_len:
+            raise ValueError(f"a slot at position {int(pos.max())} overflows "
+                             f"a cache of {self.max_len}")
+        pos_dev = torch.from_numpy(pos).to(self.model.device)
+        logits, _ = self.model.decode_step(
+            self.cache, np.asarray(tokens).reshape(-1, 1), pos_dev,
+            kv_max=int(pos.max()) + 1)
+        self.pos = np.where(active, self.pos + 1, self.pos).astype(np.int32)
+        return logits.cpu().numpy()

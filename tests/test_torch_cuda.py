@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
 from repro_torch.kernels.mla_decode import mla_decode, mla_decode_plain
+from repro_torch.kernels.mla_decode import split_plan as mla_split_plan
 from repro_torch.kernels.ssd_scan import (rows_vectorizable, ssd_scan,
                                           ssd_scan_plain)
 
@@ -42,6 +43,7 @@ PREFILL_CASES = [
     (2, 33, 128, 8, 2, 32, 20, 24),        # GQA H=8 KV=2 with a window
     (1, 40, 64, 4, 1, 64, 40, 8),          # rows at qpos >= 72 see no key
     (1, 37, 512, 4, 1, 256, 300, None),    # gemma3-270m widths, ragged Sq
+    (4, 512, 512, 4, 1, 256, 0, None),     # the batched fresh prefill, B=4
 ]
 
 DECODE_CASES = [
@@ -102,6 +104,7 @@ MLA_PREFILL_CASES = [
     (1, 33, 300, 128, 267, None),          # resume of a 33-token suffix
     (2, 40, 64, 4, 0, 16),                 # sliding window, two rows
     (1, 33, 200, 128, 100, None),          # 33 queries at q_offset 100
+    (4, 512, 512, 128, 0, None),           # the batched fresh prefill, B=4
 ]
 
 
@@ -162,6 +165,171 @@ def test_flash_decode_cuda_vs_plain(case, dtype, cuda_device):
         assert torch.count_nonzero(out) == 0
     # the last CTA of each head group left its arrival counter at 0
     assert torch.count_nonzero(decode_mod._COUNTERS[out.device]) == 0
+
+
+PER_ROW_DECODE_CASES = [
+    # Sk, H, KV, dh, dv, kv_len of each row, win, kv_max (None: Sk)
+    (1024, 4, 1, 256, 256, (0, 1, 300, 1024), None, 1024),  # gemma3 slots
+    (1024, 4, 1, 256, 256, (0, 1, 300, 1024), 100, 1024),
+    (1024, 4, 1, 256, 256, (7, 0, 300, 64), None, None),     # grid from Sk
+    (128, 4, 2, 32, 32, (100, 0, 5), 16, 100),
+    (2048, 4, 1, 128, 128, (2000, 33, 1, 1500), None, 2000),  # empty splits
+    (200, 16, 1, 576, 512, (150, 0), None, 150),            # MLA latent widths
+    (300, 4, 4, 128, 128, (0, 0, 0), None, 0),              # every row empty
+    (1024, 4, 1, 256, 256, (0, 1, 300, 1024), 100, 512),    # a row past kv_max
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PER_ROW_DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kv_len_per_row_cuda_vs_plain(case, dtype, cuda_device):
+    """kv_len read from device memory, one a row: each row attends to its
+    own keys in one launch, a row of 0 keys gives 0, and the counters are
+    left at 0."""
+    Sk, H, KV, dh, dv, lens, win, kv_max = case
+    B = len(lens)
+    gen = torch.Generator().manual_seed(29)
+    q = _rand(gen, (B, H, dh), dtype, cuda_device)
+    k = _rand(gen, (B, Sk, KV, dh), dtype, cuda_device)
+    v = _rand(gen, (B, Sk, KV, dv), dtype, cuda_device)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    scale = 1.0 / 192 ** 0.5 if dh != dv else None
+    n0 = flash_decode.launches
+    out = flash_decode(q, k, v, kv_len=kv, window=win, scale=scale,
+                       kv_max=kv_max)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == n0 + 1
+    plain = flash_decode_plain(q, k, v, kv_len=kv, window=win, scale=scale,
+                               kv_max=kv_max)
+    torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert torch.count_nonzero(out[b]) == 0
+    assert torch.count_nonzero(decode_mod._COUNTERS[out.device]) == 0
+
+
+PER_ROW_MLA_CASES = [
+    # S, H, R, Dr, kv_len of each row, win, kv_max
+    (1024, 128, 512, 64, (0, 1, 300, 1024), None, 1024),  # deepseek-v3 slots
+    (1024, 128, 512, 64, (0, 1, 300, 1024), 256, 1024),
+    (1024, 128, 512, 64, (5, 0, 700, 40), None, None),    # grid from S
+    (256, 40, 512, 64, (200, 0, 17), None, 200),
+    (128, 4, 64, 16, (100, 3), 32, 100),
+    (64, 128, 512, 64, (0, 0), None, 0),                  # every row empty
+    (1024, 128, 512, 64, (0, 1, 300, 1024), 256, 512),    # a row past kv_max
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PER_ROW_MLA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_decode_kv_len_per_row_cuda_vs_plain(case, dtype, cuda_device):
+    """The same for mla_decode: a cluster's CTAs share one row, so an
+    empty split is left by the whole cluster (a hang here is a failure,
+    not a timeout to tune)."""
+    S, H, R, Dr, lens, win, kv_max = case
+    B = len(lens)
+    gen = torch.Generator().manual_seed(31)
+    q_lat, q_rope = (_rand(gen, (B, H, w), dtype, cuda_device)
+                     for w in (R, Dr))
+    ckv, krope = (_rand(gen, (B, S, w), dtype, cuda_device) for w in (R, Dr))
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    args = dict(kv_len=kv, window=win, scale=1.0 / 192 ** 0.5)
+    n0 = mla_decode.launches
+    out = mla_decode(q_lat, q_rope, ckv, krope, kv_max=kv_max, **args)
+    torch.cuda.synchronize()
+    assert mla_decode.launches == n0 + 1
+    plain = mla_decode_plain(q_lat, q_rope, ckv, krope, kv_max=kv_max,
+                             **args)
+    torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert torch.count_nonzero(out[b]) == 0
+    assert torch.count_nonzero(decode_mod._COUNTERS[out.device]) == 0
+
+
+@pytest.mark.cuda
+def test_a_larger_batch_reuses_the_reserved_counters(cuda_device):
+    """A pool whose decode grid needs more counters than the buffer's
+    1024 floor (MLA, 128 heads in 8 head groups, 160 rows) reserves them
+    at construction: a decode at B=1, then decode steps at the pool's B,
+    use that one buffer and leave every counter at 0. A kv_len tensor the
+    kernel cannot read raises."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v3_671b import dense_cut
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import BatchedEngine, InferenceEngine
+    B = 160
+    assert B * mla_split_plan(B, 128, 1)[1] > 1024
+    cfg = dense_cut(get_config("deepseek-v3-671b").reduced(), 2).replace(
+        n_heads=128)
+    m = Model(cfg, device=cuda_device)
+    dev = torch.zeros(1, device=m.device).device      # cuda:<index>
+    torch.cuda.synchronize()
+    decode_mod._COUNTERS.pop(dev, None)
+    eng = BatchedEngine(m, 64, batch_size=B)
+    buf = decode_mod._COUNTERS[dev]
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(3, cfg.vocab, (n,)) for n in (21, 9, 30)]
+    single = InferenceEngine(m, 64)
+    n0 = mla_decode.launches
+    single.generate(single.start({"tokens": prompts[0][None]}), 3)
+    assert mla_decode.launches > n0                    # decodes at B=1
+    eng.prefill_slots([0, 7, B - 1], prompts)
+    active = np.zeros(B, bool)
+    active[[0, 7, B - 1]] = True
+    n0 = mla_decode.launches
+    for _ in range(2):
+        eng.decode_batch(np.full(B, 5, np.int32), active)
+    torch.cuda.synchronize()
+    assert mla_decode.launches == n0 + 2 * cfg.n_layers
+    assert decode_mod._COUNTERS[dev].data_ptr() == buf.data_ptr()
+    assert torch.count_nonzero(buf) == 0
+    gen = torch.Generator().manual_seed(37)
+    q = _rand(gen, (2, 4, 256), torch.bfloat16, dev)
+    kv = _rand(gen, (2, 512, 1, 256), torch.bfloat16, dev)
+    lens = torch.tensor([3, 512], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        flash_decode(q, kv, kv, kv_len=lens.long())
+    with pytest.raises(ValueError, match="int32"):
+        flash_decode(q, kv, kv, kv_len=lens.cpu())
+    with pytest.raises(ValueError, match="kv_max"):
+        flash_decode(q, kv, kv, kv_len=lens, kv_max=513)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemma3-270m", "deepseek-v3-671b"])
+def test_batched_decode_is_one_launch_a_layer(name, cuda_device):
+    """A decode step of four slots at their own positions (one inactive)
+    launches the decode kernel once a layer and equals each row decoded
+    alone (fp32, reduced widths)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v3_671b import dense_cut
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import BatchedEngine, InferenceEngine
+    cfg = get_config(name).reduced()
+    if cfg.family == "moe":
+        cfg = dense_cut(cfg, 2)
+    kernel = mla_decode if cfg.uses_mla else flash_decode
+    m = Model(cfg, device=cuda_device)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(3, cfg.vocab, (n,)) for n in (21, 9, 30)]
+    eng = BatchedEngine(m, 64, batch_size=4)
+    eng.prefill_slots([0, 1, 3], prompts)
+    single = InferenceEngine(m, 64)
+    sts = [single.start({"tokens": p[None]}) for p in prompts]
+    toks = np.array([5, 6, 0, 7], np.int32)
+    n0 = kernel.launches
+    step = eng.decode_batch(toks, np.array([True, True, False, True]))
+    assert kernel.launches == n0 + cfg.n_layers
+    for row, st in zip((0, 1, 3), sts):
+        want = single.decode_one(st, toks[row:row + 1, None])
+        np.testing.assert_allclose(step[row], want[0], atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.cuda
