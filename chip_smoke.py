@@ -37,7 +37,17 @@ lengths in every run. It
    compute and hidden seconds, launch counts that must be equal, and in
    fp32 the same 16 tokens as the monolithic and the cold run; and B
    against a server whose every blob has one flipped byte must fall back
-   to local prefill (the cold run's tokens in fp32);
+   to local prefill (the cold run's tokens in fp32). Then the fabric
+   phase, per model and dtype: 3 peer daemons (``python -m
+   repro_torch.core.net.daemon``, one process each, replication factor 2)
+   reached over TCP through a ``PeerDirectory``; A misses and uploads by
+   placement, the daemons replicate, B gets Case 4 monolithic and
+   streamed (one frame a chunk) and Case 5, the daemon that served the
+   Case 5 is shut down and B asks again (a Case 5 from the replica or a
+   Case-1 fallback; the fast fail is timed), and a client without a
+   catalog pays GETs for a prompt never uploaded while one with a catalog
+   pays none; fp32 tokens must equal the in-process run's, the launches
+   what the requests need, and every daemon must exit 0;
 5. profiles a prefill and 8 decode steps of each model, then one prefill
    alone (its device time and its attention kernel's share), and checks the
    card's fp32 logits against the same model on the CPU (mamba2-780m cut
@@ -92,6 +102,9 @@ BATCH = 4
 BATCH_CUTS = [None, 64, 200, None, 128, 250, None, 96]
 BATCH_DOMAINS = ["astronomy", "virology", "anatomy", "nutrition"]
 DECODE_STEPS = 20                  # timed decode_batch steps at B=1 and B=4
+# the fabric phase: peer daemons, ring owners a key, their gossip and
+# replication pump period, and each TCP link's timeout (a recv)
+FABRIC_PEERS, FABRIC_REPL, GOSSIP_S, FABRIC_TIMEOUT_S = 3, 2, 0.1, 30.0
 SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill.py:84"),
@@ -836,7 +849,320 @@ def edge_path(model, label, expect, max_len=1024):
     if model.dtype == torch.float32 and min(agree.values()) != MAX_NEW:
         raise AssertionError(f"[{label}] resumed/adopted/fallback outputs "
                              f"differ from cold: {agree}")
-    return launches, str_launches, p_a, p_b
+    refs = {"A": r_miss.output_tokens, "B": r_cold_b.output_tokens,
+            "C": r_cold_c.output_tokens}
+    return launches, str_launches, (p_a, p_b, p_c), refs
+
+
+def spawn_fleet(n):
+    """``n`` peer daemons (``python -m repro_torch.core.net.daemon``), each
+    its own process on 127.0.0.1: {peer_id: (process, (host, port))} once
+    each has printed PEER-READY. set_neighbors wires the ring (replication
+    factor FABRIC_REPL) and their gossip threads."""
+    from repro_torch.core.net.link import TCPPeerLink
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    fleet = {}
+    try:
+        for i in range(n):
+            pid = f"peer{i}"
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.core.net.daemon",
+                 "--peer-id", pid, "--port", "0", "--gossip-interval",
+                 str(GOSSIP_S)], env=env, stdout=subprocess.PIPE, text=True)
+            fleet[pid] = (proc, None)
+            line = proc.stdout.readline().split()
+            if line[:2] != ["PEER-READY", pid]:
+                raise AssertionError(f"daemon {pid} printed {line}")
+            fleet[pid] = (proc, (line[2], int(line[3])))
+        peers = {pid: list(addr) for pid, (_, addr) in fleet.items()}
+        for pid, (_, addr) in fleet.items():
+            link = TCPPeerLink(pid, *addr, timeout=FABRIC_TIMEOUT_S)
+            resp = link.request("set_neighbors", {
+                "peers": peers, "ring": sorted(peers),
+                "repl_factor": FABRIC_REPL})[0]
+            link.close()
+            if not resp["ok"]:
+                raise AssertionError(f"set_neighbors on {pid}: {resp}")
+    except BaseException:
+        kill_fleet(fleet)
+        raise
+    return fleet
+
+
+def stop_daemon(fleet, pid):
+    """``shutdown`` one daemon and wait for it: it must exit 0."""
+    from repro_torch.core.net.link import TCPPeerLink
+    proc, addr = fleet.pop(pid)
+    link = TCPPeerLink(pid, *addr, timeout=FABRIC_TIMEOUT_S)
+    try:
+        if link.request("shutdown", {})[0].get("bye") != pid:
+            raise AssertionError(f"daemon {pid} refused shutdown")
+    finally:
+        link.close()
+    rc = proc.wait(timeout=30)
+    proc.stdout.close()
+    if rc != 0:
+        raise AssertionError(f"daemon {pid} exited {rc}")
+
+
+def kill_fleet(fleet):
+    """Stop what is left of a fleet, whatever went wrong before."""
+    for proc, _ in fleet.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+    fleet.clear()
+
+
+def fabric_settle(fleet, digests, timeout_s=120.0):
+    """Wait until every daemon has pushed its pending replication and
+    handoffs and every owner holds its digests (the gossip threads pump
+    them every GOSSIP_S). Returns the seconds it took."""
+    import time
+    from repro_torch import clock
+    from repro_torch.core.cluster.placement import PlacementPolicy
+    from repro_torch.core.net.link import TCPPeerLink
+    ring = PlacementPolicy(sorted(fleet))
+    links = {pid: TCPPeerLink(pid, *addr, timeout=FABRIC_TIMEOUT_S)
+             for pid, (_, addr) in fleet.items()}
+    t0 = clock.monotonic()
+    try:
+        while True:
+            pending = sum(ln.request("health", {})[0]["repl"]["pending"]
+                          for ln in links.values())
+            held = {pid: set(ln.request("csync", {"since": 0})[0]["keys"])
+                    for pid, ln in links.items()}
+            missing = [d for d in digests
+                       for pid in ring.ring_order(d)[:FABRIC_REPL]
+                       if d not in held[pid]]
+            if not pending and not missing:
+                return clock.monotonic() - t0
+            if clock.monotonic() - t0 > timeout_s:
+                raise AssertionError(f"replication did not settle: "
+                                     f"{pending} pending, {len(missing)} "
+                                     f"missing")
+            time.sleep(GOSSIP_S)
+    finally:
+        for ln in links.values():
+            ln.close()
+
+
+def stream_waits(fleet, pid, digest, load=None):
+    """A blob fetched again as a chunk stream whose ``on_chunk`` only keeps
+    each frame's wait (no decoding in the socket loop): on this thread
+    with no work between frames, or, with ``load``, on a worker thread
+    while this one runs ``load()`` over and over, as a streamed hit's
+    suffix prefill runs beside its pump. Returns (wall seconds, each
+    frame's wait, loads run). Tells the wire's part of a streamed fetch
+    from the decoding's and the consumer's."""
+    import threading
+    from repro_torch import clock
+    from repro_torch.core.net.link import TCPPeerLink
+    link = TCPPeerLink(pid, *fleet[pid][1], timeout=FABRIC_TIMEOUT_S)
+    gaps, err, done, loads = [], [], threading.Event(), 0
+
+    def read():
+        try:
+            link.request_stream("get_chunks", {"key": digest},
+                                lambda c, dt, nb: gaps.append(dt))
+        except BaseException as e:     # re-raised on this thread
+            err.append(e)
+        finally:
+            done.set()
+    try:
+        t0 = clock.monotonic()
+        if load is None:
+            read()
+        else:
+            worker = threading.Thread(target=read, daemon=True)
+            worker.start()
+            while not done.is_set():
+                load()
+                loads += 1
+            worker.join()
+        wall = clock.monotonic() - t0
+    finally:
+        link.close()
+    if err:
+        raise err[0]
+    return wall, gaps, loads
+
+
+def frame_waits(gaps):
+    """One line for a stream's per-frame waits (ms), the longest's index."""
+    i = max(range(len(gaps)), key=gaps.__getitem__)
+    return (f"{len(gaps)} frames waited {sum(gaps) * 1e3:.2f} ms in all, "
+            f"median {statistics.median(gaps) * 1e3:.3f}, max "
+            f"{gaps[i] * 1e3:.3f} at frame {i}")
+
+
+def fabric_path(model, label, expect, prompts, refs, max_len=1024):
+    """The edge request behind a real wire: FABRIC_PEERS daemon processes
+    over TCP, clients on the card reaching them through a PeerDirectory of
+    TCPPeerLinks with wall clocks. Client A misses prompt A and uploads
+    each range to its placement owners; the peers replicate; client B
+    gets Case 4 on prompt B monolithic and streamed (one frame a chunk)
+    and Case 5 on prompt A; the peer that served the Case 5 is shut down
+    and B asks for A again (a Case 5 from the replica, or a Case-1
+    fallback; the dead peer's fast fail is timed); a client without a
+    catalog pays GETs on prompt C, never uploaded, and one with a catalog
+    pays none. ``expect`` maps the path's wrappers to their launches a
+    prefill and a decoded token (counts set to 0 just before the requests
+    and read just after; they must equal what the requests need). fp32
+    tokens must equal the single-server run's (``refs``). Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import clock
+    from repro_torch.config import CacheConfig
+    from repro_torch.core.client import EdgeClient
+    from repro_torch.core.cluster.directory import PeerDirectory
+    from repro_torch.core.cluster.placement import PlacementPolicy
+    from repro_torch.core.net.link import TCPPeerLink
+    from repro_torch.core.netsim import WallClock
+    from repro_torch.serving.engine import InferenceEngine
+
+    p_a, p_b, p_c = prompts
+    ccfg = CacheConfig()
+    t_phase = clock.monotonic()
+    fleet = spawn_fleet(FABRIC_PEERS)
+    peers0 = list(fleet)
+    try:
+        def client(name, **kw):
+            links = [TCPPeerLink(pid, *addr, timeout=FABRIC_TIMEOUT_S)
+                     for pid, (_, addr) in sorted(fleet.items())]
+            d = PeerDirectory(links, ccfg, clock=WallClock())
+            return EdgeClient(name, InferenceEngine(model, max_len=max_len),
+                              d, ccfg, **kw)
+
+        def sync(c):
+            c.directory.last_sync_t = -1e18
+            c.sync_catalog()
+
+        for k in expect:
+            k.launches = 0
+        a = client("A")
+        runs = [("A miss", a.infer(p_a, MAX_NEW))]
+        settle_s = fabric_settle(fleet, [k.digest for k in p_a.keys(a.meta)])
+        b, s = client("B"), client("S", overlap=True)
+        sync(b)
+        sync(s)
+        runs.append(("B partial, monolithic", b.infer(p_b, MAX_NEW)))
+        gaps = []                      # seconds waited for each chunk frame
+        record_chunk = s.directory.record_chunk
+        s.directory.record_chunk = lambda pid, nb, dt, observe=True: (
+            gaps.append(dt), record_chunk(pid, nb, dt, observe))
+        runs.append(("B partial, streamed", s.infer(p_b, MAX_NEW)))
+        runs.append(("B full", b.infer(p_a, MAX_NEW)))
+        served = runs[-1][1].served_by
+        stop_daemon(fleet, served)
+        runs.append((f"B full, {served} shut down", b.infer(p_a, MAX_NEW)))
+        nocat, cat = client("N", use_catalog=False), client("K")
+        sync(nocat)
+        sync(cat)
+        runs.append(("C, no catalog", nocat.infer(p_c, MAX_NEW,
+                                                  upload_on_miss=False)))
+        runs.append(("C, catalog", cat.infer(p_c, MAX_NEW,
+                                             upload_on_miss=False)))
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in expect}
+        # the streamed Case 4's blob read again, its frames' waits alone
+        # and beside the suffix prefill (after the counts are read: these
+        # prefills are not the path's), from a live owner
+        st_res = runs[2][1]
+        digest = next(k.digest for k in p_b.keys(s.meta)
+                      if k.n_tokens == st_res.matched_tokens)
+        holder = next(pid for pid in
+                      [st_res.served_by] + PlacementPolicy(
+                          sorted(peers0)).ring_order(digest)
+                      if pid in fleet)
+        suffix = np.asarray(p_b.token_ids[st_res.matched_tokens:],
+                            np.int32)[None]
+        alone = stream_waits(fleet, holder, digest)
+        beside = stream_waits(fleet, holder, digest, load=lambda: (
+            s.engine.start({"tokens": suffix}), torch.cuda.synchronize()))
+        health = {}
+        for pid, (_, addr) in fleet.items():
+            link = TCPPeerLink(pid, *addr, timeout=FABRIC_TIMEOUT_S)
+            health[pid] = link.request("health", {})[0]
+            link.close()
+        for pid in sorted(fleet):
+            stop_daemon(fleet, pid)
+    finally:
+        kill_fleet(fleet)
+
+    r = dict(runs)
+    for tag, res in runs:
+        t = res.timings
+        print(f"[{label}] fabric {tag}: case {res.case} matched "
+              f"{res.matched_tokens}/{res.prompt_tokens} served_by "
+              f"{res.served_by or '-'} attempts {res.fetch_attempts} "
+              f"(dead {int(res.extra.get('dead_peer_failures', 0))}) | "
+              f"fetch over the socket {t['fetch_s'] * 1e3:.2f} ms, down "
+              f"{res.blob_bytes_down} B, up {res.blob_bytes_up} B, "
+              f"{res.chunks_down} chunks | restore {t['restore_s'] * 1e3:.2f}"
+              f" prefill {t['prefill_s'] * 1e3:.2f} decode "
+              f"{t['decode_s'] * 1e3:.2f} upload {t['upload_s'] * 1e3:.2f} "
+              f"ms | ttft {res.ttft_s * 1e3:.2f} ttlt {res.ttlt_s * 1e3:.2f}"
+              f" ms" + (f" | streamed: hidden {t.get('hidden_s', 0) * 1e3:.2f}"
+                        f" of {t.get('stream_s', 0) * 1e3:.2f} ms"
+                        if res.streamed else ""))
+    print(f"[{label}] fabric stream frames (ms): the streamed Case 4 "
+          f"(pump decoding, consumer running): {frame_waits(gaps)}; the "
+          f"blob read again from {holder}, appending only, alone on this "
+          f"thread: {alone[0] * 1e3:.2f} wall, {frame_waits(alone[1])}; on "
+          f"a thread beside {beside[2]} suffix prefills here: "
+          f"{beside[0] * 1e3:.2f} wall, {frame_waits(beside[1])}")
+    after = r[f"B full, {served} shut down"]
+    print(f"[{label}] fabric: replication settled {settle_s * 1e3:.0f} ms "
+          f"after A's uploads; the dead peer's fast fail took "
+          f"{after.extra.get('dead_peer_s', 0.0) * 1e3:.3f} ms; daemons: "
+          + "; ".join(f"{pid} {h['n_entries']} blobs {h['stored_bytes']} B, "
+                      f"pushed {h['repl']['repl_pushed']}, handoffs "
+                      f"{h['repl']['handoffs']}"
+                      for pid, h in sorted(health.items()))
+          + f"; phase {clock.monotonic() - t_phase:.1f} s")
+    print(f"[{label}] fabric launches: {launches}")
+
+    got = [res.case for _, res in runs]
+    min_match = ccfg.min_match_tokens
+    n_c = len([k for k in p_c.keys(a.meta) if k.n_tokens >= min_match])
+    mono, stream = r["B partial, monolithic"], r["B partial, streamed"]
+    if got[:4] != [1, 4, 4, 5] or after.case not in (1, 5) or \
+            after.served_by == served or \
+            not after.extra.get("dead_peer_failures") or \
+            not stream.streamed or mono.streamed or \
+            stream.matched_tokens != mono.matched_tokens or \
+            got[5:] != [1, 1] or runs[6][1].fetch_attempts != 0 or \
+            runs[5][1].fetch_attempts != n_c * (FABRIC_PEERS - 1):
+        raise AssertionError(f"[{label}] fabric cases {got}, after the "
+                             f"shutdown {after.case} from {after.served_by}, "
+                             f"attempts {[x.fetch_attempts for _, x in runs]}")
+    agree = {tag: sum(x == y for x, y in zip(
+        res.output_tokens, refs["A" if "full" in tag or tag.startswith("A")
+                                else "B" if tag.startswith("B") else "C"]))
+        for tag, res in runs}
+    print(f"[{label}] fabric tokens agreeing with the single-server run, "
+          f"of {MAX_NEW}: {agree}")
+    if model.dtype == torch.float32 and min(agree.values()) != MAX_NEW:
+        raise AssertionError(f"[{label}] fabric tokens differ: {agree}")
+    cfg = model.cfg
+    L = cfg.n_layers
+    prefills = sum(res.matched_tokens < res.prompt_tokens
+                   for _, res in runs)
+    if model.has_recurrent_state:
+        ranges = len(p_a.keys(a.meta, ccfg.max_ranges, ccfg.range_stride))
+        want = {k.__name__: 0 for k in expect}
+        want["ssd_scan"] = (prefills + ranges - 1) * L
+    else:
+        want = {"flash_prefill": prefills * L,
+                ("mla_decode" if cfg.uses_mla else "flash_decode"):
+                    len(runs) * MAX_NEW * L}
+    if launches != want:
+        raise AssertionError(f"[{label}] fabric launches {launches}, the "
+                             f"requests need {want}")
+    return launches
 
 
 def batched_path(model, label, max_len=1024):
@@ -1130,9 +1456,10 @@ def main():
         for m, total in ((m16, launches), (m32, launches32)):
             label = f"{name} {'bf16' if m is m16 else 'fp32'}"
             if edge:
-                got, streamed, p_a, p_b = edge_path(m, label, expect)
+                got, streamed, prompts, refs = edge_path(m, label, expect)
+                fab = fabric_path(m, label, expect, prompts, refs)
                 for k in got:
-                    total[k] += got[k] + streamed[k]
+                    total[k] += got[k] + streamed[k] + fab[k]
             if batched_layers:
                 label += (f" at {batched_layers} of {m.cfg.n_layers} layers"
                           " (cut to keep the script's time)")
@@ -1141,8 +1468,8 @@ def main():
                 total[k] += n
             del m
         if edge:
-            where_time_goes(m16, p_a)
-            cpu_cross_check(m32, p_b, cross_layers or m32.cfg.n_layers)
+            where_time_goes(m16, prompts[0])
+            cpu_cross_check(m32, prompts[1], cross_layers or m32.cfg.n_layers)
         del m32, m16
         torch.cuda.empty_cache()
 

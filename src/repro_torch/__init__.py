@@ -6,9 +6,12 @@ reference so each counterpart is easy to find. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on the CPU every
 kernel wrapper takes its plain PyTorch version.
 
-It covers the paper's edge request on a dense model and on an SSM:
-prompt keys, the Bloom catalog, the cache server, v2 state blobs,
-prefill with prefix resume (from a recurrent state for the SSM), greedy
-decode, and the hand-written Hopper kernels (``kernels/csrc``: attention
-prefill and decode, the SSD chunk scan).
+It covers the paper's edge request on dense, SSM and MLA models: prompt
+keys, the Bloom catalog, the cache server, v2 and v3 (``PC3``) state
+blobs, prefill with prefix resume (from a recurrent state for the SSM),
+greedy decode, the batched engine and scheduler, the network (simulated
+Wi-Fi, the TCP wire, peer daemons) and the multi-peer cache fabric
+(directory, placement, replication, fetch planner), and the hand-written
+Hopper kernels (``kernels/csrc``: attention prefill and decode, MLA
+decode, the SSD chunk scan).
 """

@@ -121,6 +121,52 @@ class ModelConfig:
             kw["window"] = min(self.window, 16)
         return self.replace(**kw)
 
+    def param_count(self) -> int:
+        """Analytical parameter count N, as the reference counts it."""
+        d, dh = self.d_model, self.dh
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            di, ns = self.ssm_d_inner, self.ssm.d_state
+            in_proj = d * (2 * di + 2 * self.ssm.n_groups * ns
+                           + self.ssm_n_heads)
+            per = in_proj + di * d + di * self.ssm.d_conv
+            return emb + self.n_layers * per
+        if self.uses_mla:
+            m = self.mla
+            attn = (d * m.q_lora_rank
+                    + m.q_lora_rank * self.n_heads
+                    * (m.qk_nope_dim + m.qk_rope_dim)
+                    + d * (m.kv_lora_rank + m.qk_rope_dim)
+                    + m.kv_lora_rank * self.n_heads * (m.qk_nope_dim + m.v_dim)
+                    + self.n_heads * m.v_dim * d)
+        else:
+            attn = d * (self.n_heads + 2 * self.n_kv_heads) * dh \
+                + self.n_heads * dh * d
+        mult = 3 if self.gated_mlp else 2
+        if self.family == "moe":
+            mo = self.moe
+            moe_mlp = mo.n_experts * mult * d * mo.expert_ff \
+                + mo.n_shared * mult * d * (mo.shared_ff or mo.expert_ff) \
+                + d * mo.n_experts
+            n_moe = self.n_layers - mo.first_k_dense
+            mlp_total = n_moe * moe_mlp + mo.first_k_dense * mult * d * (
+                mo.dense_ff or self.d_ff)
+        else:
+            mlp_total = self.n_layers * mult * d * self.d_ff
+        return emb + self.n_layers * attn + mlp_total
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: the routed top-k and the
+        shared experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        mo = self.moe
+        mult = 3 if self.gated_mlp else 2
+        n_moe = self.n_layers - mo.first_k_dense
+        idle = n_moe * (mo.n_experts - mo.top_k) * mult * self.d_model \
+            * mo.expert_ff
+        return self.param_count() - idle
+
 
 @dataclass(frozen=True)
 class CacheConfig:
@@ -137,3 +183,6 @@ class CacheConfig:
     range_stride: int = 0             # >0: also register every k tokens
     min_match_tokens: int = 4         # minimum prefix worth fetching
     sync_interval_s: float = 1.0      # catalog sync period
+    # per-server LRU byte budget for the blob store; 0 = unbounded.
+    # Evicted keys stay in the Bloom catalogs as tombstones (§3.3)
+    max_store_bytes: int = 0

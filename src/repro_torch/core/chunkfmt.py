@@ -33,6 +33,17 @@ def pack_container(chunks: Sequence[bytes]) -> bytes:
     return CHUNK_MAGIC + packer.packb(list(chunks))
 
 
+def container_size(chunks: Sequence[bytes]) -> int:
+    """``len(pack_container(chunks))``, without packing: the magic, the
+    msgpack array header, and a bin header and body a chunk."""
+    n = len(chunks)
+    size = len(CHUNK_MAGIC) + (1 if n < 16 else 3 if n < 1 << 16 else 5)
+    for c in chunks:
+        k = len(c)
+        size += k + (2 if k < 1 << 8 else 3 if k < 1 << 16 else 5)
+    return size
+
+
 def split_container(blob: bytes) -> List[bytes]:
     """The chunk sequence of a container. A v2 blob is its own single
     chunk, so the streaming ``get_chunks`` op serves it as a one-chunk

@@ -1,14 +1,15 @@
 """Edge client — the paper's inference procedure (§3.1 Steps 1-4, §3.2).
 
-A lean counterpart of ``repro.core.client.EdgeClient`` for one cache
-server. Given a structured prompt, the client
+The port's counterpart of ``repro.core.client.EdgeClient``. Given a
+structured prompt, the client
 
   1. derives the prefix-range keys, longest range first;
-  2. probes its local Bloom catalog for them (ranges shorter than
-     ``min_match_tokens`` are never fetched);
-  3. GETs the first candidate the catalog admits; a Bloom false positive
-     (the server has no blob) falls through to the next candidate, then
-     to local prefill (§3.3: latency, never correctness);
+  2. probes its catalog for them (ranges shorter than
+     ``min_match_tokens`` are never fetched) and turns the result into a
+     plan of fetch attempts;
+  3. walks the plan: a Bloom false positive (no blob), an unreadable
+     blob or a dead peer falls through to the next attempt, then to
+     local prefill (§3.3: latency, never correctness);
   4. on a hit restores the state: a full hit with logits is adopted with
      no model call, a partial hit resumes prefill for the suffix; on a
      miss it prefills the whole prompt and uploads a v3 ``PC3`` container
@@ -16,17 +17,37 @@ server. Given a structured prompt, the client
      serialization pass;
   5. decodes the response greedily.
 
+``transport`` is one of
+
+* a :class:`~repro_torch.core.server.CacheServer`, wrapped in an
+  :class:`~repro_torch.core.transport.InProcTransport` that reports wall
+  seconds;
+* a transport: an ``InProcTransport`` (with a ``SimNetwork``: modeled
+  Wi-Fi seconds on a ``SimClock``) or a
+  :class:`~repro_torch.core.transport.TCPTransport` to one real server;
+* a :class:`~repro_torch.core.cluster.PeerDirectory` (the multi-peer
+  fabric): the probe consults one catalog a peer, a
+  :class:`~repro_torch.core.cluster.FetchPlanner` orders the (peer,
+  range) attempts by estimated fetch and recompute time, uploads go by
+  consistent-hash placement, and each attempt feeds the directory's
+  per-peer stats, link estimator, read repair and hot-key replication.
+
+``use_catalog=False`` is the paper's §5.2.3 ablation: no catalog, every
+range at least ``min_match_tokens`` long is asked for. A dead peer
+(``TransportError``) costs one bounded fast fail, then the next
+attempt, then local prefill.
+
 A fetched blob that cannot be read (a corrupt or truncated container, a
 ``ZST`` blob where ``zstandard`` does not import, another model's blob)
-is a miss: the request tries the next candidate, then prefills locally,
-as after a Bloom false positive. The reference lets that error out of
-``infer``.
+is a miss: the request tries the next attempt, then prefills locally.
+The reference lets that error out of ``infer``.
 
 With ``overlap=True`` a partial hit streams: the blob's chunks arrive
-one at a time (``get_chunks``) on a pump thread that checks and decodes
-them, and the main thread runs the suffix prefill one layer group at a
-time as each group's chunks are in (``InferenceEngine.resume_streamed``).
-A v2 blob on the stream is restored whole and resumed as usual.
+one at a time (``get_chunks``, over TCP one frame a chunk) on a pump
+thread that checks and decodes them, and the main thread runs the
+suffix prefill one layer group at a time as each group's chunks are in
+(``InferenceEngine.resume_streamed``). A v2 blob on the stream is
+restored whole and resumed as usual.
 
 A model whose cache is recurrent state (an SSM) differs in three ways:
 its state is not cut to a prefix, so each shorter range's state is
@@ -36,12 +57,16 @@ uploads carries its logits; and a blob without logits is not resumed at
 state twice) but skipped like a miss. A K/V or latent blob without
 logits resumes at ``matched - 1``.
 
-Times are wall seconds on this process's clock, with the device
-synchronised at each step's end. TTFT runs to the first output token's
-logits on the host; TTLT to the last token. Uploads run after the
-response, off its latency, as the paper's asynchronous uploads are.
-The multi-peer planner, hedging, deadlines, tracing, the decision
-ledger, the fetch broker and TCP are later slices of the port.
+Each result carries two accountings. ``timings`` holds wall seconds on
+this process's clock, with the device synchronised at each step's end;
+TTFT runs to the first output token's logits on the host, TTLT to the
+last token. ``sim`` is the paper's Table-3 ``Breakdown`` of an emulated
+edge device (``perf``, a :class:`~repro_torch.core.perfmodel.DevicePerfModel`)
+and the simulated Wi-Fi: modeled seconds, never a reading of this
+machine, all 0 without a perf model and a simulated link. Uploads run
+after the response, off its latency, as the paper's asynchronous uploads
+are. Hedging, deadlines, tracing, the decision ledger and the fetch
+broker are not ported.
 """
 from __future__ import annotations
 
@@ -54,12 +79,17 @@ import numpy as np
 
 from repro_torch import clock
 from repro_torch.config import CacheConfig
-from repro_torch.core import state_io
+from repro_torch.core import chunkfmt, sizing, state_io
 from repro_torch.core.catalog import Catalog
+from repro_torch.core.cluster.directory import PeerDirectory
+from repro_torch.core.cluster.planner import FetchAttempt, FetchPlanner
 from repro_torch.core.keys import PromptKey, model_meta
+from repro_torch.core.metrics import Breakdown
+from repro_torch.core.perfmodel import DevicePerfModel
 from repro_torch.core.segments import PromptSegments
 from repro_torch.core.server import CacheServer
-from repro_torch.core.transport import InProcTransport, StreamCancelled
+from repro_torch.core.transport import (InProcTransport, StreamCancelled,
+                                        TransportError)
 from repro_torch.device import dtype_name
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.sampler import greedy
@@ -80,6 +110,13 @@ class InferResult:
     streamed: bool = False         # the hit resumed layer group by group
     chunks_down: int = 0           # chunks of a streamed fetch
     timings: Dict[str, float] = field(default_factory=dict)
+    sim: Breakdown = field(default_factory=Breakdown)   # modeled seconds
+    served_by: str = ""            # fabric: the peer that served the hit
+    fetch_attempts: int = 0        # GETs tried (false positives, dead
+    #                                peers, unreadable blobs and the hit)
+    est_fetch_s: float = 0.0       # the planner's estimate of the hit
+    actual_fetch_s: float = 0.0    # what the hit's fetch cost (sim/wall)
+    extra: Dict[str, float] = field(default_factory=dict)
 
 
 class _StreamEnded(Exception):
@@ -87,106 +124,199 @@ class _StreamEnded(Exception):
 
 
 class EdgeClient:
-    def __init__(self, name: str, engine: InferenceEngine,
-                 server: CacheServer, cache_cfg: CacheConfig = CacheConfig(),
+    def __init__(self, name: str, engine: InferenceEngine, transport,
+                 cache_cfg: CacheConfig = CacheConfig(),
+                 perf: Optional[DevicePerfModel] = None,
+                 use_catalog: bool = True, perf_cfg=None,
                  overlap: bool = False):
         self.name = name
         self.engine = engine
-        self.transport = InProcTransport(server)
+        if isinstance(transport, CacheServer):
+            transport = InProcTransport(transport)
+        self.transport = transport
         self.cache_cfg = cache_cfg
+        self.perf = perf
+        # a full-size config's sizes and compute for the sim accounting
+        # while a reduced model runs
+        self.perf_cfg = perf_cfg or engine.model.cfg
+        self.use_catalog = use_catalog
         self.overlap = overlap
         self.catalog = Catalog(cache_cfg)
+        self.directory = transport if isinstance(transport, PeerDirectory) \
+            else None
+        self.planner = None
+        if self.directory is not None:
+            emulated = self.perf_cfg is not engine.model.cfg
+            self.planner = FetchPlanner(
+                self.directory, self.perf_cfg, perf,
+                dtype_bytes=2 if emulated else engine.cache_dtype.itemsize,
+                overlap=overlap, chunk_layers=cache_cfg.chunk_layers)
         self.meta = model_meta(engine.model.cfg,
                                dtype_name(engine.cache_dtype))
+        self.clock = getattr(transport, "clock", None)
 
     def sync_catalog(self) -> None:
-        self.catalog.maybe_sync(self.transport, clock.monotonic())
+        """Pull the catalog deltas (rate-limited). An unreachable server
+        leaves the catalog stale: its lookups degrade into misses."""
+        now = self.clock.now() if self.clock else clock.monotonic()
+        if self.directory is not None:
+            self.directory.maybe_sync(now)
+            return
+        try:
+            self.catalog.maybe_sync(self.transport, now)
+        except TransportError:
+            return                     # stale until the next sync
 
     # ------------------------------------------------------------------
     def infer(self, prompt: PromptSegments, max_new_tokens: int = 16,
               sampler: Callable = greedy, rng=None,
               upload_on_miss: bool = True) -> InferResult:
-        """The paper's request. ``timings`` holds wall seconds: ``bloom_s``,
-        ``fetch_s`` (transfer on the TTFT path; for a streamed hit what of
-        the stream's wall time was not compute), ``restore_s`` (checking,
-        decoding and placing the blob; for a streamed hit, partly hidden),
-        ``prefill_s`` (compute), ``decode_s``, ``upload_s``; a streamed
-        hit adds ``stream_s`` (the whole fetch and resume) and
-        ``hidden_s`` (transfer and restore seconds that ran while the
-        suffix computed)."""
+        """The paper's request. ``timings`` holds wall seconds: ``bloom_s``
+        (probe and plan), ``fetch_s`` (transfer on the TTFT path, every
+        attempt; for a streamed hit what of the stream's wall time was
+        not compute), ``restore_s`` (checking, decoding and placing the
+        blob; for a streamed hit, partly hidden), ``prefill_s``
+        (compute), ``decode_s``, ``upload_s``; a streamed hit adds
+        ``stream_s`` (the whole fetch and resume) and ``hidden_s``
+        (transfer and restore seconds that ran while the suffix
+        computed). ``sim`` holds the modeled Table-3 seconds."""
         t0 = clock.monotonic()
+        cfg = self.perf_cfg
         n = len(prompt.token_ids)
         keys = prompt.keys(self.meta, self.cache_cfg.max_ranges,
                            self.cache_cfg.range_stride)
         tm = {"bloom_s": 0.0, "fetch_s": 0.0, "restore_s": 0.0,
               "prefill_s": 0.0, "decode_s": 0.0, "upload_s": 0.0}
+        sim = Breakdown()
         model = self.engine.model
         recurrent = model.has_recurrent_state
+        emulated = cfg is not model.cfg
+        if self.perf:
+            sim.token = self.perf.time_tokenize(n)
 
-        # Step 2: catalog probe, longest range first
+        # Step 2: catalog probe, longest range first; on the fabric the
+        # planner orders the (peer, range) attempts
         min_match = self.cache_cfg.min_match_tokens
-        candidates = [k for k in keys if k.n_tokens >= min_match
-                      and self.catalog.lookup(k.digest)]
+        if self.directory is not None:
+            plan = self.planner.plan(keys, n, min_match=min_match,
+                                     use_catalog=self.use_catalog)
+            if self.perf and self.use_catalog:
+                sim.bloom = self.perf.time_bloom(
+                    len(keys) * max(len(self.directory.links), 1))
+        elif self.use_catalog:
+            plan = [FetchAttempt(None, k) for k in keys
+                    if k.n_tokens >= min_match
+                    and self.catalog.lookup(k.digest)]
+            if self.perf:
+                sim.bloom = self.perf.time_bloom(len(keys))
+        else:                          # §5.2.3 ablation: ask the server
+            plan = [FetchAttempt(None, k) for k in keys
+                    if k.n_tokens >= min_match]
         tm["bloom_s"] = clock.monotonic() - t0
 
-        matched, false_pos, down_bytes, state, st = 0, False, 0, None, None
-        unreadable, chunks_down = 0, 0
-        for cand in candidates:
+        matched, false_pos, down_bytes, unreadable = 0, False, 0, 0
+        state, st, got = None, None, None
+        n_attempts, dead, dead_s, chunks_down = 0, 0, 0.0, 0
+        served_by, est_fetch, actual_fetch, hit_dl_sim = "", 0.0, 0.0, 0.0
+        for att in plan:               # best estimate first
+            cand = att.key
+            n_attempts += 1
+            net = self._link_net(att.peer_id)
+            sim_link = self.clock is not None and net is not None
             if self.overlap and cand.n_tokens < n and \
-                    hasattr(self.transport, "request_stream") and \
                     model.supports_layer_stream:
-                got = self._fetch_streamed(cand, prompt, tm)
-                chunks_down = got["chunks"]
-                if got["kind"] == "none":
-                    false_pos = True
-                    continue
-                if got["kind"] in ("unreadable", "skip"):
-                    unreadable += got["kind"] == "unreadable"
-                    continue
-                st, state = got.get("st"), got.get("state")
-                matched, down_bytes = cand.n_tokens, got["nbytes"]
-                break
-            resp, dt, _ = self.transport.request("get", {"key": cand.digest})
-            tm["fetch_s"] += dt
-            if not (resp.get("ok") and resp.get("blob")):
-                false_pos = True       # §3.3: try the next range
+                got = self._fetch_streamed(att, prompt, tm, net)
+                chunks_down += got["chunks"]
+            else:
+                got = self._fetch(att, tm, net)
+            kind, arrived = got["kind"], got["arrived"]
+            if sim_link:
+                dl = got["dt"]
+                if emulated and kind != "dead":
+                    # only the full prompt's blob carries logits
+                    nb_full = sizing.state_bytes(
+                        cfg, cand.n_tokens,
+                        with_logits=arrived and cand.n_tokens == n)
+                    dl = net.transfer_time(nb_full if arrived else 256)
+                    got["basis"] = nb_full if arrived else None
+                sim.redis += dl
+                actual = dl
+            else:
+                actual = got["transfer"]
+            if kind == "dead":         # already marked suspect: next one
+                dead += 1
+                dead_s += got["transfer"]
                 continue
-            blob = resp["blob"]
-            tr = clock.monotonic()
-            try:
-                payload = state_io.parse_state(blob, self.meta)
-                if recurrent and not payload.get("logits"):
-                    continue           # a state cannot re-run its last token
-                state = state_io.restore_state(payload,
-                                               self.engine.new_cache())
-            except ValueError:         # ChunkError too: a miss
+            if kind == "cancelled":
+                continue
+            if att.peer_id is not None:
+                self.directory.record_get(
+                    att.peer_id, arrived, att.est_fetch_s, actual,
+                    got["nbytes"] if arrived else 0,
+                    basis_bytes=got.get("basis"),
+                    predicted_present=self.use_catalog, digest=cand.digest)
+            if kind == "miss":
+                false_pos = True       # §3.3: try the next attempt
+                continue
+            if kind == "unreadable":
                 unreadable += 1
                 continue
-            finally:
-                tm["restore_s"] += clock.monotonic() - tr
-            matched, down_bytes = cand.n_tokens, len(blob)
+            if kind != "hit":          # a recurrent state with no logits
+                continue
+            st, state = got["st"], got["state"]
+            matched, down_bytes = cand.n_tokens, got["nbytes"]
+            hit_dl_sim = actual if sim_link else 0.0
+            if att.peer_id is not None:
+                served_by, est_fetch = att.peer_id, att.est_fetch_s
+                actual_fetch = actual
+                # the blob's bytes are made only if the client must ship
+                # a replica itself (a streamed hit's container is a copy)
+                self.directory.note_fetch(cand.digest, got["nbytes"],
+                                          att.peer_id, got["blob"])
             break
 
         # Step 3: adopt / resume / full local prefill
         streamed = st is not None
+        overlap_hidden = 0.0
         if matched == n and state[2] is not None:
             cache, _, logits = state
             st = self.engine.adopt(cache, n, logits)
-        elif streamed:
-            tm["prefill_s"] = st.timings["prefill_wall"]
         elif matched > 0:
-            cache, _, logits = state
-            # a blob without logits cannot give the first suffix token's
-            # input: re-run the prefix's last token
-            resume_from = matched if logits is not None else matched - 1
-            suffix = np.asarray(prompt.token_ids[resume_from:],
-                                np.int32)[None]
-            st = self.engine.resume({"tokens": suffix}, cache, resume_from)
+            if streamed:
+                resume_from = got["resume_from"]
+            else:
+                cache, _, logits = state
+                # a blob without logits cannot give the first suffix
+                # token's input: re-run the prefix's last token
+                resume_from = matched if logits is not None else matched - 1
+                suffix = np.asarray(prompt.token_ids[resume_from:],
+                                    np.int32)[None]
+                st = self.engine.resume({"tokens": suffix}, cache,
+                                        resume_from)
             tm["prefill_s"] = st.timings["prefill_wall"]
+            if self.perf:
+                t_suffix = self.perf.time_prefill(cfg, n - resume_from)
+                sim.p_decode += t_suffix
+                if self.overlap and hit_dl_sim > 0:
+                    # the chunks arrive a layer group at a time, so only
+                    # the first chunk stays serial with the suffix
+                    k = max(got["chunks"] - 1, 0) if streamed else 0
+                    if emulated or not k:
+                        k = sizing.stream_chunk_count(
+                            cfg, self.cache_cfg.chunk_layers)
+                    overlap_hidden = min(hit_dl_sim * (1.0 - 1.0 / k)
+                                         if k > 1 else 0.0, t_suffix)
+                    sim.redis -= overlap_hidden
+            if streamed and not overlap_hidden:
+                overlap_hidden = got["hidden_wall"]
+            if overlap_hidden and served_by:
+                self.directory.record_overlap(served_by, overlap_hidden)
         else:
             tokens = np.asarray(prompt.token_ids, np.int32)[None]
             st = self.engine.start({"tokens": tokens})
             tm["prefill_s"] = st.timings["prefill_wall"]
+            if self.perf:
+                sim.p_decode += self.perf.time_prefill(cfg, n)
         prompt_logits = st.last_logits
         ttft = clock.monotonic() - t0
         upload = matched == 0 and upload_on_miss
@@ -198,6 +328,10 @@ class EdgeClient:
         out = self.engine.generate(st, max_new_tokens, sampler, rng=rng)
         tm["decode_s"] = st.timings["decode_wall"]
         ttlt = clock.monotonic() - t0
+        if self.perf:
+            n_out = st.timings["decode_tokens"]
+            sim.r_decode = self.perf.time_decode(cfg, n_out)
+            sim.sample = self.perf.time_sample(n_out)
 
         up = 0
         if upload:
@@ -205,31 +339,92 @@ class EdgeClient:
             up = self._upload_ranges(prompt, keys, prompt_cache,
                                      prompt_logits)
             tm["upload_s"] = clock.monotonic() - tu
-        return InferResult(
+        res = InferResult(
             case=self._case_of(prompt, matched), matched_tokens=matched,
             prompt_tokens=n, output_tokens=[int(t) for t in out[0]],
             ttft_s=ttft, ttlt_s=ttlt, blob_bytes_down=down_bytes,
             blob_bytes_up=up, false_positive=false_pos and matched == 0,
             unreadable_blobs=unreadable, streamed=streamed,
-            chunks_down=chunks_down, timings=tm)
+            chunks_down=chunks_down, timings=tm, sim=sim,
+            served_by=served_by, fetch_attempts=n_attempts,
+            est_fetch_s=est_fetch, actual_fetch_s=actual_fetch)
+        if overlap_hidden:
+            res.extra["overlap_hidden_s"] = overlap_hidden
+        if dead:                       # count, and wall seconds, of the
+            res.extra["dead_peer_failures"] = float(dead)    # fast fails
+            res.extra["dead_peer_s"] = dead_s
+        return res
 
     # ------------------------------------------------------------------
-    def _fetch_streamed(self, cand: PromptKey, prompt: PromptSegments,
-                        tm: Dict[str, float]) -> dict:
+    def _link_net(self, peer_id: Optional[str]):
+        if peer_id is not None:
+            return self.directory.link(peer_id).net
+        return getattr(self.transport, "net", None)
+
+    def _fetch(self, att: FetchAttempt, tm: Dict[str, float], net) -> dict:
+        """One GET, its blob checked and restored. Returns ``{"kind":
+        "hit" | "miss" | "dead" | "unreadable" | "skip", "arrived": a blob
+        came, "dt": the transport's seconds (a sim link's modeled
+        seconds; for a dead peer there one RTT), "transfer": wall seconds
+        of the GET, "nbytes", "blob", "state"}``. Adds wall seconds to
+        ``tm``."""
+        payload = {"key": att.key.digest}
+        t0 = clock.monotonic()
+        try:
+            if att.peer_id is not None:
+                resp, dt, _ = self.directory.request(att.peer_id, "get",
+                                                     payload)
+            else:
+                resp, dt, _ = self.transport.request("get", payload)
+        except TransportError:
+            wall = clock.monotonic() - t0
+            tm["fetch_s"] += wall      # what the fast fail cost
+            return {"kind": "dead", "arrived": False, "transfer": wall,
+                    "dt": net.rtt_s if net is not None else wall}
+        wall = clock.monotonic() - t0
+        tm["fetch_s"] += wall
+        out = {"kind": "miss", "arrived": False, "dt": dt, "transfer": wall,
+               "nbytes": 0, "st": None, "state": None}
+        blob = resp.get("blob") if resp.get("ok") else None
+        if not blob:
+            return out
+        out.update(arrived=True, nbytes=len(blob), blob=lambda: blob)
+        tr = clock.monotonic()
+        try:
+            payload = state_io.parse_state(blob, self.meta)
+            if self.engine.model.has_recurrent_state and \
+                    not payload.get("logits"):
+                out["kind"] = "skip"   # a state cannot re-run its last token
+                return out
+            out["state"] = state_io.restore_state(payload,
+                                                  self.engine.new_cache())
+            out["kind"] = "hit"
+        except ValueError:             # ChunkError too: a miss
+            out["kind"] = "unreadable"
+        finally:
+            tm["restore_s"] += clock.monotonic() - tr
+        return out
+
+    def _fetch_streamed(self, att: FetchAttempt, prompt: PromptSegments,
+                        tm: Dict[str, float], net) -> dict:
         """A partial hit fetched as a chunk stream, its suffix prefill run
         one layer group at a time as the chunks land.
 
-        A pump thread takes the chunks from the transport and feeds them
-        to a :class:`~repro_torch.core.state_io.ChunkedRestorer` (digest,
-        inflate, decode), queueing each completed layer group; this thread
-        writes each group into the template and runs its layers. The pump
-        always ends the queue, so a bad stream never blocks the consumer.
-        Returns ``{"kind": ..., "chunks": n, ...}``: ``hit`` with ``st``
-        (the resumed state) or, for a v2 blob, ``state`` (restored whole,
-        for the ordinary resume) and ``nbytes``; ``none`` (the server
-        holds no blob); ``unreadable`` (a corrupt, truncated or
-        undecodable stream, or a cancelled one); ``skip`` (a recurrent
-        state without logits). Adds its seconds to ``tm``."""
+        A pump thread takes the chunks from the transport (through the
+        directory on the fabric) and feeds them to a
+        :class:`~repro_torch.core.state_io.ChunkedRestorer` (digest,
+        inflate, decode), queueing each completed layer group; this
+        thread writes each group into the template and runs its layers.
+        The pump always ends the queue, so a bad stream never blocks the
+        consumer. Returns :meth:`_fetch`'s fields, with ``kind``: ``hit``
+        with ``st`` (the resumed state) or, for a v2 blob, ``state``
+        (restored whole, for the ordinary resume); ``miss`` (no blob);
+        ``dead``; ``unreadable`` (a corrupt, truncated or undecodable
+        stream); ``cancelled`` (a recurrent state without logits: the
+        stream is cut). A hit adds ``resume_from``, ``chunks`` and
+        ``hidden_wall``. Adds its wall seconds to ``tm``."""
+        cand, peer_id = att.key, att.peer_id
+        sim_link = self.clock is not None and net is not None
         recurrent = self.engine.model.has_recurrent_state
         restorer = state_io.ChunkedRestorer(self.meta)
         events: "queue.Queue" = queue.Queue()
@@ -239,6 +434,9 @@ class EdgeClient:
 
         def on_chunk(chunk, dt, nb):
             info["chunks"] += 1
+            if peer_id is not None:
+                self.directory.record_chunk(peer_id, nb, dt,
+                                            observe=not sim_link)
             tf = clock.monotonic()
             done = restorer.feed(chunk)
             info["feed_s"] += clock.monotonic() - tf
@@ -248,13 +446,17 @@ class EdgeClient:
                 events.put(gid)
 
         def pump():
+            req = ("get_chunks", {"key": cand.digest}, on_chunk)
             try:
-                info["hdr"], info["seconds"], _ = \
-                    self.transport.request_stream(
-                        "get_chunks", {"key": cand.digest}, on_chunk,
-                        cancel=cancel)
+                if peer_id is not None:
+                    info["hdr"], info["seconds"], _ = \
+                        self.directory.request_stream(peer_id, *req,
+                                                      cancel=cancel)
+                else:
+                    info["hdr"], info["seconds"], _ = \
+                        self.transport.request_stream(*req, cancel=cancel)
             except BaseException as e:  # re-raised below unless the
-                info["err"] = e        # stream was bad or cancelled
+                info["err"] = e        # stream was bad, cut or dead
             finally:
                 events.put(None)       # always unblock the consumer
 
@@ -263,19 +465,20 @@ class EdgeClient:
         worker.start()
         template = self.engine.new_cache()      # overlaps the first chunks
         matched = cand.n_tokens
-        st, state, kind = None, None, "unreadable"
+        st, state, kind, resume_from = None, None, "unreadable", matched
 
-        def drain():                   # stop the pump; wait for its end
-            cancel.set()
+        def drain(cut: bool):          # wait for the pump's end
+            if cut:
+                cancel.set()
             while events.get() is not None:
                 pass
 
         ended = []                     # the consumer has seen the end
         first = events.get()
         if first is None:
-            pass                       # no blob, or a broken stream
+            pass                       # no blob, a dead peer, a bad stream
         elif restorer.v2_payload is not None:
-            drain()
+            drain(cut=False)           # one chunk: the stream is ending
             if info["err"] is None:
                 try:
                     state = restorer.result(template)
@@ -283,8 +486,8 @@ class EdgeClient:
                 except ValueError:
                     pass
         elif recurrent and not restorer.header.get("logits"):
-            drain()
-            kind = "skip"
+            drain(cut=True)
+            kind = "cancelled"
         else:
             resume_from = matched if restorer.header.get("logits") \
                 else matched - 1
@@ -308,29 +511,42 @@ class EdgeClient:
                 kind = "hit"
             except (_StreamEnded, ValueError):
                 if not ended:
-                    drain()
+                    drain(cut=True)
         worker.join()
         err = info["err"]
-        if err is not None and not isinstance(err, (StreamCancelled,
-                                                    ValueError)):
+        if err is not None and not isinstance(
+                err, (StreamCancelled, ValueError, TransportError)):
             raise err
         if kind == "hit" and err is not None:
             st, state, kind = None, None, "unreadable"
+        if isinstance(err, TransportError):
+            kind = "dead"
+        elif first is None and isinstance(info["hdr"], dict) and \
+                not info["hdr"].get("error"):
+            kind = "miss"
         wall = clock.monotonic() - t0
         restore = info["feed_s"] + restorer.phase_s["place"]
         compute = st.timings["prefill_wall"] if st is not None else 0.0
-        tm["fetch_s"] += max(wall - compute - (restore if st is None
-                                                 else 0.0), 0.0)
+        visible = max(wall - compute - (restore if st is None else 0.0), 0.0)
+        tm["fetch_s"] += visible
         tm["restore_s"] += restore
+        hidden = 0.0
         if st is not None:
             tm["stream_s"] = wall
-            tm["hidden_s"] = max(info["seconds"] + restore + compute - wall,
-                                 0.0)
-        if first is None and isinstance(info["hdr"], dict) and \
-                not info["hdr"].get("error"):
-            kind = "none"
-        return {"kind": kind, "st": st, "state": state,
-                "chunks": info["chunks"], "nbytes": restorer.bytes_fed}
+            hidden = max(info["seconds"] + restore + compute - wall, 0.0)
+            tm["hidden_s"] = hidden
+        if sim_link:
+            dt = info["seconds"] if info["hdr"] is not None else net.rtt_s
+        else:
+            dt = visible
+        return {"kind": kind, "arrived": kind == "hit", "st": st,
+                "state": state, "chunks": info["chunks"],
+                "nbytes": chunkfmt.container_size(restorer.raw_chunks()),
+                "resume_from": resume_from,
+                "dt": dt, "transfer": info["seconds"] if kind == "hit"
+                else visible, "hidden_wall": hidden,
+                "blob": lambda: state_io.pack_container(
+                    restorer.raw_chunks())}
 
     # ------------------------------------------------------------------
     def _range_states(self, prompt: PromptSegments, keys: List[PromptKey],
@@ -358,7 +574,8 @@ class EdgeClient:
     def _upload_ranges(self, prompt: PromptSegments, keys: List[PromptKey],
                        cache, logits: np.ndarray) -> int:
         """Register every prefix range of the prompt (paper Fig. 3), one
-        ``PC3`` container per range. A K/V or latent cache takes one
+        ``PC3`` container per range; on the fabric each goes to its
+        consistent-hash owner by one PUT. A K/V or latent cache takes one
         serialization pass for all ranges (shorter ranges are header
         rewrites), logits on the full prompt's range only. A recurrent
         state takes one pass per range, each range's own state and
@@ -388,8 +605,15 @@ class EdgeClient:
                      for k in keys]
         total = 0
         for k, blob in blobs:
-            resp, _, _ = self.transport.request(
-                "put", {"key": k.digest, "blob": blob})
+            if self.directory is not None:   # one PUT, by placement
+                total += self.directory.upload(k.digest, blob)
+                continue
+            try:
+                resp, _, _ = self.transport.request(
+                    "put", {"key": k.digest, "blob": blob},
+                    advance_clock=False)
+            except TransportError:
+                continue               # best effort: the server is gone
             if not resp.get("stored", True):
                 continue               # never advertise a rejected blob
             self.catalog.register(k.digest)

@@ -1,24 +1,87 @@
-"""Per-request and aggregate (percentile) statistics of the serving layer.
+"""Latency accounting in the paper's Table-3 vocabulary, the fabric's
+per-peer statistics, and the serving layer's per-request and aggregate
+(percentile) statistics.
 
-The port's copy of what the scheduler reads from ``repro/core/metrics.py``
-(:163-326): :func:`percentile`, :class:`RequestStats`,
-:class:`TenantStats` and :class:`ServingReport`. The paper's Table-3
-``Breakdown``, the fabric's ``PeerStats`` and
-``ServingReport.from_infer_results`` wait for the client's fabric
-(ROADMAP Queue 1, item 7): ``per_peer`` stays empty here.
+The port's copy of ``repro/core/metrics.py``: :class:`Breakdown` (the
+client's ``sim`` seconds: emulated edge device and simulated Wi-Fi),
+:class:`PeerStats`, :func:`percentile`, :class:`RequestStats`,
+:class:`TenantStats` and :class:`ServingReport`. Spans are not ported,
+so there is no ``Breakdown.from_spans`` and ``ServingReport.per_peer``
+stays empty.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
 
-import numpy as np
+COMPONENTS = ("token", "bloom", "p_decode", "redis", "r_decode", "sample")
+
+
+@dataclass
+class Breakdown:
+    """Seconds of one request by Table-3 column."""
+    token: float = 0.0
+    bloom: float = 0.0
+    p_decode: float = 0.0
+    redis: float = 0.0
+    r_decode: float = 0.0
+    sample: float = 0.0
+
+    @property
+    def ttft(self) -> float:
+        return self.token + self.bloom + self.p_decode + self.redis
+
+    @property
+    def ttlt(self) -> float:
+        return self.ttft + self.r_decode + self.sample
+
+    def as_dict(self) -> Dict[str, float]:
+        d = {c: getattr(self, c) for c in COMPONENTS}
+        d["ttft"] = self.ttft
+        d["ttlt"] = self.ttlt
+        return d
+
+
+@dataclass
+class PeerStats:
+    """Per-peer accounting on the client side of the cache fabric."""
+    peer_id: str
+    gets: int = 0
+    hits: int = 0
+    misses: int = 0                # failed GETs (Bloom FP / eviction)
+    miss_outliers: int = 0         # slow misses kept out of the RTT EWMA
+    transport_errors: int = 0      # dead-peer fast fails
+    bytes_down: int = 0
+    bytes_up: int = 0              # client-shipped upload bytes (one copy
+    #                                a key: the fan-out is peer to peer)
+    store_rejects: int = 0         # puts the peer's budget refused
+    hints: int = 0                 # ``hot`` hints sent in place of blobs
+    chunks_down: int = 0           # stream chunks received
+    overlap_hidden_s: float = 0.0  # transfer seconds hidden behind the
+    #                                streamed suffix prefill
+    est_fetch_s: float = 0.0       # sum of planner estimates on hits
+    actual_fetch_s: float = 0.0    # sum of realized fetch times on hits
+    tombstones: int = 0            # stale keys the peer reported at sync
+    est_bw_bps: float = 0.0        # the link estimator's current belief
+    est_rtt_s: float = 0.0
+    link_observations: int = 0     # transfers behind it (0: the prior)
+
+    @property
+    def est_error_s(self) -> float:
+        """Signed planner error (negative: the planner was optimistic)."""
+        return self.est_fetch_s - self.actual_fetch_s
+
+    def as_dict(self) -> Dict[str, float]:
+        d = dict(self.__dict__)
+        d["est_error_s"] = self.est_error_s
+        return d
 
 
 def percentile(xs: Sequence[float], q: float) -> float:
     """Linear-interpolated percentile; 0.0 on empty input."""
     if not len(xs):
         return 0.0
+    import numpy as np
     return float(np.percentile(np.asarray(xs, float), q))
 
 

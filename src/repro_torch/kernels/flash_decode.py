@@ -14,9 +14,10 @@ On the card the wrapper launches the hand-written CUDA kernel
 CTA of each head group merges them). On the CPU it runs
 :func:`flash_decode_plain`, the reference's einsum form. A CUDA tensor
 never falls back to the plain version: an input the kernel does not take
-raises. The kernel's arrival counters are one buffer per device, left at
-0 by every launch, so launches on one device are ordered on one stream.
-A caller that knows its largest grid reserves the buffer once with
+raises. The kernel's arrival counters are one buffer per (device,
+stream), left at 0 by every launch: launches on one stream are ordered,
+and two streams that decode at once use two buffers. A caller that knows
+its largest grid reserves its stream's buffer once with
 :func:`arrival_counters` (``BatchedEngine`` does, at construction), so
 its launches never move it.
 """
@@ -34,8 +35,8 @@ WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (576, 512))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 N_SM = 132                 # H100 SXM streaming multiprocessors
 TILE = 32                  # keys of a CTA's tile: 2 parts of 16, 2 lanes a key
-_COUNTERS = {}             # device -> int32 arrival counters, all 0 (shared
-                           # with mla_decode: launches on one stream)
+_COUNTERS = {}             # (device, stream) -> int32 arrival counters,
+                           # all 0 (shared with mla_decode on that stream)
 KvLen = Union[int, torch.Tensor]
 
 
@@ -90,21 +91,33 @@ def split_plan(B: int, H: int, KV: int, live: int):
     return hg, nsplit, chunk
 
 
-def arrival_counters(dev, n: int) -> torch.Tensor:
-    """At least ``n`` arrival counters on ``dev``, zero (each launch
-    resets those it used). Either decode kernel takes one counter per
-    (row, head group), so ``B * H`` cover any launch of B rows of H query
-    heads. The buffer never shrinks. When it grows, the memory it leaves
-    is reused only by work queued after it on the stream every launch
-    shares, so a launch in flight keeps its counters. ``cuda`` with no
-    index names the current device, as a tensor's ``.device`` would."""
+def counters_key(dev):
+    """The key of the counter buffer a launch on ``dev`` uses now:
+    ``(device, the device's current stream)``; on the CPU the stream is
+    0. ``cuda`` with no index names the current device, as a tensor's
+    ``.device`` would."""
     dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
+    if dev.type != "cuda":
+        return dev, 0
+    if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    buf = _COUNTERS.get(dev)
+    return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def arrival_counters(dev, n: int) -> torch.Tensor:
+    """At least ``n`` arrival counters for launches on ``dev``'s current
+    stream, zero (each launch resets those it used). Either decode kernel
+    takes one counter per (row, head group), so ``B * H`` cover any
+    launch of B rows of H query heads. Each stream has its own buffer,
+    made on that stream, so launches on two streams never share a
+    counter. A buffer never shrinks. When it grows, the memory it leaves
+    is reused only by work queued after it on its stream, so a launch in
+    flight keeps its counters."""
+    key = counters_key(dev)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _COUNTERS[dev] = buf
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=key[0])
+        _COUNTERS[key] = buf
     return buf
 
 

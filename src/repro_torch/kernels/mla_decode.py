@@ -22,8 +22,8 @@ own pointers and strides, so the layer's slices of the ``[L, B, S, .]``
 cache are read in place, once, with no concatenation. On the CPU it runs
 :func:`mla_decode_plain`. A CUDA tensor never falls back to the plain
 version: an input the kernel does not take raises. The kernel's arrival
-counters are ``flash_decode``'s buffer of the device, left at 0 by every
-launch, so launches on one device are ordered on one stream.
+counters are ``flash_decode``'s buffer of the (device, stream), left at
+0 by every launch, so two streams may decode at once.
 """
 from __future__ import annotations
 

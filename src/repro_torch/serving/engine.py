@@ -179,6 +179,7 @@ class InferenceEngine:
             out.append(tok)
             logits = self.decode_one(st, tok[:, None])
         st.timings["decode_wall"] = clock.monotonic() - t0
+        st.timings["decode_tokens"] = len(out)
         return np.stack(out, axis=1)
 
 
@@ -226,8 +227,10 @@ class BatchedEngine:
     windows). ``prefill_slot`` runs in place on the slot's view.
 
     The cache takes the model's dtype, which the decode kernels need of
-    it. Their arrival counters are reserved here for the pool's largest
-    grid (``batch_size * n_heads``), so no later launch moves the buffer.
+    it. Their arrival counters are reserved here, on the current stream,
+    for the pool's largest grid (``batch_size * n_heads``), so no later
+    launch on that stream moves the buffer; another stream reserves its
+    own buffer at its first launch.
     """
 
     def __init__(self, model, max_len: int, batch_size: int):

@@ -144,19 +144,21 @@ def test_arrival_counters_are_reserved_once():
     never shrinks, and a smaller or equal request returns the same
     memory; a batched engine reserves its largest grid at construction."""
     dev = torch.device("cpu")
-    decode_mod._COUNTERS.pop(dev, None)
+    key = decode_mod.counters_key(dev)
+    assert key == (dev, 0)
+    decode_mod._COUNTERS.pop(key, None)
     small = arrival_counters(dev, 8)
     assert small.numel() == 1024 and torch.count_nonzero(small) == 0
     assert arrival_counters(dev, 1024).data_ptr() == small.data_ptr()
     big = arrival_counters(dev, 5000)
     assert big.numel() == 5000 and big.data_ptr() != small.data_ptr()
     assert arrival_counters(dev, 16).data_ptr() == big.data_ptr()
-    decode_mod._COUNTERS.pop(dev)
+    decode_mod._COUNTERS.pop(key)
     cfg = get_config("gemma3-270m").reduced().replace(n_heads=8,
                                                       n_kv_heads=8)
     m = Model(cfg, device="cpu", seed=None)
     BatchedEngine(m, 16, batch_size=200)     # 200 rows x 8 head groups
-    held = decode_mod._COUNTERS[dev]
+    held = decode_mod._COUNTERS[key]
     assert held.numel() == 1600
     assert arrival_counters(dev, 4 * 8).data_ptr() == held.data_ptr()
 

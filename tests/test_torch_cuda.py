@@ -78,6 +78,12 @@ def _rand(gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen).to(dev, dtype)
 
 
+def _counters(dev):
+    """The decode kernels' arrival counters for launches on ``dev``'s
+    current stream."""
+    return decode_mod._COUNTERS[decode_mod.counters_key(dev)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", PREFILL_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -164,7 +170,7 @@ def test_flash_decode_cuda_vs_plain(case, dtype, cuda_device):
     if kv_len == 0:
         assert torch.count_nonzero(out) == 0
     # the last CTA of each head group left its arrival counter at 0
-    assert torch.count_nonzero(decode_mod._COUNTERS[out.device]) == 0
+    assert torch.count_nonzero(_counters(out.device)) == 0
 
 
 PER_ROW_DECODE_CASES = [
@@ -207,7 +213,7 @@ def test_flash_decode_kv_len_per_row_cuda_vs_plain(case, dtype, cuda_device):
     for b, n in enumerate(lens):
         if n == 0:
             assert torch.count_nonzero(out[b]) == 0
-    assert torch.count_nonzero(decode_mod._COUNTERS[out.device]) == 0
+    assert torch.count_nonzero(_counters(out.device)) == 0
 
 
 PER_ROW_MLA_CASES = [
@@ -248,7 +254,52 @@ def test_mla_decode_kv_len_per_row_cuda_vs_plain(case, dtype, cuda_device):
     for b, n in enumerate(lens):
         if n == 0:
             assert torch.count_nonzero(out[b]) == 0
-    assert torch.count_nonzero(decode_mod._COUNTERS[out.device]) == 0
+    assert torch.count_nonzero(_counters(out.device)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_streams_decode_at_once(dtype, cuda_device):
+    """flash_decode and mla_decode launched on two streams at once, many
+    times over, each launch with many splits merged by its last CTA: each
+    stream keeps its own arrival counters, every output equals the plain
+    version and every counter is back at 0."""
+    gen = torch.Generator().manual_seed(31)
+    dev = cuda_device
+    B, Sk, H, KV, dh = 4, 4096, 4, 1, 128
+    q = _rand(gen, (B, H, dh), dtype, dev)
+    k = _rand(gen, (B, Sk, KV, dh), dtype, dev)
+    v = _rand(gen, (B, Sk, KV, dh), dtype, dev)
+    lens = torch.tensor([4096, 1, 3000, 777], dtype=torch.int32, device=dev)
+    R, Dr, MH = 512, 64, 128
+    q_lat, q_rope = (_rand(gen, (B, MH, w), dtype, dev) for w in (R, Dr))
+    ckv, krope = (_rand(gen, (B, 2048, w), dtype, dev) for w in (R, Dr))
+    mla_args = dict(kv_len=1500, scale=1.0 / 192 ** 0.5)
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    outs = {0: [], 1: []}
+    keys = set()
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                keys.add(decode_mod.counters_key(dev))
+                outs[i].append((
+                    flash_decode(q, k, v, kv_len=lens, kv_max=Sk),
+                    mla_decode(q_lat, q_rope, ckv, krope, **mla_args)))
+    torch.cuda.synchronize()
+    assert len(keys) == 2
+    assert len({decode_mod._COUNTERS[key].data_ptr() for key in keys}) == 2
+    want = flash_decode_plain(q, k, v, kv_len=lens, kv_max=Sk).float()
+    want_mla = mla_decode_plain(q_lat, q_rope, ckv, krope,
+                                **mla_args).float()
+    for i in outs:
+        for o, o_mla in outs[i]:
+            torch.testing.assert_close(o.float(), want, atol=TOL[dtype],
+                                       rtol=TOL[dtype])
+            torch.testing.assert_close(o_mla.float(), want_mla,
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+    for key in keys:
+        assert torch.count_nonzero(decode_mod._COUNTERS[key]) == 0
 
 
 @pytest.mark.cuda
@@ -270,9 +321,10 @@ def test_a_larger_batch_reuses_the_reserved_counters(cuda_device):
     m = Model(cfg, device=cuda_device)
     dev = torch.zeros(1, device=m.device).device      # cuda:<index>
     torch.cuda.synchronize()
-    decode_mod._COUNTERS.pop(dev, None)
+    key = decode_mod.counters_key(dev)
+    decode_mod._COUNTERS.pop(key, None)
     eng = BatchedEngine(m, 64, batch_size=B)
-    buf = decode_mod._COUNTERS[dev]
+    buf = decode_mod._COUNTERS[key]
     rng = np.random.default_rng(5)
     prompts = [rng.integers(3, cfg.vocab, (n,)) for n in (21, 9, 30)]
     single = InferenceEngine(m, 64)
@@ -287,7 +339,7 @@ def test_a_larger_batch_reuses_the_reserved_counters(cuda_device):
         eng.decode_batch(np.full(B, 5, np.int32), active)
     torch.cuda.synchronize()
     assert mla_decode.launches == n0 + 2 * cfg.n_layers
-    assert decode_mod._COUNTERS[dev].data_ptr() == buf.data_ptr()
+    assert decode_mod._COUNTERS[key].data_ptr() == buf.data_ptr()
     assert torch.count_nonzero(buf) == 0
     gen = torch.Generator().manual_seed(37)
     q = _rand(gen, (2, 4, 256), torch.bfloat16, dev)
@@ -387,7 +439,7 @@ def test_mla_decode_cuda_vs_plain(case, dtype, cuda_device):
     if kv_len == 0:
         assert torch.count_nonzero(out) == 0
     # the last CTA of each head group left its arrival counter at 0
-    assert torch.count_nonzero(decode_mod._COUNTERS[out.device]) == 0
+    assert torch.count_nonzero(_counters(out.device)) == 0
 
 
 @pytest.mark.cuda
