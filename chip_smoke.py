@@ -59,7 +59,21 @@ lengths in every run. It
    tokens must equal sequential runs; it prints tokens/s, TTFT and TTLT
    percentiles and decode ms per step at B=1 and B=4, and checks that a
    decode step launches the decode kernel once a layer;
-7. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
+7. once every other phase has run (after a gateway phase the profiler
+   loses device events, so every profiler reading comes before), for
+   gemma3-270m and the deepseek cut, in bf16 and fp32, serves the
+   OpenAI-compatible gateway
+   (``repro_torch.gateway.Gateway``, 4 slots, ``max_len`` 1024) over 3
+   supervised peer daemons (``Fabric.tcp``): the three workload mixes of
+   ``repro_torch.workloads`` (16 requests each at 12 a second, 8 new
+   tokens, every other one SSE) from client threads over HTTP, a tenant
+   over its rate quota (429), a one-slot gateway held by a stream (503),
+   and a prompt asked again once its blob's primary peer is killed (then
+   ``check_and_restart``); fp32 tokens must equal a direct
+   ``BatchedEngine`` + ``Scheduler`` run, each mix must have a hit served
+   by a peer, the kernels must launch from the gateway's engine thread,
+   and every daemon must exit 0;
+8. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. It needs the card and the repository beside it.
@@ -105,6 +119,11 @@ DECODE_STEPS = 20                  # timed decode_batch steps at B=1 and B=4
 # the fabric phase: peer daemons, ring owners a key, their gossip and
 # replication pump period, and each TCP link's timeout (a recv)
 FABRIC_PEERS, FABRIC_REPL, GOSSIP_S, FABRIC_TIMEOUT_S = 3, 2, 0.1, 30.0
+# the gateway phase: requests a mix, their rate (a second), new tokens each,
+# and the bound on a replay client thread; a mix fails when more than
+# GATEWAY_SHED_MAX of its requests are shed (503)
+GATEWAY_N, GATEWAY_RATE, MAX_NEW_GW, GATEWAY_JOIN_S = 16, 12.0, 8, 300.0
+GATEWAY_SHED_MAX = GATEWAY_N // 8
 SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill.py:84"),
@@ -124,6 +143,9 @@ PATHS = [("gemma3-270m", None, None, True, None),
          ("mamba2-780m", None, 4, True, 8),
          ("deepseek-v3-671b", 3, 1, True, None),
          ("gemma3-1b", None, None, False, None)]
+# the configurations the gateway phase serves, after every other phase
+# (mamba2-780m waits: a hit's restore blocks the engine thread ~0.85 s)
+GATEWAY_PATHS = ("gemma3-270m", "deepseek-v3-671b")
 
 
 def device_line():
@@ -219,29 +241,41 @@ def _device_rows(prof):
             if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
 
 
-def device_ms(fn, iters=20, windows=3):
+def device_ms(fn, iters=20, windows=3, tries=12):
     """Device time per call, in ms: the profiler's kernel and copy time
     over ``iters`` back-to-back calls (warm L2), divided by ``iters``; the
     median of ``windows`` windows. The profiler now and then records none
     or only part of a window's device events, so no window is trusted
-    alone: an empty one is left out, and all empty fails the run."""
+    alone: windows are taken (at most ``tries``) until ``windows`` of them
+    are whole, and the median is over those. A whole window holds device
+    events, a multiple of ``iters`` of them (each call launches the same
+    work), and no fewer than any window before it. When no window is
+    whole, the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
+    got, seen = [], []                 # (device events, ms a call)
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_dev_us(e) for e in _device_rows(prof))
-        if us > 0:
-            times.append(us / iters / 1e3)
-    if not times:
-        raise RuntimeError("the profiler recorded no device time")
-    return statistics.median(times)
+        rows = _device_rows(prof)
+        n = sum(e.count for e in rows)
+        seen.append(n)
+        if n and n % iters == 0:
+            got.append((n, sum(_dev_us(e) for e in rows) / iters / 1e3))
+            if len([1 for m, _ in got if m == max(seen)]) == windows:
+                break
+    most = max(seen)
+    whole = [ms for n, ms in got if n == most]
+    if not whole:
+        raise RuntimeError(f"the profiler recorded no whole window in "
+                           f"{tries} (device events a window of {iters} "
+                           f"calls: {seen})")
+    return statistics.median(whole)
 
 
 def profile_call(fn, iters=5):
@@ -1123,7 +1157,11 @@ def fabric_path(model, label, expect, prompts, refs, max_len=1024):
                       f"{h['repl']['handoffs']}"
                       for pid, h in sorted(health.items()))
           + f"; phase {clock.monotonic() - t_phase:.1f} s")
-    print(f"[{label}] fabric launches: {launches}")
+    print(f"[{label}] fabric launches: {launches}; hedged GETs fired/won "
+          f"(a GET outlasting max(1.5 x its estimate, 50 ms) fires the "
+          f"plan's next wall-link holder): "
+          + ", ".join(f"{c.name} {c.hedges}/{c.hedge_wins}"
+                      for c in (a, b, s, nocat, cat)))
 
     got = [res.case for _, res in runs]
     min_match = ccfg.min_match_tokens
@@ -1288,6 +1326,319 @@ def batched_path(model, label, max_len=1024):
     return launches
 
 
+def _replay_one(port, wl, stream, out):
+    """One chat request of a mix over HTTP (``http.client``): SSE read line
+    by line (client-seen TTFT at the first token), or unary (the cache
+    meta comes with it). Records status, tokens, ttft_s, ttlt_s, and
+    t_status: when the status line came (``clock.monotonic``)."""
+    import http.client
+    from repro_torch import clock
+    t0 = clock.monotonic()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/v1/chat/completions",
+                     json.dumps(wl.body(stream=stream)),
+                     {"Content-Type": "application/json",
+                      "X-Tenant": wl.tenant})
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        out["t_status"] = clock.monotonic()
+        if resp.status != 200:
+            out["retry_after"] = resp.getheader("Retry-After")
+            resp.read()
+            return
+        if not stream:
+            body = json.loads(resp.read())
+            out["ttlt_s"] = clock.monotonic() - t0
+            out["tokens"] = body["choices"][0]["token_ids"]
+            out["cache"] = body["cache"]
+            return
+        tokens = []
+        while True:
+            line = resp.readline()
+            if not line or line.strip() == b"data: [DONE]":
+                break
+            if not line.startswith(b"data: "):
+                continue
+            choice = json.loads(line[6:])["choices"][0]
+            if "token_id" in choice:
+                if not tokens:
+                    out["ttft_s"] = clock.monotonic() - t0
+                tokens.append(choice["token_id"])
+        out["ttlt_s"] = clock.monotonic() - t0
+        out["tokens"] = tokens
+    finally:
+        conn.close()
+
+
+def replay(port, wls):
+    """Each request of a mix on its own client thread at its arrival
+    offset; every other one SSE (the even ones), the rest unary.
+    Returns (results, wall seconds, the replay's start)."""
+    import threading
+    import time
+    from repro_torch import clock
+    results = [dict() for _ in wls]
+    t0 = clock.monotonic()
+
+    def worker(i, wl):
+        delay = wl.arrival_s - (clock.monotonic() - t0)
+        if delay > 0:
+            time.sleep(delay)
+        try:
+            _replay_one(port, wl, i % 2 == 0, results[i])
+        except Exception as e:         # recorded, then raised by the check
+            results[i]["error"] = repr(e)
+
+    threads = [threading.Thread(target=worker, args=(i, wl), daemon=True)
+               for i, wl in enumerate(wls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(GATEWAY_JOIN_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a replay client did not finish in "
+                             f"{GATEWAY_JOIN_S} s")
+    return results, clock.monotonic() - t0, t0
+
+
+def _ms(xs, q):
+    """The q-th percentile of seconds ``xs``, in ms."""
+    import numpy as np
+    return float(np.percentile(xs, q)) * 1e3 if len(xs) else float("nan")
+
+
+def _longest(samples, t0, t1):
+    """The longest of ``(end, seconds)`` samples that overlap [t0, t1]:
+    ``(seconds, end)``, or ``(0.0, t1)`` when none does."""
+    return max(((dt, end) for end, dt in samples
+                if end >= t0 and end - dt <= t1), default=(0.0, t1))
+
+
+def gateway_path(model, label, smi, max_len=1024):
+    """The serving front door on the card: FABRIC_PEERS peer daemons under
+    the port's supervisor (``Fabric.tcp``) and ``Gateway(model, fabric,
+    batch_size=BATCH, max_len=1024)``. Each mix of the port's
+    ``workloads`` (GATEWAY_N requests at GATEWAY_RATE a second, MAX_NEW_GW
+    tokens, every other one SSE) is replayed from client threads over
+    HTTP; then a tenant over its rate quota must get 429 with
+    Retry-After; one peer is killed (``fabric.kill``) and a cached prompt
+    must still be answered, after which ``check_and_restart`` must bring
+    the peer back; a one-slot gateway with no queue must answer 503 while
+    a stream holds its slot. Tokens are held against a fresh
+    ``BatchedEngine`` + ``Scheduler`` with no cache (equal in fp32,
+    counted in bf16); each mix must have a unary request served by a peer
+    (``matched_tokens > 0``); every daemon must exit 0 at ``stop()``. The
+    counts are set to 0 just before the gateway's traffic and read just
+    after: flash_prefill and the decode kernel must have launched.
+    Returns the launch counts."""
+    import http.client
+    import time
+    import numpy as np
+    import torch
+    from repro_torch import clock
+    from repro_torch.core.cluster.placement import PlacementPolicy
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.gateway import Gateway, TenantQuota, protocol
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.serving.engine import BatchedEngine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    from repro_torch.workloads import MIXES
+
+    kernels = (flash_prefill, flash_decode, ssd_scan, mla_decode)
+    decode_k = mla_decode if model.cfg.uses_mla else flash_decode
+    fp32 = model.dtype == torch.float32
+    t_phase = clock.monotonic()
+    mixes = {name: MIXES[name](GATEWAY_N, seed=0, rate_per_s=GATEWAY_RATE,
+                               max_new_tokens=MAX_NEW_GW)
+             for name in ("support", "rag", "agent")}
+    # a prompt no mix shares: answered cold, its blobs replicated, then
+    # asked again once its blob's primary owner is dead (never fetched
+    # before, so the engine's broker holds no copy of it)
+    probe = MIXES["support"](1, seed=1, max_new_tokens=MAX_NEW_GW)[0]
+    fabric = Fabric.tcp(n_peers=FABRIC_PEERS, gossip_interval_s=GOSSIP_S,
+                        request_timeout_s=FABRIC_TIMEOUT_S)
+    gw = Gateway(model, fabric=fabric, batch_size=BATCH, max_len=max_len,
+                 quotas={"over-quota": TenantQuota(rate_per_s=0.001,
+                                                   burst=1)})
+    tok = gw.tokenizer
+
+    def direct(wls):                   # no gateway, no cache, this thread
+        reqs = [Request(tokens=np.asarray(protocol.tokenize_messages(
+            tok, wl.messages).token_ids, np.int32),
+            max_new_tokens=wl.max_new_tokens) for wl in wls]
+        Scheduler(BatchedEngine(model, max_len, BATCH)).run(reqs)
+        return [r.stats.output_tokens for r in reqs]
+
+    want = {name: direct(wls) for name, wls in mixes.items()}
+    torch.cuda.synchronize()
+    out, shed = {}, {}
+    with fabric:
+        gw.start()
+        try:
+            for k in kernels:
+                k.launches = 0
+            for name, wls in mixes.items():
+                out[name] = replay(gw.port, wls)
+            over = mixes["support"][0]
+            over.tenant = "over-quota"
+            first, second = {}, {}
+            _replay_one(gw.port, over, False, first)
+            _replay_one(gw.port, over, False, second)
+            shed[429] = (first.get("status"), second.get("status"),
+                         second.get("retry_after"))
+            cold, dead = {}, {}
+            _replay_one(gw.port, probe, False, cold)
+            gw.engine.fetcher.flush_uploads(GATEWAY_JOIN_S)
+            segs = protocol.tokenize_messages(tok, probe.messages)
+            digest = max(segs.keys(gw.engine.fetcher.meta),
+                         key=lambda k: k.n_tokens).digest
+            victim, replica = PlacementPolicy(sorted(
+                fabric.peer_ids())).ring_order(digest)[:2]
+            t_repl = clock.monotonic()
+            while not fabric.supervisor.request(replica, "get",
+                                                {"key": digest})["ok"]:
+                if clock.monotonic() - t_repl > GATEWAY_JOIN_S:
+                    raise AssertionError(f"[{label}] {replica} never got "
+                                         f"its replica")
+                time.sleep(GOSSIP_S)
+            fabric.kill(victim, hard=True)
+            _replay_one(gw.port, probe, False, dead)
+            restarted = fabric.supervisor.check_and_restart()
+            alive = fabric.supervisor.health()
+            torch.cuda.synchronize()
+            launches = {k.__name__: k.launches for k in kernels}
+            fstats = dict(gw.engine.fetcher.stats)
+            restore_ts = list(gw.engine.fetcher.restore_s)
+            fetch_ts = list(gw.engine.fetcher.fetch_s)
+            step_ts = list(gw.engine.step_s)
+            step_r_ts = list(gw.engine.step_after_restore_s)
+            report = gw.report()
+            http_stats = dict(gw.server.stats)
+        finally:
+            gw.stop()
+    codes = fabric.supervisor.exit_codes()
+
+    # 503: one slot, no queue, a stream holding it (its own engine)
+    one = Gateway(model, batch_size=1, max_len=max_len, max_inflight=1,
+                  queue_depth=0).start()
+    try:
+        hold = http.client.HTTPConnection("127.0.0.1", one.port, timeout=120)
+        hold.request("POST", "/v1/completions", json.dumps(
+            {"prompt": "hold the only slot " * 8, "max_tokens": 256,
+             "stream": True}), {"Content-Type": "application/json"})
+        held = hold.getresponse()
+        line = held.readline()
+        while line and b"token_id" not in line:
+            line = held.readline()     # admitted once its first token is out
+        if not line:
+            raise AssertionError(f"[{label}] the held stream ended early")
+        extra = {}
+        _replay_one(one.port, probe, False, extra)
+        held.read()
+        hold.close()
+        shed[503] = (extra.get("status"), extra.get("retry_after"))
+    finally:
+        one.stop()
+
+    restore_s = [dt for _, dt in restore_ts]
+    fetch_s = [dt for _, dt in fetch_ts]
+    step_s = [dt for _, dt in step_ts]
+    step_r_s = [dt for _, dt in step_r_ts]
+    steps_ts = step_ts + step_r_ts
+    agree, hits = {}, {}
+    for name, (res, wall, t0) in out.items():
+        # a burst past the slots and the queue is shed (503, Retry-After),
+        # at most GATEWAY_SHED_MAX of a mix; anything else but a whole
+        # answer fails the phase
+        bad = [r for r in res if "error" in r or not (
+            r.get("status") == 200
+            and len(r.get("tokens", ())) == MAX_NEW_GW
+            or r.get("status") == 503 and r.get("retry_after"))]
+        if bad:
+            raise AssertionError(f"[{label}] gateway {name}: failed "
+                                 f"requests {bad[:3]}")
+        shed[name] = sum(r["status"] == 503 for r in res)
+        for i, r in enumerate(res):
+            if r["status"] != 503:
+                continue
+            # what held the engine thread in the second before the shed
+            t = r["t_status"]
+            it_s, it_end = _longest(steps_ts, t - 1.0, t)
+            get_s, get_end = _longest(fetch_ts, t - 1.0, t)
+            print(f"[{label}] gateway {name} shed request {i} at "
+                  f"+{(t - t0) * 1e3:.1f} ms: the longest engine iteration "
+                  f"in the second before {it_s * 1e3:.3f} ms (ended "
+                  f"+{(it_end - t0) * 1e3:.1f}), the longest GET "
+                  f"{get_s * 1e3:.3f} ms (ended +{(get_end - t0) * 1e3:.1f})")
+        agree[name] = [sum(x == y for x, y in zip(r["tokens"], w))
+                       for r, w in zip(res, want[name])
+                       if r["status"] == 200]
+        hits[name] = [r["cache"] for r in res if "cache" in r
+                      and r["cache"]["matched_tokens"] > 0]
+        ttft = [r["ttft_s"] for r in res if "ttft_s" in r]
+        ttlt = [r["ttlt_s"] for r in res if r["status"] == 200]
+        print(f"[{label}] gateway {name} on {smi}: {len(res)} requests in "
+              f"{wall * 1e3:.1f} ms ({GATEWAY_RATE:g}/s, {MAX_NEW_GW} new, "
+              f"SSE {len(ttft)}, shed 503 {shed[name]}); client TTFT (SSE) "
+              f"p50/p99 "
+              f"{_ms(ttft, 50):.2f}/{_ms(ttft, 99):.2f} ms, TTLT p50/p99 "
+              f"{_ms(ttlt, 50):.2f}/{_ms(ttlt, 99):.2f} ms; unary hits "
+              f"{len(hits[name])} of "
+              f"{sum('cache' in r for r in res)} answered "
+              f"(matched {[h['matched_tokens'] for h in hits[name]]} "
+              f"from {sorted({h['served_by'] for h in hits[name]})})")
+    print(f"[{label}] gateway fetcher: {fstats}; shed: 429 {shed[429]}, "
+          f"503 {shed[503]}; http {http_stats}; report shed "
+          f"{report.shed_requests}")
+    print(f"[{label}] gateway engine thread: restore ms per hit p50/max "
+          f"{_ms(restore_s, 50):.3f}/{_ms(restore_s, 100):.3f} "
+          f"({len(restore_s)} hits), GET ms p50/max {_ms(fetch_s, 50):.3f}/"
+          f"{_ms(fetch_s, 100):.3f} ({len(fetch_s)} GETs); iteration ms "
+          f"(inbox, resolves, one step) p50/p99 with a hit's restore "
+          f"{_ms(step_r_s, 50):.3f}/"
+          f"{_ms(step_r_s, 99):.3f} ({len(step_r_s)}) beside "
+          f"{_ms(step_s, 50):.3f}/{_ms(step_s, 99):.3f} without "
+          f"({len(step_s)})")
+    print(f"[{label}] gateway tokens agreeing with direct runs, of "
+          f"{MAX_NEW_GW}: {agree}; a fresh prompt cold "
+          f"{cold.get('cache')}, then with its primary {victim} dead: status "
+          f"{dead.get('status')} cache {dead.get('cache')}; restarted "
+          f"{restarted}, health {alive}; daemons exit {codes}; launches "
+          f"{launches}; phase {clock.monotonic() - t_phase:.1f} s")
+
+    if any(shed[name] > GATEWAY_SHED_MAX for name in out):
+        raise AssertionError(f"[{label}] gateway shed more than "
+                             f"{GATEWAY_SHED_MAX} of {GATEWAY_N} requests "
+                             f"in a mix: {shed}")
+    if fp32 and any(a != MAX_NEW_GW for v in agree.values() for a in v):
+        raise AssertionError(f"[{label}] gateway tokens differ from direct "
+                             f"runs: {agree}")
+    missing = [name for name, h in hits.items()
+               if not any(x["served_by"].startswith("peer") for x in h)]
+    if missing:
+        raise AssertionError(f"[{label}] gateway: no peer-served hit in "
+                             f"{missing}")
+    if shed[429][:2] != (200, 429) or not shed[429][2] or \
+            shed[503][0] != 503 or not shed[503][1]:
+        raise AssertionError(f"[{label}] gateway shedding: {shed}")
+    if cold.get("status") != 200 or dead.get("status") != 200 or \
+            dead["tokens"] != cold["tokens"] or restarted != [victim] or \
+            not alive[victim]:
+        raise AssertionError(f"[{label}] gateway dead-peer drill: {dead}, "
+                             f"restarted {restarted}, health {alive}")
+    if fp32 and dead["tokens"] != direct([probe])[0]:
+        raise AssertionError(f"[{label}] gateway dead-peer tokens differ")
+    if any(c != 0 for c in codes.values()):
+        raise AssertionError(f"[{label}] gateway daemons exit {codes}")
+    if launches["flash_prefill"] <= 0 or launches[decode_k.__name__] <= 0:
+        raise AssertionError(f"[{label}] gateway launches {launches}")
+    return launches
+
+
 def where_time_goes(model, prompt):
     """Device time by kernel over one prefill and 8 decode steps (bf16)."""
     import numpy as np
@@ -1343,11 +1694,19 @@ def where_time_goes(model, prompt):
                     dtype=model.dtype)
     tied = model.cfg.tie_embeddings
     w = model.embed.t() if tied else model.head
-    head_ms = device_ms(lambda: x @ w)
+    try:
+        head_ms, clock_name = device_ms(lambda: x @ w), "profiler"
+    except RuntimeError as e:
+        # on some models the profiler records half of this call's device
+        # events in every window (PERF.md §7); the call is device-bound,
+        # so CUDA events around each call time it. This line only: the
+        # kernels' rows take no such fallback
+        head_ms, clock_name = time_ms(lambda: x @ w), f"CUDA events: {e}"
     head_bytes = w.numel() * w.element_size()
     print(f"{'tied' if tied else 'untied'} head matmul alone: "
           f"{head_ms:.4f} ms on the device for {head_bytes / 1e6:.1f} MB "
-          f"of weights (bytes bound {head_bytes / MEM_BW * 1e3:.4f} ms)")
+          f"of weights (bytes bound {head_bytes / MEM_BW * 1e3:.4f} ms; "
+          f"timed by the {clock_name})")
 
 
 def cpu_cross_check(model_fp32, prompt, n_layers):
@@ -1425,7 +1784,7 @@ def main():
     if os.environ.get("PYTHONHASHSEED") is None:     # pin prompt lengths
         os.execve(sys.executable, [sys.executable] + sys.argv,
                   dict(os.environ, PYTHONHASHSEED="0"))
-    device_line()
+    smi = device_line()
     import torch
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_prefill import flash_prefill
@@ -1450,6 +1809,7 @@ def main():
 
     launches = {k: 0 for k in SOURCES}
     launches32 = dict(launches)
+    served = []                        # (name, bf16, fp32) of GATEWAY_PATHS
     for name, n_layers, cross_layers, edge, batched_layers in PATHS:
         m32, m16 = model_pair(name, n_layers)
         expect = needs(m32.cfg)
@@ -1460,18 +1820,31 @@ def main():
                 fab = fabric_path(m, label, expect, prompts, refs)
                 for k in got:
                     total[k] += got[k] + streamed[k] + fab[k]
+            full = m
             if batched_layers:
-                label += (f" at {batched_layers} of {m.cfg.n_layers} layers"
-                          " (cut to keep the script's time)")
                 m = cut_model(m, batched_layers)
-            for k, n in batched_path(m, label).items():
+            for k, n in batched_path(m, label + (
+                    f" at {batched_layers} of {full.cfg.n_layers} layers (cut"
+                    f" to keep the script's time)" if batched_layers
+                    else "")).items():
                 total[k] += n
-            del m
+            del m, full
         if edge:
             where_time_goes(m16, prompts[0])
             cpu_cross_check(m32, prompts[1], cross_layers or m32.cfg.n_layers)
+        if name in GATEWAY_PATHS:
+            served.append((name, m16, m32))
         del m32, m16
         torch.cuda.empty_cache()
+    # the gateway phases come last: after one, the profiler loses device
+    # events from its windows (PERF.md §7), and every profiler reading
+    # above is taken before
+    for name, m16, m32 in served:
+        for m, total in ((m16, launches), (m32, launches32)):
+            label = f"{name} {'bf16' if m is m16 else 'fp32'}"
+            for k, n in gateway_path(m, label, smi).items():
+                total[k] += n
+    del served
 
     out = []
     for name in ("flash_prefill", "flash_decode", "ssd_scan", "mla_decode"):

@@ -10,8 +10,10 @@ It covers the paper's edge request on dense, SSM and MLA models: prompt
 keys, the Bloom catalog, the cache server, v2 and v3 (``PC3``) state
 blobs, prefill with prefix resume (from a recurrent state for the SSM),
 greedy decode, the batched engine and scheduler, the network (simulated
-Wi-Fi, the TCP wire, peer daemons) and the multi-peer cache fabric
-(directory, placement, replication, fetch planner), and the hand-written
+Wi-Fi, the TCP wire, supervised peer daemons) and the multi-peer cache
+fabric (directory, placement, replication, fetch planner, deadlines and
+hedged fetches, the ``Fabric`` facade, the session pool), the
+OpenAI-compatible HTTP gateway with its workload mixes, and the hand-written
 Hopper kernels (``kernels/csrc``: attention prefill and decode, MLA
 decode, the SSD chunk scan).
 """

@@ -1,3 +1,4 @@
 """The prompt-cache core: keys, prompt ranges, Bloom catalog, cache
 server, state blobs, the simulated and TCP network, the multi-peer
-fabric and the edge client."""
+fabric (in process, or supervised daemons behind the ``Fabric`` facade),
+deadlines, the fetch policy, the edge client and the session pool."""

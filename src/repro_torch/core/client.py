@@ -65,8 +65,23 @@ edge device (``perf``, a :class:`~repro_torch.core.perfmodel.DevicePerfModel`)
 and the simulated Wi-Fi: modeled seconds, never a reading of this
 machine, all 0 without a perf model and a simulated link. Uploads run
 after the response, off its latency, as the paper's asynchronous uploads
-are. Hedging, deadlines, tracing, the decision ledger and the fetch
-broker are not ported.
+are.
+
+The fetch path's knobs are one validated
+:class:`~repro_torch.core.fetch_policy.FetchPolicy` (``policy=``), or the
+older ``overlap=`` / ``use_catalog=`` flags, never both. A
+:class:`~repro_torch.core.session_pool.FetchBroker` (``broker=``) shares
+one GET among concurrent sessions that want the same (peer, key). A
+deadline (``infer(deadline_s=...)`` or an ambient
+:func:`~repro_torch.core.deadline.deadline_scope`) prunes the plan,
+skips attempts whose estimated fetch exceeds what is left, and rides
+every payload to the peers. On a wall link without a broker, a single
+GET that outlasts :meth:`PeerDirectory.hedge_delay_s` fires the plan's
+next holder of the same range on another peer, and the first usable
+response wins; a streamed fetch projected to overrun the deadline (or,
+with a perf model, the local prefill it was priced against) is cut by
+the cancel frame. Tracing and the decision ledger are not ported
+(ROADMAP Queue 1, item 7.5).
 """
 from __future__ import annotations
 
@@ -83,6 +98,9 @@ from repro_torch.core import chunkfmt, sizing, state_io
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.cluster.directory import PeerDirectory
 from repro_torch.core.cluster.planner import FetchAttempt, FetchPlanner
+from repro_torch.core.deadline import attach as deadline_attach
+from repro_torch.core.deadline import current_deadline, deadline_scope
+from repro_torch.core.fetch_policy import FetchPolicy
 from repro_torch.core.keys import PromptKey, model_meta
 from repro_torch.core.metrics import Breakdown
 from repro_torch.core.perfmodel import DevicePerfModel
@@ -112,6 +130,7 @@ class InferResult:
     timings: Dict[str, float] = field(default_factory=dict)
     sim: Breakdown = field(default_factory=Breakdown)   # modeled seconds
     served_by: str = ""            # fabric: the peer that served the hit
+    shared_fetch: bool = False     # the hit rode another session's GET
     fetch_attempts: int = 0        # GETs tried (false positives, dead
     #                                peers, unreadable blobs and the hit)
     est_fetch_s: float = 0.0       # the planner's estimate of the hit
@@ -128,7 +147,8 @@ class EdgeClient:
                  cache_cfg: CacheConfig = CacheConfig(),
                  perf: Optional[DevicePerfModel] = None,
                  use_catalog: bool = True, perf_cfg=None,
-                 overlap: bool = False):
+                 overlap: bool = False,
+                 policy: Optional[FetchPolicy] = None, broker=None):
         self.name = name
         self.engine = engine
         if isinstance(transport, CacheServer):
@@ -139,8 +159,18 @@ class EdgeClient:
         # a full-size config's sizes and compute for the sim accounting
         # while a reduced model runs
         self.perf_cfg = perf_cfg or engine.model.cfg
-        self.use_catalog = use_catalog
-        self.overlap = overlap
+        if policy is None:
+            policy = FetchPolicy(overlap=overlap, use_catalog=use_catalog)
+        elif overlap or not use_catalog:
+            raise ValueError(
+                "pass either policy=FetchPolicy(...) or the legacy "
+                "overlap=/use_catalog= flags, not both")
+        self.policy = policy
+        self.use_catalog = policy.use_catalog
+        self.overlap = policy.overlap
+        self.broker = broker
+        self.hedges = self.hedge_wins = 0    # backups fired, and won
+        self.stream_cancels = 0        # streams the watchdog cut
         self.catalog = Catalog(cache_cfg)
         self.directory = transport if isinstance(transport, PeerDirectory) \
             else None
@@ -150,7 +180,12 @@ class EdgeClient:
             self.planner = FetchPlanner(
                 self.directory, self.perf_cfg, perf,
                 dtype_bytes=2 if emulated else engine.cache_dtype.itemsize,
-                overlap=overlap, chunk_layers=cache_cfg.chunk_layers)
+                overlap=self.overlap, chunk_layers=cache_cfg.chunk_layers)
+        # strict mode: a policy that requires streaming fails here, not on
+        # the first partial hit
+        policy.validate_for(engine, [ln.transport for ln in
+                                     self.directory.links.values()]
+                            if self.directory is not None else [transport])
         self.meta = model_meta(engine.model.cfg,
                                dtype_name(engine.cache_dtype))
         self.clock = getattr(transport, "clock", None)
@@ -170,7 +205,8 @@ class EdgeClient:
     # ------------------------------------------------------------------
     def infer(self, prompt: PromptSegments, max_new_tokens: int = 16,
               sampler: Callable = greedy, rng=None,
-              upload_on_miss: bool = True) -> InferResult:
+              upload_on_miss: Optional[bool] = None,
+              deadline_s: Optional[float] = None) -> InferResult:
         """The paper's request. ``timings`` holds wall seconds: ``bloom_s``
         (probe and plan), ``fetch_s`` (transfer on the TTFT path, every
         attempt; for a streamed hit what of the stream's wall time was
@@ -179,7 +215,18 @@ class EdgeClient:
         (compute), ``decode_s``, ``upload_s``; a streamed hit adds
         ``stream_s`` (the whole fetch and resume) and ``hidden_s``
         (transfer and restore seconds that ran while the suffix
-        computed). ``sim`` holds the modeled Table-3 seconds."""
+        computed). ``sim`` holds the modeled Table-3 seconds.
+
+        ``upload_on_miss`` defaults to the policy's. ``deadline_s`` is
+        the request's latency budget (on the link's sim clock where there
+        is one); an ambient ``deadline_scope`` applies the same way."""
+        with deadline_scope(deadline_s, clock=self.clock):
+            return self._infer(prompt, max_new_tokens, sampler, rng,
+                               self.policy.upload_on_miss
+                               if upload_on_miss is None else upload_on_miss)
+
+    def _infer(self, prompt: PromptSegments, max_new_tokens: int,
+               sampler: Callable, rng, upload_on_miss: bool) -> InferResult:
         t0 = clock.monotonic()
         cfg = self.perf_cfg
         n = len(prompt.token_ids)
@@ -196,10 +243,15 @@ class EdgeClient:
 
         # Step 2: catalog probe, longest range first; on the fabric the
         # planner orders the (peer, range) attempts
-        min_match = self.cache_cfg.min_match_tokens
+        min_match = self.cache_cfg.min_match_tokens \
+            if self.policy.min_match_tokens is None \
+            else self.policy.min_match_tokens
+        ddl = current_deadline()
         if self.directory is not None:
             plan = self.planner.plan(keys, n, min_match=min_match,
-                                     use_catalog=self.use_catalog)
+                                     use_catalog=self.use_catalog,
+                                     deadline_s=ddl.remaining()
+                                     if ddl is not None else None)
             if self.perf and self.use_catalog:
                 sim.bloom = self.perf.time_bloom(
                     len(keys) * max(len(self.directory.links), 1))
@@ -218,21 +270,29 @@ class EdgeClient:
         state, st, got = None, None, None
         n_attempts, dead, dead_s, chunks_down = 0, 0, 0.0, 0
         served_by, est_fetch, actual_fetch, hit_dl_sim = "", 0.0, 0.0, 0.0
+        shared = False
         for att in plan:               # best estimate first
-            cand = att.key
+            if ddl is not None and att.est_fetch_s >= ddl.remaining():
+                continue               # the rest of the budget cannot
+            cand = att.key             # cover the transfer: skip it
             n_attempts += 1
             net = self._link_net(att.peer_id)
             sim_link = self.clock is not None and net is not None
+            got = None
             if self.overlap and cand.n_tokens < n and \
+                    self.policy.transfer != "blocking" and \
                     model.supports_layer_stream:
                 got = self._fetch_streamed(att, prompt, tm, net)
-                chunks_down += got["chunks"]
+            if got is None:            # not streamed, or a broker follower
+                got = self._fetch(att, tm, net,
+                                  self._hedge_candidate(plan, att))
             else:
-                got = self._fetch(att, tm, net)
+                chunks_down += got["chunks"]
+            att = got.get("att", att)  # a hedge's winner served it
             kind, arrived = got["kind"], got["arrived"]
             if sim_link:
-                dl = got["dt"]
-                if emulated and kind != "dead":
+                dl = 0.0 if got["shared"] else got["dt"]
+                if emulated and kind != "dead" and not got["shared"]:
                     # only the full prompt's blob carries logits
                     nb_full = sizing.state_bytes(
                         cfg, cand.n_tokens,
@@ -247,9 +307,9 @@ class EdgeClient:
                 dead += 1
                 dead_s += got["transfer"]
                 continue
-            if kind == "cancelled":
-                continue
-            if att.peer_id is not None:
+            if kind in ("cancelled", "deadline"):
+                continue               # a healthy peer: no miss to count
+            if att.peer_id is not None and not got["shared"]:
                 self.directory.record_get(
                     att.peer_id, arrived, att.est_fetch_s, actual,
                     got["nbytes"] if arrived else 0,
@@ -263,16 +323,19 @@ class EdgeClient:
                 continue
             if kind != "hit":          # a recurrent state with no logits
                 continue
-            st, state = got["st"], got["state"]
-            matched, down_bytes = cand.n_tokens, got["nbytes"]
+            st, state, shared = got["st"], got["state"], got["shared"]
+            matched = cand.n_tokens
+            down_bytes = 0 if shared else got["nbytes"]
             hit_dl_sim = actual if sim_link else 0.0
             if att.peer_id is not None:
                 served_by, est_fetch = att.peer_id, att.est_fetch_s
                 actual_fetch = actual
-                # the blob's bytes are made only if the client must ship
-                # a replica itself (a streamed hit's container is a copy)
-                self.directory.note_fetch(cand.digest, got["nbytes"],
-                                          att.peer_id, got["blob"])
+                if not shared:         # N shared adoptions are one fetch
+                    # the blob's bytes are made only if the client must
+                    # ship a replica itself (a streamed hit's container
+                    # is a copy)
+                    self.directory.note_fetch(cand.digest, got["nbytes"],
+                                              att.peer_id, got["blob"])
             break
 
         # Step 3: adopt / resume / full local prefill
@@ -346,7 +409,8 @@ class EdgeClient:
             blob_bytes_up=up, false_positive=false_pos and matched == 0,
             unreadable_blobs=unreadable, streamed=streamed,
             chunks_down=chunks_down, timings=tm, sim=sim,
-            served_by=served_by, fetch_attempts=n_attempts,
+            served_by=served_by, shared_fetch=shared,
+            fetch_attempts=n_attempts,
             est_fetch_s=est_fetch, actual_fetch_s=actual_fetch)
         if overlap_hidden:
             res.extra["overlap_hidden_s"] = overlap_hidden
@@ -361,30 +425,57 @@ class EdgeClient:
             return self.directory.link(peer_id).net
         return getattr(self.transport, "net", None)
 
-    def _fetch(self, att: FetchAttempt, tm: Dict[str, float], net) -> dict:
-        """One GET, its blob checked and restored. Returns ``{"kind":
-        "hit" | "miss" | "dead" | "unreadable" | "skip", "arrived": a blob
-        came, "dt": the transport's seconds (a sim link's modeled
-        seconds; for a dead peer there one RTT), "transfer": wall seconds
-        of the GET, "nbytes", "blob", "state"}``. Adds wall seconds to
-        ``tm``."""
+    def _issue(self, att: FetchAttempt):
+        """One GET of ``att``'s blob: ``(resp, seconds, bytes)``. A dead
+        peer's ``TransportError`` is the reply ``{"ok": False, "dead":
+        True}`` with the wall seconds the fast fail cost."""
         payload = {"key": att.key.digest}
         t0 = clock.monotonic()
         try:
             if att.peer_id is not None:
-                resp, dt, _ = self.directory.request(att.peer_id, "get",
-                                                     payload)
-            else:
-                resp, dt, _ = self.transport.request("get", payload)
-        except TransportError:
-            wall = clock.monotonic() - t0
-            tm["fetch_s"] += wall      # what the fast fail cost
-            return {"kind": "dead", "arrived": False, "transfer": wall,
-                    "dt": net.rtt_s if net is not None else wall}
+                return self.directory.request(att.peer_id, "get", payload)
+            return self.transport.request("get", payload)
+        except TransportError as e:
+            return ({"ok": False, "dead": True, "error": repr(e)},
+                    clock.monotonic() - t0, 0)
+
+    def _broker_key(self, att: FetchAttempt):
+        """The broker shares a transfer per (peer, key): the same blob on
+        two peers is two links."""
+        return (att.peer_id, att.key.digest) if att.peer_id is not None \
+            else att.key.digest
+
+    def _fetch(self, att: FetchAttempt, tm: Dict[str, float], net,
+               hedge: Optional[FetchAttempt] = None) -> dict:
+        """One GET, its blob checked and restored. Returns ``{"kind":
+        "hit" | "miss" | "dead" | "deadline" | "unreadable" | "skip",
+        "arrived": a blob came, "dt": the transport's seconds (a sim
+        link's modeled seconds; for a dead peer there one RTT),
+        "transfer": wall seconds of the GET, "nbytes", "blob", "state",
+        "shared": another session's GET brought it (the broker), "att":
+        the attempt that served it (a hedge's winner)}``. Adds wall
+        seconds to ``tm``."""
+        t0 = clock.monotonic()
+        shared, template = False, None
+        if self.broker is not None:    # with a broker there is no hedge
+            resp, dt, _, shared, template = self.broker.fetch(
+                self._broker_key(att), lambda: self._issue(att),
+                prep=self.engine.new_cache)
+        elif hedge is not None:
+            resp, dt, att = self._fetch_hedged(att, hedge)
+        else:
+            resp, dt, _ = self._issue(att)
         wall = clock.monotonic() - t0
-        tm["fetch_s"] += wall
+        tm["fetch_s"] += wall          # a dead peer: what the fast fail cost
         out = {"kind": "miss", "arrived": False, "dt": dt, "transfer": wall,
-               "nbytes": 0, "st": None, "state": None}
+               "nbytes": 0, "st": None, "state": None, "shared": shared,
+               "att": att}
+        if resp.get("dead"):
+            out.update(kind="dead", dt=net.rtt_s if net is not None else wall)
+            return out
+        if resp.get("deadline_exceeded"):
+            out["kind"] = "deadline"
+            return out
         blob = resp.get("blob") if resp.get("ok") else None
         if not blob:
             return out
@@ -396,14 +487,65 @@ class EdgeClient:
                     not payload.get("logits"):
                 out["kind"] = "skip"   # a state cannot re-run its last token
                 return out
-            out["state"] = state_io.restore_state(payload,
-                                                  self.engine.new_cache())
+            out["state"] = state_io.restore_state(
+                payload, template if template is not None
+                else self.engine.new_cache())
             out["kind"] = "hit"
         except ValueError:             # ChunkError too: a miss
             out["kind"] = "unreadable"
         finally:
             tm["restore_s"] += clock.monotonic() - tr
         return out
+
+    # -- hedged fetches --------------------------------------------------
+    def _hedge_candidate(self, plan, att: FetchAttempt
+                         ) -> Optional[FetchAttempt]:
+        """The plan's next attempt at the same range on another wall-link
+        peer: the backup a hedged GET fires once the primary outlasts its
+        patience. None where hedging does not apply: sim links (their
+        modeled time is exact), a broker (a hedging leader would fork the
+        shared transfer), the single-server client, or no other holder."""
+        if (self.directory is None or self.broker is not None
+                or att.peer_id is None
+                or self._link_net(att.peer_id) is not None):
+            return None
+        later = plan[plan.index(att) + 1:]
+        return next((o for o in later
+                     if o.key.digest == att.key.digest
+                     and o.peer_id not in (None, att.peer_id)
+                     and self._link_net(o.peer_id) is None), None)
+
+    def _fetch_hedged(self, att: FetchAttempt, hedge: FetchAttempt):
+        """A single GET with a tail-latency hedge: fire the primary; if it
+        is still out after ``hedge_delay_s``, fire the backup too. The
+        first usable reply wins; a failed first reply waits for the other
+        leg. The loser's reply is dropped when it lands (a single GET has
+        no stream to cancel). Returns ``(resp, seconds, winner)``. Both
+        legs carry the caller's deadline."""
+        results: "queue.Queue" = queue.Queue()
+        ddl = current_deadline()
+
+        def issue(a: FetchAttempt):
+            with deadline_attach(ddl):
+                resp, dt, _ = self._issue(a)
+            results.put((a, resp, dt))
+
+        threading.Thread(target=issue, args=(att,), daemon=True).start()
+        try:
+            got = results.get(
+                timeout=self.directory.hedge_delay_s(att.peer_id,
+                                                     att.est_fetch_s))
+        except queue.Empty:
+            self.hedges += 1
+            threading.Thread(target=issue, args=(hedge,),
+                             daemon=True).start()
+            got = results.get()
+            if not (got[1].get("ok") and got[1].get("blob")):
+                got = results.get()    # the other leg's chance
+        winner, resp, dt = got
+        if winner is hedge:
+            self.hedge_wins += 1
+        return resp, dt, winner
 
     def _fetch_streamed(self, att: FetchAttempt, prompt: PromptSegments,
                         tm: Dict[str, float], net) -> dict:
@@ -420,23 +562,61 @@ class EdgeClient:
         with ``st`` (the resumed state) or, for a v2 blob, ``state``
         (restored whole, for the ordinary resume); ``miss`` (no blob);
         ``dead``; ``unreadable`` (a corrupt, truncated or undecodable
-        stream); ``cancelled`` (a recurrent state without logits: the
-        stream is cut). A hit adds ``resume_from``, ``chunks`` and
-        ``hidden_wall``. Adds its wall seconds to ``tm``."""
+        stream); ``cancelled`` (a recurrent state without logits, or the
+        watchdog below: the stream is cut). A hit adds ``resume_from``,
+        ``chunks`` and ``hidden_wall``. Adds its wall seconds to ``tm``.
+
+        With a broker this session leads the transfer, and publishes the
+        blob (or the failure) for the sessions that join it; returns None
+        when another session leads it or its blob is cached, and the
+        caller shares it through :meth:`_fetch`.
+
+        On a wall link a watchdog projects the stream's end from its pace
+        so far (from the second chunk on) and cuts it with the cancel
+        frame when the projection overruns the deadline's remainder or,
+        with a perf model, the local prefill the attempt was priced
+        against (the reference also learns a local baseline without one,
+        from its decision ledger, which the port does not have)."""
         cand, peer_id = att.key, att.peer_id
+        if self.broker is not None and \
+                self.broker.lead(self._broker_key(att)) is None:
+            return None
         sim_link = self.clock is not None and net is not None
         recurrent = self.engine.model.has_recurrent_state
         restorer = state_io.ChunkedRestorer(self.meta)
         events: "queue.Queue" = queue.Queue()
         cancel = threading.Event()
         info = {"chunks": 0, "feed_s": 0.0, "seconds": 0.0, "hdr": None,
-                "err": None}
+                "err": None, "watchdog": None}
+        ddl = current_deadline()
+        k_expected = max(sizing.stream_chunk_count(
+            self.engine.model.cfg, self.cache_cfg.chunk_layers), 1)
+        local_s = self.perf.time_prefill(
+            self.perf_cfg, len(prompt.token_ids)) if self.perf else None
+        t_w0 = clock.monotonic()
+
+        def watchdog():
+            """The reason to cut the stream now, or None."""
+            elapsed = clock.monotonic() - t_w0
+            left_s = elapsed / info["chunks"] * max(
+                k_expected - info["chunks"], 0)
+            if ddl is not None and left_s > ddl.remaining():
+                return "deadline"
+            if local_s is not None and att.est_total_s < local_s \
+                    and elapsed + left_s > local_s:
+                return "estimator"
+            return None
 
         def on_chunk(chunk, dt, nb):
             info["chunks"] += 1
             if peer_id is not None:
                 self.directory.record_chunk(peer_id, nb, dt,
                                             observe=not sim_link)
+            if not sim_link and not cancel.is_set() and info["chunks"] >= 2:
+                info["watchdog"] = watchdog()
+                if info["watchdog"] is not None:
+                    cancel.set()
+                    self.stream_cancels += 1
             tf = clock.monotonic()
             done = restorer.feed(chunk)
             info["feed_s"] += clock.monotonic() - tf
@@ -448,17 +628,21 @@ class EdgeClient:
         def pump():
             req = ("get_chunks", {"key": cand.digest}, on_chunk)
             try:
-                if peer_id is not None:
-                    info["hdr"], info["seconds"], _ = \
-                        self.directory.request_stream(peer_id, *req,
-                                                      cancel=cancel)
-                else:
-                    info["hdr"], info["seconds"], _ = \
-                        self.transport.request_stream(*req, cancel=cancel)
+                with deadline_attach(ddl):
+                    pump_request(req)
             except BaseException as e:  # re-raised below unless the
                 info["err"] = e        # stream was bad, cut or dead
             finally:
                 events.put(None)       # always unblock the consumer
+
+        def pump_request(req):
+            if peer_id is not None:
+                info["hdr"], info["seconds"], _ = \
+                    self.directory.request_stream(peer_id, *req,
+                                                  cancel=cancel)
+            else:
+                info["hdr"], info["seconds"], _ = \
+                    self.transport.request_stream(*req, cancel=cancel)
 
         t0 = clock.monotonic()
         worker = threading.Thread(target=pump, daemon=True)
@@ -516,11 +700,16 @@ class EdgeClient:
         err = info["err"]
         if err is not None and not isinstance(
                 err, (StreamCancelled, ValueError, TransportError)):
+            if self.broker is not None:     # never leave joiners waiting
+                self.broker.publish(self._broker_key(att),
+                                    {"ok": False, "error": repr(err)})
             raise err
         if kind == "hit" and err is not None:
             st, state, kind = None, None, "unreadable"
         if isinstance(err, TransportError):
             kind = "dead"
+        elif isinstance(err, StreamCancelled) and info["watchdog"]:
+            kind = "cancelled"         # cut on purpose: not a bad stream
         elif first is None and isinstance(info["hdr"], dict) and \
                 not info["hdr"].get("error"):
             kind = "miss"
@@ -539,7 +728,14 @@ class EdgeClient:
             dt = info["seconds"] if info["hdr"] is not None else net.rtt_s
         else:
             dt = visible
+        if self.broker is not None:    # resolve the sessions that joined
+            resp = {"ok": True, "blob": state_io.pack_container(
+                restorer.raw_chunks())} if kind == "hit" else \
+                {"ok": False, "blob": None, "dead": kind == "dead"}
+            self.broker.publish(self._broker_key(att), resp,
+                                info["seconds"])
         return {"kind": kind, "arrived": kind == "hit", "st": st,
+                "shared": False, "watchdog": info["watchdog"],
                 "state": state, "chunks": info["chunks"],
                 "nbytes": chunkfmt.container_size(restorer.raw_chunks()),
                 "resume_from": resume_from,

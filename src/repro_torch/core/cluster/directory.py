@@ -1,7 +1,8 @@
 """The client's view of the cache fabric: one Bloom catalog per peer.
 
 A copy of ``repro.core.cluster.directory`` without its tracing, flight
-recorder, calibration and deadline hooks. A :class:`PeerDirectory` takes
+recorder and calibration (ROADMAP Queue 1, item 7.5). A
+:class:`PeerDirectory` takes
 the place of the single transport in ``EdgeClient``. Per peer it holds
 the link (an in-process simulated one, or a real
 :class:`~repro_torch.core.net.link.TCPPeerLink`), a local catalog of the
@@ -18,7 +19,10 @@ costs).
 
 Writes are one PUT to the first accepting peer in ring order; that peer
 fans out to the key's other owners itself. A ``stored: false`` ack
-(budget refused) keeps walking the ring and registers nothing. Keys hot
+(budget refused) keeps walking the ring and registers nothing. An
+ambient :func:`~repro_torch.core.deadline.deadline_scope` rides every
+request's payload as its remaining seconds; with none in scope the
+payload is sent as it was given. Keys hot
 at fetch time get one more replica on the fastest other peer, by a
 ``hot`` hint to the peer that served them; with a decaying tracker the
 replica is collected (``del``) once the key cools. A GET the catalog
@@ -35,6 +39,7 @@ from repro_torch.core.cluster.breaker import CircuitBreaker
 from repro_torch.core.cluster.peer import CachePeer, PeerTransport
 from repro_torch.core.cluster.placement import HotKeyTracker, PlacementPolicy
 from repro_torch.core.cluster.replication import REPL_FACTOR
+from repro_torch.core.deadline import inject_deadline
 from repro_torch.core.metrics import PeerStats
 from repro_torch.core.net.estimator import LinkEstimator
 from repro_torch.core.netsim import SimClock
@@ -49,6 +54,8 @@ REPLICA_GC_GRACE_S = 1.0
 READ_REPAIR_INTERVAL_S = 5.0       # at most one read repair a digest a
                                    # window
 HOT_MAX_ENTRIES = 4096             # digests the hot-key tracker counts
+HEDGE_RATIO = 1.5                  # actual/estimate patience of a hedge
+HEDGE_FLOOR_S = 0.05               # the least wait before a hedge fires
 
 
 class PeerLink:
@@ -80,11 +87,14 @@ class PeerDirectory:
                  hot_decay_every: int = 0,
                  suspect_cooldown_s: float = 30.0,
                  sync_peers: Optional[Sequence[str]] = None,
-                 adaptive: bool = True):
+                 adaptive: bool = True,
+                 estimator: Optional[LinkEstimator] = None):
         """``peers`` mixes :class:`CachePeer` objects (the directory builds
         their simulated :class:`PeerTransport`) and transport-like objects
         with a ``peer_id`` and ``request(op, payload, advance_clock)``,
-        such as :class:`~repro_torch.core.net.link.TCPPeerLink`."""
+        such as :class:`~repro_torch.core.net.link.TCPPeerLink`. A shared
+        ``estimator`` (a session pool's) keeps the beliefs its other
+        directories learned; each new link is only seeded in it."""
         self.cache_cfg = cache_cfg
         self.clock = clock or SimClock()
         self.links: Dict[str, PeerLink] = {}
@@ -113,7 +123,7 @@ class PeerDirectory:
         self._repair_t: Dict[bytes, float] = {}
         self.read_repairs = 0
         self.adaptive = adaptive
-        self.estimator = LinkEstimator()
+        self.estimator = estimator or LinkEstimator()
         self._nominal: Dict[str, Tuple[float, float]] = {}
         for pid, ln in self.links.items():
             net = ln.net
@@ -191,7 +201,8 @@ class PeerDirectory:
         ln = self.links[peer_id]
         ln.breaker.on_attempt(self.clock.now())
         try:
-            out = ln.transport.request(op, payload, advance_clock)
+            out = ln.transport.request(op, inject_deadline(payload),
+                                       advance_clock)
         except TransportError:
             self._failed(ln)
             raise
@@ -211,7 +222,7 @@ class PeerDirectory:
                                  f"stream")
         ln.breaker.on_attempt(self.clock.now())
         try:
-            out = tr.request_stream(op, payload, on_chunk,
+            out = tr.request_stream(op, inject_deadline(payload), on_chunk,
                                     advance_clock=advance_clock,
                                     cancel=cancel)
         except TransportError:
@@ -227,6 +238,16 @@ class PeerDirectory:
             return self.estimator.est_fetch_s(peer_id, nbytes)
         bw, rtt = self._nominal[peer_id]
         return rtt + nbytes * 8.0 / bw
+
+    def hedge_delay_s(self, peer_id: str, est_s: float) -> float:
+        """How long to wait on ``peer_id`` before firing the plan's next
+        candidate: the estimate times the peer's p95 actual/estimate
+        ratio, floored at ``HEDGE_FLOOR_S`` so that sub-millisecond
+        estimates do not hedge on scheduler noise. The reference learns
+        the ratio per peer (its calibration tracker); the port has no
+        calibration yet (ROADMAP Queue 1, item 7.5), so the ratio is the
+        reference's default for a peer it has not calibrated, 1.5."""
+        return max(est_s * HEDGE_RATIO, HEDGE_FLOOR_S)
 
     # -- placement -------------------------------------------------------
     def upload(self, digest: bytes, blob: bytes) -> int:

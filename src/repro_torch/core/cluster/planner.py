@@ -12,7 +12,9 @@ layer-streamed pipeline) and returns the attempts sorted by it. With a
 device perf model, an attempt estimated slower than a local prefill of
 the whole prompt is dropped. Without one there is no compute to weigh,
 so the plan keeps the paper's longest-first order and the link only
-breaks ties. ``est_fetch`` is the directory's adaptive link estimate.
+breaks ties. With a remaining deadline budget, an attempt whose
+estimated total cannot finish within it is dropped too. ``est_fetch`` is
+the directory's adaptive link estimate.
 """
 from __future__ import annotations
 
@@ -48,9 +50,12 @@ class FetchPlanner:
 
     def plan(self, keys: Sequence[PromptKey], n_tokens: int,
              min_match: int = 0,
-             use_catalog: bool = True) -> List[FetchAttempt]:
+             use_catalog: bool = True,
+             deadline_s: Optional[float] = None) -> List[FetchAttempt]:
         """The attempts worth making, best first. ``use_catalog=False``
-        (the §5.2.3 ablation) asks every usable peer for every range."""
+        (the §5.2.3 ablation) asks every usable peer for every range.
+        ``deadline_s`` is the request's remaining budget: an attempt
+        estimated to take longer is never worth starting."""
         cfg, perf, d = self.perf_cfg, self.perf, self.directory
         attempts: List[FetchAttempt] = []
         for k in keys:
@@ -86,4 +91,6 @@ class FetchPlanner:
             kept = sorted(attempts, key=lambda a: (-a.key.n_tokens,
                                                    a.est_fetch_s,
                                                    a.ring_rank))
+        if deadline_s is not None:
+            kept = [a for a in kept if a.est_total_s < deadline_s]
         return kept

@@ -4,10 +4,10 @@ per-peer statistics, and the serving layer's per-request and aggregate
 
 The port's copy of ``repro/core/metrics.py``: :class:`Breakdown` (the
 client's ``sim`` seconds: emulated edge device and simulated Wi-Fi),
-:class:`PeerStats`, :func:`percentile`, :class:`RequestStats`,
+:class:`PeerStats` and :func:`merge_peer_stats` (the session pool's and
+the gateway's fleet view), :func:`percentile`, :class:`RequestStats`,
 :class:`TenantStats` and :class:`ServingReport`. Spans are not ported,
-so there is no ``Breakdown.from_spans`` and ``ServingReport.per_peer``
-stays empty.
+so there is no ``Breakdown.from_spans``.
 """
 from __future__ import annotations
 
@@ -75,6 +75,33 @@ class PeerStats:
         d = dict(self.__dict__)
         d["est_error_s"] = self.est_error_s
         return d
+
+
+# counter fields summed when merging PeerStats across clients (tombstones
+# is a gauge: the freshest belief wins)
+PEER_COUNTER_FIELDS = (
+    "gets", "hits", "misses", "miss_outliers", "transport_errors",
+    "bytes_down", "bytes_up", "store_rejects", "hints", "chunks_down",
+    "overlap_hidden_s", "est_fetch_s", "actual_fetch_s")
+
+
+def merge_peer_stats(stat_maps: Sequence[Dict[str, PeerStats]],
+                     estimator=None) -> Dict[str, PeerStats]:
+    """One fleet view over several clients' per-peer stats: counters
+    summed, ``tombstones`` the largest; with the shared ``estimator``,
+    each entry carries its current bandwidth / RTT belief."""
+    merged: Dict[str, PeerStats] = {}
+    for stats in stat_maps:
+        for pid, st in (stats or {}).items():
+            agg = merged.setdefault(pid, PeerStats(pid))
+            for f in PEER_COUNTER_FIELDS:
+                setattr(agg, f, getattr(agg, f) + getattr(st, f))
+            agg.tombstones = max(agg.tombstones, st.tombstones)
+    if estimator is not None:
+        for pid, agg in merged.items():
+            agg.est_bw_bps, agg.est_rtt_s, agg.link_observations = \
+                estimator.snapshot(pid)
+    return merged
 
 
 def percentile(xs: Sequence[float], q: float) -> float:
@@ -164,6 +191,7 @@ class ServingReport:
 
     @classmethod
     def from_requests(cls, reqs: Sequence[RequestStats], wall_s: float,
+                      per_peer: Dict[str, PeerStats] = None,
                       shed: Dict[str, int] = None) -> "ServingReport":
         """``shed`` maps tenant -> admissions refused; shed requests
         never completed, so they appear only in the shed counters, not
@@ -188,9 +216,11 @@ class ServingReport:
             latency_p50=percentile(lats, 50),
             latency_p99=percentile(lats, 99),
             queue_wait_p50=percentile([r.queue_wait for r in reqs], 50),
+            per_peer=dict(per_peer or {}),
             per_tenant=per_tenant, shed_requests=sum(shed.values()))
 
     def as_dict(self) -> Dict[str, object]:
         d = dict(self.__dict__)
+        d["per_peer"] = {k: v.as_dict() for k, v in self.per_peer.items()}
         d["per_tenant"] = {k: v.as_dict() for k, v in self.per_tenant.items()}
         return d

@@ -1,7 +1,7 @@
 """Peer daemon: one cache peer as its own OS process.
 
     python -m repro_torch.core.net.daemon --peer-id peer0 --port 0 \\
-        [--gossip-interval S]
+        [--max-store-bytes N] [--gossip-interval S]
 
 Hosts a :class:`~repro_torch.core.cluster.CachePeer` behind
 :func:`~repro_torch.core.net.server.serve_peer_tcp` and prints one line
@@ -16,11 +16,15 @@ ops it answers three control ops:
 * ``health``: liveness, pid, store occupancy, gossip and replication
   counts and the socket server's counts;
 * ``set_neighbors``: ``{peers: {peer_id: [host, port], ...}, ring:
-  [peer_id, ...], repl_factor: R}``, the ring required. It arms the gossip thread, which every
-  ``--gossip-interval`` seconds pulls ``csync`` deltas from
+  [peer_id, ...], repl_factor: R}``. It arms the gossip thread, which
+  every ``--gossip-interval`` seconds pulls ``csync`` deltas from
   ``GOSSIP_FANOUT`` random neighbours and pumps the peer's pending
   replication pushes and hinted handoffs, and it wires peer-side push
-  replication over :class:`~repro_torch.core.net.link.TCPPeerLink`\\ s;
+  replication over :class:`~repro_torch.core.net.link.TCPPeerLink`\\ s.
+  A ``ring`` given is the ring (the supervisor names every peer it
+  runs, the dead ones too); without one the ring is every peer this
+  daemon was ever told of, so a primary that is down keeps its keys
+  while it is restarted;
 * ``shutdown``: replies ``{"ok": True}``, then exits through the
   server's graceful drain. SIGTERM takes the same path.
 """
@@ -53,6 +57,7 @@ class DaemonHandler:
         self.stop_event = stop_event
         self.server = None             # the PeerServer, once bound
         self.neighbors: Dict[str, Tuple[str, int]] = {}
+        self._known_ring = {peer.peer_id}     # every peer ever named
         self._nlock = threading.Lock()
         self._repl_links: Dict[str, TCPPeerLink] = {}
 
@@ -85,7 +90,12 @@ class DaemonHandler:
                     pid: (host, int(port))
                     for pid, (host, port) in payload["peers"].items()
                     if pid != self.peer.peer_id}
-            ring = list(payload["ring"])
+            if payload.get("ring"):
+                ring = list(payload["ring"])
+                self._known_ring = set(ring)
+            else:
+                self._known_ring |= set(payload["peers"])
+                ring = sorted(self._known_ring)
             self.peer.wire_replication(
                 ring, self._repl_send,
                 repl_factor=int(payload.get("repl_factor", REPL_FACTOR)),
@@ -144,11 +154,14 @@ def main(argv=None) -> int:
     ap.add_argument("--peer-id", required=True)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--max-store-bytes", type=int, default=0,
+                    help="the peer's store budget in bytes (0: unbounded)")
     ap.add_argument("--gossip-interval", type=float, default=0.25)
     args = ap.parse_args(argv)
 
     stop_event = threading.Event()
-    peer = CachePeer(args.peer_id, CacheConfig())
+    peer = CachePeer(args.peer_id,
+                     CacheConfig(max_store_bytes=args.max_store_bytes))
     handler = DaemonHandler(peer, stop_event)
     server = serve_peer_tcp(handler, args.host, args.port)
     handler.server = server

@@ -1,7 +1,10 @@
 """Asyncio TCP server hosting one cache peer's ``handle(op, payload)``.
 
-A copy of ``repro.core.net.server`` without its fault-injection flags
-and outbound throttle. :func:`serve_peer_tcp` puts any handler (a
+A copy of ``repro.core.net.server`` without its fault-injection flags,
+outbound throttle and server-side spans. A request whose
+:data:`~repro_torch.core.deadline.DEADLINE_KEY` budget is already spent
+is answered ``{"ok": False, "deadline_exceeded": True}`` and never
+dispatched. :func:`serve_peer_tcp` puts any handler (a
 :class:`~repro_torch.core.cluster.CachePeer`, a bare
 :class:`~repro_torch.core.server.CacheServer`, a daemon's handler)
 behind a socket speaking :mod:`repro_torch.core.net.frames`. The event
@@ -22,6 +25,7 @@ import asyncio
 import threading
 from typing import Optional, Set
 
+from repro_torch.core.deadline import expired_reply
 from repro_torch.core.net import frames
 
 DRAIN_TIMEOUT_S = 5.0              # a graceful close waits this long at most
@@ -38,7 +42,8 @@ class PeerServer:
         self.port = port               # the bound port after start()
         self.stats = {"connections": 0, "requests": 0, "frame_errors": 0,
                       "bytes_in": 0, "bytes_out": 0, "chunks_out": 0,
-                      "cancels": 0, "handler_errors": 0}
+                      "cancels": 0, "handler_errors": 0,
+                      "deadline_exceeded": 0}
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server: Optional[asyncio.AbstractServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -117,12 +122,18 @@ class PeerServer:
                     # only a client that asked for a stream gets chunk
                     # frames: a plain request reads exactly one frame
                     want_stream = bool(msg.pop("stream", False))
-                    try:
-                        resp = await loop.run_in_executor(
-                            None, self.handle, op, msg)
-                    except Exception as e:  # a handler fault: answer it
-                        self.stats["handler_errors"] += 1
-                        resp = {"ok": False, "error": repr(e)}
+                    # a request whose budget is spent is not dispatched:
+                    # its answer could only occupy the executor and link
+                    resp = expired_reply(msg)
+                    if resp is not None:
+                        self.stats["deadline_exceeded"] += 1
+                    else:
+                        try:
+                            resp = await loop.run_in_executor(
+                                None, self.handle, op, msg)
+                        except Exception as e:  # a handler fault: answer
+                            self.stats["handler_errors"] += 1
+                            resp = {"ok": False, "error": repr(e)}
                     chunks = resp.pop("chunks", None) \
                         if (want_stream and isinstance(resp, dict)) else None
                     if chunks is None:

@@ -24,11 +24,16 @@ import threading
 from typing import Callable, Optional, Tuple
 
 from repro_torch import clock
+from repro_torch.core.deadline import expired_reply
 from repro_torch.core.net import frames
 from repro_torch.core.netsim import SimClock, SimNetwork
 from repro_torch.core.server import CacheServer
 
 CHUNK_FRAME_BYTES = 16             # the reference's per-chunk frame overhead
+# a client socket's receive buffer, fixed before the connect. Left to the
+# stack's autotuning, a kept-alive socket can pause ~200 ms in the middle
+# of a large response (PERF.md §7).
+RCVBUF_BYTES = 2 << 20
 
 
 class TransportError(ConnectionError):
@@ -55,7 +60,12 @@ class InProcTransport:
 
     def _serve(self, op: str, payload: dict) -> dict:
         """The in-process wire: subclasses gate liveness here so request
-        and request_stream share one failure contract."""
+        and request_stream share one failure contract. A request whose
+        deadline budget is already spent is answered as the peer server
+        answers it, without running the handler."""
+        expired = expired_reply(payload)
+        if expired is not None:
+            return expired
         return self.server.handle(op, payload)
 
     def request(self, op: str, payload: dict,
@@ -138,9 +148,24 @@ class TCPTransport:
 
     def _connect(self) -> None:
         try:
-            self.sock = socket.create_connection(
-                self.addr, timeout=self.timeout)
-            self.sock.settimeout(self.timeout)
+            # socket.create_connection, with the receive buffer fixed
+            # before the connect (RCVBUF_BYTES)
+            err: Optional[OSError] = None
+            for family, kind, proto, _, sa in socket.getaddrinfo(
+                    *self.addr, type=socket.SOCK_STREAM):
+                sock = socket.socket(family, kind, proto)
+                try:
+                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                                    RCVBUF_BYTES)
+                    sock.settimeout(self.timeout)
+                    sock.connect(sa)
+                except OSError as e:
+                    sock.close()
+                    err = e
+                    continue
+                self.sock = sock
+                return
+            raise err or OSError("no address")
         except OSError as e:
             self.sock = None
             raise TransportError(f"connect to {self.addr[0]}:{self.addr[1]}"

@@ -31,3 +31,6 @@ class WordHashTokenizer:
         ids = [self._word_id(w) for w in _WORD_RE.findall(text)]
         return ([self.BOS] if bos else []) + ids
 
+
+    def decode(self, ids) -> str:           # lossy (hash ids)
+        return " ".join(f"<{int(i)}>" for i in ids)

@@ -51,11 +51,11 @@ class Model(nn.Module):
         if cfg.family not in ("dense", "ssm", "moe") or cfg.n_meta_tokens:
             raise NotImplementedError(
                 f"family {cfg.family!r} (meta tokens: {cfg.n_meta_tokens}) "
-                "is not in this port yet (ROADMAP Queue 1, item 7)")
+                "is not in this port yet (ROADMAP Queue 1, item 9)")
         if cfg.mtp:
             raise NotImplementedError(
                 "the MTP head is a training head; serve the model with "
-                "mtp=False (training: ROADMAP Queue 1, item 8)")
+                "mtp=False (training: ROADMAP Queue 1, item 10)")
         self.cfg = cfg
         self.segment_specs = tf.segments_for(cfg)
         self.dtype = dtype

@@ -44,7 +44,7 @@ def segments_for(cfg) -> List[Segment]:
         return segs
     raise NotImplementedError(
         f"family {cfg.family!r} is not in this port yet (ROADMAP Queue 1, "
-        "item 7)")
+        "item 9)")
 
 
 def init_norm(cfg, dtype, device):
@@ -108,7 +108,7 @@ def init_segment(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
     if seg.kind.endswith("moe"):
         raise NotImplementedError(
             "MoE layers (routed experts) are not in this port yet (ROADMAP "
-            "Queue 1, item 7)")
+            "Queue 1, item 9)")
     layers = [init_layer(cfg, seg, dtype, gen, device)
               for _ in range(seg.n_layers)]
     return {group: {name: torch.stack([lp[group][name] for lp in layers])

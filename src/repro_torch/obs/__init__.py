@@ -1,5 +1,7 @@
-"""Observability for the port: the metrics registry the scheduler uses.
+"""Observability for the port: the metrics registry (counters, gauges,
+histograms, the Prometheus text of the gateway's ``/metrics``).
 
-The tracer (``repro/obs/trace.py``) is not ported yet, so the port's
-``Scheduler`` takes no ``tracer``.
+The tracer, flight recorder, decision ledger and calibration
+(``repro/obs/``) are not ported yet (ROADMAP Queue 1, item 7.5), so the
+port's ``Scheduler`` and ``Gateway`` take no ``tracer``.
 """

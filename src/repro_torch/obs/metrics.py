@@ -1,26 +1,45 @@
-"""Counter and histogram registry, trimmed to what the scheduler uses.
+"""Counter, gauge and histogram registry with Prometheus text exposition.
 
 The port's copy of ``repro/obs/metrics.py``: a thread-safe namespace of
 metric families, created lazily and idempotently
 (``REGISTRY.counter("sched_requests_total", ...)`` returns the existing
 family on repeat calls), with labelled children cached per label-value
 tuple. Histograms keep cumulative bucket counts, a sum and a count.
-``snapshot()`` dumps every family as a plain dict. The Prometheus text
-exposition, gauges and the fleet merge wait for the gateway and the
-fabric (ROADMAP Queue 1, items 7 and 8).
+
+* ``render()`` — the Prometheus text exposition format 0.0.4 (``# HELP``
+  / ``# TYPE`` and the samples), served by the gateway's ``GET /metrics``;
+* ``snapshot()`` — a plain-dict dump (the gateway's ``/metrics.json``),
+  and :func:`merge_snapshots` folds several processes' snapshots into
+  one, each sample labelled with its ``peer``.
 """
 from __future__ import annotations
 
+import math
 import threading
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 # default buckets: latency-shaped, seconds
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                    1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
 
 
+def _escape_label(v: str) -> str:
+    return (str(v).replace("\\", "\\\\").replace("\n", "\\n")
+            .replace('"', '\\"'))
+
+
+def _fmt(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if isinstance(v, float) and v.is_integer():
+        return str(int(v))
+    return repr(v)
+
+
 def _labelstr(labels: Tuple[Tuple[str, str], ...]) -> str:
-    inner = ",".join(f'{k}="{v}"' for k, v in labels)
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label(v)}"' for k, v in labels)
     return "{" + inner + "}"
 
 
@@ -36,6 +55,10 @@ class _Child:
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
             self.value += amount
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self.value = float(value)
 
     def get(self) -> float:
         with self._lock:
@@ -96,12 +119,14 @@ class _Family:
                              f"{self.labelnames}; use .labels(...)")
         return self.labels()
 
+    def children(self) -> List[Tuple[Tuple[Tuple[str, str], ...], object]]:
+        with self._lock:
+            return list(self._children.items())
+
     def _snapshot_children(self, one) -> object:
         if not self.labelnames:
             return one(self._default())
-        with self._lock:
-            items = list(self._children.items())
-        return {_labelstr(lk): one(c) for lk, c in items}
+        return {_labelstr(lk) or "{}": one(c) for lk, c in self.children()}
 
 
 class Counter(_Family):
@@ -112,8 +137,24 @@ class Counter(_Family):
     def inc(self, amount: float = 1.0) -> None:
         self._default().inc(amount)
 
+    def render(self) -> List[str]:
+        return [f"{self.name}{_labelstr(lk)} {_fmt(c.get())}"
+                for lk, c in self.children()]
+
     def snapshot(self) -> object:
         return self._snapshot_children(lambda c: c.get())
+
+
+class Gauge(Counter):
+    """A value that goes up and down (queue depth, slots in use)."""
+
+    kind = "gauge"
+
+    def set(self, value: float) -> None:
+        self._default().set(value)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._default().inc(-amount)
 
 
 class Histogram(_Family):
@@ -132,10 +173,22 @@ class Histogram(_Family):
     def observe(self, value: float) -> None:
         self._default().observe(value)
 
+    def render(self) -> List[str]:
+        out = []
+        for lk, ch in self.children():
+            for b, cum in zip(ch.buckets, ch.counts):
+                out.append(f"{self.name}_bucket"
+                           f"{_labelstr(lk + (('le', _fmt(b)),))} {cum}")
+            out.append(f"{self.name}_bucket"
+                       f"{_labelstr(lk + (('le', '+Inf'),))} {ch.count}")
+            out.append(f"{self.name}_sum{_labelstr(lk)} {_fmt(ch.total)}")
+            out.append(f"{self.name}_count{_labelstr(lk)} {ch.count}")
+        return out
+
     def snapshot(self) -> object:
         return self._snapshot_children(lambda ch: {
             "count": ch.count, "sum": ch.total,
-            "buckets": dict(zip(ch.buckets, ch.counts))})
+            "buckets": {_fmt(b): n for b, n in zip(ch.buckets, ch.counts)}})
 
 
 class MetricsRegistry:
@@ -152,7 +205,7 @@ class MetricsRegistry:
             if fam is None:
                 fam = self._families[name] = cls(name, help,
                                                  tuple(labelnames), **kw)
-            elif type(fam) is not cls:
+            elif not isinstance(fam, cls):
                 raise ValueError(f"{name} already registered as {fam.kind}")
             return fam
 
@@ -160,16 +213,64 @@ class MetricsRegistry:
                 labelnames: Iterable[str] = ()) -> Counter:
         return self._get(Counter, name, help, labelnames)
 
+    def gauge(self, name: str, help: str = "",
+              labelnames: Iterable[str] = ()) -> Gauge:
+        return self._get(Gauge, name, help, labelnames)
+
     def histogram(self, name: str, help: str = "",
                   labelnames: Iterable[str] = (),
                   buckets: Tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
         return self._get(Histogram, name, help, labelnames, buckets=buckets)
 
+    def _sorted(self) -> List[_Family]:
+        with self._lock:
+            return sorted(self._families.values(), key=lambda f: f.name)
+
+    def render(self) -> str:
+        """Prometheus text exposition format, version 0.0.4."""
+        lines = []
+        for fam in self._sorted():
+            lines.append(f"# HELP {fam.name} {fam.help}")
+            lines.append(f"# TYPE {fam.name} {fam.kind}")
+            lines.extend(fam.render())
+        return "\n".join(lines) + "\n"
+
     def snapshot(self) -> Dict[str, object]:
         """Plain-dict dump of every family."""
-        with self._lock:
-            fams = sorted(self._families.values(), key=lambda f: f.name)
-        return {fam.name: fam.snapshot() for fam in fams}
+        return {fam.name: fam.snapshot() for fam in self._sorted()}
+
+
+def merge_snapshots(snaps: Dict[str, Dict[str, object]]
+                    ) -> Dict[str, object]:
+    """Merge per-peer ``snapshot()`` dicts into fleet-wide series, each
+    sample re-labelled with ``peer="<peer_id>"``. Two peers' same
+    labelset stay two series; an inner ``peer=`` label becomes
+    ``src_peer=``, so no merged key holds two ``peer=`` labels."""
+    out: Dict[str, object] = {}
+    for peer, snap in snaps.items():
+        if not isinstance(snap, dict):
+            continue
+        for name, val in snap.items():
+            fam = out.setdefault(name, {})
+            if isinstance(val, dict) and not _is_hist(val):
+                for lbl, v in val.items():
+                    fam[_relabel(lbl, peer)] = v
+            else:
+                fam[f'{{peer="{peer}"}}'] = val
+    return out
+
+
+def _is_hist(val: dict) -> bool:
+    return set(val) == {"count", "sum", "buckets"}
+
+
+def _relabel(lbl: str, peer: str) -> str:
+    inner = lbl.strip("{}")
+    if inner:
+        inner = ",".join(("src_" + p if p.startswith('peer="') else p)
+                         for p in inner.split(","))
+    parts = [p for p in (f'peer="{peer}"', inner) if p]
+    return "{" + ",".join(parts) + "}"
 
 
 REGISTRY = MetricsRegistry()

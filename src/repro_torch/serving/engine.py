@@ -65,6 +65,11 @@ class InferenceEngine:
         return self.model.init_cache(
             1, self.model.cache_len(self.max_len), self.cache_dtype)
 
+    @property
+    def supports_layer_stream(self) -> bool:
+        """Whether :meth:`resume_streamed` can run this model."""
+        return self.model.supports_layer_stream
+
     def _pad_inputs(self, inputs: Dict[str, np.ndarray], start_pos: int = 0):
         """Pad the token axis to a bucket; returns (padded, true_len)."""
         tokens = np.asarray(inputs["tokens"])

@@ -18,8 +18,9 @@ The scheduler is single-threaded and deterministic: it samples greedily
 (the paper decodes greedily), so its outputs are token-identical to sequential ``InferenceEngine``
 runs. It counts finished requests by reason and observes each request's
 queue wait in :data:`repro_torch.obs.metrics.REGISTRY`. The reference's
-slot-lifecycle spans wait for the port's tracer (ROADMAP Queue 1, item 7),
-so it takes no ``tracer``.
+slot-lifecycle spans wait for the port's tracer (ROADMAP Queue 1, item
+7.5), so it takes no ``tracer``; the gateway's engine thread
+(:mod:`repro_torch.gateway.engine`) drives it with ``step()``.
 """
 from __future__ import annotations
 

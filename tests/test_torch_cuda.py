@@ -554,3 +554,54 @@ def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda_device):
         ssd_scan(x, dt, A, B_, C_, h0.transpose(2, 3).contiguous()
                  .transpose(2, 3), chunk=16)
     assert ssd_scan.launches == n0
+
+
+@pytest.mark.cuda
+def test_gateway_on_the_card_matches_a_direct_run(cuda_device):
+    """A port ``Gateway`` on ``Fabric.local()`` serves reduced gemma3-270m
+    (fp32) on the card from its engine thread: a cold request and its
+    full-hit repeat give a direct ``Scheduler`` run's tokens, and every
+    decode step launches ``flash_decode`` once a layer."""
+    import http.client
+    import json
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.gateway import Gateway, protocol
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import BatchedEngine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    cfg = get_config("gemma3-270m").reduced()
+    m = Model(cfg, device=cuda_device)
+    body = {"messages": [{"role": "system", "content": "terse assistant"},
+                         {"role": "user", "content": "name a planet"}],
+            "max_tokens": 6}
+    gw = Gateway(m, fabric=Fabric.local(), batch_size=2, max_len=128)
+    segs = protocol.tokenize_messages(
+        gw.tokenizer, [(x["role"], x["content"]) for x in body["messages"]])
+    req = Request(tokens=np.asarray(segs.token_ids, np.int32),
+                  max_new_tokens=6)
+    Scheduler(BatchedEngine(m, 128, 1)).run([req])
+    torch.cuda.synchronize()
+    gw.start()
+    try:
+        outs = []
+        for _ in range(2):
+            steps0, n0 = gw.engine.sched.n_steps, flash_decode.launches
+            c = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=120)
+            c.request("POST", "/v1/chat/completions", json.dumps(body),
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            assert r.status == 200
+            outs.append(json.loads(r.read()))
+            c.close()
+            steps = gw.engine.sched.n_steps - steps0
+            assert steps > 0
+            assert flash_decode.launches - n0 == steps * cfg.n_layers
+            gw.engine.fetcher.flush_uploads()
+    finally:
+        gw.stop()
+    assert outs[0]["cache"]["matched_tokens"] == 0
+    assert outs[1]["cache"]["matched_tokens"] == len(segs.token_ids)
+    for out in outs:
+        assert out["choices"][0]["token_ids"] == req.stats.output_tokens

@@ -1,0 +1,600 @@
+"""The port's fabric runtime: supervised peer daemons and ``Fabric.tcp``,
+deadlines, hedged fetches, the stream watchdog, the workload mixes and
+the metrics exposition.
+
+Mirrors the supervisor and ``Fabric.tcp`` tests of
+``tests/test_net_runtime.py`` (spawn, heal and stop; token identity with
+a ``kill -9`` fallback; the session pool over TCP; ring repair after a
+primary is killed mid-upload; a daemon's graceful shutdown), the
+supervisor's restart-storm tests and the three deadline tests of
+``tests/test_chaos.py``, on the port's classes and daemons, over reduced
+gemma3-270m with the reference's weights (``params.from_jax_params``,
+fp32, on the CPU). Added: the deadline across the wire between the two
+packages both ways, the client's deadline skip, a hedged GET, the
+watchdog's cut, the mixes against the reference's, and the Prometheus
+text against the reference's. Every subprocess, socket and thread wait
+here has a timeout.
+"""
+import hashlib
+import threading
+import time
+
+import jax
+import numpy as np
+import pytest
+
+from repro.core.cluster.directory import PeerDirectory as JaxDirectory
+from repro.core.deadline import deadline_scope as jax_deadline_scope
+from repro.core.net.link import TCPPeerLink as JaxLink
+from repro.core.net.server import serve_peer_tcp as jax_serve_peer_tcp
+from repro.core.netsim import WallClock as JaxWallClock
+from repro.obs.metrics import MetricsRegistry as JaxRegistry
+from repro.obs.metrics import merge_snapshots as jax_merge_snapshots
+from repro.workloads import MIXES as JAX_MIXES
+from repro_torch.config import CacheConfig
+from repro_torch.configs import get_config
+from repro_torch.core.client import EdgeClient
+from repro_torch.core.cluster import CacheCluster
+from repro_torch.core.cluster.directory import PeerDirectory
+from repro_torch.core.cluster.peer import CachePeer
+from repro_torch.core.cluster.placement import PlacementPolicy
+from repro_torch.core.deadline import (DEADLINE_KEY, attach,
+                                       current_deadline, deadline_scope,
+                                       inject_deadline)
+from repro_torch.core.fabric import Fabric
+from repro_torch.core.net.link import TCPPeerLink
+from repro_torch.core.net.server import serve_peer_tcp
+from repro_torch.core.net import supervisor
+from repro_torch.core.net.supervisor import PeerSpec, PeerSupervisor
+from repro_torch.core.netsim import SimClock, WallClock
+from repro_torch.core.server import CacheServer
+from repro_torch.core.session_pool import SessionPool
+from repro_torch.core.sizing import stream_chunk_count
+from repro_torch.core.transport import (RCVBUF_BYTES, InProcTransport,
+                                        StreamCancelled, TransportError)
+from repro_torch.data.mmlu import MMLUGenerator
+from repro_torch.data.tokenizer import WordHashTokenizer
+from repro_torch.models.model import Model
+from repro_torch.obs.metrics import MetricsRegistry, merge_snapshots
+from repro_torch.params import from_jax_params
+from repro_torch.serving.engine import InferenceEngine
+from repro_torch.workloads import MIXES
+
+MAX_LEN = 512
+
+
+@pytest.fixture(scope="module")
+def world(tiny_setup):
+    cfg, _, jp = tiny_setup
+    model = Model(get_config("gemma3-270m").reduced(), device="cpu")
+    model.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jp)))
+    engine = InferenceEngine(model, max_len=MAX_LEN)
+    gen = MMLUGenerator(WordHashTokenizer(cfg.vocab), n_shot=2)
+    return cfg, engine, gen
+
+
+# ---------------------------------------------------------------------------
+# supervised daemons
+# ---------------------------------------------------------------------------
+
+def test_supervisor_spawns_heals_and_stops():
+    with PeerSupervisor.fleet(3, max_store_bytes=1_000_000) as sup:
+        assert all(sup.health().values())
+        # gossip over real sockets: a key PUT on peer0 is advertised by
+        # the others without any client sync
+        sup.request("peer0", "put", {"key": b"g" * 32, "blob": b"b"})
+        assert sup.wait_converged([b"g" * 32], timeout_s=10.0)
+        # the store budget reached the daemons
+        big = sup.request("peer2", "put", {"key": b"h" * 32,
+                                           "blob": b"x" * 2_000_000})
+        assert big["stored"] is False
+        # kill -9 one peer; the supervisor notices and restarts it on the
+        # same port with an empty (cold, never wrong) store
+        port = sup.procs["peer1"].port
+        sup.kill("peer1", hard=True)
+        assert sup.health()["peer1"] is False
+        assert sup.check_and_restart() == ["peer1"]
+        assert sup.health()["peer1"] is True
+        assert sup.procs["peer1"].port == port
+        assert sup.request("peer1", "health", {})["stored_bytes"] == 0
+        assert sup.procs["peer1"].restarts == 1
+    assert sup.exit_codes() == {"peer0": 0, "peer1": 0, "peer2": 0}
+
+
+def test_tcp_fabric_token_identity_and_kill9_fallback(world):
+    """The same prompts through cache-off, the in-process fabric and a
+    3-process TCP fabric give the same tokens; a peer killed with
+    ``kill -9`` mid-run costs one bounded fast fail and local prefill."""
+    cfg, engine, gen = world
+    prompts = [gen.prompt(d, q).segments
+               for d in ("anatomy", "virology") for q in range(2)]
+
+    off_cluster = CacheCluster([(21e6, 0.003)] * 3)
+    c_off = EdgeClient("off", engine, off_cluster.directory(clock=SimClock()),
+                       off_cluster.cache_cfg)
+    off = [c_off.infer(p, max_new_tokens=4, upload_on_miss=False)
+           .output_tokens for p in prompts]
+
+    cluster = CacheCluster([(21e6, 0.003)] * 3)
+    c_sim = EdgeClient("sim", engine, cluster.directory(clock=SimClock()),
+                       cluster.cache_cfg)
+    sim = []
+    for p in prompts:
+        cluster.gossip()
+        c_sim.directory.last_sync_t = -1e18
+        c_sim.sync_catalog()
+        sim.append(c_sim.infer(p, max_new_tokens=4).output_tokens)
+    assert sim == off
+
+    with Fabric.tcp(n_peers=3) as fabric:
+        d = fabric.directory(suspect_cooldown_s=120.0)
+        c_tcp = EdgeClient("tcp", engine, d, CacheConfig())
+        tcp, hits = [], 0
+        for p in prompts + prompts:    # the second pass fetches blobs
+            d.last_sync_t = -1e18
+            c_tcp.sync_catalog()
+            r = c_tcp.infer(p, max_new_tokens=4)
+            tcp.append(r.output_tokens)
+            hits += r.matched_tokens > 0
+        assert tcp == off + off
+        assert hits >= len(prompts)
+        st = d.peer_stats()
+        assert sum(s.hits for s in st.values()) >= len(prompts)
+        assert sum(s.link_observations for s in st.values()) > 0
+
+        victim = next(pid for pid, s in st.items() if s.hits > 0)
+        fabric.kill(victim, hard=True)
+        t0 = time.perf_counter()
+        post = [c_tcp.infer(p, max_new_tokens=4).output_tokens
+                for p in prompts]
+        assert post == off
+        assert time.perf_counter() - t0 < 60.0   # bounded, no hang
+        fabric.revive(victim)
+        assert fabric.supervisor.health()[victim]
+
+
+def test_session_pool_over_tcp_supervisor(world):
+    """The serving stack over peer processes: sessions share the fabric,
+    the broker shares concurrent GETs per (peer, key), and one
+    LinkEstimator learns from every session."""
+    cfg, engine, gen = world
+    p = gen.prompt("anatomy", 0)
+    with Fabric.tcp(n_peers=2) as fabric:
+        pool = SessionPool(engine=engine, fabric=fabric, n_sessions=2)
+        seed = pool.sessions[0].infer(p.segments, max_new_tokens=3)
+        pool.sync_catalogs()
+        results = pool.run([p.segments] * 4, max_new_tokens=3)
+        assert all(r.output_tokens == seed.output_tokens for r in results)
+        assert all(r.matched_tokens > 0 for r in results)
+        assert pool.broker.stats["issued"] < 4
+        assert pool.sessions[0].transport.estimator is \
+            pool.sessions[1].transport.estimator
+        merged = pool.merged_peer_stats()
+        assert sum(s.gets for s in merged.values()) >= 1
+
+
+def test_ring_repair_after_mid_upload_primary_kill9():
+    """The consistent-hash primary of an upload burst is killed with
+    ``kill -9``; the client's single PUT falls down the ring and the
+    fallbacks record hinted handoffs. Once the supervisor restarts the
+    primary (cold), their gossip threads push every blob back to it, and
+    the client shipped exactly one copy of each."""
+    with PeerSupervisor.fleet(3, gossip_interval_s=0.1) as sup:
+        placement = PlacementPolicy(sorted(sup.procs))
+        victim = "peer0"
+        digests, i = [], 0
+        while len(digests) < 4:
+            dg = hashlib.blake2b(b"burst-%d" % i, digest_size=32).digest()
+            if placement.primary(dg) == victim:
+                digests.append(dg)
+            i += 1
+        d = sup.directory(suspect_cooldown_s=120.0)
+        blobs = {dg: b"blob-" + dg[:8] + b"x" * 512 for dg in digests}
+
+        sup.kill(victim, hard=True)
+        shipped = sum(d.upload(dg, blobs[dg]) for dg in digests)
+        assert shipped == sum(len(b) for b in blobs.values())
+        assert sum(st.bytes_up for st in d.peer_stats().values()) == shipped
+        assert victim not in d.usable_ids()
+
+        sup.restart(victim)
+        assert sup.wait_repaired(digests, timeout_s=30.0)
+        for dg in digests:
+            resp = sup.request(victim, "get", {"key": dg})
+            assert resp["ok"] and bytes(resp["blob"]) == blobs[dg]
+        handoffs = sum(sup.request(pid, "health", {})["repl"]["handoffs"]
+                       for pid in sup.procs)
+        assert handoffs >= len(digests)
+
+
+def test_daemon_graceful_shutdown_mid_stream():
+    """A daemon asked to shut down answers the shutdown itself (drain);
+    the next request is a bounded TransportError, not a hang."""
+    with PeerSupervisor.fleet(1) as sup:
+        (pid, (host, port)), = sup.addresses().items()
+        link = TCPPeerLink(pid, host, port, timeout=5.0)
+        assert link.request("put", {"key": b"k" * 32,
+                                    "blob": b"x"})[0]["ok"]
+        assert link.request("shutdown", {})[0]["ok"]
+        assert sup.procs[pid].proc.wait(timeout=10.0) == 0
+        t0 = time.perf_counter()
+        with pytest.raises(TransportError):
+            link.request("get", {"key": b"k" * 32})
+        assert time.perf_counter() - t0 < 6.0
+        link.close()
+
+
+def test_daemon_ring_without_ring_is_every_peer_it_was_told_of():
+    """A ``set_neighbors`` without ``ring`` keeps every peer the daemon was
+    ever told of on its ring, so a primary that is down keeps its keys."""
+    with PeerSupervisor.fleet(1) as sup:
+        me = "peer0"
+        a = sup.request(me, "set_neighbors", {
+            "peers": {me: ["127.0.0.1", 1], "x": ["127.0.0.1", 2]}})
+        b = sup.request(me, "set_neighbors", {
+            "peers": {me: ["127.0.0.1", 1], "y": ["127.0.0.1", 3]}})
+        assert a["ring"] == [me, "x"] and b["ring"] == [me, "x", "y"]
+        c = sup.request(me, "set_neighbors", {
+            "peers": {me: ["127.0.0.1", 1]}, "ring": [me, "z"]})
+        assert c["ring"] == [me, "z"]
+
+
+class _StubSup(PeerSupervisor):
+    """health() and restart() stubbed: the storm guard without daemons."""
+
+    def __init__(self):
+        super().__init__([PeerSpec(peer_id="p0", port=1)])
+        self.healthy = False
+        self.restarted = []
+
+    def health(self):
+        return {"p0": self.healthy}
+
+    def restart(self, pid):
+        self.procs[pid].restarts += 1
+        self.restarted.append(pid)
+
+
+def test_restart_storm_backoff_then_circuit_then_forgiveness(monkeypatch):
+    monkeypatch.setattr(supervisor, "RESTART_BACKOFF_S", 0.0)
+    monkeypatch.setattr(supervisor, "MAX_RESTARTS", 2)
+    monkeypatch.setattr(supervisor, "RESTART_STABLE_S", 0.0)
+    sup = _StubSup()
+    pp = sup.procs["p0"]
+    assert sup.check_and_restart() == ["p0"]
+    assert pp.storm == 1
+    assert sup.check_and_restart() == ["p0"]
+    assert pp.storm == 2
+    assert sup.check_and_restart() == []       # the circuit opens
+    assert pp.circuit_open
+    assert sup.check_and_restart() == []
+    assert sup.restarted == ["p0", "p0"]
+    st = sup.restart_states()["p0"]
+    assert st["circuit_open"] and st["storm"] == 2 and st["restarts"] == 2
+    sup.healthy = True                         # a stable period forgives
+    sup.check_and_restart()
+    assert pp.storm == 0 and not pp.circuit_open
+
+
+def test_restart_backoff_window_skips_supervised_restart(monkeypatch):
+    monkeypatch.setattr(supervisor, "RESTART_BACKOFF_S", 60.0)
+    monkeypatch.setattr(supervisor, "RESTART_JITTER", 0.0)
+    monkeypatch.setattr(supervisor, "MAX_RESTARTS", 8)
+    sup = _StubSup()
+    assert sup.check_and_restart() == ["p0"]   # the first death: at once
+    assert sup.check_and_restart() == []       # inside the backoff window
+    assert sup.procs["p0"].storm == 1
+    assert 0.0 < sup.restart_states()["p0"]["backoff_remaining_s"] <= 60.0
+    sup.restart("p0")                          # an explicit restart
+    assert sup.restarted == ["p0", "p0"]
+
+
+def test_fabric_tcp_start_failure_raises(monkeypatch):
+    monkeypatch.setattr(supervisor, "START_TIMEOUT_S", 20.0)
+    fabric = Fabric.tcp(specs=[PeerSpec("bad", extra_args=("--nope",))])
+    with pytest.raises(RuntimeError, match="failed to start"):
+        fabric.start()
+    with pytest.raises(RuntimeError, match="not started"):
+        fabric.directory()
+
+
+# ---------------------------------------------------------------------------
+# deadlines
+# ---------------------------------------------------------------------------
+
+class _FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def now(self):
+        return self.t
+
+
+def test_deadline_scope_and_injection():
+    clk = _FakeClock()
+    assert current_deadline() is None
+    payload = {"key": b"k"}
+    assert inject_deadline(payload) is payload    # no scope: untouched
+    with deadline_scope(2.0, clock=clk) as dl:
+        assert current_deadline() is dl
+        clk.t = 0.5
+        out = inject_deadline({"key": b"k"})
+        assert out[DEADLINE_KEY] == pytest.approx(1.5)
+        assert DEADLINE_KEY not in payload
+        clk.t = 2.5
+        assert dl.expired()
+    assert current_deadline() is None
+    with deadline_scope(None) as dl:              # a no-op scope
+        assert dl is None and current_deadline() is None
+
+
+def test_deadline_attach_hands_off_across_threads():
+    clk = _FakeClock()
+    seen = {}
+
+    def worker(dl):
+        with attach(dl):
+            seen["dl"] = current_deadline()
+        seen["after"] = current_deadline()
+
+    with deadline_scope(1.0, clock=clk) as dl:
+        t = threading.Thread(target=worker, args=(dl,))
+        t.start()
+        t.join(5.0)
+        assert not t.is_alive()
+    assert seen["dl"] is dl and seen["after"] is None
+
+
+class _Echo:
+    def __init__(self):
+        self.calls = 0
+        self.payloads = []
+
+    def handle(self, op, payload):
+        self.calls += 1
+        self.payloads.append(dict(payload))
+        return {"ok": True, "op": op}
+
+
+def test_server_rejects_expired_deadline_over_tcp():
+    h = _Echo()
+    with serve_peer_tcp(h) as srv:
+        link = TCPPeerLink("p0", "127.0.0.1", srv.port, timeout=5.0)
+        resp, _, _ = link.request("ping", {DEADLINE_KEY: -0.5})
+        assert resp["deadline_exceeded"] and not resp["ok"]
+        assert h.calls == 0            # never dispatched
+        resp, _, _ = link.request("ping", {DEADLINE_KEY: 30.0})
+        assert resp["ok"] and h.calls == 1
+        assert DEADLINE_KEY not in h.payloads[0]
+        link.close()
+        assert srv.stats["deadline_exceeded"] == 1
+
+
+def test_tcp_link_fixes_its_receive_buffer_before_connect():
+    """A link's socket carries RCVBUF_BYTES as its receive buffer (what
+    the stack makes of that request on a fresh socket), and its frames
+    still go through."""
+    import socket
+    probe = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    probe.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, RCVBUF_BYTES)
+    want = probe.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    probe.close()
+    h = _Echo()
+    with serve_peer_tcp(h) as srv:
+        link = TCPPeerLink("p0", "127.0.0.1", srv.port, timeout=5.0)
+        resp, _, _ = link.request("ping", {"blob": b"x" * (2 << 20)})
+        assert resp["ok"] and h.calls == 1
+        assert link.sock.getsockopt(socket.SOL_SOCKET,
+                                    socket.SO_RCVBUF) == want
+        link.close()
+
+
+@pytest.mark.parametrize("client_pkg", ["port", "reference"])
+def test_expired_deadline_is_refused_across_packages(client_pkg):
+    """A directory of one package stamps the ambient deadline; a peer
+    server of the other refuses it once spent, and serves it while some
+    budget is left (the key is not passed to the handler)."""
+    h = _Echo()
+    serve = jax_serve_peer_tcp if client_pkg == "port" else serve_peer_tcp
+    with serve(h) as srv:
+        if client_pkg == "port":
+            d = PeerDirectory([TCPPeerLink("p0", "127.0.0.1", srv.port,
+                                           timeout=5.0)], clock=WallClock())
+            scope = deadline_scope
+        else:
+            d = JaxDirectory([JaxLink("p0", "127.0.0.1", srv.port,
+                                      timeout=5.0)], clock=JaxWallClock())
+            scope = jax_deadline_scope
+        with scope(0.0):
+            resp, _, _ = d.request("p0", "ping", {})
+        assert resp["deadline_exceeded"] and not resp["ok"]
+        assert h.calls == 0
+        with scope(30.0):
+            resp, _, _ = d.request("p0", "ping", {})
+        assert resp["ok"] and h.calls == 1
+        assert DEADLINE_KEY not in h.payloads[0]
+        resp, _, _ = d.request("p0", "ping", {})    # no scope: no key
+        assert resp["ok"] and h.calls == 2
+        for ln in d.links.values():
+            ln.transport.close()
+
+
+def test_inproc_transport_refuses_a_spent_deadline():
+    server = CacheServer(CacheConfig())
+    tr = InProcTransport(server)
+    assert tr.request("ping", {DEADLINE_KEY: 0.0})[0]["deadline_exceeded"]
+    assert tr.request("ping", {DEADLINE_KEY: 1.0})[0]["ok"]
+
+
+def test_client_deadline_skips_fetches_and_prefills_locally(world):
+    """A budget too small for any transfer: the plan is pruned, no peer
+    is asked for a blob, and the request is a miss with the cold
+    tokens; with no deadline the same request hits."""
+    cfg, engine, gen = world
+    cluster = CacheCluster([(21e6, 0.003)] * 2)
+    seeder = EdgeClient("seed", engine, cluster.directory(clock=SimClock()),
+                        cluster.cache_cfg)
+    p = gen.prompt("anatomy", 1).segments
+    cold = seeder.infer(p, max_new_tokens=4)
+    cluster.gossip()
+    c = EdgeClient("c", engine, cluster.directory(clock=SimClock()),
+                   cluster.cache_cfg)
+    c.sync_catalog()
+    gets0 = sum(pp.server.stats["gets"] for pp in cluster.peers)
+    r = c.infer(p, max_new_tokens=4, deadline_s=1e-6)
+    assert r.matched_tokens == 0 and r.fetch_attempts == 0
+    assert sum(pp.server.stats["gets"] for pp in cluster.peers) == gets0
+    assert r.output_tokens == cold.output_tokens
+    r = c.infer(p, max_new_tokens=4, deadline_s=60.0)
+    assert r.case == 5 and r.output_tokens == cold.output_tokens
+
+
+# ---------------------------------------------------------------------------
+# hedged GETs and the stream watchdog
+# ---------------------------------------------------------------------------
+
+class _Slowable:
+    """A peer whose GETs can be made to stall."""
+
+    def __init__(self, peer):
+        self.peer = peer
+        self.delay = 0.0
+        self.gets = 0
+
+    def handle(self, op, payload):
+        if op == "get":
+            self.gets += 1
+            time.sleep(self.delay)
+        return self.peer.handle(op, payload)
+
+
+def test_hedged_get_fires_and_the_fast_peer_wins(world):
+    """The plan's first holder stalls past ``hedge_delay_s``: the client
+    fires the same range at the other holder, whose reply wins; the
+    tokens are the cold run's."""
+    cfg, engine, gen = world
+    p = gen.prompt("virology", 2).segments
+    box = CacheServer(CacheConfig())
+    cold = EdgeClient("cold", engine, box, CacheConfig()).infer(
+        p, max_new_tokens=4)
+    handlers = {pid: _Slowable(CachePeer(pid)) for pid in ("pa", "pb")}
+    for h in handlers.values():
+        for k, v in box.store.items():
+            h.peer.server.put(k, v)
+    servers = {pid: serve_peer_tcp(h) for pid, h in handlers.items()}
+    try:
+        d = PeerDirectory([TCPPeerLink(pid, "127.0.0.1", s.port,
+                                       timeout=10.0)
+                           for pid, s in servers.items()],
+                          clock=WallClock())
+        c = EdgeClient("hedger", engine, d, CacheConfig())
+        c.sync_catalog()
+        keys = p.keys(c.meta, CacheConfig().max_ranges,
+                      CacheConfig().range_stride)
+        first = c.planner.plan(keys, len(p.token_ids))[0]
+        slow = first.peer_id
+        fast = next(pid for pid in handlers if pid != slow)
+        assert d.hedge_delay_s(slow, first.est_fetch_s) == \
+            pytest.approx(max(first.est_fetch_s * 1.5, 0.05))
+        handlers[slow].delay = 1.0
+        r = c.infer(p, max_new_tokens=4)
+        assert r.case == 5 and r.served_by == fast
+        assert c.hedges == 1 and c.hedge_wins == 1
+        assert handlers[fast].gets == 1 and handlers[slow].gets == 1
+        assert r.output_tokens == cold.output_tokens
+    finally:
+        for s in servers.values():
+            s.close()
+
+
+class _PacedStream:
+    """An in-process link whose chunk streams arrive one every ``pace_s``
+    and honour the cancel between chunks."""
+
+    net = None
+
+    def __init__(self, peer, pace_s):
+        self.peer, self.peer_id, self.pace_s = peer, peer.peer_id, pace_s
+        self.cancelled = 0
+
+    def request(self, op, payload, advance_clock=True):
+        return self.peer.handle(op, dict(payload)), 0.001, 64
+
+    def request_stream(self, op, payload, on_chunk, advance_clock=True,
+                       cancel=None):
+        resp = self.peer.handle(op, dict(payload))
+        chunks = resp.pop("chunks", [])
+        for c in chunks:
+            if cancel is not None and cancel.is_set():
+                self.cancelled += 1
+                raise StreamCancelled("cut")
+            time.sleep(self.pace_s)
+            on_chunk(bytes(c), self.pace_s, len(c))
+        return resp, self.pace_s * len(chunks), 64
+
+
+def test_watchdog_cuts_a_stream_that_cannot_meet_the_deadline():
+    """A streamed partial hit whose pace projects past the deadline is
+    cut with the cancel; the request falls back to local prefill, with
+    the cold tokens."""
+    cfg = get_config("gemma3-270m").reduced().replace(n_layers=6)
+    engine = InferenceEngine(Model(cfg, device="cpu"), max_len=MAX_LEN)
+    k = stream_chunk_count(cfg, CacheConfig().chunk_layers)
+    assert k >= 3
+    gen = MMLUGenerator(WordHashTokenizer(cfg.vocab), n_shot=2)
+    box = CacheServer(CacheConfig())
+    EdgeClient("seed", engine, box, CacheConfig()).infer(
+        gen.prompt("nutrition", 0).segments, max_new_tokens=2)
+    peer = CachePeer("p0")
+    for key, v in box.store.items():
+        peer.server.put(key, v)
+    pace = 0.1
+    link = _PacedStream(peer, pace)
+    d = PeerDirectory([link], clock=WallClock())
+    c = EdgeClient("w", engine, d, CacheConfig(), overlap=True)
+    c.sync_catalog()
+    p = gen.prompt("nutrition", 1).segments
+    cold = EdgeClient("cold", engine, CacheServer(CacheConfig()),
+                      CacheConfig()).infer(p, max_new_tokens=4)
+    # enough budget to start a stream, not to finish one at this pace
+    r = c.infer(p, max_new_tokens=4, upload_on_miss=False,
+                deadline_s=2 * pace + 0.5 * pace * (k - 2))
+    assert c.stream_cancels >= 1 and link.cancelled >= 1
+    assert r.matched_tokens == 0
+    assert r.output_tokens == cold.output_tokens
+
+
+# ---------------------------------------------------------------------------
+# workload mixes and the metrics exposition, against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("mix", sorted(MIXES))
+def test_mixes_equal_the_reference(mix, seed):
+    ours = MIXES[mix](16, seed=seed, rate_per_s=12.0)
+    ref = JAX_MIXES[mix](16, seed=seed, rate_per_s=12.0)
+    assert [(r.tenant, r.messages, r.max_new_tokens, r.arrival_s,
+             r.session, r.mix, r.body(stream=True)) for r in ours] == \
+        [(r.tenant, r.messages, r.max_new_tokens, r.arrival_s, r.session,
+          r.mix, r.body(stream=True)) for r in ref]
+
+
+def _exercise(registry):
+    c = registry.counter("ops_total", "ops by kind", ("op",))
+    c.labels(op="get").inc(3)
+    c.labels(op='quo"te').inc()
+    registry.counter("plain_total", "no labels").inc(2.5)
+    registry.gauge("depth", "queue depth").set(4)
+    h = registry.histogram("lat_seconds", "latency", ("peer",))
+    for v in (0.003, 0.2, 7.0, 100.0):
+        h.labels(peer="p0").observe(v)
+    return registry
+
+
+def test_prometheus_text_and_fleet_merge_equal_the_reference():
+    ours, ref = _exercise(MetricsRegistry()), _exercise(JaxRegistry())
+    assert ours.render() == ref.render()
+    assert ours.snapshot() == ref.snapshot()
+    snaps = {"peer0": ours.snapshot(),
+             "peer1": {"x_total": {'{peer="a"}': 1.0}}}
+    assert merge_snapshots(snaps) == jax_merge_snapshots(snaps)

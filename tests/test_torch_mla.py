@@ -196,7 +196,7 @@ def test_the_cut_keeps_full_widths_and_an_empty_moe_segment():
 def test_model_refuses_what_it_cannot_run():
     with pytest.raises(NotImplementedError, match="MTP"):
         Model(get_config("deepseek-v3-671b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
         Model(get_config("deepseek-v3-671b").reduced().replace(mtp=False),
               device="cpu")
 
