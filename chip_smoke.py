@@ -27,7 +27,11 @@ lengths in every run. It
    partial hit (Case 4), then adopts A's full prompt (Case 5), and a
    poisoned catalog falls back to local prefill; it checks the cases and
    the tokens and that the path's kernels ran on it as often as the path
-   needs (counts set to 0 just before each path and read just after).
+   needs (counts set to 0 just before each path and read just after), and
+   that each request's span tree, projected onto the Table-3 columns
+   (``Breakdown.from_spans``), agrees with its timings within max(0.5 ms,
+   2%); the same Cases run three times more, untraced, traced and
+   untraced (``Tracer(enabled=False)``), their TTFT printed beside.
    Then, per model and dtype: A's uploads must be v3 ``PC3`` containers
    (chunks and bytes per range printed); A's full blob is restored phase
    by phase (container split, header decode, digests, inflate, unpack,
@@ -47,7 +51,8 @@ lengths in every run. It
    Case-1 fallback; the fast fail is timed), and a client without a
    catalog pays GETs for a prompt never uploaded while one with a catalog
    pays none; fp32 tokens must equal the in-process run's, the launches
-   what the requests need, and every daemon must exit 0;
+   what the requests need, the spans project onto the timings (B's Case 5
+   tree holds the daemon's folded spans), and every daemon must exit 0;
 5. profiles a prefill and 8 decode steps of each model, then one prefill
    alone (its device time and its attention kernel's share), and checks the
    card's fp32 logits against the same model on the CPU (mamba2-780m cut
@@ -58,7 +63,10 @@ lengths in every run. It
    mixed lengths, so slots decode at their own positions and recycle; fp32
    tokens must equal sequential runs; it prints tokens/s, TTFT and TTLT
    percentiles and decode ms per step at B=1 and B=4, and checks that a
-   decode step launches the decode kernel once a layer;
+   decode step launches the decode kernel once a layer and, on
+   gemma3-270m and the deepseek cut, that a ``Scheduler`` step of traced
+   requests runs the aten ops and decode launches an untraced one does
+   (its CUDA kernels printed beside);
 7. once every other phase has run (after a gateway phase the profiler
    loses device events, so every profiler reading comes before), for
    gemma3-270m and the deepseek cut, in bf16 and fp32, serves the
@@ -71,15 +79,30 @@ lengths in every run. It
    and a prompt asked again once its blob's primary peer is killed (then
    ``check_and_restart``); fp32 tokens must equal a direct
    ``BatchedEngine`` + ``Scheduler`` run, each mix must have a hit served
-   by a peer, the kernels must launch from the gateway's engine thread,
-   and every daemon must exit 0;
-8. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
+   by a peer, the kernels must launch from the gateway's engine thread
+   (the decode kernel once a layer a traced scheduler step), and every
+   daemon must exit 0; a fresh prompt asked twice down one keep-alive
+   socket must leave a ``/v1/traces/<id>`` tree from the HTTP front door
+   through the engine thread to a daemon, the second root ``follows`` the
+   first; ``/v1/decisions`` must hold closed records (regret, savings);
+   after ``inject {corrupt_chunks: 1}`` on every daemon a streamed client
+   must fall through a corrupt stream and ``/v1/flight`` must hold its
+   ``chunk_error`` dump;
+8. the chaos phase, on gemma3-270m in bf16 and fp32: 3 supervised
+   daemons, ``FaultSchedule.generate(0, ...)`` over 29 steps replayed by a
+   ``FaultDriver`` (a partition, delayed acks, a stall, corrupt chunks, a
+   bandwidth collapse and a kill, each healed 3 steps later), one request
+   a step from a streamed ``EdgeClient``; every request answered, fp32
+   tokens equal to a cold run, attempts, flight dumps and TTFT p50 / max
+   by the faults live, and every daemon's exit code 0;
+9. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. It needs the card and the repository beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -116,6 +139,15 @@ BATCH = 4
 BATCH_CUTS = [None, 64, 200, None, 128, 250, None, 96]
 BATCH_DOMAINS = ["astronomy", "virology", "anatomy", "nutrition"]
 DECODE_STEPS = 20                  # timed decode_batch steps at B=1 and B=4
+# a traced Scheduler step against an untraced one: steps a profiler
+# window, windows a side, and new tokens a request, enough for every
+# window to see all BATCH slots decoding
+TRACE_ITERS, TRACE_WINDOWS = 1, 2
+TRACE_STEPS = 1 + TRACE_ITERS * TRACE_WINDOWS + 8
+# the host's kernel launch calls as the profiler names them: the runtime's
+# (<<<>>>, cudaLaunchKernelEx for clusters) and the driver's
+LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel",
+               "cudaLaunchCooperativeKernel")
 # the fabric phase: peer daemons, ring owners a key, their gossip and
 # replication pump period, and each TCP link's timeout (a recv)
 FABRIC_PEERS, FABRIC_REPL, GOSSIP_S, FABRIC_TIMEOUT_S = 3, 2, 0.1, 30.0
@@ -124,6 +156,24 @@ FABRIC_PEERS, FABRIC_REPL, GOSSIP_S, FABRIC_TIMEOUT_S = 3, 2, 0.1, 30.0
 # GATEWAY_SHED_MAX of its requests are shed (503)
 GATEWAY_N, GATEWAY_RATE, MAX_NEW_GW, GATEWAY_JOIN_S = 16, 12.0, 8, 300.0
 GATEWAY_SHED_MAX = GATEWAY_N // 8
+# the chaos phase: supervised daemons, the schedule's seed, steps (one
+# request each) and the steps a fault lives; each link's recv timeout,
+# a dead peer's suspect window and each request's deadline, in seconds;
+# the prompts it cycles through (CHAOS_DOMAINS x 2 questions). Seed 0 at
+# 29 steps applies every kind (at 30 its stall targets a peer killed the
+# step before, and is skipped)
+CHAOS_PEERS, CHAOS_SEED, CHAOS_STEPS, CHAOS_HEAL = 3, 0, 29, 3
+CHAOS_TIMEOUT_S, CHAOS_COOLDOWN_S, CHAOS_DEADLINE_S = 2.0, 1.0, 30.0
+CHAOS_DOMAINS, CHAOS_PROMPTS = ("anatomy", "virology", "astronomy"), 6
+CHAOS_KINDS = ("kill", "partition", "corrupt", "stall", "bandwidth",
+               "delay_ack")
+# the kinds a daemon applies to chunk streams only, and to single-frame
+# replies only (the others act on every op)
+CHAOS_STREAM, CHAOS_REPLY = ("corrupt", "stall"), ("delay_ack",)
+# an op this slow shows a bandwidth collapse (an unthrottled transfer on
+# the loopback takes milliseconds)
+CHAOS_SLOW_S = 0.5
+CHAOS_PATH = "gemma3-270m"         # the configuration the chaos phase runs
 SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill.py:84"),
@@ -293,6 +343,13 @@ def profile_call(fn, iters=5):
     rows = _device_rows(prof)
     return (sum(e.count for e in rows) / iters,
             sum(_dev_us(e) for e in rows) / iters / 1e3)
+
+
+def launch_calls(prof):
+    """Kernel launch calls the host made in a profile (its runtime and
+    driver rows named in LAUNCH_APIS)."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith(LAUNCH_APIS))
 
 
 def kernels_per_call(fn, iters=5):
@@ -671,14 +728,31 @@ def ssd_checks():
     return row
 
 
+GC_FREED = []                      # (objects, seconds) a collect_profiles
+
+
+def collect_profiles():
+    """Free earlier profiler windows' events now, before a timed phase.
+    Their events hold reference cycles (a parent and its children), so
+    only the cyclic collector frees them. Left to itself, that collection
+    runs inside a later phase and holds every thread meanwhile. Records
+    what it freed and how long it took (GC_FREED, printed at the end)."""
+    import time
+    t0 = time.perf_counter()
+    GC_FREED.append((gc.collect(), time.perf_counter() - t0))
+
+
 def edge_path(model, label, expect, max_len=1024):
     """The paper's edge request through the port's EdgeClient. ``expect``
     maps the wrappers of this model's path to the launches the requests
     need: their counts are set to 0 just before the requests and read just
-    after, and must equal it. Then the PC3 uploads, the full-hit restore by
-    phase, B's streamed Case 4 beside the monolithic one and a request
-    against corrupt chunks. Returns the main path's launch counts, the
-    streamed path's, and the prompts."""
+    after, and must equal it. Each request's span tree must project onto
+    its timings (``trace_check``), and the same Cases run untraced,
+    traced and untraced again, their TTFT beside. Then the PC3 uploads, the full-hit
+    restore by phase, B's streamed Case 4 beside the monolithic one and a
+    request against corrupt chunks. Returns the main path's launch counts,
+    the streamed path's, and the prompts."""
+    collect_profiles()
     import numpy as np
     import torch
     from repro_torch.config import CacheConfig
@@ -687,6 +761,8 @@ def edge_path(model, label, expect, max_len=1024):
     from repro_torch.data.mmlu import MMLUGenerator
     from repro_torch.data.tokenizer import WordHashTokenizer
     from repro_torch.models.model import padded_vocab
+    from repro_torch.obs.ledger import LEDGER
+    from repro_torch.obs.trace import Tracer
     from repro_torch.serving.engine import InferenceEngine
 
     cfg = model.cfg
@@ -695,15 +771,32 @@ def edge_path(model, label, expect, max_len=1024):
     p_b = gen.prompt("astronomy", 1).segments
     p_c = gen.prompt("virology", 7).segments
     server = CacheServer(CacheConfig())
+    # the streamed requests below measure the stream: no local baseline
+    # learned by an earlier phase's fabric clients may cut it (without a
+    # perf model the watchdog reads the process's decision ledger)
+    LEDGER.clear()
 
-    def client(name, srv=server, overlap=False):
+    def client(name, srv=server, overlap=False, tracer=None):
         return EdgeClient(name, InferenceEngine(model, max_len=max_len),
-                          srv, CacheConfig(), overlap=overlap)
+                          srv, CacheConfig(), overlap=overlap, tracer=tracer)
 
     # warm-up on a throwaway server: cuBLAS handles, allocator, kernels
     client("warm", CacheServer(CacheConfig())).infer(
         gen.prompt("anatomy", 3).segments, max_new_tokens=2,
         upload_on_miss=False)
+
+    def cases_again(tracer):
+        """The four Cases once more, with A's uploads in place and no
+        upload of their own: A's miss on an empty server, B's partial and
+        full hits and P's false positive on ``server``. Returns (client,
+        result) pairs."""
+        ca = client("A", CacheServer(CacheConfig()), tracer=tracer)
+        cb, cp = client("B", tracer=tracer), client("P", tracer=tracer)
+        cb.sync_catalog()
+        for key in p_c.keys(cp.meta):
+            cp.catalog.register(key.digest)
+        return [(c, c.infer(p, MAX_NEW, upload_on_miss=False))
+                for c, p in ((ca, p_a), (cb, p_b), (cb, p_a), (cp, p_c))]
 
     for k in expect:
         k.launches = 0
@@ -717,6 +810,31 @@ def edge_path(model, label, expect, max_len=1024):
         poisoned.catalog.register(key.digest)
     r_fp = poisoned.infer(p_c, MAX_NEW, upload_on_miss=False)
     launches = {k.__name__: k.launches for k in expect}
+    trace_check(label, [(a, r_miss), (b, r_part), (b, r_full),
+                        (poisoned, r_fp)])
+
+    # the same Cases untraced, then traced, then untraced again: on and
+    # off take turns, after the counted run has met every shape once
+    off1 = [r for _, r in cases_again(Tracer(enabled=False))]
+    traced2 = cases_again(None)
+    off2 = [r for _, r in cases_again(Tracer(enabled=False))]
+    on2 = [r for _, r in traced2]
+    print(f"[{label}] TTFT ms, tracer off / on / off / on (the counted "
+          f"run): " + "; ".join(
+              f"Case {r.case} {a.ttft_s * 1e3:.2f} / {b.ttft_s * 1e3:.2f} / "
+              f"{c.ttft_s * 1e3:.2f} / {r.ttft_s * 1e3:.2f}"
+              for r, a, b, c in zip((r_miss, r_part, r_full, r_fp),
+                                    off1, on2, off2)))
+    for runs, traced in ((off1, False), (on2, True), (off2, False)):
+        if [o.case for o in runs] != [1, 4, 5, 1] or \
+                any(bool(o.trace_id) != traced for o in runs):
+            raise AssertionError(f"[{label}] repeated cases "
+                                 f"{[o.case for o in runs]}")
+        if model.dtype == torch.float32 and any(
+                o.output_tokens != r.output_tokens
+                for r, o in zip((r_miss, r_part, r_full, r_fp), runs)):
+            raise AssertionError(f"[{label}] repeated tokens differ")
+    trace_check(label, traced2)
 
     # references outside the counted run: cold local prefills of B and C
     cold = client("cold", CacheServer(CacheConfig()))
@@ -888,6 +1006,69 @@ def edge_path(model, label, expect, max_len=1024):
     return launches, str_launches, (p_a, p_b, p_c), refs
 
 
+def trace_check(label, runs):
+    """Each (client, result): the result's span tree, projected onto the
+    Table-3 columns (``Breakdown.from_spans``), must equal ``wall`` and
+    agree with ``timings`` phase by phase within max(0.5 ms, 2%). The
+    spans carry the timings' own values, so that shows each span is
+    there once. The spans' own clock readings are then held against the
+    timings: every span of the client lies inside its root ``infer``
+    span; each ``redis.attempt`` lasts at least the transfer it reports
+    (``component_s``); and the root lasts at least its spans that run
+    one after another on the request's thread (bloom, the attempts, a
+    prefill that is not streamed, decode)."""
+    from repro_torch.core.metrics import Breakdown
+    pairs = (("bloom", "bloom_s"), ("redis", "fetch_s"),
+             ("p_decode", "prefill_s"), ("r_decode", "decode_s"))
+    eps = 1e-6                         # float rounding of clock readings
+    worst, slack_att, slack_root = 0.0, float("inf"), float("inf")
+    for c, r in runs:
+        spans = c.tracer.trace(r.trace_id) or []
+        bd = Breakdown.from_spans(spans)
+        if not spans or bd != r.wall:
+            raise AssertionError(f"[{label}] no span tree for {r.trace_id}")
+        for col, key in pairs:
+            d = abs(getattr(bd, col) - r.timings[key])
+            worst = max(worst, d)
+            if d > max(5e-4, 0.02 * r.timings[key]):
+                raise AssertionError(f"[{label}] span projection {col} "
+                                     f"{getattr(bd, col)} against timings "
+                                     f"{key} {r.timings[key]}")
+        roots = [x for x in spans if not x["parent"]]
+        if [x["name"] for x in roots] != ["infer"]:
+            raise AssertionError(f"[{label}] roots {roots}")
+        t0, end = roots[0]["t0"], roots[0]["t0"] + roots[0]["dur"]
+        serial = 0.0
+        for x in spans:
+            a = x["attrs"]
+            if a.get("remote"):        # a peer's clock, re-anchored
+                continue
+            if x["t0"] < t0 - eps or x["t0"] + x["dur"] > end + eps:
+                raise AssertionError(f"[{label}] span {x['name']} lies "
+                                     f"outside its root: {x}")
+            if x["name"] == "redis.attempt":
+                slack_att = min(slack_att, x["dur"] - a["component_s"])
+                serial += x["dur"]
+            elif a.get("component") in ("bloom", "r_decode") or (
+                    a.get("component") == "p_decode"
+                    and a.get("kind") != "streamed"):
+                serial += x["dur"]
+        slack_root = min(slack_root, roots[0]["dur"] - serial)
+    if slack_att < -eps or slack_root < -eps:
+        raise AssertionError(f"[{label}] span clocks: an attempt lasts "
+                             f"{slack_att} s less than its transfer, or a "
+                             f"root {slack_root} s less than its serial "
+                             f"spans")
+    print(f"[{label}] span projection: {len(runs)} requests, Breakdown "
+          f"from spans against timings (bloom, fetch, prefill, decode), "
+          f"largest gap {worst * 1e3:.6f} ms (bound max(0.5 ms, 2%); the "
+          f"spans carry the timings' values); span clocks: every span "
+          f"inside its root, least slack of an attempt over its transfer "
+          + (f"{slack_att * 1e3:.3f} ms" if slack_att != float("inf")
+             else "(no attempt)")
+          + f", of a root over its serial spans {slack_root * 1e3:.3f} ms")
+
+
 def spawn_fleet(n):
     """``n`` peer daemons (``python -m repro_torch.core.net.daemon``), each
     its own process on 127.0.0.1: {peer_id: (process, (host, port))} once
@@ -1046,6 +1227,7 @@ def fabric_path(model, label, expect, prompts, refs, max_len=1024):
     and read just after; they must equal what the requests need). fp32
     tokens must equal the single-server run's (``refs``). Returns the
     launch counts."""
+    collect_profiles()
     import numpy as np
     import torch
     from repro_torch import clock
@@ -1055,6 +1237,7 @@ def fabric_path(model, label, expect, prompts, refs, max_len=1024):
     from repro_torch.core.cluster.placement import PlacementPolicy
     from repro_torch.core.net.link import TCPPeerLink
     from repro_torch.core.netsim import WallClock
+    from repro_torch.obs.ledger import LEDGER
     from repro_torch.serving.engine import InferenceEngine
 
     p_a, p_b, p_c = prompts
@@ -1083,6 +1266,9 @@ def fabric_path(model, label, expect, prompts, refs, max_len=1024):
         sync(b)
         sync(s)
         runs.append(("B partial, monolithic", b.infer(p_b, MAX_NEW)))
+        # the streamed Case 4 is measured whole: A's miss taught the
+        # ledger a local baseline that the watchdog would cut it against
+        LEDGER.clear()
         gaps = []                      # seconds waited for each chunk frame
         record_chunk = s.directory.record_chunk
         s.directory.record_chunk = lambda pid, nb, dt, observe=True: (
@@ -1101,6 +1287,13 @@ def fabric_path(model, label, expect, prompts, refs, max_len=1024):
                                              upload_on_miss=False)))
         torch.cuda.synchronize()
         launches = {k.__name__: k.launches for k in expect}
+        trace_check(label + " fabric", [(c, res) for c, (_, res) in zip(
+            (a, b, s, b, b, nocat, cat), runs)])
+        remote = [d for d in b.tracer.trace(runs[3][1].trace_id)
+                  if d["proc"].startswith("peer:")]
+        if not remote:
+            raise AssertionError(f"[{label}] fabric: B's Case 5 trace holds "
+                                 f"no daemon span")
         # the streamed Case 4's blob read again, its frames' waits alone
         # and beside the suffix prefill (after the counts are read: these
         # prefills are not the path's), from a live owner
@@ -1158,7 +1351,8 @@ def fabric_path(model, label, expect, prompts, refs, max_len=1024):
                       for pid, h in sorted(health.items()))
           + f"; phase {clock.monotonic() - t_phase:.1f} s")
     print(f"[{label}] fabric launches: {launches}; hedged GETs fired/won "
-          f"(a GET outlasting max(1.5 x its estimate, 50 ms) fires the "
+          f"(a GET outlasting max(its estimate x the peer's p95 "
+          f"actual/estimate, 1.5 before 4 samples, 50 ms) fires the "
           f"plan's next wall-link holder): "
           + ", ".join(f"{c.name} {c.hedges}/{c.hedge_wins}"
                       for c in (a, b, s, nocat, cat)))
@@ -1213,8 +1407,11 @@ def batched_path(model, label, max_len=1024):
     batched prefill (an SSM: ssd_scan once a layer per request, each
     prompt prefilled alone at its exact length). The tokens are held
     against sequential ``InferenceEngine`` runs (equal in fp32, counted in
-    bf16). Then one decode_batch step's launches, and decode ms per step
-    at B=1 and B=BATCH. Returns the run's launch counts."""
+    bf16). Then a steady Scheduler step with its requests traced must run
+    what an untraced one runs (``sched_kernels``); one decode_batch step's
+    launches, and decode ms per step at B=1 and B=BATCH. Returns the
+    run's launch counts."""
+    collect_profiles()
     import numpy as np
     import torch
     from repro_torch import clock
@@ -1224,6 +1421,7 @@ def batched_path(model, label, max_len=1024):
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.mla_decode import mla_decode
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.obs.trace import Tracer
     from repro_torch.serving.engine import BatchedEngine, InferenceEngine
     from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -1292,6 +1490,64 @@ def batched_path(model, label, max_len=1024):
         if launches[name] != n:
             raise AssertionError(f"[{label}] {name} launched "
                                  f"{launches[name]} times, the run needs {n}")
+
+    def sched_kernels(tracer):
+        """Steady Scheduler steps (every slot decoding), their requests
+        traced under ``tracer`` or untraced (None), over TRACE_WINDOWS
+        profiler windows of TRACE_ITERS steps each. A step's aten ops,
+        decode kernel launches and kernel launch calls on the host
+        (``launch_calls``) must be the same in every window; its CUDA
+        kernels on the device (the most of the windows) are printed only,
+        since a device window may lose or misplace a few events. The
+        requests then run to their end, so the traced ones emit their
+        slot spans."""
+        from torch.profiler import ProfilerActivity, profile
+        sch = Scheduler(eng, tracer=tracer)
+        root = tracer.start("batch") if tracer is not None else None
+        for p in prompts[:BATCH]:
+            sch.submit(Request(tokens=p, max_new_tokens=TRACE_STEPS,
+                               trace=root.ctx if root is not None else None))
+        sch.step()                     # admission: the slots' prefills
+        counts, dev = [], []
+        for _ in range(TRACE_WINDOWS):
+            n0 = decode_k.launches if decode_k else 0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(TRACE_ITERS):
+                    sch.step()
+                torch.cuda.synchronize()
+            counts.append((sum(e.count for e in prof.key_averages()
+                               if e.key.startswith("aten::")) / TRACE_ITERS,
+                           (decode_k.launches - n0) / TRACE_ITERS
+                           if decode_k else 0,
+                           launch_calls(prof) / TRACE_ITERS))
+            dev.append(sum(e.count for e in _device_rows(prof))
+                       / TRACE_ITERS)
+        sch.run()
+        if root is not None:
+            root.end()
+            names = {d["name"] for d in tracer.trace(root.trace_id)}
+            if not {"slot.prefill", "slot.decode"} <= names:
+                raise AssertionError(f"[{label}] traced requests left no "
+                                     f"slot spans: {names}")
+        if len(set(counts)) != 1:
+            raise AssertionError(f"[{label}] steady steps differ: {counts}")
+        return counts[0], max(dev)
+
+    (c_off, k_off), (c_on, k_on) = \
+        sched_kernels(None), sched_kernels(Tracer(proc="batch"))
+    print(f"[{label}] a Scheduler step at B={BATCH}, tracer off / on: "
+          f"aten ops {c_off[0]:g} / {c_on[0]:g}, decode launches "
+          f"{c_off[1]:g} / {c_on[1]:g}, kernel launch calls on the host "
+          f"{c_off[2]:g} / {c_on[2]:g} (checked equal); CUDA kernels on "
+          f"the device, the most of {TRACE_WINDOWS} profiler windows, "
+          f"{k_off:g} / {k_on:g} (printed only)")
+    if c_on != c_off or c_on[0] <= 0 or c_on[2] <= 0:
+        raise AssertionError(f"[{label}] a traced step ran {c_on} "
+                             f"(aten ops, decode launches, launch "
+                             f"calls), an untraced one {c_off}")
+
+    collect_profiles()
 
     def step_ms(B):
         """Median wall ms of a decode_batch step of B slots (the logits
@@ -1402,6 +1658,79 @@ def replay(port, wls):
     return results, clock.monotonic() - t0, t0
 
 
+def _http_json(port, path):
+    """GET ``path`` from the gateway; the JSON body (status 200)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"GET {path}: {resp.status} {body[:200]}")
+        return json.loads(body)
+    finally:
+        conn.close()
+
+
+def traced_pair(gw, label):
+    """A fresh chat prompt twice down one keep-alive connection (its
+    uploads drained between the two, so the second is a hit fetched from
+    a daemon, not from the broker's recent blobs); the second's
+    ``/v1/traces/<id>`` must be one tree rooted at ``gw.request`` (its
+    root ``follows`` the first's), with the engine thread's resolve and
+    slot spans and a daemon's folded spans. Returns what it saw."""
+    import http.client
+    import time
+    from repro_torch import clock
+    port = gw.port
+    body = {"messages": [
+        {"role": "system", "content": "a prompt traced end to end"},
+        {"role": "user", "content": "which spans does it leave"}],
+        "max_tokens": MAX_NEW_GW}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    ids = []
+    try:
+        for i in range(2):
+            if i:
+                gw.engine.fetcher.flush_uploads(GATEWAY_JOIN_S)
+            conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            got = json.loads(resp.read())
+            if resp.status != 200 or not got["cache"].get("trace_id"):
+                raise AssertionError(f"[{label}] traced request: "
+                                     f"{resp.status} {got}")
+            ids.append((got["id"], got["cache"]))
+    finally:
+        conn.close()
+    t0 = clock.monotonic()
+    while True:                        # the root ends after the reply
+        docs = [_http_json(port, f"/v1/traces/{rid}") for rid, _ in ids]
+        roots = [[d for d in doc["spans"] if not d["parent"]]
+                 for doc in docs]
+        if all(len(r) == 1 for r in roots):
+            break
+        if clock.monotonic() - t0 > 5.0:
+            raise AssertionError(f"[{label}] trace roots {roots}")
+        time.sleep(0.01)
+    doc, cache = docs[1], ids[1][1]
+    names = sorted({d["name"] for d in doc["spans"]})
+    procs = sorted({d["proc"] for d in doc["spans"]})
+    follows = roots[1][0]["attrs"].get("follows")
+    if doc["trace_id"] != cache["trace_id"] or \
+            roots[1][0]["name"] != "gw.request" or \
+            follows != roots[0][0]["span"] or \
+            not {"gw.resolve", "net.get", "slot.prefill",
+                 "slot.decode"} <= set(names) or \
+            not any(p.startswith("peer:") for p in procs) or \
+            not cache["matched_tokens"]:
+        raise AssertionError(f"[{label}] trace tree: names {names}, procs "
+                             f"{procs}, follows {follows}, cache {cache}")
+    return {"n_spans": doc["n_spans"], "names": names, "procs": procs,
+            "follows": follows}
+
+
 def _ms(xs, q):
     """The q-th percentile of seconds ``xs``, in ms."""
     import numpy as np
@@ -1430,16 +1759,29 @@ def gateway_path(model, label, smi, max_len=1024):
     counted in bf16); each mix must have a unary request served by a peer
     (``matched_tokens > 0``); every daemon must exit 0 at ``stop()``. The
     counts are set to 0 just before the gateway's traffic and read just
-    after: flash_prefill and the decode kernel must have launched.
+    after: flash_prefill must have launched, and the decode kernel once a
+    layer a scheduler step, with the gateway's tracer on. Tracing: two
+    cached prompts down one keep-alive connection, the second's
+    ``/v1/traces/<id>`` must be one tree from the HTTP front door through
+    the engine thread to a daemon, its root ``follows`` the first's;
+    ``/v1/decisions`` must hold closed records (regret and savings
+    printed); after ``inject {corrupt_chunks: 1}`` on every daemon a
+    streamed client in the gateway's process must fall through a corrupt
+    stream, and ``/v1/flight`` must hold its ``chunk_error`` dump.
     Returns the launch counts."""
+    collect_profiles()
     import http.client
     import time
     import numpy as np
     import torch
     from repro_torch import clock
+    from repro_torch.config import CacheConfig
+    from repro_torch.core.client import EdgeClient
     from repro_torch.core.cluster.placement import PlacementPolicy
     from repro_torch.core.fabric import Fabric
     from repro_torch.gateway import Gateway, TenantQuota, protocol
+    from repro_torch.obs.flight import CHUNK_ERROR
+    from repro_torch.serving.engine import InferenceEngine
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.mla_decode import mla_decode
@@ -1472,6 +1814,12 @@ def gateway_path(model, label, smi, max_len=1024):
             max_new_tokens=wl.max_new_tokens) for wl in wls]
         Scheduler(BatchedEngine(model, max_len, BATCH)).run(reqs)
         return [r.stats.output_tokens for r in reqs]
+
+    def direct_segs(segs):
+        req = Request(tokens=np.asarray(segs.token_ids, np.int32),
+                      max_new_tokens=MAX_NEW_GW)
+        Scheduler(BatchedEngine(model, max_len, 1)).run([req])
+        return req.stats.output_tokens
 
     want = {name: direct(wls) for name, wls in mixes.items()}
     torch.cuda.synchronize()
@@ -1509,8 +1857,30 @@ def gateway_path(model, label, smi, max_len=1024):
             _replay_one(gw.port, probe, False, dead)
             restarted = fabric.supervisor.check_and_restart()
             alive = fabric.supervisor.health()
+            tree = traced_pair(gw, label)
             torch.cuda.synchronize()
             launches = {k.__name__: k.launches for k in kernels}
+            n_steps = gw.engine.sched.n_steps
+            decisions = _http_json(gw.port, "/v1/decisions")
+            # a corrupt stream in the gateway's process: a streamed
+            # client's partial hit (the support mix's system prompt is
+            # cached) against daemons that flip their next chunk
+            for pid in fabric.peer_ids():
+                fabric.supervisor.inject_faults(
+                    pid, chaos={"corrupt_chunks": 1})
+            ask = mixes["support"][0]
+            corrupt_segs = protocol.tokenize_messages(
+                tok, ask.messages[:-1] + (
+                    ("user", "a question asked once, of a corrupt fleet"),))
+            sc = EdgeClient("streamed",
+                            InferenceEngine(model, max_len=max_len),
+                            fabric.directory(), CacheConfig(), overlap=True)
+            sc.sync_catalog()
+            r_corrupt = sc.infer(corrupt_segs, MAX_NEW_GW,
+                                 upload_on_miss=False)
+            for pid in fabric.peer_ids():
+                fabric.supervisor.inject_faults(pid, reset=True)
+            flight = _http_json(gw.port, "/v1/flight")
             fstats = dict(gw.engine.fetcher.stats)
             restore_ts = list(gw.engine.fetcher.restore_s)
             fetch_ts = list(gw.engine.fetcher.fetch_s)
@@ -1603,6 +1973,40 @@ def gateway_path(model, label, smi, max_len=1024):
           f"{_ms(step_r_s, 99):.3f} ({len(step_r_s)}) beside "
           f"{_ms(step_s, 50):.3f}/{_ms(step_s, 99):.3f} without "
           f"({len(step_s)})")
+    recent = [r for r in decisions["recent"] if r.get("outcome")]
+    tot = decisions["totals"]
+    chunk_dumps = [d for d in flight["dumps"] if d["reason"] == CHUNK_ERROR
+                   and d["context"].get("client") == "streamed"]
+    print(f"[{label}] gateway trace of a hit down a kept-alive socket: "
+          f"{tree['n_spans']} spans from {tree['procs']}, names "
+          f"{tree['names']}; its root follows the previous request's "
+          f"({tree['follows']})")
+    print(f"[{label}] gateway decisions: {tot['commits']} closed of "
+          f"{tot['decisions']}, regret {tot['regret_s'] * 1e3:.3f} ms, "
+          f"savings {tot['savings_s'] * 1e3:.3f} ms in all, wins "
+          f"{tot['wins']}, locals {tot['locals']}, learned local prefill "
+          f"{(tot['prefill_s_per_tok'] or 0) * 1e6:.3f} us a token; "
+          f"decode launches {launches[decode_k.__name__]} over {n_steps} "
+          f"steps of {model.cfg.n_layers} layers")
+    print(f"[{label}] gateway flight after inject corrupt_chunks=1 on "
+          f"every daemon: a streamed client's request matched "
+          f"{r_corrupt.matched_tokens} after {r_corrupt.unreadable_blobs} "
+          f"corrupt streams; /v1/flight holds {len(flight['dumps'])} dumps, "
+          f"{len(chunk_dumps)} chunk_error from it "
+          f"({[d['context'].get('peer') for d in chunk_dumps]})")
+    if not recent or any(r["outcome"].get("regret_s") is None
+                         for r in recent):
+        raise AssertionError(f"[{label}] gateway decisions not closed")
+    if not chunk_dumps or not r_corrupt.unreadable_blobs:
+        raise AssertionError(f"[{label}] gateway flight: no chunk_error "
+                             f"dump after the corrupt streams")
+    if fp32 and r_corrupt.output_tokens != direct_segs(corrupt_segs):
+        raise AssertionError(f"[{label}] corrupt-stream fallback tokens "
+                             f"differ from a direct run")
+    if launches[decode_k.__name__] != n_steps * model.cfg.n_layers:
+        raise AssertionError(f"[{label}] gateway decode launches "
+                             f"{launches[decode_k.__name__]}, {n_steps} "
+                             f"traced steps need {n_steps * model.cfg.n_layers}")
     print(f"[{label}] gateway tokens agreeing with direct runs, of "
           f"{MAX_NEW_GW}: {agree}; a fresh prompt cold "
           f"{cold.get('cache')}, then with its primary {victim} dead: status "
@@ -1636,6 +2040,249 @@ def gateway_path(model, label, smi, max_len=1024):
         raise AssertionError(f"[{label}] gateway daemons exit {codes}")
     if launches["flash_prefill"] <= 0 or launches[decode_k.__name__] <= 0:
         raise AssertionError(f"[{label}] gateway launches {launches}")
+    return launches
+
+
+def chaos_path(model, label, smi, max_len=1024):
+    """The fault schedule replayed against the port's fabric: CHAOS_PEERS
+    supervised daemons (``PeerSupervisor``), a ``FaultDriver`` over
+    ``FaultSchedule.generate(CHAOS_SEED, ...)`` (every injectable kind:
+    kill and revive, partition, corrupt chunks, stalled streams, a
+    bandwidth collapse, delayed acks, each healed CHAOS_HEAL steps
+    later), and one request a step from a port ``EdgeClient`` (streamed
+    partial hits, hedged GETs, a deadline of CHAOS_DEADLINE_S) over the
+    supervisor's directory, cycling through CHAOS_PROMPTS MMLU-style
+    prompts. Every request must be answered (MAX_NEW tokens); fp32 tokens
+    must equal a cold local run's; every daemon must exit 0; and every
+    kind must be met by a request: one that sent the faulted peer, while
+    the fault was live, an op the fault acts on (a chunk stream for
+    corrupt and stall, a single-frame reply for delay_ack, any op for the
+    others). Prints, by the fault kinds live at each request: requests,
+    attempts by result (the fallthroughs), flight dumps by reason, TTFT
+    p50 / max, and the requests that met the fault. The counts are set to
+    0 just before the requests and read just after. Returns the launch
+    counts."""
+    collect_profiles()
+    import time
+    import numpy as np
+    import torch
+    from repro_torch import clock
+    from repro_torch.chaos import FaultDriver, FaultSchedule
+    from repro_torch.config import CacheConfig
+    from repro_torch.core.client import EdgeClient
+    from repro_torch.core.cluster.directory import PeerDirectory
+    from repro_torch.core.net.supervisor import PeerSupervisor
+    from repro_torch.core.netsim import WallClock
+    from repro_torch.core.server import CacheServer
+    from repro_torch.data.mmlu import MMLUGenerator
+    from repro_torch.data.tokenizer import WordHashTokenizer
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.obs.flight import FLIGHT
+    from repro_torch.obs.ledger import LEDGER
+    from repro_torch.serving.engine import InferenceEngine
+
+    kernels = (flash_prefill, flash_decode, ssd_scan, mla_decode)
+    t_phase = clock.monotonic()
+    gen = MMLUGenerator(WordHashTokenizer(model.cfg.vocab), n_shot=2)
+    n_q = CHAOS_PROMPTS // len(CHAOS_DOMAINS)
+    pool = [gen.prompt(d, q).segments for d in CHAOS_DOMAINS
+            for q in range(n_q)]
+    # a question of each domain that no request of the pool asks: a
+    # probe's partial hit on its domain's prefix, streamed
+    fresh = [gen.prompt(d, n_q).segments for d in CHAOS_DOMAINS]
+    engine = InferenceEngine(model, max_len=max_len)
+    cold = EdgeClient("cold", engine, CacheServer(CacheConfig()),
+                      CacheConfig())
+    want, want_fresh = ([cold.infer(p, MAX_NEW, upload_on_miss=False)
+                         .output_tokens for p in ps] for ps in (pool, fresh))
+
+    def acts_on(kind, stream):
+        """Whether a fault of ``kind`` acts on an op (a chunk stream or a
+        single-frame reply)."""
+        return stream if kind in CHAOS_STREAM else \
+            not stream if kind in CHAOS_REPLY else True
+
+    def probe(ev, step):
+        """Requests aimed at the faulted peer alone, while its fault is
+        live: a client whose directory holds that peer's link only and
+        keeps no catalog, so every range is asked of it (the step's pool
+        prompt first, then each fresh question). They stop at the first
+        that shows the fault: a dead attempt at the peer (kill,
+        partition), a corrupt one (corrupt), or for the slowing kinds an
+        attempt cut short, or an op the fault acts on that lasted the
+        fault's seconds (stall, delay_ack) or CHAOS_SLOW_S (bandwidth).
+        Returns a row a request."""
+        link = next(ln for ln in sup.links() if ln.peer_id == ev.peer)
+        pc = EdgeClient(f"probe-{ev.peer}", engine, PeerDirectory(
+            [link], clock=WallClock(),
+            suspect_cooldown_s=CHAOS_COOLDOWN_S), CacheConfig(),
+            overlap=True, use_catalog=False)
+        slow = ev.args.get("seconds") or CHAOS_SLOW_S
+        out = []
+        try:
+            for p, ref in [(pool[step % len(pool)],
+                            want[step % len(pool)])] + list(
+                                zip(fresh, want_fresh)):
+                r = pc.infer(p, MAX_NEW, upload_on_miss=False,
+                             deadline_s=CHAOS_DEADLINE_S)
+                rec = LEDGER.get(r.trace_id) or {"attempts": []}
+                res = [a["result"] for a in rec["attempts"]]
+                durs = [x["dur"] for x in pc.tracer.trace(r.trace_id) or []
+                        if x["name"].startswith("net.")
+                        and x["attrs"].get("peer") == ev.peer
+                        and acts_on(ev.kind, bool(x["attrs"].get("stream")))]
+                if ev.kind in ("kill", "partition"):
+                    shown = "dead" in res
+                elif ev.kind == "corrupt":
+                    shown = "corrupt" in res
+                else:
+                    shown = any(x in ("cancelled", "dead", "deadline")
+                                for x in res) or max(durs, default=0) >= slow
+                out.append({"ttft": r.ttft_s, "results": res,
+                            "longest": max(durs, default=0.0),
+                            "shown": shown,
+                            "ok": len(r.output_tokens) == MAX_NEW,
+                            "same": r.output_tokens == ref})
+                if shown:
+                    break
+        finally:
+            link.close()
+        return out
+    LEDGER.clear()
+    FLIGHT.clear()
+    sup = PeerSupervisor.fleet(CHAOS_PEERS, gossip_interval_s=GOSSIP_S,
+                               request_timeout_s=CHAOS_TIMEOUT_S)
+    sched = FaultSchedule.generate(CHAOS_SEED, sorted(sup.procs),
+                                   n_steps=CHAOS_STEPS,
+                                   heal_after=CHAOS_HEAL)
+    if FaultSchedule.from_json(sched.to_json()).event_order() != \
+            sched.event_order():
+        raise AssertionError(f"[{label}] chaos schedule JSON round trip")
+    rows, live, probes = [], {}, []    # live: peer -> {kind}
+    faults = {ev.fingerprint() for ev in sched.faults()}
+    with sup:
+        d = sup.directory(suspect_cooldown_s=CHAOS_COOLDOWN_S)
+        c = EdgeClient("chaos", engine, d, CacheConfig(), overlap=True)
+        drv = FaultDriver(sup, sched)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        for step in range(CHAOS_STEPS):
+            # the catalog sync first, then this step's faults: the request
+            # is the first to reach a peer faulted at its step
+            d.last_sync_t = -1e18
+            c.sync_catalog()
+            for ev in drv.advance(step):
+                if ev in drv.skipped:  # aimed at a peer that is down
+                    continue
+                kinds = live.setdefault(ev.peer, set())
+                if ev.kind == "revive":        # a fresh daemon, no faults
+                    kinds.clear()
+                elif ev.kind == "heal":
+                    kinds -= {"partition", "corrupt", "stall", "delay_ack"}
+                elif ev.kind == "bandwidth" and ev.args.get("bps") is None:
+                    kinds.discard("bandwidth")
+                else:
+                    kinds.add(ev.kind)
+                if ev.fingerprint() in faults:  # not a heal or a lift
+                    probes.append((ev, probe(ev, step)))
+            before = {id(x) for x in FLIGHT.dumps()}
+            p = pool[step % len(pool)]
+            r = c.infer(p, MAX_NEW, deadline_s=CHAOS_DEADLINE_S)
+            rec = LEDGER.get(r.trace_id) or {"attempts": []}
+            dumps = [x for x in FLIGHT.dumps() if id(x) not in before]
+            rows.append({
+                "kinds": sorted(set().union(*live.values())) or ["none"],
+                "live": {pid: set(k) for pid, k in live.items()},
+                "ttft": r.ttft_s, "case": r.case,
+                "attempts": [(a["peer"], a["result"])
+                             for a in rec["attempts"]],
+                # the request's ops to each peer: (peer, a stream)
+                "ops": [(x["attrs"].get("peer"), bool(x["attrs"].get(
+                    "stream"))) for x in c.tracer.trace(r.trace_id) or []
+                    if x["name"].startswith("net.")],
+                "dumps": [(x["reason"], x["context"].get("peer"))
+                          for x in dumps],
+                "ok": len(r.output_tokens) == MAX_NEW,
+                "same": r.output_tokens == want[step % len(pool)]})
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        drv.finish()
+        drv.heal_all()
+        repaired = sup.check_and_restart()
+        time.sleep(GOSSIP_S)
+        healthy = sup.health()
+        cal = sup.fleet_calibration()
+        hedges = (c.hedges, c.hedge_wins, c.stream_cancels)
+    codes = sup.exit_codes()
+    fp32 = model.dtype == torch.float32
+    by_kind = {}
+    for row in rows:
+        for kind in row["kinds"]:
+            by_kind.setdefault(kind, []).append(row)
+    print(f"[{label}] chaos on {smi}: schedule seed {CHAOS_SEED}, "
+          f"{len(sched.events)} events over {CHAOS_STEPS} steps "
+          f"({sched.event_order()}); applied {len(drv.applied)}, skipped "
+          f"{[e.fingerprint() for e in drv.skipped]}; supervised restarts "
+          f"after the schedule {repaired}")
+    met = {}                           # kind -> requests that met it
+    for kind, rs in sorted(by_kind.items()):
+        tt = [x["ttft"] for x in rs]
+        att, dumps, at_peer, named = {}, {}, {}, 0
+        met[kind] = 0
+        for x in rs:
+            faulted = {pid for pid, k in x["live"].items() if kind in k}
+            for pid, res in x["attempts"]:
+                att[res] = att.get(res, 0) + 1
+                if pid in faulted:
+                    at_peer[res] = at_peer.get(res, 0) + 1
+            for reason, pid in x["dumps"]:
+                dumps[reason] = dumps.get(reason, 0) + 1
+                named += pid in faulted
+            met[kind] += any(pid in faulted and acts_on(kind, stream)
+                             for pid, stream in x["ops"])
+        print(f"[{label}] chaos {kind}: {len(rs)} requests, cases "
+              f"{[x['case'] for x in rs]}, attempts {att}, flight dumps "
+              f"{dumps}, TTFT p50/max {_ms(tt, 50):.2f}/{_ms(tt, 100):.2f}"
+              f" ms" + ("" if kind == "none" else
+                        f"; met by {met[kind]} (an op to the faulted peer "
+                        f"that the fault acts on), attempts at that peer "
+                        f"{at_peer}, dumps naming it {named}"))
+    for ev, out in probes:
+        print(f"[{label}] chaos probe of {ev.fingerprint()}: "
+              f"{len(out)} requests at {ev.peer} alone, attempt results "
+              f"{[x['results'] for x in out]}, longest op the fault acts on"
+              f" {[round(x['longest'] * 1e3, 2) for x in out]} ms, TTFT "
+              f"{[round(x['ttft'] * 1e3, 2) for x in out]} ms; fault shown "
+              f"{out[-1]['shown']}")
+    rows_all = rows + [x for _, out in probes for x in out]
+    answered = sum(x["ok"] for x in rows_all)
+    same = sum(x["same"] for x in rows_all)
+    print(f"[{label}] chaos: {answered} of {len(rows_all)} requests "
+          f"answered ({len(rows)} a step, {len(rows_all) - len(rows)} "
+          f"probes), tokens equal to a cold run {same} of {len(rows_all)}; "
+          f"hedges fired/won {hedges[0]}/{hedges[1]}, streams cut "
+          f"{hedges[2]}; ledger {LEDGER.totals()}; links learned "
+          + "; ".join(f"{pid} {sorted(v.get('links', {}))}"
+                      for pid, v in sorted(cal.items()))
+          + f"; daemons exit {codes}; launches {launches}; phase "
+          f"{clock.monotonic() - t_phase:.1f} s")
+    if answered != len(rows_all) or (fp32 and same != len(rows_all)):
+        raise AssertionError(f"[{label}] chaos: answered {answered}, same "
+                             f"tokens {same} of {len(rows_all)}")
+    shown = {ev.kind for ev, out in probes if out[-1]["shown"]}
+    if shown != set(CHAOS_KINDS):
+        raise AssertionError(f"[{label}] chaos: no probe showed the fault "
+                             f"kinds {set(CHAOS_KINDS) - shown}")
+    if not all(healthy.values()) or any(c != 0 for c in codes.values()):
+        raise AssertionError(f"[{label}] chaos: health {healthy}, daemons "
+                             f"exit {codes}")
+    if launches["flash_prefill"] <= 0 or launches["flash_decode"] <= 0:
+        raise AssertionError(f"[{label}] chaos launches {launches}")
+    LEDGER.clear()
     return launches
 
 
@@ -1786,6 +2433,8 @@ def main():
                   dict(os.environ, PYTHONHASHSEED="0"))
     smi = device_line()
     import torch
+    from repro_torch import clock
+    t_script = clock.monotonic()
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.mla_decode import mla_decode
@@ -1815,11 +2464,14 @@ def main():
         expect = needs(m32.cfg)
         for m, total in ((m16, launches), (m32, launches32)):
             label = f"{name} {'bf16' if m is m16 else 'fp32'}"
+            t0 = clock.monotonic()
             if edge:
                 got, streamed, prompts, refs = edge_path(m, label, expect)
+                t1 = clock.monotonic()
                 fab = fabric_path(m, label, expect, prompts, refs)
                 for k in got:
                     total[k] += got[k] + streamed[k] + fab[k]
+            t2 = clock.monotonic()
             full = m
             if batched_layers:
                 m = cut_model(m, batched_layers)
@@ -1828,6 +2480,10 @@ def main():
                     f" to keep the script's time)" if batched_layers
                     else "")).items():
                 total[k] += n
+            print(f"[{label}] seconds: "
+                  + (f"edge {t1 - t0:.1f}, fabric {t2 - t1:.1f}, "
+                     if edge else "")
+                  + f"batched {clock.monotonic() - t2:.1f}")
             del m, full
         if edge:
             where_time_goes(m16, prompts[0])
@@ -1844,6 +2500,14 @@ def main():
             label = f"{name} {'bf16' if m is m16 else 'fp32'}"
             for k, n in gateway_path(m, label, smi).items():
                 total[k] += n
+    # the chaos phase, after the gateway phases, on gemma3-270m
+    for name, m16, m32 in served:
+        if name != CHAOS_PATH:
+            continue
+        for m, total in ((m16, launches), (m32, launches32)):
+            label = f"{name} {'bf16' if m is m16 else 'fp32'}"
+            for k, n in chaos_path(m, label, smi).items():
+                total[k] += n
     del served
 
     out = []
@@ -1855,7 +2519,13 @@ def main():
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(f"main-path launches, all paths: bf16 {launches}, fp32 "
-          f"{launches32}")
+          f"{launches32}; script {clock.monotonic() - t_script:.1f} s after "
+          f"the device line")
+    most = max(GC_FREED)
+    print(f"cyclic garbage collected before the timed phases: "
+          f"{sum(n for n, _ in GC_FREED)} objects in "
+          f"{sum(t for _, t in GC_FREED):.3f} s over {len(GC_FREED)} "
+          f"collections, the largest {most[0]} objects in {most[1]:.3f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

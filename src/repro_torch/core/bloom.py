@@ -37,3 +37,11 @@ class BloomFilter:
     def __contains__(self, key: bytes) -> bool:
         return all(self.bits[ix >> 3] & (1 << (ix & 7))
                    for ix in self._indices(key))
+
+    def expected_fp_rate(self) -> float:
+        """The false-positive probability at the current fill: the share
+        of bits set, to the power ``k``."""
+        if not self.n_added:
+            return 0.0
+        ones = int.from_bytes(self.bits, "little").bit_count()
+        return float(ones / (len(self.bits) * 8)) ** self.k

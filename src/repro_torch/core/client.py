@@ -57,10 +57,16 @@ uploads carries its logits; and a blob without logits is not resumed at
 state twice) but skipped like a miss. A K/V or latent blob without
 logits resumes at ``matched - 1``.
 
-Each result carries two accountings. ``timings`` holds wall seconds on
+Each result carries three accountings. ``timings`` holds wall seconds on
 this process's clock, with the device synchronised at each step's end;
 TTFT runs to the first output token's logits on the host, TTLT to the
-last token. ``sim`` is the paper's Table-3 ``Breakdown`` of an emulated
+last token. ``wall`` is the Table-3 ``Breakdown`` projected from the
+request's span tree (``trace_id``; the client's tracer is on by
+default): its ``bloom``, ``redis``, ``p_decode`` and ``r_decode`` spans
+carry the same measured seconds as ``timings``' ``bloom_s``,
+``fetch_s``, ``prefill_s`` and ``decode_s``, closed where the host
+already waited for the device, so tracing adds no synchronisation and
+no launch. ``sim`` is the paper's Table-3 ``Breakdown`` of an emulated
 edge device (``perf``, a :class:`~repro_torch.core.perfmodel.DevicePerfModel`)
 and the simulated Wi-Fi: modeled seconds, never a reading of this
 machine, all 0 without a perf model and a simulated link. Uploads run
@@ -79,9 +85,17 @@ every payload to the peers. On a wall link without a broker, a single
 GET that outlasts :meth:`PeerDirectory.hedge_delay_s` fires the plan's
 next holder of the same range on another peer, and the first usable
 response wins; a streamed fetch projected to overrun the deadline (or,
-with a perf model, the local prefill it was priced against) is cut by
-the cancel frame. Tracing and the decision ledger are not ported
-(ROADMAP Queue 1, item 7.5).
+with a perf model, the local prefill it was priced against, without
+one the decision ledger's learned local baseline) is cut by the cancel
+frame.
+
+On the fabric each plan opens a decision-ledger record
+(:data:`~repro_torch.obs.ledger.LEDGER`); the walk notes every attempt
+and commits the realized outcome (a complete miss without a perf model
+also teaches the ledger its local prefill rate). Attempts, skips,
+cancels and hedges are recorded in the flight recorder
+(:data:`~repro_torch.obs.flight.FLIGHT`), and a plan whose every attempt
+failed, or a blob that fails its digests, triggers a dump.
 """
 from __future__ import annotations
 
@@ -109,8 +123,14 @@ from repro_torch.core.server import CacheServer
 from repro_torch.core.transport import (InProcTransport, StreamCancelled,
                                         TransportError)
 from repro_torch.device import dtype_name
+from repro_torch.obs.flight import CHUNK_ERROR, FLIGHT, PLAN_EXHAUSTED
+from repro_torch.obs.ledger import LEDGER, LEDGER_KEY
+from repro_torch.obs.trace import Tracer, current_span
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.sampler import greedy
+
+# the port's attempt kinds as the ledger names their results
+_LEDGER_RESULT = {"unreadable": "corrupt", "skip": "miss"}
 
 
 @dataclass
@@ -136,6 +156,8 @@ class InferResult:
     est_fetch_s: float = 0.0       # the planner's estimate of the hit
     actual_fetch_s: float = 0.0    # what the hit's fetch cost (sim/wall)
     extra: Dict[str, float] = field(default_factory=dict)
+    wall: Breakdown = field(default_factory=Breakdown)  # from the spans
+    trace_id: str = ""             # the span tree behind this result
 
 
 class _StreamEnded(Exception):
@@ -148,8 +170,13 @@ class EdgeClient:
                  perf: Optional[DevicePerfModel] = None,
                  use_catalog: bool = True, perf_cfg=None,
                  overlap: bool = False,
-                 policy: Optional[FetchPolicy] = None, broker=None):
+                 policy: Optional[FetchPolicy] = None, broker=None,
+                 tracer: Optional[Tracer] = None):
         self.name = name
+        # every request gets a span tree, and ``wall`` is its projection:
+        # pass a shared tracer to stitch the client's spans into a larger
+        # tree, or let each client keep its own bounded store
+        self.tracer = tracer or Tracer(proc=f"client:{name}", max_traces=64)
         self.engine = engine
         if isinstance(transport, CacheServer):
             transport = InProcTransport(transport)
@@ -181,6 +208,7 @@ class EdgeClient:
                 self.directory, self.perf_cfg, perf,
                 dtype_bytes=2 if emulated else engine.cache_dtype.itemsize,
                 overlap=self.overlap, chunk_layers=cache_cfg.chunk_layers)
+            self.planner.owner = name
         # strict mode: a policy that requires streaming fails here, not on
         # the first partial hit
         policy.validate_for(engine, [ln.transport for ln in
@@ -199,8 +227,9 @@ class EdgeClient:
             return
         try:
             self.catalog.maybe_sync(self.transport, now)
-        except TransportError:
-            return                     # stale until the next sync
+        except TransportError as e:    # stale until the next sync
+            FLIGHT.record("catalog.sync_failed", client=self.name,
+                          error=repr(e))
 
     # ------------------------------------------------------------------
     def infer(self, prompt: PromptSegments, max_new_tokens: int = 16,
@@ -220,10 +249,16 @@ class EdgeClient:
         ``upload_on_miss`` defaults to the policy's. ``deadline_s`` is
         the request's latency budget (on the link's sim clock where there
         is one); an ambient ``deadline_scope`` applies the same way."""
-        with deadline_scope(deadline_s, clock=self.clock):
-            return self._infer(prompt, max_new_tokens, sampler, rng,
-                               self.policy.upload_on_miss
-                               if upload_on_miss is None else upload_on_miss)
+        root = self.tracer.start("infer", attrs={
+            "client": self.name, "prompt_tokens": len(prompt.token_ids)})
+        with root, deadline_scope(deadline_s, clock=self.clock):
+            res = self._infer(prompt, max_new_tokens, sampler, rng,
+                              self.policy.upload_on_miss
+                              if upload_on_miss is None else upload_on_miss)
+        res.wall = Breakdown.from_spans(self.tracer.trace(root.trace_id)
+                                        or [])
+        res.trace_id = root.trace_id
+        return res
 
     def _infer(self, prompt: PromptSegments, max_new_tokens: int,
                sampler: Callable, rng, upload_on_miss: bool) -> InferResult:
@@ -265,6 +300,14 @@ class EdgeClient:
             plan = [FetchAttempt(None, k) for k in keys
                     if k.n_tokens >= min_match]
         tm["bloom_s"] = clock.monotonic() - t0
+        tr = self.tracer
+        tr.add("bloom", tm["bloom_s"], t0=t0, component="bloom",
+               candidates=len(plan))
+        # the record the planner just opened (the fabric only), closed
+        # below with the realized outcome
+        rec = self.planner.last_decision if self.planner is not None \
+            else None
+        dedup_of = None
 
         matched, false_pos, down_bytes, unreadable = 0, False, 0, 0
         state, st, got = None, None, None
@@ -272,22 +315,44 @@ class EdgeClient:
         served_by, est_fetch, actual_fetch, hit_dl_sim = "", 0.0, 0.0, 0.0
         shared = False
         for att in plan:               # best estimate first
+            cand = att.key
             if ddl is not None and att.est_fetch_s >= ddl.remaining():
-                continue               # the rest of the budget cannot
-            cand = att.key             # cover the transfer: skip it
+                # the rest of the budget cannot cover the transfer
+                LEDGER.note_attempt(rec, peer=att.peer_id or "server",
+                                    range_tokens=cand.n_tokens,
+                                    result="deadline",
+                                    est_fetch_s=att.est_fetch_s)
+                FLIGHT.record("fetch.deadline_skip", client=self.name,
+                              peer=att.peer_id or "server",
+                              est_fetch_s=att.est_fetch_s,
+                              remaining_s=ddl.remaining())
+                continue
             n_attempts += 1
             net = self._link_net(att.peer_id)
             sim_link = self.clock is not None and net is not None
             got = None
-            if self.overlap and cand.n_tokens < n and \
-                    self.policy.transfer != "blocking" and \
-                    model.supports_layer_stream:
-                got = self._fetch_streamed(att, prompt, tm, net)
-            if got is None:            # not streamed, or a broker follower
-                got = self._fetch(att, tm, net,
-                                  self._hedge_candidate(plan, att))
-            else:
-                chunks_down += got["chunks"]
+            fetch0, restore0 = tm["fetch_s"], tm["restore_s"]
+            # one span an attempt; the directory's net.<op> span and the
+            # peer's folded spans nest under it
+            with tr.start("redis.attempt", attrs={
+                    "peer": att.peer_id or "server",
+                    "range_tokens": cand.n_tokens,
+                    "est_fetch_s": att.est_fetch_s}) as asp:
+                if self.overlap and cand.n_tokens < n and \
+                        self.policy.transfer != "blocking" and \
+                        model.supports_layer_stream:
+                    got = self._fetch_streamed(att, prompt, tm, net)
+                if got is None:        # not streamed, or a broker follower
+                    got = self._fetch(att, tm, net,
+                                      self._hedge_candidate(plan, att))
+                else:
+                    chunks_down += got["chunks"]
+                # the transfer on the TTFT path is this attempt's Table-3
+                # redis share; the span also covers its restore
+                asp.set(component="redis",
+                        component_s=tm["fetch_s"] - fetch0,
+                        restore_s=tm["restore_s"] - restore0,
+                        result=got["kind"])
             att = got.get("att", att)  # a hedge's winner served it
             kind, arrived = got["kind"], got["arrived"]
             if sim_link:
@@ -303,6 +368,14 @@ class EdgeClient:
                 actual = dl
             else:
                 actual = got["transfer"]
+            FLIGHT.record("fetch.attempt", client=self.name,
+                          peer=att.peer_id or "server",
+                          range_tokens=cand.n_tokens, kind=kind)
+            LEDGER.note_attempt(rec, peer=att.peer_id or "server",
+                                range_tokens=cand.n_tokens,
+                                result=_LEDGER_RESULT.get(kind, kind),
+                                est_fetch_s=att.est_fetch_s, actual_s=actual,
+                                shared=got["shared"])
             if kind == "dead":         # already marked suspect: next one
                 dead += 1
                 dead_s += got["transfer"]
@@ -324,6 +397,13 @@ class EdgeClient:
             if kind != "hit":          # a recurrent state with no logits
                 continue
             st, state, shared = got["st"], got["state"], got["shared"]
+            if rec is not None and got.get("resp") is not None:
+                # the broker shares the reply: a sibling that adopted it
+                # links its record to this one
+                if shared:
+                    dedup_of = got["resp"].get(LEDGER_KEY)
+                else:
+                    got["resp"][LEDGER_KEY] = rec["id"]
             matched = cand.n_tokens
             down_bytes = 0 if shared else got["nbytes"]
             hit_dl_sim = actual if sim_link else 0.0
@@ -337,6 +417,11 @@ class EdgeClient:
                     self.directory.note_fetch(cand.digest, got["nbytes"],
                                               att.peer_id, got["blob"])
             break
+        if plan and not matched:
+            # every attempt failed: the last events say why
+            FLIGHT.trigger(PLAN_EXHAUSTED, client=self.name,
+                           attempts=n_attempts, dead_peers=dead,
+                           decision=rec["id"] if rec else "")
 
         # Step 3: adopt / resume / full local prefill
         streamed = st is not None
@@ -357,6 +442,9 @@ class EdgeClient:
                 st = self.engine.resume({"tokens": suffix}, cache,
                                         resume_from)
             tm["prefill_s"] = st.timings["prefill_wall"]
+            tr.add("p_decode", tm["prefill_s"], component="p_decode",
+                   kind="streamed" if streamed else "resumed",
+                   resumed_from=resume_from)
             if self.perf:
                 t_suffix = self.perf.time_prefill(cfg, n - resume_from)
                 sim.p_decode += t_suffix
@@ -378,6 +466,8 @@ class EdgeClient:
             tokens = np.asarray(prompt.token_ids, np.int32)[None]
             st = self.engine.start({"tokens": tokens})
             tm["prefill_s"] = st.timings["prefill_wall"]
+            tr.add("p_decode", tm["prefill_s"], component="p_decode",
+                   kind="full")
             if self.perf:
                 sim.p_decode += self.perf.time_prefill(cfg, n)
         prompt_logits = st.last_logits
@@ -391,10 +481,14 @@ class EdgeClient:
         out = self.engine.generate(st, max_new_tokens, sampler, rng=rng)
         tm["decode_s"] = st.timings["decode_wall"]
         ttlt = clock.monotonic() - t0
+        n_out = st.timings["decode_tokens"]
+        tr.add("r_decode", tm["decode_s"], component="r_decode",
+               tokens=int(n_out))
         if self.perf:
-            n_out = st.timings["decode_tokens"]
             sim.r_decode = self.perf.time_decode(cfg, n_out)
             sim.sample = self.perf.time_sample(n_out)
+        self._commit(rec, n, matched, served_by, actual_fetch, dedup_of,
+                     sim, tm)
 
         up = 0
         if upload:
@@ -402,6 +496,7 @@ class EdgeClient:
             up = self._upload_ranges(prompt, keys, prompt_cache,
                                      prompt_logits)
             tm["upload_s"] = clock.monotonic() - tu
+            tr.add("upload", tm["upload_s"], t0=tu, bytes=up)
         res = InferResult(
             case=self._case_of(prompt, matched), matched_tokens=matched,
             prompt_tokens=n, output_tokens=[int(t) for t in out[0]],
@@ -418,6 +513,28 @@ class EdgeClient:
             res.extra["dead_peer_failures"] = float(dead)    # fast fails
             res.extra["dead_peer_s"] = dead_s
         return res
+
+    def _commit(self, rec, n: int, matched: int, served_by: str,
+                fetch_s: float, dedup_of, sim: Breakdown,
+                tm: Dict[str, float]) -> None:
+        """Close the plan's ledger record with the realized outcome, on
+        the seconds the plan was priced in: the perf model's where there
+        is one, else wall seconds (and a complete miss then teaches the
+        ledger its local prefill rate)."""
+        if rec is None:
+            return
+        prefill_s = sim.p_decode if self.perf else tm["prefill_s"]
+        if matched:
+            LEDGER.commit(rec, chosen=served_by or None,
+                          result="hit" if matched == n else "partial",
+                          fetch_s=fetch_s,
+                          suffix_s=prefill_s if matched < n else 0.0,
+                          dedup_of=dedup_of)
+            return
+        if not self.perf:
+            LEDGER.note_prefill(n, tm["prefill_s"])
+        LEDGER.commit(rec, chosen=None, result="local",
+                      local_prefill_s=prefill_s)
 
     # ------------------------------------------------------------------
     def _link_net(self, peer_id: Optional[str]):
@@ -453,14 +570,18 @@ class EdgeClient:
         link's modeled seconds; for a dead peer there one RTT),
         "transfer": wall seconds of the GET, "nbytes", "blob", "state",
         "shared": another session's GET brought it (the broker), "att":
-        the attempt that served it (a hedge's winner)}``. Adds wall
-        seconds to ``tm``."""
+        the attempt that served it (a hedge's winner), "resp": the reply
+        (the broker shares it)}``. Adds wall seconds to ``tm``."""
         t0 = clock.monotonic()
         shared, template = False, None
         if self.broker is not None:    # with a broker there is no hedge
+            caller = current_span()    # the GET runs on the broker's thread
+
+            def issue():
+                with self.tracer.attach(caller):
+                    return self._issue(att)
             resp, dt, _, shared, template = self.broker.fetch(
-                self._broker_key(att), lambda: self._issue(att),
-                prep=self.engine.new_cache)
+                self._broker_key(att), issue, prep=self.engine.new_cache)
         elif hedge is not None:
             resp, dt, att = self._fetch_hedged(att, hedge)
         else:
@@ -469,7 +590,7 @@ class EdgeClient:
         tm["fetch_s"] += wall          # a dead peer: what the fast fail cost
         out = {"kind": "miss", "arrived": False, "dt": dt, "transfer": wall,
                "nbytes": 0, "st": None, "state": None, "shared": shared,
-               "att": att}
+               "att": att, "resp": resp}
         if resp.get("dead"):
             out.update(kind="dead", dt=net.rtt_s if net is not None else wall)
             return out
@@ -491,8 +612,11 @@ class EdgeClient:
                 payload, template if template is not None
                 else self.engine.new_cache())
             out["kind"] = "hit"
-        except ValueError:             # ChunkError too: a miss
+        except ValueError as e:        # ChunkError too: a miss
             out["kind"] = "unreadable"
+            FLIGHT.trigger(CHUNK_ERROR, client=self.name,
+                           peer=att.peer_id or "server",
+                           key=att.key.digest.hex(), error=repr(e))
         finally:
             tm["restore_s"] += clock.monotonic() - tr
         return out
@@ -524,19 +648,22 @@ class EdgeClient:
         legs carry the caller's deadline."""
         results: "queue.Queue" = queue.Queue()
         ddl = current_deadline()
+        caller = current_span()
 
         def issue(a: FetchAttempt):
-            with deadline_attach(ddl):
+            with self.tracer.attach(caller), deadline_attach(ddl):
                 resp, dt, _ = self._issue(a)
             results.put((a, resp, dt))
 
         threading.Thread(target=issue, args=(att,), daemon=True).start()
+        delay = self.directory.hedge_delay_s(att.peer_id, att.est_fetch_s)
         try:
-            got = results.get(
-                timeout=self.directory.hedge_delay_s(att.peer_id,
-                                                     att.est_fetch_s))
+            got = results.get(timeout=delay)
         except queue.Empty:
             self.hedges += 1
+            FLIGHT.record("fetch.hedge", client=self.name,
+                          primary=att.peer_id, secondary=hedge.peer_id,
+                          est_fetch_s=att.est_fetch_s, waited_s=delay)
             threading.Thread(target=issue, args=(hedge,),
                              daemon=True).start()
             got = results.get()
@@ -545,6 +672,9 @@ class EdgeClient:
         winner, resp, dt = got
         if winner is hedge:
             self.hedge_wins += 1
+            FLIGHT.record("fetch.hedge_win", client=self.name,
+                          primary=att.peer_id, winner=winner.peer_id,
+                          actual_s=dt)
         return resp, dt, winner
 
     def _fetch_streamed(self, att: FetchAttempt, prompt: PromptSegments,
@@ -573,10 +703,10 @@ class EdgeClient:
 
         On a wall link a watchdog projects the stream's end from its pace
         so far (from the second chunk on) and cuts it with the cancel
-        frame when the projection overruns the deadline's remainder or,
-        with a perf model, the local prefill the attempt was priced
-        against (the reference also learns a local baseline without one,
-        from its decision ledger, which the port does not have)."""
+        frame when the projection overruns the deadline's remainder or
+        the local prefill the attempt was priced against: the perf
+        model's, or without one the decision ledger's learned baseline
+        (none before the ledger has seen a local prefill)."""
         cand, peer_id = att.key, att.peer_id
         if self.broker is not None and \
                 self.broker.lead(self._broker_key(att)) is None:
@@ -591,8 +721,9 @@ class EdgeClient:
         ddl = current_deadline()
         k_expected = max(sizing.stream_chunk_count(
             self.engine.model.cfg, self.cache_cfg.chunk_layers), 1)
-        local_s = self.perf.time_prefill(
-            self.perf_cfg, len(prompt.token_ids)) if self.perf else None
+        n_prompt = len(prompt.token_ids)
+        local_s = self.perf.time_prefill(self.perf_cfg, n_prompt) \
+            if self.perf else LEDGER.baseline_s(n_prompt)
         t_w0 = clock.monotonic()
 
         def watchdog():
@@ -617,6 +748,11 @@ class EdgeClient:
                 if info["watchdog"] is not None:
                     cancel.set()
                     self.stream_cancels += 1
+                    FLIGHT.record("fetch.cancel", client=self.name,
+                                  peer=peer_id or "server",
+                                  reason=info["watchdog"],
+                                  chunks=info["chunks"],
+                                  expected_chunks=k_expected)
             tf = clock.monotonic()
             done = restorer.feed(chunk)
             info["feed_s"] += clock.monotonic() - tf
@@ -625,10 +761,12 @@ class EdgeClient:
             for gid in done:
                 events.put(gid)
 
+        caller = current_span()        # the pump's net span joins the tree
+
         def pump():
             req = ("get_chunks", {"key": cand.digest}, on_chunk)
             try:
-                with deadline_attach(ddl):
+                with self.tracer.attach(caller), deadline_attach(ddl):
                     pump_request(req)
             except BaseException as e:  # re-raised below unless the
                 info["err"] = e        # stream was bad, cut or dead
@@ -713,6 +851,10 @@ class EdgeClient:
         elif first is None and isinstance(info["hdr"], dict) and \
                 not info["hdr"].get("error"):
             kind = "miss"
+        if kind == "unreadable":       # a digest or decode failed
+            FLIGHT.trigger(CHUNK_ERROR, client=self.name,
+                           peer=peer_id or "server", key=cand.digest.hex(),
+                           chunks=info["chunks"], error=repr(err))
         wall = clock.monotonic() - t0
         restore = info["feed_s"] + restorer.phase_s["place"]
         compute = st.timings["prefill_wall"] if st is not None else 0.0
@@ -728,6 +870,7 @@ class EdgeClient:
             dt = info["seconds"] if info["hdr"] is not None else net.rtt_s
         else:
             dt = visible
+        resp = None
         if self.broker is not None:    # resolve the sessions that joined
             resp = {"ok": True, "blob": state_io.pack_container(
                 restorer.raw_chunks())} if kind == "hit" else \
@@ -735,7 +878,7 @@ class EdgeClient:
             self.broker.publish(self._broker_key(att), resp,
                                 info["seconds"])
         return {"kind": kind, "arrived": kind == "hit", "st": st,
-                "shared": False, "watchdog": info["watchdog"],
+                "shared": False, "watchdog": info["watchdog"], "resp": resp,
                 "state": state, "chunks": info["chunks"],
                 "nbytes": chunkfmt.container_size(restorer.raw_chunks()),
                 "resume_from": resume_from,

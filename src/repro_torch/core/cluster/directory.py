@@ -1,9 +1,8 @@
 """The client's view of the cache fabric: one Bloom catalog per peer.
 
-A copy of ``repro.core.cluster.directory`` without its tracing, flight
-recorder and calibration (ROADMAP Queue 1, item 7.5). A
-:class:`PeerDirectory` takes
-the place of the single transport in ``EdgeClient``. Per peer it holds
+The port's copy of ``repro.core.cluster.directory``. A
+:class:`PeerDirectory` takes the place of the single transport in
+``EdgeClient``. Per peer it holds
 the link (an in-process simulated one, or a real
 :class:`~repro_torch.core.net.link.TCPPeerLink`), a local catalog of the
 peer's contents kept fresh by delta ``csync``, a liveness belief (a
@@ -28,6 +27,15 @@ at fetch time get one more replica on the fastest other peer, by a
 replica is collected (``del``) once the key cools. A GET the catalog
 predicted present that misses triggers a read repair: another holder
 pushes its copy to the peer that lied.
+
+Observability: a request made while the calling thread has a span open
+runs under a ``net.<op>`` span whose context rides the payload
+(``_trace``), and the peer's ``_spans`` are folded under it. A failed
+request triggers a ``peer_death`` flight dump, a breaker that opens a
+``breaker_open`` one. Every realized transfer (a hit's GET, a stream
+chunk on a wall link) feeds ``calibration``, a
+:class:`~repro_torch.obs.calibrate.CalibrationTracker`, whose p95
+actual/estimate ratio a peer is a hedged GET's patience.
 """
 from __future__ import annotations
 
@@ -44,6 +52,10 @@ from repro_torch.core.metrics import PeerStats
 from repro_torch.core.net.estimator import LinkEstimator
 from repro_torch.core.netsim import SimClock
 from repro_torch.core.transport import TransportError
+from repro_torch.obs.calibrate import CalibrationTracker
+from repro_torch.obs.flight import BREAKER_OPEN, FLIGHT, PEER_DEATH
+from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import SPANS_KEY, inject_trace, phase
 
 # a miss slower than this is a server stall, not wire time: kept out of
 # the RTT estimate (record_get)
@@ -54,8 +66,11 @@ REPLICA_GC_GRACE_S = 1.0
 READ_REPAIR_INTERVAL_S = 5.0       # at most one read repair a digest a
                                    # window
 HOT_MAX_ENTRIES = 4096             # digests the hot-key tracker counts
-HEDGE_RATIO = 1.5                  # actual/estimate patience of a hedge
-HEDGE_FLOOR_S = 0.05               # the least wait before a hedge fires
+# a hedge's patience: the estimate times the peer's calibrated p95
+# actual/estimate ratio (HEDGE_RATIO until it has samples), at least
+# HEDGE_FLOOR_S
+HEDGE_RATIO = 1.5
+HEDGE_FLOOR_S = 0.05
 
 
 class PeerLink:
@@ -124,6 +139,11 @@ class PeerDirectory:
         self.read_repairs = 0
         self.adaptive = adaptive
         self.estimator = estimator or LinkEstimator()
+        self.calibration = CalibrationTracker()
+        self._m_catalog_fp = REGISTRY.counter(
+            "repro_catalog_fp_total",
+            "catalog-predicted-present GETs that missed (stale Bloom)",
+            ("peer",))
         self._nominal: Dict[str, Tuple[float, float]] = {}
         for pid, ln in self.links.items():
             net = ln.net
@@ -190,24 +210,41 @@ class PeerDirectory:
         return True
 
     # -- request routing -------------------------------------------------
-    def _failed(self, ln: PeerLink) -> None:
+    def _failed(self, ln: PeerLink, op: str, err: TransportError) -> None:
         self.mark_suspect(ln.peer_id)
-        ln.breaker.record_failure(self.clock.now())
+        ev = ln.breaker.record_failure(self.clock.now())
+        if ev is not None:             # it just opened: freeze the ring
+            FLIGHT.trigger(BREAKER_OPEN, op=op, error=repr(err), **ev)
+        FLIGHT.trigger(PEER_DEATH, peer=ln.peer_id, op=op, error=repr(err))
+
+    @staticmethod
+    def _fold(sp, reply, peer_id: str, nb: int, dt: float) -> None:
+        """Close a ``net.<op>`` span and fold the peer's spans under it."""
+        sp.set(bytes=nb, transfer_s=dt).end()
+        remote = reply.get(SPANS_KEY) if isinstance(reply, dict) else None
+        if remote:
+            sp._tracer.fold_remote(sp, remote, proc=f"peer:{peer_id}")
 
     def request(self, peer_id: str, op: str, payload: dict,
                 advance_clock: bool = True):
         """One request to a peer; a transport failure marks the peer
-        suspect, feeds its breaker and re-raises ``TransportError``."""
+        suspect, feeds its breaker and re-raises ``TransportError``.
+        Traced as ``net.<op>`` when the thread has a span open."""
         ln = self.links[peer_id]
         ln.breaker.on_attempt(self.clock.now())
         try:
-            out = ln.transport.request(op, inject_deadline(payload),
-                                       advance_clock)
-        except TransportError:
-            self._failed(ln)
+            with phase(f"net.{op}", peer=peer_id) as sp:
+                if sp:
+                    payload = inject_trace(payload, sp)
+                resp, dt, nb = ln.transport.request(
+                    op, inject_deadline(payload), advance_clock)
+                if sp:
+                    self._fold(sp, resp, peer_id, nb, dt)
+        except TransportError as e:
+            self._failed(ln, op, e)
             raise
         ln.breaker.record_success()
-        return out
+        return resp, dt, nb
 
     def request_stream(self, peer_id: str, op: str, payload: dict,
                        on_chunk, advance_clock: bool = True, cancel=None):
@@ -222,14 +259,19 @@ class PeerDirectory:
                                  f"stream")
         ln.breaker.on_attempt(self.clock.now())
         try:
-            out = tr.request_stream(op, inject_deadline(payload), on_chunk,
-                                    advance_clock=advance_clock,
-                                    cancel=cancel)
-        except TransportError:
-            self._failed(ln)
+            with phase(f"net.{op}", peer=peer_id, stream=True) as sp:
+                if sp:
+                    payload = inject_trace(payload, sp)
+                header, dt, nb = tr.request_stream(
+                    op, inject_deadline(payload), on_chunk,
+                    advance_clock=advance_clock, cancel=cancel)
+                if sp:
+                    self._fold(sp, header, peer_id, nb, dt)
+        except TransportError as e:
+            self._failed(ln, op, e)
             raise
         ln.breaker.record_success()
-        return out
+        return header, dt, nb
 
     def est_fetch_s(self, peer_id: str, nbytes: int) -> float:
         """Estimated seconds to move ``nbytes`` from ``peer_id``: the
@@ -241,13 +283,13 @@ class PeerDirectory:
 
     def hedge_delay_s(self, peer_id: str, est_s: float) -> float:
         """How long to wait on ``peer_id`` before firing the plan's next
-        candidate: the estimate times the peer's p95 actual/estimate
-        ratio, floored at ``HEDGE_FLOOR_S`` so that sub-millisecond
-        estimates do not hedge on scheduler noise. The reference learns
-        the ratio per peer (its calibration tracker); the port has no
-        calibration yet (ROADMAP Queue 1, item 7.5), so the ratio is the
-        reference's default for a peer it has not calibrated, 1.5."""
-        return max(est_s * HEDGE_RATIO, HEDGE_FLOOR_S)
+        candidate: the estimate times the peer's calibrated p95
+        actual/estimate ratio (a peer that runs 2x over its estimates
+        gets 2x the patience: a hedge fires on an anomaly, not on a known
+        slow link), floored at ``HEDGE_FLOOR_S`` so that sub-millisecond
+        estimates do not hedge on scheduler noise."""
+        ratio = self.calibration.p95_ratio(peer_id, default=HEDGE_RATIO)
+        return max(est_s * ratio, HEDGE_FLOOR_S)
 
     # -- placement -------------------------------------------------------
     def upload(self, digest: bytes, blob: bytes) -> int:
@@ -367,9 +409,12 @@ class PeerDirectory:
             st.est_fetch_s += est_s
             st.actual_fetch_s += actual_s
             self.estimator.observe(peer_id, basis_bytes or nbytes, actual_s)
+            self.calibration.observe(peer_id, est_s, actual_s, nbytes)
             return
-        if predicted_present and digest is not None:
-            self._read_repair(peer_id, digest)
+        if predicted_present:
+            self._m_catalog_fp.labels(peer=peer_id).inc()
+            if digest is not None:
+                self._read_repair(peer_id, digest)
         st.misses += 1
         # a failed GET is usually an RTT sample, unless server-side
         # handling dominated it
@@ -410,7 +455,11 @@ class PeerDirectory:
         sim links pass False, their whole-transfer sample is exact)."""
         self.links[peer_id].stats.chunks_down += 1
         if observe and seconds > 0:
+            # calibration sees the belief before this sample: the price
+            # the chunk was planned under
+            est = self.est_fetch_s(peer_id, nbytes)
             self.estimator.observe(peer_id, nbytes, seconds)
+            self.calibration.observe(peer_id, est, seconds, nbytes)
 
     def record_overlap(self, peer_id: str, hidden_s: float) -> None:
         """Transfer seconds hidden behind a streamed suffix prefill on a

@@ -6,8 +6,9 @@ The port's copy of ``repro/core/metrics.py``: :class:`Breakdown` (the
 client's ``sim`` seconds: emulated edge device and simulated Wi-Fi),
 :class:`PeerStats` and :func:`merge_peer_stats` (the session pool's and
 the gateway's fleet view), :func:`percentile`, :class:`RequestStats`,
-:class:`TenantStats` and :class:`ServingReport`. Spans are not ported,
-so there is no ``Breakdown.from_spans``.
+:class:`TenantStats` and :class:`ServingReport`. A request's wall
+``Breakdown`` is a projection of its span tree (:meth:`Breakdown.from_spans`),
+not a second bookkeeping path.
 """
 from __future__ import annotations
 
@@ -40,6 +41,24 @@ class Breakdown:
         d["ttft"] = self.ttft
         d["ttlt"] = self.ttlt
         return d
+
+    @classmethod
+    def from_spans(cls, spans: Sequence[dict]) -> "Breakdown":
+        """Project a span tree onto the Table-3 columns: a span with a
+        ``component`` attribute adds its duration to that column, or its
+        ``component_s`` where the accountable time differs from the
+        span's (an attempt span covers transfer and restore; only the
+        transfer is ``redis``). Spans without one (structural parents,
+        folded remote spans) are not summed, so nesting never counts a
+        second time."""
+        bd = cls()
+        for d in spans:
+            attrs = d.get("attrs") or {}
+            comp = attrs.get("component")
+            if comp in COMPONENTS:
+                dur = float(attrs.get("component_s", d["dur"]))
+                setattr(bd, comp, getattr(bd, comp) + dur)
+        return bd
 
 
 @dataclass

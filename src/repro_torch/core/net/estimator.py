@@ -11,11 +11,15 @@ transfer:
 
 ``est_fetch_s`` is what the fetch planner reads through
 ``PeerDirectory.est_fetch_s``, on the simulated and the TCP fabric
-alike. The reference's persistence (``save`` / ``warm_start``) serves
-its daemon's ``--state-dir``, which is not ported.
+alike. ``save`` / ``warm_start`` / ``load`` persist the beliefs as JSON,
+the reference's format: a daemon with ``--state-dir`` and a supervisor's
+client directories start from what they learned before a restart, not
+from the nominal prior.
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -100,3 +104,49 @@ class LinkEstimator:
             if est is None:
                 return self.default_bw_bps, self.default_rtt_s, 0
             return est.bw_bps, est.rtt_s, est.n_obs
+
+    # -- persistence: beliefs that outlive a restart ---------------------
+    def snapshot_all(self) -> Dict[str, Tuple[float, float, int]]:
+        with self._lock:
+            return {pid: (e.bw_bps, e.rtt_s, e.n_obs)
+                    for pid, e in self._links.items()}
+
+    def save(self, path: str) -> None:
+        """Write every peer's belief to ``path`` (JSON, replaced
+        atomically)."""
+        snap = {pid: {"bw_bps": bw, "rtt_s": rtt, "n_obs": n}
+                for pid, (bw, rtt, n) in self.snapshot_all().items()}
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"version": 1, "links": snap}, f)
+        os.replace(tmp, path)
+
+    def warm_start(self, path: str) -> int:
+        """Take a saved snapshot's beliefs as priors for the peers that
+        have no estimate yet (a live one always wins). A missing or
+        unreadable file is a cold start. Returns the links restored."""
+        try:
+            with open(path) as f:
+                links = json.load(f).get("links", {})
+        except (OSError, ValueError, AttributeError):
+            return 0
+        n = 0
+        with self._lock:
+            for pid, ent in links.items():
+                if pid in self._links:
+                    continue
+                try:
+                    self._links[pid] = LinkEstimate(
+                        float(ent["bw_bps"]), float(ent["rtt_s"]),
+                        int(ent.get("n_obs", 0)))
+                except (KeyError, TypeError, ValueError):
+                    continue
+                n += 1
+        return n
+
+    @classmethod
+    def load(cls, path: str, **kw) -> "LinkEstimator":
+        est = cls(**kw)
+        est.warm_start(path)
+        return est

@@ -132,10 +132,3 @@ async def recv_frame_async(reader) -> Optional[tuple]:
         raise FrameError(f"connection closed mid-frame ({len(e.partial)}/"
                          f"{n} bytes)") from e
     return unpack_payload(payload), HEADER_SIZE + n
-
-
-async def send_frame_async(writer, obj) -> int:
-    data = encode_frame(obj)
-    writer.write(data)
-    await writer.drain()
-    return len(data)

@@ -16,10 +16,16 @@ bounded: readiness, convergence, repair and stop.
 object the in-process fabric gives, so the planner, client, session pool
 and gateway run unchanged against real processes.
 
-Not ported (ROADMAP Queue 1, item 7.4): the fleet's ``state_dir``
-(estimator snapshots), ``set_throttle``, ``inject_faults``,
-``fleet_calibration`` and ``fleet_metrics``; the daemon has none of the
-ops they call. Like the daemon, this module imports no ``torch``.
+With a ``state_dir`` the daemons persist their learned links there
+(``--state-dir``), every client directory minted here starts its link
+estimator from ``<state_dir>/client-links.json``, and ``stop()`` writes
+the newest one back. The fault surfaces (the chaos layer's,
+:mod:`repro_torch.chaos`): ``set_throttle`` (a live peer's outgoing
+pacing), ``inject_faults`` (its chaos flags), and the fleet views that
+ride the daemons' ``health``: ``fleet_metrics`` (every daemon's metrics,
+each sample labelled with its peer) and ``fleet_calibration`` (the Bloom
+false-positive probe, learned links, throttle, faults and restart state a
+peer). Like the daemon, this module imports no ``torch``.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from repro_torch import clock
 from repro_torch.core.cluster.replication import REPL_FACTOR
 from repro_torch.core.net.link import TCPPeerLink
 from repro_torch.core.transport import TransportError
+from repro_torch.obs.flight import FLIGHT, RESTART_CIRCUIT_OPEN
 
 POLL_S = 0.05                      # remote-state poll period of the waits
 STOP_TIMEOUT_S = 10.0              # a daemon's exit after kill or shutdown
@@ -102,13 +109,16 @@ def _src_pythonpath() -> str:
 
 class PeerSupervisor:
     def __init__(self, specs: Sequence[PeerSpec],
-                 request_timeout_s: float = 5.0):
+                 request_timeout_s: float = 5.0,
+                 state_dir: Optional[str] = None):
         if not specs:
             raise ValueError("need at least one PeerSpec")
         self.request_timeout_s = request_timeout_s
+        self.state_dir = state_dir
         self.procs: Dict[str, PeerProc] = {
             s.peer_id: PeerProc(s) for s in specs}
         self._env = dict(os.environ, PYTHONPATH=_src_pythonpath())
+        self._estimators: List = []    # the client directories' estimators
 
     @classmethod
     def fleet(cls, n_peers: int, max_store_bytes: int = 0,
@@ -120,6 +130,12 @@ class PeerSupervisor:
                              max_store_bytes=max_store_bytes,
                              gossip_interval_s=gossip_interval_s)
                     for i in range(n_peers)], **kw)
+
+    @property
+    def _client_links_path(self) -> Optional[str]:
+        if self.state_dir is None:
+            return None
+        return os.path.join(self.state_dir, "client-links.json")
 
     # -- lifecycle -------------------------------------------------------
     def start(self) -> "PeerSupervisor":
@@ -139,6 +155,7 @@ class PeerSupervisor:
                "--port", str(pp.port),
                "--max-store-bytes", str(s.max_store_bytes),
                "--gossip-interval", str(s.gossip_interval_s),
+               *(("--state-dir", self.state_dir) if self.state_dir else ()),
                *s.extra_args]
         pp.proc = subprocess.Popen(
             cmd, env=self._env, stdout=subprocess.PIPE,
@@ -187,8 +204,9 @@ class PeerSupervisor:
                 self.request(pid, "set_neighbors",
                              {"peers": addrs, "ring": ring,
                               "repl_factor": REPL_FACTOR})
-            except TransportError:
-                continue               # re-wired at its next restart
+            except TransportError as e:     # re-wired at its restart
+                FLIGHT.record("supervisor.rewire_failed", peer=pid,
+                              error=repr(e))
 
     # -- addressing and client views -------------------------------------
     def addresses(self) -> Dict[str, Tuple[str, int]]:
@@ -204,10 +222,29 @@ class PeerSupervisor:
 
     def directory(self, clock=None, **kw):
         """A client-side ``PeerDirectory`` over TCP links, on the wall
-        clock (real time drives sync intervals and suspect cooldowns)."""
+        clock (real time drives sync intervals and suspect cooldowns).
+        With a ``state_dir`` its link estimator (or the caller's shared
+        one) starts from the fleet's saved client beliefs."""
         from repro_torch.core.cluster.directory import PeerDirectory
+        from repro_torch.core.net.estimator import LinkEstimator
         from repro_torch.core.netsim import WallClock
-        return PeerDirectory(self.links(), clock=clock or WallClock(), **kw)
+        path = self._client_links_path
+        if path is not None:
+            if kw.get("estimator") is not None:
+                kw["estimator"].warm_start(path)
+            else:
+                kw["estimator"] = LinkEstimator.load(path)
+        d = PeerDirectory(self.links(), clock=clock or WallClock(), **kw)
+        if path is not None:
+            self._estimators.append(d.estimator)
+        return d
+
+    def save_estimators(self) -> None:
+        """Persist the newest client directory's link beliefs (nothing
+        without a ``state_dir``)."""
+        path = self._client_links_path
+        if path is not None and self._estimators:
+            self._estimators[-1].save(path)
 
     def request(self, peer_id: str, op: str, payload: dict,
                 timeout: Optional[float] = None) -> dict:
@@ -234,7 +271,73 @@ class PeerSupervisor:
             except TransportError as e:
                 out[pid] = False
                 pp.tail.append(f"health: {e!r}")
+                FLIGHT.record("supervisor.peer_unreachable", peer=pid,
+                              error=repr(e))
         return out
+
+    def _healths(self) -> Dict[str, Optional[dict]]:
+        """Each peer's ``health`` reply; None: dead or unreachable."""
+        out: Dict[str, Optional[dict]] = {}
+        for pid, pp in self.procs.items():
+            resp = None
+            if pp.alive:
+                try:
+                    resp = self.request(pid, "health", {}, timeout=2.0)
+                except TransportError as e:
+                    pp.tail.append(f"health: {e!r}")
+            out[pid] = resp if resp is not None and resp.get("ok") else None
+        return out
+
+    def fleet_metrics(self) -> Dict[str, object]:
+        """Every live daemon's metrics snapshot merged into one, each
+        sample labelled ``peer="<id>"``, with a ``_fleet`` summary (peers,
+        and peers that reported)."""
+        from repro_torch.obs.metrics import merge_snapshots
+        snaps = {pid: h["metrics"] for pid, h in self._healths().items()
+                 if h is not None and isinstance(h.get("metrics"), dict)}
+        merged = merge_snapshots(snaps)
+        merged["_fleet"] = {"peers": len(self.procs),
+                            "reporting": len(snaps)}
+        return merged
+
+    def fleet_calibration(self) -> Dict[str, object]:
+        """A peer's calibration view from its ``health``: the Bloom
+        false-positive probe, learned links, throttle, injected faults,
+        restart state and store occupancy (``alive: False`` for a dead
+        or unreachable one)."""
+        restarts = self.restart_states()
+        out: Dict[str, object] = {}
+        for pid, h in self._healths().items():
+            if h is None:
+                out[pid] = {"alive": False, "restart": restarts[pid]}
+                continue
+            out[pid] = {"alive": True,
+                        "catalog_fp": h.get("catalog_fp", {}),
+                        "links": h.get("links", {}),
+                        "throttle_bps": h.get("throttle_bps"),
+                        "chaos": h.get("chaos", {}),
+                        "restart": restarts[pid],
+                        "stored_bytes": h.get("stored_bytes", 0),
+                        "n_entries": h.get("n_entries", 0)}
+        return out
+
+    def set_throttle(self, peer_id: str, bps: Optional[float]) -> dict:
+        """Pace a live peer's outgoing frames at ``bps`` (None lifts it):
+        a silent bandwidth collapse, with no restart."""
+        return self.request(peer_id, "set_throttle", {"bps": bps})
+
+    def inject_faults(self, peer_id: str, chaos: Optional[dict] = None,
+                      reset: bool = False) -> dict:
+        """Merge ``chaos`` flags into a live peer's server (a None value
+        removes one; ``reset`` clears every fault first). Returns the
+        daemon's faults after the merge. The flags:
+        :mod:`repro_torch.core.net.server`."""
+        payload: dict = {}
+        if reset:
+            payload["reset"] = True
+        if chaos is not None:
+            payload["chaos"] = chaos
+        return self.request(peer_id, "inject", payload)
 
     def check_and_restart(self) -> List[str]:
         """Health-check the fleet and restart dead peers under the
@@ -258,6 +361,8 @@ class PeerSupervisor:
                 continue
             if pp.storm >= MAX_RESTARTS:
                 pp.circuit_open = True
+                FLIGHT.trigger(RESTART_CIRCUIT_OPEN, peer=pid,
+                               restarts=pp.restarts, storm=pp.storm)
                 continue
             self.restart(pid)
             pp.storm += 1
@@ -266,6 +371,8 @@ class PeerSupervisor:
                         RESTART_BACKOFF_S * (2 ** (pp.storm - 1)))
             delay *= 1.0 + RESTART_JITTER * pp._rng.random()
             pp.backoff_until = pp.last_restart_t + delay
+            FLIGHT.record("supervisor.restart", peer=pid, storm=pp.storm,
+                          next_backoff_s=delay)
             restarted.append(pid)
         return restarted
 
@@ -320,7 +427,9 @@ class PeerSupervisor:
     def stop(self) -> None:
         """Graceful teardown: the shutdown op (the daemon drains its
         in-flight requests), then SIGTERM, then SIGKILL. Each daemon's
-        exit code stays in ``procs[pid].proc.returncode``."""
+        exit code stays in ``procs[pid].proc.returncode``. With a
+        ``state_dir`` the client link beliefs are saved first."""
+        self.save_estimators()
         for pid, pp in self.procs.items():
             if pp.alive:
                 self.kill(pid, hard=False)

@@ -59,6 +59,12 @@ class FetchBroker:
     True}``, so every waiting follower falls back on its own instead of
     hanging. ``key`` is any hashable: a digest for one server, a
     ``(peer_id, digest)`` pair on the fabric (two peers, two links).
+
+    The published reply is shared by reference, and the decision ledger
+    rides it: the leader's client stamps its record id under
+    :data:`~repro_torch.obs.ledger.LEDGER_KEY`, and a sibling that adopted
+    the reply closes its own record with ``dedup_of`` pointing there, so
+    one transfer is not counted twice.
     """
 
     def __init__(self):

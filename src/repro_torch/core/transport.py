@@ -12,6 +12,12 @@
 Every request returns ``(response, seconds, n_bytes)``; ``request_stream``
 delivers a response's chunks one at a time.
 
+A payload with a ``_trace`` envelope is served under a ``peer.<op>`` span
+and answered with ``_spans`` descriptors, as the TCP peer server answers
+it, so an in-process fabric gives the same cross-"process" trees. Unlike
+the reference, :class:`InProcTransport` charges the op's own frames
+only, without that envelope: tracing does not move the modeled seconds.
+
 Failure contract: a dead, unreachable or too-slow peer raises
 :class:`TransportError` (never a bare socket error, never a hang: the
 connect and every request are bounded by timeouts, and a close
@@ -28,6 +34,7 @@ from repro_torch.core.deadline import expired_reply
 from repro_torch.core.net import frames
 from repro_torch.core.netsim import SimClock, SimNetwork
 from repro_torch.core.server import CacheServer
+from repro_torch.obs.trace import SPANS_KEY, TRACE_KEY, Tracer, extract_trace
 
 CHUNK_FRAME_BYTES = 16             # the reference's per-chunk frame overhead
 # a client socket's receive buffer, fixed before the connect. Left to the
@@ -57,6 +64,7 @@ class InProcTransport:
         self.server = server
         self.net = net
         self.clock = (clock or SimClock()) if net is not None else None
+        self._tracer = None            # made at the first traced request
 
     def _serve(self, op: str, payload: dict) -> dict:
         """The in-process wire: subclasses gate liveness here so request
@@ -66,14 +74,42 @@ class InProcTransport:
         expired = expired_reply(payload)
         if expired is not None:
             return expired
-        return self.server.handle(op, payload)
+        ctx = extract_trace(payload)
+        if ctx is None:
+            return self.server.handle(op, payload)
+        if self._tracer is None:
+            self._tracer = Tracer(proc="sim-peer", max_traces=32)
+        root = self._tracer.start(f"peer.{op}", attrs={"op": op})
+        with root:
+            resp = self.server.handle(op, payload)
+        if isinstance(resp, dict):
+            resp[SPANS_KEY] = [
+                {"name": d["name"], "rel_s": d["t0"] - root.t0,
+                 "dur_s": d["dur"], "attrs": d["attrs"]}
+                for d in sorted(self._tracer.trace(root.trace_id) or [],
+                                key=lambda d: d["t0"])]
+        return resp
+
+    @staticmethod
+    def _op_bytes(op: str, payload: dict) -> int:
+        """The request frame's bytes without the trace envelope."""
+        return len(frames.pack_payload(
+            {"op": op, **{k: v for k, v in payload.items()
+                          if k != TRACE_KEY}}))
+
+    @staticmethod
+    def _reply_bytes(resp: dict) -> int:
+        """The reply frame's bytes without the folded spans."""
+        return len(frames.pack_payload(
+            {k: v for k, v in resp.items() if k != SPANS_KEY}
+            if isinstance(resp, dict) else resp))
 
     def request(self, op: str, payload: dict,
                 advance_clock: bool = True) -> Tuple[dict, float, int]:
         t0 = clock.monotonic()
-        nbytes = len(frames.pack_payload({"op": op, **payload}))
+        nbytes = self._op_bytes(op, payload)
         resp = self._serve(op, payload)
-        nbytes += len(frames.pack_payload(resp))
+        nbytes += self._reply_bytes(resp)
         if self.net is None:
             return resp, clock.monotonic() - t0, nbytes
         dt = self.net.transfer_time(nbytes)
@@ -96,12 +132,12 @@ class InProcTransport:
         transport's seconds (wall time inside ``on_chunk`` is the
         caller's, not counted); and the bytes of the whole exchange."""
         t0 = clock.monotonic()
-        nbytes = len(frames.pack_payload({"op": op, **payload}))
+        nbytes = self._op_bytes(op, payload)
         resp = self._serve(op, payload)
         chunks = resp.get("chunks") or []
         header = {k: v for k, v in resp.items() if k != "chunks"}
         header["n_chunks"] = len(chunks)
-        nbytes += len(frames.pack_payload(header))
+        nbytes += self._reply_bytes(header)
         if self.net is None:
             seconds = clock.monotonic() - t0
         else:

@@ -23,8 +23,9 @@ Quickstart::
         gw.stop()
 
 Unlike the reference it takes no ``params`` (the port's ``Model`` holds
-its weights), no ``cache_dtype`` (the batched engine's cache takes the
-model's dtype) and no ``tracer`` (ROADMAP Queue 1, item 7.5).
+its weights) and no ``cache_dtype`` (the batched engine's cache takes the
+model's dtype). Its one tracer (``Gateway.tracer``) is the engine's:
+``GET /v1/traces/<id>`` reads it.
 """
 from __future__ import annotations
 
@@ -78,6 +79,11 @@ class Gateway:
     @property
     def port(self) -> int:
         return self.server.port
+
+    @property
+    def tracer(self):
+        """The gateway's one tracer (``GET /v1/traces/<id>`` reads it)."""
+        return self.engine.tracer
 
     def start(self, timeout_s: float = 120.0) -> "Gateway":
         """Start the engine thread (a failure to build it raises here),

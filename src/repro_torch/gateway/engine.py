@@ -30,8 +30,20 @@ at construction.
 A model with a recurrent state (an SSM) uploads only its whole prompt's
 range: a shorter range's state cannot be cut from the final one.
 
-Not ported (ROADMAP Queue 1, item 7.5): the tracer (request, resolve and
-slot spans, ``trace_id``) and the decision ledger.
+Tracing: the HTTP thread opens each request's ``gw.request`` root span
+and hands its context over in the job (``GatewayJob.span``); on this
+thread the resolve runs under a ``gw.resolve`` child (the fetcher hands
+the span on, explicitly, to the broker's GET thread, so the directory's
+``net.get`` span and the daemon's folded spans join the tree), and the
+scheduler adds the slot spans at finish from the request's timestamps. A
+span holds numbers and strings only: none touches a tensor.
+
+Decision ledger: the resolve's plan opens a record, the fetcher notes
+its attempts, and the record is committed when the request finishes,
+when the realized prefill is known. The gateway's planner has no perf
+model, so a complete miss's prefill (admission to first token) teaches
+the ledger its local baseline. The request id is an alias of the trace
+and of the record.
 """
 from __future__ import annotations
 
@@ -58,7 +70,10 @@ from repro_torch.core.session_pool import FetchBroker
 from repro_torch.core.transport import TransportError
 from repro_torch.device import dtype_name
 from repro_torch.gateway.protocol import ParsedRequest
+from repro_torch.obs.flight import CHUNK_ERROR, FLIGHT
+from repro_torch.obs.ledger import LEDGER, LEDGER_KEY
 from repro_torch.obs.metrics import DEFAULT_BUCKETS, REGISTRY
+from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER, Tracer, current_span
 from repro_torch.serving.engine import BatchedEngine
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -85,6 +100,15 @@ class GatewayJob:
         self.created = int(clock.wall())
         self.matched = 0
         self.served_by = ""
+        # the ledger handoff: the record the resolve's plan opened, the
+        # broker leader's record when the GET was shared, and the winning
+        # GET's seconds (committed at finish)
+        self.decision = None
+        self.dedup_of = None
+        self.fetch_s = 0.0
+        # the root span, opened and ended by the HTTP thread; the engine
+        # thread parents on ``span.ctx``
+        self.span = None
 
     def push(self, event: tuple) -> None:
         try:
@@ -104,7 +128,9 @@ class PrefixFetcher:
     the blobs here and queues their bytes for the uploader thread.
     """
 
-    def __init__(self, model, max_len: int, view, cache_cfg: CacheConfig):
+    def __init__(self, model, max_len: int, view, cache_cfg: CacheConfig,
+                 tracer: Optional[Tracer] = None):
+        self.tracer = tracer or NULL_TRACER
         self.model = model
         self.max_len = max_len
         self.cache_cfg = cache_cfg
@@ -118,6 +144,11 @@ class PrefixFetcher:
             dtype_bytes=model.dtype.itemsize,
             chunk_layers=cache_cfg.chunk_layers) \
             if self.directory is not None else None
+        if self.planner is not None:
+            self.planner.owner = "gateway"
+        # (record, dedup_of, GET seconds) of the last resolve, for the
+        # engine thread to hand to the job
+        self.last_decision = (None, None, 0.0)
         self.broker = FetchBroker()
         self._uploaded: "OrderedDict[bytes, None]" = OrderedDict()
         self.last_upload_error = ""
@@ -149,8 +180,9 @@ class PrefixFetcher:
             return
         try:
             self.catalog.maybe_sync(self.transport, now)
-        except TransportError:
-            return                     # a stale catalog degrades to misses
+        except TransportError as e:    # a stale catalog degrades to misses
+            FLIGHT.record("catalog.sync_failed", client="gateway",
+                          error=repr(e))
 
     # ------------------------------------------------------------------
     def resolve(self, segments) -> Tuple[object, int, object, str]:
@@ -172,15 +204,36 @@ class PrefixFetcher:
                     if k.n_tokens >= cc.min_match_tokens
                     and self.catalog.lookup(k.digest)]
         recurrent = self.model.has_recurrent_state
+        rec = self.planner.last_decision if self.planner is not None \
+            else None
+        self.last_decision = (rec, None, 0.0)
         for att in plan:
+            peer = att.peer_id or "server"
             if ddl is not None and att.est_fetch_s >= ddl.remaining():
-                continue               # the budget cannot cover the GET
+                # the budget cannot cover the GET
+                LEDGER.note_attempt(rec, peer=peer,
+                                    range_tokens=att.key.n_tokens,
+                                    result="deadline",
+                                    est_fetch_s=att.est_fetch_s)
+                FLIGHT.record("fetch.deadline_skip", client="gateway",
+                              peer=peer, est_fetch_s=att.est_fetch_s,
+                              remaining_s=ddl.remaining())
+                continue
             t0 = clock.monotonic()
             resp, dt, _, shared, template = self._get(att)
             t1 = clock.monotonic()
             self.fetch_s.append((t1, t1 - t0))
             hit = bool(resp.get("ok") and resp.get("blob"))
-            if resp.get("dead") or resp.get("deadline_exceeded"):
+            result = ("dead" if resp.get("dead") else "hit" if hit
+                      else "deadline" if resp.get("deadline_exceeded")
+                      else "miss")
+            LEDGER.note_attempt(rec, peer=peer,
+                                range_tokens=att.key.n_tokens, result=result,
+                                est_fetch_s=att.est_fetch_s, actual_s=dt,
+                                shared=shared)
+            FLIGHT.record("fetch.attempt", client="gateway", peer=peer,
+                          range_tokens=att.key.n_tokens, kind=result)
+            if result in ("dead", "deadline"):
                 continue               # next attempt; never a hang
             if self.directory is not None and not shared:
                 # every planned attempt was predicted present: a miss is
@@ -201,8 +254,10 @@ class PrefixFetcher:
                 cache, _, logits = state_io.restore_state(
                     payload, template if template is not None
                     else self._template())
-            except ValueError:         # ChunkError too: a miss
+            except ValueError as e:    # ChunkError too: a miss
                 self.stats["unreadable"] += 1
+                FLIGHT.trigger(CHUNK_ERROR, client="gateway", peer=peer,
+                               key=att.key.digest.hex(), error=repr(e))
                 continue
             t1 = clock.monotonic()
             self.restore_s.append((t1, t1 - tr))
@@ -211,25 +266,34 @@ class PrefixFetcher:
                 if att.peer_id is not None:
                     self.directory.note_fetch(att.key.digest, len(blob),
                                               att.peer_id, lambda: blob)
+            if rec is not None:
+                # a shared GET belongs to the leader's record: link to it
+                if shared:
+                    self.last_decision = (rec, resp.get(LEDGER_KEY), dt)
+                else:
+                    resp[LEDGER_KEY] = rec["id"]
+                    self.last_decision = (rec, None, dt)
             self.stats["hits"] += 1
             if att.key.n_tokens == n:
                 self.stats["full_hits"] += 1
-            return cache, att.key.n_tokens, logits, att.peer_id or "server"
+            return cache, att.key.n_tokens, logits, peer
         return None, 0, None, ""
 
     def _get(self, att: FetchAttempt):
         """The GET through the broker: issued on its helper thread (which
-        carries the deadline over), the template allocated here."""
+        carries the deadline and the caller's span over), the template
+        allocated here."""
         ddl = current_deadline()
+        caller = current_span()
         if att.peer_id is not None:
             def issue():
-                with deadline_attach(ddl):
+                with self.tracer.attach(caller), deadline_attach(ddl):
                     return self.directory.request(att.peer_id, "get",
                                                   {"key": att.key.digest})
             key = (att.peer_id, att.key.digest)
         else:
             def issue():
-                with deadline_attach(ddl):
+                with self.tracer.attach(caller), deadline_attach(ddl):
                     return self.transport.request("get",
                                                   {"key": att.key.digest})
             key = att.key.digest
@@ -294,6 +358,7 @@ class PrefixFetcher:
         except TransportError as e:    # best effort: counted, not raised
             self.stats["upload_errors"] += 1
             self.last_upload_error = repr(e)
+            FLIGHT.record("gw.upload_failed", error=repr(e))
 
     def flush_uploads(self, timeout_s: float = 10.0) -> bool:
         """Wait until every queued upload has drained; False at the
@@ -324,7 +389,10 @@ class GatewayEngine:
     :class:`BatchedEngine`, the scheduler and the fabric view, then
     drains the job inbox: resolve prefix, submit, step, publish new
     tokens. A failure while building raises out of ``start()``.
-    ``stop()`` joins the thread and drains the uploads.
+    ``stop()`` joins the thread and drains the uploads. One ``tracer``
+    (``Tracer(proc="gateway")``) serves the whole gateway: the HTTP
+    thread, this thread, the scheduler and the fetcher mint their spans
+    in it, so ``GET /v1/traces/<id>`` finds one tree.
     """
 
     def __init__(self, model, batch_size: int = 4, max_len: int = 512,
@@ -344,6 +412,7 @@ class GatewayEngine:
         self.cache_cfg = cache_cfg
         self.policy = policy
         self.admission = admission
+        self.tracer = Tracer(proc="gateway", max_traces=128)
         self._m_ttft = REGISTRY.histogram(
             "gateway_ttft_seconds", "submit-to-first-token per request",
             buckets=DEFAULT_BUCKETS)
@@ -407,11 +476,13 @@ class GatewayEngine:
         try:
             self.engine = BatchedEngine(self.model, self.max_len,
                                         self.batch_size)
-            self.sched = Scheduler(self.engine, on_prefill=self._on_prefill)
+            self.sched = Scheduler(self.engine, on_prefill=self._on_prefill,
+                                   tracer=self.tracer)
             if self.fabric is not None:
                 self.fetcher = PrefixFetcher(self.model, self.max_len,
                                              self.fabric.directory(),
-                                             self.cache_cfg)
+                                             self.cache_cfg,
+                                             tracer=self.tracer)
         except BaseException as e:     # noqa: BLE001 - raised by start()
             self.startup_error = e
             self.ready.set()
@@ -455,15 +526,19 @@ class GatewayEngine:
         try:
             segs = job.segments
             n = len(segs.token_ids)
+            pctx = getattr(job.span, "ctx", None)
             cache1, matched, logits, served = None, 0, None, ""
             if self.fetcher is not None:
-                # the request's budget (wire extension ``deadline_s``)
-                # scopes the resolve: the plan prunes against it and the
-                # peers see what is left
-                with deadline_scope(job.parsed.deadline_s):
+                rs = self.tracer.start("gw.resolve", parent=pctx, attrs={
+                    "prompt_tokens": n}) if pctx is not None else NULL_SPAN
+                # ambient: the GET's spans nest here; the request's budget
+                # (wire extension ``deadline_s``) scopes the resolve: the
+                # plan prunes against it and the peers see what is left
+                with rs, deadline_scope(job.parsed.deadline_s):
                     self.fetcher.sync()
                     cache1, matched, logits, served = \
                         self.fetcher.resolve(segs)
+                    rs.set(matched=matched, served_by=served)
             req = Request(
                 tokens=np.asarray(segs.token_ids, np.int32),
                 max_new_tokens=job.parsed.max_tokens,
@@ -472,9 +547,17 @@ class GatewayEngine:
                 # a partial hit resumes from ``matched`` and recomputes
                 # the suffix; only a full hit skips the prefill
                 prefix_logits=(logits if matched == n
-                               and logits is not None else None))
+                               and logits is not None else None),
+                trace=pctx)
             rid = self.sched.submit(req)
+            if pctx is not None:       # the request id finds the trace
+                self.tracer.alias(job.rid, pctx.trace_id)
             job.matched, job.served_by = matched, served
+            if self.fetcher is not None:
+                job.decision, job.dedup_of, job.fetch_s = \
+                    self.fetcher.last_decision
+                if job.decision is not None:     # and the record
+                    LEDGER.alias(job.rid, job.decision["id"])
             self._live[rid] = [job, req, 0]
         except Exception as e:         # answered as the request's error
             if self.admission is not None:
@@ -509,15 +592,42 @@ class GatewayEngine:
                     self.admission.release(job.parsed.tenant, lat)
                 self._m_ttft.observe(req.stats.ttft)
                 self._m_latency.observe(lat)
+                self._commit_decision(job, req, lat)
                 self._m_done.labels(reason=req.stats.finish_reason).inc()
                 job.push(("done", req.stats.finish_reason,
                           {"matched_tokens": job.matched,
                            "served_by": job.served_by,
                            "ttft_s": req.stats.ttft,
-                           "latency_s": lat}))
+                           "latency_s": lat,
+                           "trace_id": getattr(job.span, "trace_id", "")}))
                 finished.append(rid)
         for rid in finished:
             del self._live[rid]
+
+    def _commit_decision(self, job: GatewayJob, req: Request,
+                         lat: float) -> None:
+        """Close the job's record with the realized outcome: the wall
+        prefill from admission to the first token; a complete miss's
+        teaches the ledger its per-token local baseline."""
+        rec = job.decision
+        if rec is None:
+            return
+        st = req.stats
+        first = st.first_token_t or st.finish_t
+        prefill_s = max(first - st.admit_t, 0.0) if st.admit_t else 0.0
+        n = st.prompt_tokens
+        if job.matched > 0:
+            LEDGER.commit(rec, chosen=job.served_by or None,
+                          result="hit" if job.matched >= n else "partial",
+                          fetch_s=job.fetch_s,
+                          suffix_s=prefill_s if job.matched < n else 0.0,
+                          dedup_of=job.dedup_of, ttft_s=st.ttft,
+                          latency_s=lat)
+        else:
+            LEDGER.note_prefill(n, prefill_s)
+            LEDGER.commit(rec, chosen=None, result="local",
+                          local_prefill_s=prefill_s, ttft_s=st.ttft,
+                          latency_s=lat)
 
     def _fail_all(self, message: str) -> None:
         for job, _req, _sent in list(self._live.values()):

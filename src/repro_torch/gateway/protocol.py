@@ -161,9 +161,8 @@ def _usage(n_prompt: int, n_out: int) -> dict:
 
 
 def _cache_meta(meta: dict) -> dict:
-    """Non-OpenAI extension: how the prompt cache served this request
-    (and a trace id where the engine has one; the port's has no tracer
-    yet, ROADMAP Queue 1, item 7.5)."""
+    """Non-OpenAI extension: how the prompt cache served this request,
+    and the trace id (``GET /v1/traces/<trace_id>``) where tracing is on."""
     out = {"matched_tokens": int(meta.get("matched_tokens", 0)),
            "served_by": meta.get("served_by", "")}
     if meta.get("trace_id"):

@@ -7,28 +7,38 @@ daemon thread, the OS-assigned port read back after bind, a drain on
 close), with no HTTP framework. Connections are HTTP/1.1 keep-alive:
 sequential requests on one socket are served in order until the client
 sends ``Connection: close`` or hangs up; an SSE response has no
-``Content-Length``, so it is the connection's last.
+``Content-Length``, so it is the connection's last. Requests sharing a
+connection are linked: each root span carries ``conn`` / ``seq`` and a
+``follows`` attribute naming the previous request's root span.
 
 Routes:
 
 * ``POST /v1/completions``        — OpenAI text completion (+SSE)
 * ``POST /v1/chat/completions``   — OpenAI chat completion (+SSE)
 * ``GET  /v1/models``             — the one served model
+* ``GET  /v1/traces/<id>``        — span tree by trace id or request id
+* ``GET  /v1/decisions``          — decision-ledger totals + recent records
+* ``GET  /v1/decisions/<id>``     — one decision record by request id,
+  trace id or ``dec-N`` (candidates, attempts, outcome, regret)
+* ``GET  /v1/flight``             — flight-recorder ring + dumps
 * ``GET  /healthz``               — liveness + slot counts
 * ``GET  /metrics``               — Prometheus text exposition 0.0.4
-* ``GET  /metrics.json``          — ServingReport + admission snapshot
+* ``GET  /metrics.json``          — ServingReport, admission snapshot and
+  the directory's calibration
 
 The handler path never touches a tensor: parse -> validate -> tokenize
 -> admit (429/503 + ``Retry-After`` on refusal) -> hand a
 :class:`GatewayJob` to the engine thread -> relay its event queue back
-as JSON or SSE frames. The reference's ``/v1/traces``,
-``/v1/decisions`` and ``/v1/flight`` routes, its request spans and the
-keep-alive ``follows`` link wait for the port's tracer, decision ledger
-and flight recorder (ROADMAP Queue 1, item 7.5).
+as JSON or SSE frames. Every accepted completion opens a ``gw.request``
+root span in the engine's tracer (``gw.parse`` as Table-3 ``token`` and
+``gw.admission`` under it here; the engine thread adds the resolve and
+slot spans) that ``GET /v1/traces/<request-id>`` resolves afterwards; a
+shed request triggers a ``shed`` flight dump.
 """
 from __future__ import annotations
 
 import asyncio
+import itertools
 import json
 import math
 import threading
@@ -38,6 +48,10 @@ from repro_torch.gateway import protocol
 from repro_torch.gateway.admission import AdmissionController, ShedError
 from repro_torch.gateway.engine import (GatewayClosed, GatewayEngine,
                                         GatewayJob)
+from repro_torch import clock
+from repro_torch.obs.export import span_tree
+from repro_torch.obs.flight import FLIGHT, SHED
+from repro_torch.obs.ledger import LEDGER
 from repro_torch.obs.metrics import REGISTRY
 
 REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
@@ -75,6 +89,7 @@ class GatewayServer:
         self.stats = {"connections": 0, "requests": 0, "streamed": 0,
                       "shed_429": 0, "shed_503": 0, "errors_400": 0,
                       "errors_5xx": 0, "keepalive_reuses": 0}
+        self._conn_ids = itertools.count()
         self._m_http = REGISTRY.counter(
             "gateway_http_requests_total",
             "HTTP responses by status code", ("code",))
@@ -210,7 +225,9 @@ class GatewayServer:
     async def _conn(self, reader: asyncio.StreamReader,
                     writer: asyncio.StreamWriter) -> None:
         self.stats["connections"] += 1
+        conn_id = next(self._conn_ids)
         seq = 0
+        prev_span = ""
         try:
             while True:
                 try:
@@ -240,8 +257,11 @@ class GatewayServer:
                 # are draining)
                 keep = (headers.get("connection", "").lower() != "close"
                         and not self._stopping)
-                keep = await self._route(writer, method, path, headers,
-                                         body, keep)
+                link = {"conn": conn_id, "seq": seq, "follows": prev_span}
+                span_id, keep = await self._route(writer, method, path,
+                                                  headers, body, keep, link)
+                if span_id:
+                    prev_span = span_id
                 seq += 1
                 if not keep:
                     return
@@ -261,9 +281,10 @@ class GatewayServer:
                 pass
 
     async def _route(self, writer, method: str, path: str,
-                     headers: dict, body: bytes, keep: bool) -> bool:
-        """Dispatch one request; returns ``keep``, so the connection loop
-        honours downgrades (SSE has no Content-Length, so it closes the
+                     headers: dict, body: bytes, keep: bool, link: dict):
+        """Dispatch one request; returns ``(root_span_id, keep)``, so the
+        connection loop can link the next request's root span and honour
+        downgrades (SSE has no Content-Length, so it closes the
         connection)."""
         if path in ("/v1/completions", "/v1/chat/completions"):
             if method != "POST":
@@ -271,9 +292,10 @@ class GatewayServer:
                     writer, 405,
                     protocol.error_body(f"{method} not allowed"),
                     extra={"Allow": "POST"}, close=not keep)
-                return keep
+                return None, keep
             kind = "chat" if path.startswith("/v1/chat") else "completion"
-            return await self._complete(writer, kind, headers, body, keep)
+            return await self._complete(writer, kind, headers, body, keep,
+                                        link)
         elif path == "/healthz" and method == "GET":
             await self._respond(writer, 200, json.dumps({
                 "ok": self.engine.alive, "model": self.model_name,
@@ -298,40 +320,90 @@ class GatewayServer:
                     "http": dict(self.stats)}
             if self.engine.fetcher is not None:
                 snap["fetcher"] = dict(self.engine.fetcher.stats)
+                d = self.engine.fetcher.directory
+                if d is not None:      # est-vs-actual a peer, drift flags
+                    snap["calibration"] = d.calibration.snapshot()
             await self._respond(writer, 200,
                                 json.dumps(snap, default=str).encode(),
                                 close=not keep)
+        elif path.startswith("/v1/traces/") and method == "GET":
+            tid = path[len("/v1/traces/"):]
+            spans = self.engine.tracer.trace(tid)
+            if not spans:
+                await self._respond(writer, 404, protocol.error_body(
+                    f"unknown trace {tid!r}", etype="not_found"),
+                    close=not keep)
+            else:
+                await self._respond(writer, 200, json.dumps({
+                    "trace_id": spans[0]["trace"], "n_spans": len(spans),
+                    "spans": spans, "tree": span_tree(spans)},
+                    default=str).encode(), close=not keep)
+        elif path.startswith("/v1/decisions/") and method == "GET":
+            did = path[len("/v1/decisions/"):]
+            rec = LEDGER.get(did)
+            if rec is None:
+                await self._respond(writer, 404, protocol.error_body(
+                    f"unknown decision {did!r}", etype="not_found"),
+                    close=not keep)
+            else:
+                await self._respond(writer, 200,
+                                    json.dumps(rec, default=str).encode(),
+                                    close=not keep)
+        elif path == "/v1/decisions" and method == "GET":
+            await self._respond(writer, 200, json.dumps({
+                "totals": LEDGER.totals(), "recent": LEDGER.records(50)},
+                default=str).encode(), close=not keep)
+        elif path == "/v1/flight" and method == "GET":
+            await self._respond(writer, 200, json.dumps({
+                "snapshot": FLIGHT.snapshot(), "dumps": FLIGHT.dumps()},
+                default=str).encode(), close=not keep)
         else:
             await self._respond(writer, 404, protocol.error_body(
                 f"no route for {method} {path}", etype="not_found"),
                 close=not keep)
-        return keep
+        return None, keep
 
     # ------------------------------------------------------------------
     async def _complete(self, writer, kind: str, headers: dict,
-                        body: bytes, keep: bool) -> bool:
-        """One completion request: parse -> admission -> the engine's
-        queue -> the response. Returns ``keep``."""
+                        body: bytes, keep: bool, link: dict):
+        """One completion request under a ``gw.request`` root span: parse
+        -> admission -> the engine's queue -> the response (the engine
+        thread's spans as children). Returns ``(root_span_id, keep)``."""
+        tr = self.engine.tracer
+        attrs = {"route": kind, "conn": link["conn"], "seq": link["seq"]}
+        if link.get("follows"):        # the previous request on this socket
+            attrs["follows"] = link["follows"]
+        root = tr.start("gw.request", attrs=attrs)
+        t_parse = clock.monotonic()
         try:
             parsed = self._parse(kind, headers, body)
             segments = protocol.tokenize_request(self.tok, parsed)
         except protocol.BadRequest as e:
             self.stats["errors_400"] += 1
+            root.set(status=400).end()
             await self._respond(writer, 400, protocol.error_body(str(e)),
                                 close=not keep)
-            return keep
+            return root.span_id or None, keep
+        tr.add("gw.parse", clock.monotonic() - t_parse, parent=root,
+               t0=t_parse, component="token",
+               prompt_tokens=len(segments.token_ids))
         n = len(segments.token_ids)
         if n + parsed.max_tokens > self.engine.max_len:
             self.stats["errors_400"] += 1
+            root.set(status=400).end()
             await self._respond(writer, 400, protocol.error_body(
                 f"prompt ({n} tokens) + max_tokens "
                 f"({parsed.max_tokens}) exceeds the engine context of "
                 f"{self.engine.max_len} tokens"), close=not keep)
-            return keep
+            return root.span_id or None, keep
+        t_admit = clock.monotonic()
         try:
             self.admission.admit(parsed.tenant)
         except ShedError as e:
             self.stats["shed_429" if e.status == 429 else "shed_503"] += 1
+            FLIGHT.trigger(SHED, tenant=parsed.tenant, status=e.status,
+                           retry_after_s=e.retry_after_s)
+            root.set(status=e.status, shed=True).end()
             etype = "rate_limit_exceeded" if e.status == 429 \
                 else "overloaded"
             await self._respond(
@@ -340,25 +412,34 @@ class GatewayServer:
                 extra={"Retry-After":
                        str(int(math.ceil(e.retry_after_s)))},
                 close=not keep)
-            return keep
+            return root.span_id or None, keep
+        tr.add("gw.admission", clock.monotonic() - t_admit, parent=root,
+               t0=t_admit, tenant=parsed.tenant)
         job = GatewayJob(parsed, segments, asyncio.get_running_loop(),
                          asyncio.Queue())
+        job.span = root if root else None
         try:
             self.engine.submit(job)
         except GatewayClosed:
             self.admission.release(parsed.tenant)
+            root.set(status=503).end()
             await self._respond(writer, 503, protocol.error_body(
                 "engine is shutting down", etype="overloaded"),
                 extra={"Retry-After": "5"}, close=not keep)
-            return keep
-        if parsed.stream:
-            # SSE has no Content-Length: this response ends the
-            # connection, so the loop must not read another request
-            self.stats["streamed"] += 1
-            await self._stream_response(writer, job, kind, n)
-            return False
-        await self._unary_response(writer, job, kind, n, close=not keep)
-        return keep
+            return root.span_id or None, keep
+        try:
+            if parsed.stream:
+                # SSE has no Content-Length: this response ends the
+                # connection, so the loop must not read another request
+                keep = False
+                self.stats["streamed"] += 1
+                await self._stream_response(writer, job, kind, n)
+            else:
+                await self._unary_response(writer, job, kind, n,
+                                           close=not keep)
+        finally:
+            root.set(rid=job.rid, tenant=parsed.tenant).end()
+        return root.span_id or None, keep
 
     def _parse(self, kind: str, headers: dict,
                body: bytes) -> protocol.ParsedRequest:

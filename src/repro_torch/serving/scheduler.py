@@ -17,10 +17,14 @@ reduced to its core loop.
 The scheduler is single-threaded and deterministic: it samples greedily
 (the paper decodes greedily), so its outputs are token-identical to sequential ``InferenceEngine``
 runs. It counts finished requests by reason and observes each request's
-queue wait in :data:`repro_torch.obs.metrics.REGISTRY`. The reference's
-slot-lifecycle spans wait for the port's tracer (ROADMAP Queue 1, item
-7.5), so it takes no ``tracer``; the gateway's engine thread
-(:mod:`repro_torch.gateway.engine`) drives it with ``step()``.
+queue wait in :data:`repro_torch.obs.metrics.REGISTRY`. With a
+``tracer``, a finished request whose ``Request.trace`` names a parent
+span gets its slot-lifecycle spans (``slot.queue_wait``, ``slot.prefill``
+as Table-3 ``p_decode``, ``slot.decode`` as ``r_decode``), projected from
+the request's timestamps: no span is timed around a device call, so a
+traced step synchronises and launches exactly what an untraced one does.
+The gateway's engine thread (:mod:`repro_torch.gateway.engine`) drives it
+with ``step()``.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import numpy as np
 from repro_torch import clock
 from repro_torch.core.metrics import RequestStats, ServingReport
 from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serving.engine import BatchedEngine
 from repro_torch.serving.sampler import greedy
 
@@ -51,6 +56,9 @@ class Request:
     prefix_logits: Optional[np.ndarray] = None   # full hit: [1, V]
     tenant: str = ""                   # gateway multi-tenancy tag
     stats: RequestStats = field(default=None)    # filled by the scheduler
+    # the span context (from the submitting thread) this request's slot
+    # spans parent onto
+    trace: object = None
 
 
 @dataclass
@@ -64,8 +72,10 @@ class _Slot:
 
 class Scheduler:
     def __init__(self, engine: BatchedEngine,
-                 on_prefill: Optional[Callable] = None):
+                 on_prefill: Optional[Callable] = None,
+                 tracer: Optional[Tracer] = None):
         self.engine = engine
+        self.tracer = tracer or NULL_TRACER
         self._m_reqs = REGISTRY.counter(
             "sched_requests_total", "requests finished by reason",
             ("reason",))
@@ -125,9 +135,27 @@ class Scheduler:
             req.stats.finish_reason = finished
             self._m_reqs.labels(reason=finished).inc()
             self._m_queue.observe(max(req.stats.queue_wait, 0.0))
+            self._slot_spans(slot_i, req, finished)
             self.done.append(req)
             slot.req = None
             self.engine.free_slot(slot_i)
+
+    def _slot_spans(self, slot_i: int, req: Request, reason: str) -> None:
+        """The finished request's timestamps as slot spans: the stats stay
+        authoritative, the spans are derived, never measured again."""
+        st, tr = req.stats, self.tracer
+        if not tr.enabled or req.trace is None:
+            return
+        tr.add("slot.queue_wait", max(st.admit_t - st.submit_t, 0.0),
+               parent=req.trace, t0=st.submit_t, slot=slot_i)
+        tr.add("slot.prefill", max(st.first_token_t - st.admit_t, 0.0),
+               parent=req.trace, t0=st.admit_t, slot=slot_i,
+               component="p_decode", prompt_tokens=st.prompt_tokens,
+               resumed=req.cache1 is not None)
+        tr.add("slot.decode", max(st.finish_t - st.first_token_t, 0.0),
+               parent=req.trace, t0=st.first_token_t, slot=slot_i,
+               component="r_decode", tokens=len(st.output_tokens),
+               reason=reason)
 
     def _admit(self) -> None:
         """Fill free slots from the queue (FIFO), prefill, emit first
