@@ -19,10 +19,16 @@ lengths in every run. It
    time the card could take, with the prefill's TFLOP/s and share of it;
    flash_prefill also at B=4 (the batched prefill), and the two decode
    kernels with one kv_len a row read from device memory (four slots of
-   0, 1, 300 and 1024 keys, with and without a window);
+   0, 1, 300 and 1024 keys, with and without a window); both attention
+   kernels also at the (H, KV, dh) of llama3.2-1b, qwen2-vl-2b, qwen3-4b,
+   yi-6b and nemotron-4-15b (a 291-token prefill, a 31-token resume at
+   253, a decode at 300 keys; timed in bf16 at the prefill and the
+   decode);
 4. runs the paper's edge request on full-width gemma3-270m, on full-width,
-   full-depth mamba2-780m and on full-width deepseek-v3-671b cut to its
-   three dense MLA layers (random weights from a seed), each in bf16 and
+   full-depth mamba2-780m, on full-width deepseek-v3-671b cut to its
+   three dense MLA layers, and on full-width, full-depth llama3.2-1b and
+   qwen2-vl-2b (text prompts: M-RoPE with its three position components
+   equal) (random weights from a seed), each in bf16 and
    in fp32: client A misses (Case 1) and uploads, client B resumes a
    partial hit (Case 4), then adopts A's full prompt (Case 5), and a
    poisoned catalog falls back to local prefill; it checks the cases and
@@ -54,19 +60,33 @@ lengths in every run. It
    what the requests need, the spans project onto the timings (B's Case 5
    tree holds the daemon's folded spans), and every daemon must exit 0;
 5. profiles a prefill and 8 decode steps of each model, then one prefill
-   alone (its device time and its attention kernel's share), and checks the
-   card's fp32 logits against the same model on the CPU (mamba2-780m cut
-   to 4 layers there, deepseek-v3-671b to 1);
+   alone (its device time and its attention kernel's share) and the head
+   matmul's share of a decode step, and checks the card's fp32 logits
+   against the same model on the CPU (mamba2-780m cut to 4 layers there,
+   deepseek-v3-671b to 1, llama3.2-1b and qwen2-vl-2b to 2); on
+   qwen2-vl-2b the reference's VLM round trip (stub patch embeddings at
+   image positions, one prefill against a prefill and a resume, then a
+   decode) must agree in fp32 within its test's tolerance;
 6. serves 8 requests over a pool of 4 slots (``BatchedEngine`` and the
    continuous-batching ``Scheduler``) on each of those models and on
-   full-width, full-depth gemma3-1b, in bf16 and fp32: prompts cut to
+   full-width gemma3-1b (mamba2-780m and gemma3-1b cut to 8 layers,
+   llama3.2-1b and qwen2-vl-2b to 4), in bf16 and fp32: prompts cut to
    mixed lengths, so slots decode at their own positions and recycle; fp32
    tokens must equal sequential runs; it prints tokens/s, TTFT and TTLT
    percentiles and decode ms per step at B=1 and B=4, and checks that a
    decode step launches the decode kernel once a layer and, on
    gemma3-270m and the deepseek cut, that a ``Scheduler`` step of traced
    requests runs the aten ops and decode launches an untraced one does
-   (its CUDA kernels printed beside);
+   (its CUDA kernels printed beside); a qwen2-vl-2b decode step must make
+   the host's kernel launch calls of the same step with standard rope
+   plus its M-RoPE band gathers (2 a layer), and no more device-to-host
+   copies than a llama3.2-1b step;
+6b. runs qwen3-4b, yi-6b and nemotron-4-15b at full width cut to 2
+   layers: a Case 1 miss and a Case 5 hit in fp32 with a cold run's
+   tokens, one bf16 request, the CPU cross-check at 1 layer; then
+   ``python -m repro_torch.launch.serve``: a server process and a client
+   process at llama3.2-1b's full width (``--no-reduced``) on 3 prompts of
+   one domain, both exiting 0;
 7. once every other phase has run (after a gateway phase the profiler
    loses device events, so every profiler reading comes before), for
    gemma3-270m and the deepseek cut, in bf16 and fp32, serves the
@@ -87,7 +107,9 @@ lengths in every run. It
    first; ``/v1/decisions`` must hold closed records (regret, savings);
    after ``inject {corrupt_chunks: 1}`` on every daemon a streamed client
    must fall through a corrupt stream and ``/v1/flight`` must hold its
-   ``chunk_error`` dump;
+   ``chunk_error`` dump; once, ``python -m repro_torch.obs.console
+   --once`` watches the gateway, its daemons and one dead daemon (a row a
+   live daemon, ``DOWN`` for the dead one);
 8. the chaos phase, on gemma3-270m in bf16 and fp32: 3 supervised
    daemons, ``FaultSchedule.generate(0, ...)`` over 29 steps replayed by a
    ``FaultDriver`` (a partition, delayed acks, a stall, corrupt chunks, a
@@ -128,6 +150,13 @@ MLA_DECODE_CASES = [(1, None), (300, None), (1024, None), (700, 256)]
 # positions (a row of 0 keys among them), with and without a window
 ROW_KV_LENS, ROW_WINDOWS = [0, 1, 300, 1024], [None, 256]
 PREFILL_BATCH = 4                  # flash_prefill as the batched prefill runs it
+# the dense configs' attention widths (H, KV, dh), at their edge request's
+# shapes: a cold 291-token prefill and a 31-token resume at 253 over a
+# 1024-position cache, and a decode at 300 keys
+DENSE_WIDTHS = {"llama3.2-1b": (32, 8, 64), "qwen2-vl-2b": (12, 2, 128),
+                "qwen3-4b": (32, 8, 128), "yi-6b": (32, 4, 128),
+                "nemotron-4-15b": (48, 8, 128)}
+DENSE_PREFILL_SHAPES = [(291, 0), (31, 253)]
 # ssd_scan at mamba2-780m's widths: (S, random h0); chunk 256, one B/C group
 SSD_SHAPES = [(271, False), (48, True), (1024, True)]
 SSD_H, SSD_P, SSD_N, SSD_G, SSD_CHUNK = 48, 64, 128, 1, 256
@@ -192,7 +221,18 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
 PATHS = [("gemma3-270m", None, None, True, None),
          ("mamba2-780m", None, 4, True, 8),
          ("deepseek-v3-671b", 3, 1, True, None),
-         ("gemma3-1b", None, None, False, None)]
+         ("llama3.2-1b", None, 2, True, 4),
+         ("qwen2-vl-2b", None, 2, True, 4),
+         ("gemma3-1b", None, None, False, 8)]
+# dense configs whose full depth does not fit the card in fp32 and bf16
+# together (nemotron-4-15b: ~62 GB in fp32 alone): full width, cut to
+# WIDE_LAYERS layers, a Case 1 miss and a Case 5 hit in fp32, one bf16
+# request, and the CPU cross-check at 1 layer
+WIDE_PATHS, WIDE_LAYERS = ("qwen3-4b", "yi-6b", "nemotron-4-15b"), 2
+# the launcher's client at full width (``--no-reduced``) against its server
+SERVE_ARCH, SERVE_PROMPTS, SERVE_WAIT_S = "llama3.2-1b", 3, 600
+# the VLM round trip (tests/test_mrope_vlm.py): the reference's tolerance
+VLM_TOL = dict(atol=2e-5, rtol=1e-4)
 # the configurations the gateway phase serves, after every other phase
 # (mamba2-780m waits: a hit's restore blocks the engine thread ~0.85 s)
 GATEWAY_PATHS = ("gemma3-270m", "deepseek-v3-671b")
@@ -371,10 +411,10 @@ def _err(out, ref, atol, rtol):
 
 
 def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
-                   B=1):
+                   B=1, timed=True):
     """flash_prefill against its plain version over a [B, cache_len, KV, .]
-    cache, at each (Sq, q_offset) with kv_len = q_offset + Sq. Returns
-    {(Sq, q_offset): row}."""
+    cache, at each (Sq, q_offset) with kv_len = q_offset + Sq, each timed
+    unless ``timed`` is False. Returns {(Sq, q_offset): row}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill import (flash_prefill,
@@ -391,6 +431,15 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
         err, ok = _err(flash_prefill(q, k, v, **args),
                        flash_prefill_plain(q, k, v, **args), TOL[dname],
                        TOL[dname])
+        if not ok:
+            raise AssertionError(f"flash_prefill {tag} {dname} B={B} "
+                                 f"Sq={sq} off={off}: max err {err}")
+        if not timed:
+            print(f"flash_prefill {tag} {dname} B={B} Sq={sq} q_offset={off}"
+                  f" kv_len={kv_len}: max_abs_err={err:.3g} (tol "
+                  f"{TOL[dname]}; not timed)")
+            rows[(sq, off)] = dict(max_abs_err=err)
+            continue
         ms = device_ms(lambda: flash_prefill(q, k, v, **args))
         call_ms = time_ms(lambda: flash_prefill(q, k, v, **args))
         plain_ms = device_ms(lambda: flash_prefill_plain(q, k, v, **args))
@@ -421,9 +470,6 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
               f" {b_ms / ms:.3f} of the bound, {ms / lib_ms:.2f}x the "
               f"best library call ({lib_name}); kernel call {call_ms:.4f} ms"
               f" (events)")
-        if not ok:
-            raise AssertionError(f"flash_prefill {tag} {dname} B={B} "
-                                 f"Sq={sq} off={off}: max err {err}")
         rows[(sq, off)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                library_ms=lib_ms, bound_ms=b_ms,
                                bound_by=b_by)
@@ -436,10 +482,6 @@ def kernel_checks():
     serving dtype, bf16, and the gemma3-270m path's cold prefill and
     300-key decode)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode import (flash_decode,
-                                                  flash_decode_plain)
-    dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
     rows = {"flash_prefill": {"max_abs_err": 0.0},
             "flash_decode": {"max_abs_err": 0.0}}
@@ -461,41 +503,71 @@ def kernel_checks():
                                  shapes=PREFILL_SHAPES[:1], tag=tag,
                                  B=PREFILL_BATCH)
             r["max_abs_err"] = max(r["max_abs_err"], got[(512, 0)]["max_abs_err"])
-        k = torch.randn((1, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
-        v = torch.randn((1, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
-        es = k.element_size()
-        q1 = torch.randn((1, H, DH), generator=gen).to(dev, dt)
-        for kv_len in DECODE_KV_LENS:
-            err, ok = _err(flash_decode(q1, k, v, kv_len=kv_len),
-                           flash_decode_plain(q1, k, v, kv_len=kv_len),
-                           TOL[dname], TOL[dname])
-            ms = device_ms(lambda: flash_decode(q1, k, v, kv_len=kv_len))
-            call_ms = time_ms(lambda: flash_decode(q1, k, v, kv_len=kv_len))
-            plain_ms = device_ms(
-                lambda: flash_decode_plain(q1, k, v, kv_len=kv_len))
-            qs = q1[:, :, None]
-            ks, vs = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
-            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, enable_gqa=True))
-            nbytes = es * (2 * q1.numel() + 2 * kv_len * KV * DH)
-            b_ms, b_by = bound(nbytes, 4 * DH * H * kv_len, dname)
-            print(f"flash_decode {dname} kv_len={kv_len}: max_abs_err="
-                  f"{err:.3g} (tol {TOL[dname]}) device ms: kernel {ms:.4f}"
-                  f" plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound "
-                  f"{b_ms:.5f} ({b_by}); kernel call {call_ms:.4f} ms "
-                  f"(events)")
-            if not ok:
-                raise AssertionError(f"flash_decode {dname} kv_len={kv_len}"
-                                     f": max err {err}")
-            r = rows["flash_decode"]
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if dname == "bfloat16" and kv_len == 300:
-                r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
         r = rows["flash_decode"]
+        for kv_len in DECODE_KV_LENS:
+            got = decode_check(dname, dt, gen, H, KV, DH, kv_len,
+                               "(256, 256)")
+            r["max_abs_err"] = max(r["max_abs_err"], got["max_abs_err"])
+            if dname == "bfloat16" and kv_len == 300:
+                r.update({k: v for k, v in got.items() if k != "max_abs_err"})
         r["max_abs_err"] = max(r["max_abs_err"],
                                decode_rows_check(dname, dt, gen))
+        # the dense configs' widths: checked in both dtypes, timed in the
+        # serving dtype (bf16) at the cold prefill and the decode only
+        timed = dname == "bfloat16"
+        for name, (h, kv, dh) in DENSE_WIDTHS.items():
+            tag = f"{name} ({h}/{kv}, {dh})"
+            got = {}
+            for i, shape in enumerate(DENSE_PREFILL_SHAPES):
+                got.update(prefill_checks(dname, dt, gen, h, kv, dh, dh,
+                                          CACHE_LEN, [shape], tag,
+                                          timed=timed and i == 0))
+            rows["flash_prefill"]["max_abs_err"] = max(
+                [rows["flash_prefill"]["max_abs_err"]]
+                + [g["max_abs_err"] for g in got.values()])
+            r["max_abs_err"] = max(r["max_abs_err"], decode_check(
+                dname, dt, gen, h, kv, dh, 300, tag, timed)["max_abs_err"])
     return rows
+
+
+def decode_check(dname, dt, gen, H, KV, dh, kv_len, tag, timed=True):
+    """flash_decode against its plain version for one query a head over a
+    [1, CACHE_LEN, KV, dh] cache at ``kv_len`` keys, timed (unless
+    ``timed`` is False) beside SDPA on the live keys and the bound.
+    Returns the row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    dev = torch.device("cuda")
+    k = torch.randn((1, CACHE_LEN, KV, dh), generator=gen).to(dev, dt)
+    v = torch.randn((1, CACHE_LEN, KV, dh), generator=gen).to(dev, dt)
+    q = torch.randn((1, H, dh), generator=gen).to(dev, dt)
+    err, ok = _err(flash_decode(q, k, v, kv_len=kv_len),
+                   flash_decode_plain(q, k, v, kv_len=kv_len), TOL[dname],
+                   TOL[dname])
+    if not ok:
+        raise AssertionError(f"flash_decode {tag} {dname} kv_len={kv_len}: "
+                             f"max err {err}")
+    if not timed:
+        print(f"flash_decode {tag} {dname} kv_len={kv_len}: max_abs_err="
+              f"{err:.3g} (tol {TOL[dname]}; not timed)")
+        return dict(max_abs_err=err)
+    ms = device_ms(lambda: flash_decode(q, k, v, kv_len=kv_len))
+    call_ms = time_ms(lambda: flash_decode(q, k, v, kv_len=kv_len))
+    plain_ms = device_ms(lambda: flash_decode_plain(q, k, v, kv_len=kv_len))
+    qs = q[:, :, None]
+    ks, vs = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, enable_gqa=True))
+    nbytes = k.element_size() * (2 * q.numel() + 2 * kv_len * KV * dh)
+    b_ms, b_by = bound(nbytes, 4 * dh * H * kv_len, dname)
+    print(f"flash_decode {tag} {dname} kv_len={kv_len}: max_abs_err="
+          f"{err:.3g} (tol {TOL[dname]}) device ms: kernel {ms:.4f} plain "
+          f"{plain_ms:.4f} sdpa {lib_ms:.4f} bound {b_ms:.5f} ({b_by}); "
+          f"{ms / lib_ms:.2f}x sdpa; kernel call {call_ms:.4f} ms (events)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def decode_rows_check(dname, dt, gen):
@@ -1744,7 +1816,7 @@ def _longest(samples, t0, t1):
                 if end >= t0 and end - dt <= t1), default=(0.0, t1))
 
 
-def gateway_path(model, label, smi, max_len=1024):
+def gateway_path(model, label, smi, max_len=1024, console=False):
     """The serving front door on the card: FABRIC_PEERS peer daemons under
     the port's supervisor (``Fabric.tcp``) and ``Gateway(model, fabric,
     batch_size=BATCH, max_len=1024)``. Each mix of the port's
@@ -1767,8 +1839,10 @@ def gateway_path(model, label, smi, max_len=1024):
     ``/v1/decisions`` must hold closed records (regret and savings
     printed); after ``inject {corrupt_chunks: 1}`` on every daemon a
     streamed client in the gateway's process must fall through a corrupt
-    stream, and ``/v1/flight`` must hold its ``chunk_error`` dump.
-    Returns the launch counts."""
+    stream, and ``/v1/flight`` must hold its ``chunk_error`` dump. With
+    ``console``, ``python -m repro_torch.obs.console --once`` then watches
+    the gateway and its daemons (``console_check``). Returns the launch
+    counts."""
     collect_profiles()
     import http.client
     import time
@@ -1862,6 +1936,8 @@ def gateway_path(model, label, smi, max_len=1024):
             launches = {k.__name__: k.launches for k in kernels}
             n_steps = gw.engine.sched.n_steps
             decisions = _http_json(gw.port, "/v1/decisions")
+            if console:
+                console_check(gw.port, fabric.supervisor.addresses())
             # a corrupt stream in the gateway's process: a streamed
             # client's partial hit (the support mix's system prompt is
             # cached) against daemons that flip their next chunk
@@ -2350,10 +2426,20 @@ def where_time_goes(model, prompt):
         # kernels' rows take no such fallback
         head_ms, clock_name = time_ms(lambda: x @ w), f"CUDA events: {e}"
     head_bytes = w.numel() * w.element_size()
+    # a decode step's device time, from 4 steps alone
+    st = eng.start({"tokens": toks})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate(st, 4)
+        torch.cuda.synchronize()
+    step_ms = sum(_dev_us(e) for e in _device_rows(prof)) / 4 / 1e3
     print(f"{'tied' if tied else 'untied'} head matmul alone: "
           f"{head_ms:.4f} ms on the device for {head_bytes / 1e6:.1f} MB "
           f"of weights (bytes bound {head_bytes / MEM_BW * 1e3:.4f} ms; "
-          f"timed by the {clock_name})")
+          f"timed by the {clock_name}); a decode step's device time "
+          f"{step_ms:.4f} ms (profiler, 4 steps), the head "
+          f"{head_ms / step_ms:.3f} of it")
 
 
 def cpu_cross_check(model_fp32, prompt, n_layers):
@@ -2379,6 +2465,254 @@ def cpu_cross_check(model_fp32, prompt, n_layers):
         raise AssertionError(f"card and CPU disagree: {err}")
 
 
+def vlm_roundtrip(models):
+    """The reference's VLM round trip (``tests/test_mrope_vlm.py``) at
+    full width on the card: a prefill from 16 stub patch embeddings whose
+    image patches (positions 4..7) share a temporal index on a 2x2
+    height/width grid, against a prefill of 10 and a resume of 6, then
+    one decode step on each. fp32 must agree within VLM_TOL; bf16 is
+    printed beside."""
+    import numpy as np
+    import torch
+    for m in models:
+        cfg, S = m.cfg, 16
+        rng = np.random.default_rng(1)
+        embeds = (rng.normal(size=(1, S, cfg.d_model)) * 0.02).astype(
+            np.float32)
+        pos_t, pos_h, pos_w = np.arange(S), np.arange(S), np.arange(S)
+        pos_h[4:8] = [4, 4, 5, 5]
+        pos_w[4:8] = [4, 5, 4, 5]
+        positions = np.stack([pos_t, pos_h, pos_w])[:, None, :]
+
+        def inputs(sl):
+            return {"embeds": embeds[:, sl], "positions": positions[:, :, sl]}
+        lg, c1 = m.prefill(inputs(slice(None)), m.init_cache(1, 24))
+        _, c2 = m.prefill(inputs(slice(0, 10)), m.init_cache(1, 24))
+        lg2, c2 = m.prefill(inputs(slice(10, None)), c2, start_pos=10,
+                            resume=True)
+        tok = np.asarray([[7]], np.int32)
+        d1, _ = m.decode_step(c1, tok, S)
+        d2, _ = m.decode_step(c2, tok, S)
+        torch.cuda.synchronize()
+        fp32 = m.dtype == torch.float32
+        errs = {}
+        for tag, a, b in (("prefill", lg, lg2), ("decode", d1, d2)):
+            a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
+            errs[tag] = ((a - b).abs().max().item(),
+                         torch.allclose(a, b, **VLM_TOL),
+                         bool(torch.isfinite(a).all()))
+        print(f"[{cfg.name} {'fp32' if fp32 else 'bf16'}] VLM round trip "
+              f"(16 stub embeddings, M-RoPE image positions; one-shot vs 10 "
+              f"+ resume of 6): " + "; ".join(
+                  f"{tag} max |logit diff| {e:.3g} within {VLM_TOL} {ok}"
+                  for tag, (e, ok, _) in errs.items())
+              + f" ({'checked' if fp32 else 'printed only'})")
+        if not all(fin for _, _, fin in errs.values()) or \
+                fp32 and not all(ok for _, ok, _ in errs.values()):
+            raise AssertionError(f"[{cfg.name}] VLM round trip: {errs}")
+
+
+def step_host_calls(model, label):
+    """The host's kernel launch calls (``LAUNCH_APIS``) and the device's
+    device-to-host copies of one ``decode_batch`` step of BATCH slots at
+    their own positions, each the same in two one-step profiler windows."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import BatchedEngine
+    e = BatchedEngine(model, 1024, BATCH)
+    rng = np.random.default_rng(0)
+    e.prefill_slots(list(range(BATCH)), [
+        rng.integers(3, model.cfg.vocab, n) for n in (40, 9, 77, 20)])
+    toks = np.full(BATCH, 5, np.int32)
+    for _ in range(3):
+        e.decode_batch(toks)
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            e.decode_batch(toks)
+            torch.cuda.synchronize()
+        seen.append((launch_calls(prof), sum(
+            e_.count for e_ in prof.key_averages() if "DtoH" in e_.key)))
+    if seen[0] != seen[1]:
+        raise AssertionError(f"[{label}] one decode step's host calls "
+                             f"differ between windows: {seen}")
+    return seen[0]
+
+
+def mrope_check(model, llama_calls):
+    """M-RoPE adds no host sync to a decode step: a step of ``model``
+    (qwen2-vl-2b) makes the kernel launch calls of the same step with the
+    config's rope set to ``standard`` (the same weights) plus the band
+    gather's, one ``index_select`` for q and one for k a layer, and no
+    more device-to-host copies than a llama3.2-1b step (``llama_calls``)."""
+    import torch
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    twin = Model(cfg.replace(rope="standard", mrope_sections=()),
+                 dtype=model.dtype, device=model.device, seed=None)
+    twin.load_state_dict(model.state_dict(), assign=True)
+    label = f"{cfg.name} {'bf16' if model.dtype != torch.float32 else 'fp32'}"
+    (m_calls, m_copies) = step_host_calls(model, label)
+    (s_calls, s_copies) = step_host_calls(twin, label + " standard rope")
+    extra = 2 * cfg.n_layers
+    print(f"[{label}] a decode_batch step at B={BATCH}: kernel launch calls "
+          f"on the host {m_calls} with M-RoPE, {s_calls} with standard rope "
+          f"(+{m_calls - s_calls}, the band gathers: {extra} = 2 x "
+          f"{cfg.n_layers} layers); device-to-host copies {m_copies} "
+          f"(standard {s_copies}, llama3.2-1b {llama_calls[1]})")
+    if m_calls != s_calls + extra or m_copies > llama_calls[1]:
+        raise AssertionError(f"[{label}] M-RoPE step: calls {m_calls} vs "
+                             f"{s_calls} + {extra}, copies {m_copies} vs "
+                             f"llama's {llama_calls[1]}")
+
+
+def wide_path(name, launches, launches32):
+    """``name`` at full width cut to WIDE_LAYERS layers: in fp32 client A
+    misses (Case 1, uploads) and client B adopts A's prompt (Case 5), both
+    with the tokens of a cold run; in bf16 one Case 1 request, its tokens
+    printed. The counts are set to 0 just before each dtype's requests
+    and read just after: one prefill and MAX_NEW decode steps a request,
+    once a layer. Then the CPU cross-check at 1 layer."""
+    collect_profiles()
+    import torch
+    from repro_torch import clock
+    from repro_torch.config import CacheConfig
+    from repro_torch.core.client import EdgeClient
+    from repro_torch.core.server import CacheServer
+    from repro_torch.data.mmlu import MMLUGenerator
+    from repro_torch.data.tokenizer import WordHashTokenizer
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.serving.engine import InferenceEngine
+    t0 = clock.monotonic()
+    m32, m16 = model_pair(name, WIDE_LAYERS)
+    L = m32.cfg.n_layers
+    gen = MMLUGenerator(WordHashTokenizer(m32.cfg.vocab), n_shot=5)
+    p_a = gen.prompt("astronomy", 0).segments
+    for m, total in ((m32, launches32), (m16, launches)):
+        fp32 = m is m32
+        label = f"{name} at {L} layers {'fp32' if fp32 else 'bf16'}"
+        server = CacheServer(CacheConfig())
+
+        def client(cname, srv=server):
+            return EdgeClient(cname, InferenceEngine(m, max_len=1024), srv,
+                              CacheConfig())
+        client("warm", CacheServer(CacheConfig())).infer(
+            gen.prompt("anatomy", 3).segments, max_new_tokens=2,
+            upload_on_miss=False)
+        for k in (flash_prefill, flash_decode):
+            k.launches = 0
+        runs = [client("A").infer(p_a, MAX_NEW)]
+        if fp32:
+            b = client("B")
+            b.sync_catalog()
+            runs.append(b.infer(p_a, MAX_NEW))
+        got = {k.__name__: k.launches for k in (flash_prefill, flash_decode)}
+        want = {"flash_prefill": L, "flash_decode": len(runs) * MAX_NEW * L}
+        for k in got:
+            total[k] += got[k]
+        cold = client("cold", CacheServer(CacheConfig())).infer(
+            p_a, MAX_NEW, upload_on_miss=False)
+        for r in runs:
+            print(f"[{label}] case {r.case} matched {r.matched_tokens}/"
+                  f"{r.prompt_tokens} ttft {r.ttft_s * 1e3:.2f} ms ttlt "
+                  f"{r.ttlt_s * 1e3:.2f} ms; tokens {r.output_tokens}")
+        print(f"[{label}] cold run's tokens {cold.output_tokens}; launches "
+              f"{got} (the requests need {want})")
+        if [r.case for r in runs] != ([1, 5] if fp32 else [1]) or \
+                got != want:
+            raise AssertionError(f"[{label}] cases "
+                                 f"{[r.case for r in runs]}, launches {got}")
+        if any(len(r.output_tokens) != MAX_NEW or not all(
+                0 <= t < m.cfg.vocab for t in r.output_tokens)
+               for r in runs + [cold]):
+            raise AssertionError(f"[{label}] malformed output")
+        if fp32 and any(r.output_tokens != cold.output_tokens for r in runs):
+            raise AssertionError(f"[{label}] tokens differ from the cold run")
+    cpu_cross_check(m32, p_a, 1)
+    del m32, m16
+    torch.cuda.empty_cache()
+    print(f"[{name}] seconds: {clock.monotonic() - t0:.1f} (weights "
+          f"included)")
+
+
+def serve_check():
+    """``python -m repro_torch.launch.serve``: a ``server`` process, and a
+    ``client`` process at SERVE_ARCH's full width (``--no-reduced``) on
+    the card working SERVE_PROMPTS prompts of one domain over TCP (a miss,
+    then partial hits). The client must exit 0 with a case line a prompt,
+    and the server 0 after SIGINT."""
+    import re
+    import signal
+    from repro_torch import clock
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    t0 = clock.monotonic()
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "server",
+         "--port", "0"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        first = srv.stdout.readline()
+        port = re.search(r"tcp://127\.0\.0\.1:(\d+)", first)
+        if port is None:
+            raise AssertionError(f"serve server printed {first!r}")
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "client",
+             "--port", port.group(1), "--arch", SERVE_ARCH, "--no-reduced",
+             "--prompts", str(SERVE_PROMPTS), "--domains", "1"], env=env,
+            capture_output=True, text=True, timeout=SERVE_WAIT_S)
+    finally:
+        srv.send_signal(signal.SIGINT)
+        try:
+            out, err = srv.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            out, err = srv.communicate()
+    lines = cli.stdout.splitlines()
+    for line in lines:
+        print(f"[serve client] {line}")
+    print(f"[serve server] exit {srv.returncode}: "
+          f"{(first + out).strip().splitlines()[-1]}; both processes "
+          f"{clock.monotonic() - t0:.1f} s")
+    cases = [int(m.group(1)) for m in (re.search(r" case=(\d)", ln)
+                                       for ln in lines) if m]
+    if cli.returncode != 0 or srv.returncode != 0 or \
+            len(cases) != SERVE_PROMPTS or cases[0] != 1 or \
+            4 not in cases or "(L=16 d=2048) on cuda" not in lines[0]:
+        raise AssertionError(f"serve: client exit {cli.returncode} cases "
+                             f"{cases}, server exit {srv.returncode}; "
+                             f"{cli.stderr[-2000:]} {err[-2000:]}")
+
+
+def console_check(port, addresses):
+    """``python -m repro_torch.obs.console --once`` against the gateway on
+    ``port`` and its daemons (``addresses``: {peer_id: (host, port)}) plus
+    one dead daemon: a row a live daemon, and DOWN for the dead one."""
+    import socket
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{sk.getsockname()[1]}"
+    peers = [f"{h}:{p}" for h, p in addresses.values()] + [dead]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.console", "--once",
+         "--gateway", f"127.0.0.1:{port}", "--peers", ",".join(peers)],
+        env=env, capture_output=True, text=True, timeout=60)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        print(f"[console --once] {line}")
+    rows = {pid: any(ln.split()[:2] == [pid, f"{h}:{p}"] for ln in lines)
+            for pid, (h, p) in addresses.items()}
+    down = [ln for ln in lines if ln.split() == [dead, "DOWN"]]
+    if proc.returncode != 0 or not all(rows.values()) or len(down) != 1 or \
+            f"gateway http://127.0.0.1:{port}" not in lines:
+        raise AssertionError(f"console: exit {proc.returncode}, daemon rows "
+                             f"{rows}, DOWN rows {down}; {proc.stderr}")
+
+
 def cut_model(model, n_layers, device="cuda"):
     """``model`` cut to its first ``n_layers`` layers (its weights and
     dtypes) on ``device``."""
@@ -2402,7 +2736,7 @@ def cut(cfg, n_layers):
 
 def model_pair(name, n_layers=None):
     """fp32 and bf16 copies of one randomly initialised model on the card
-    (seed 0, drawn once on the host; the bf16 copy is the fp32 one cast,
+    (seed 0, drawn once on the card; the bf16 copy is the fp32 one cast,
     and keeps the parameters the model holds in fp32), at its config's
     depth or cut to ``n_layers``."""
     import torch
@@ -2459,6 +2793,7 @@ def main():
     launches = {k: 0 for k in SOURCES}
     launches32 = dict(launches)
     served = []                        # (name, bf16, fp32) of GATEWAY_PATHS
+    llama_calls = None                 # a llama3.2-1b decode step's host calls
     for name, n_layers, cross_layers, edge, batched_layers in PATHS:
         m32, m16 = model_pair(name, n_layers)
         expect = needs(m32.cfg)
@@ -2480,6 +2815,10 @@ def main():
                     f" to keep the script's time)" if batched_layers
                     else "")).items():
                 total[k] += n
+            if m.dtype == torch.bfloat16 and name == "llama3.2-1b":
+                llama_calls = step_host_calls(m, label)
+            if m.dtype == torch.bfloat16 and m.cfg.rope == "mrope":
+                mrope_check(m, llama_calls)
             print(f"[{label}] seconds: "
                   + (f"edge {t1 - t0:.1f}, fabric {t2 - t1:.1f}, "
                      if edge else "")
@@ -2488,17 +2827,24 @@ def main():
         if edge:
             where_time_goes(m16, prompts[0])
             cpu_cross_check(m32, prompts[1], cross_layers or m32.cfg.n_layers)
+        if m32.cfg.family == "vlm":
+            vlm_roundtrip((m32, m16))
         if name in GATEWAY_PATHS:
             served.append((name, m16, m32))
         del m32, m16
         torch.cuda.empty_cache()
+    for name in WIDE_PATHS:
+        wide_path(name, launches, launches32)
+    serve_check()
     # the gateway phases come last: after one, the profiler loses device
     # events from its windows (PERF.md §7), and every profiler reading
-    # above is taken before
-    for name, m16, m32 in served:
+    # above is taken before; the first also runs the console against its
+    # fleet
+    for i, (name, m16, m32) in enumerate(served):
         for m, total in ((m16, launches), (m32, launches32)):
             label = f"{name} {'bf16' if m is m16 else 'fp32'}"
-            for k, n in gateway_path(m, label, smi).items():
+            for k, n in gateway_path(m, label, smi,
+                                     console=i == 0 and m is m16).items():
                 total[k] += n
     # the chaos phase, after the gateway phases, on gemma3-270m
     for name, m16, m32 in served:

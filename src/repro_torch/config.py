@@ -1,6 +1,6 @@
-"""Model and prompt-cache configuration (dense, SSM and MLA models).
+"""Model and prompt-cache configuration (dense, VLM, SSM and MLA models).
 
-A copy of the dense, SSM, MoE and MLA parts of ``repro.config``: the
+A copy of the dense, VLM, SSM, MoE and MLA parts of ``repro.config``: the
 same field names and defaults, so :func:`repro_torch.core.keys.model_meta`
 hashes a config to the same bytes as the reference does.
 """
@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -46,8 +46,8 @@ class MLAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # this port runs "dense", "ssm" and "moe"
-                                  # with no MoE layer
+    family: str                   # this port runs "dense", "vlm", "ssm" and
+                                  # "moe" with no MoE layer
     n_layers: int
     d_model: int
     n_heads: int
@@ -60,8 +60,9 @@ class ModelConfig:
     norm: str = "rmsnorm"         # rmsnorm | layernorm
     qk_norm: bool = False
     attn_bias: bool = False
-    rope: str = "standard"        # standard | none
+    rope: str = "standard"        # standard | mrope | none
     rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, ...] = ()
     tie_embeddings: bool = False
     window: Optional[int] = None  # sliding-window size (None = full attention)
     n_meta_tokens: int = 0        # learned prefix tokens (not in this port)
@@ -117,6 +118,9 @@ class ModelConfig:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=min(self.ssm.d_state, 16),
                 head_dim=16, chunk=16)
+        if self.rope == "mrope":
+            # 3 sections summing to head_dim // 2 = 16
+            kw["mrope_sections"] = (4, 6, 6)
         if self.window is not None:
             kw["window"] = min(self.window, 16)
         return self.replace(**kw)

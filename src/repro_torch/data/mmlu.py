@@ -11,12 +11,35 @@ one process to the next only under a fixed ``PYTHONHASHSEED``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 
 from repro_torch.core.segments import PromptSegments
 from repro_torch.data.tokenizer import WordHashTokenizer
+
+MMLU_DOMAINS = [
+    "abstract_algebra", "anatomy", "astronomy", "business_ethics",
+    "clinical_knowledge", "college_biology", "college_chemistry",
+    "college_computer_science", "college_mathematics", "college_medicine",
+    "college_physics", "computer_security", "conceptual_physics",
+    "econometrics", "electrical_engineering", "elementary_mathematics",
+    "formal_logic", "global_facts", "high_school_biology",
+    "high_school_chemistry", "high_school_computer_science",
+    "high_school_european_history", "high_school_geography",
+    "high_school_government_and_politics", "high_school_macroeconomics",
+    "high_school_mathematics", "high_school_microeconomics",
+    "high_school_physics", "high_school_psychology",
+    "high_school_statistics", "high_school_us_history",
+    "high_school_world_history", "human_aging", "human_sexuality",
+    "international_law", "jurisprudence", "logical_fallacies",
+    "machine_learning", "management", "marketing", "medical_genetics",
+    "miscellaneous", "moral_disputes", "moral_scenarios", "nutrition",
+    "philosophy", "prehistory", "professional_accounting",
+    "professional_law", "professional_medicine", "professional_psychology",
+    "public_relations", "security_studies", "sociology",
+    "us_foreign_policy", "virology", "world_religions",
+]
 
 _WORDS = ("the of and to in is that it for on with as are this be at or "
           "from by not have but they which one all were when we there can "
@@ -87,3 +110,9 @@ class MMLUGenerator:
                           instruction_len=len(instr_ids),
                           example_lens=example_lens,
                           answer=str(rng.choice(list("ABCD"))))
+
+    def stream(self, n_prompts: int, domains: Sequence[str] = None):
+        """Round-robin over domains — the paper's 6434-prompt workload."""
+        domains = list(domains or MMLU_DOMAINS)
+        for i in range(n_prompts):
+            yield self.prompt(domains[i % len(domains)], i // len(domains))

@@ -8,7 +8,9 @@ through ``flash_decode`` with ``kv_len=pos+1``, the mask the reference's
 ``ring_positions(size, pos+1)`` gives a linear cache. ``pos`` is one int
 for the batch, or a ``[B]`` int tensor on the device, one position a row
 (the batched engine's slots): rope, the cache write and ``kv_len`` then
-follow each row's position, in one launch each.
+follow each row's position, in one launch each. Under M-RoPE (qwen2-vl)
+positions are ``[3, B, S]``; a decode step's three components are equal,
+as in the reference.
 
 Unlike the reference, these functions write the new K/V entries into
 the cache tensors IN PLACE and the kernels read that layer's cache slice
@@ -23,7 +25,8 @@ import torch
 
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_prefill import flash_prefill
-from repro_torch.models.common import apply_rope, dense_init, rmsnorm
+from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
+                                       rmsnorm)
 
 Params = Dict[str, torch.Tensor]
 Pos = Union[int, torch.Tensor]     # one position, or one a row ([B])
@@ -55,7 +58,8 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
-    """x: [B, S, D]; positions: [B, S] int."""
+    """x: [B, S, D]; positions: [B, S] int (standard rope) or [3, B, S]
+    (M-RoPE)."""
     q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -64,6 +68,9 @@ def project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     if cfg.rope == "standard":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     elif cfg.rope != "none":
         raise NotImplementedError(f"rope {cfg.rope!r} is not in this port")
     return q, k, v
@@ -106,12 +113,14 @@ def cache_write_prefill(cache, k_new, v_new, start_pos: int, window) -> None:
     cache["v"][:, start_pos:start_pos + S] = v_new
 
 
-def decode_positions(pos: Pos, B: int, device) -> torch.Tensor:
-    """[B, 1] positions of a one-token step: ``pos`` for every row, or
-    row b's ``pos[b]``."""
+def decode_positions(cfg, pos: Pos, B: int, device) -> torch.Tensor:
+    """[B, 1] positions of a one-token step (``[3, B, 1]`` under M-RoPE,
+    the three components equal): ``pos`` for every row, or row b's
+    ``pos[b]``. A position tensor stays on the device (a view, no copy)."""
+    shape = (3, B, 1) if cfg.rope == "mrope" else (B, 1)
     if torch.is_tensor(pos):
-        return pos[:, None]
-    return torch.full((B, 1), pos, dtype=torch.long, device=device)
+        return pos[:, None].expand(shape)
+    return torch.full(shape, pos, dtype=torch.long, device=device)
 
 
 def write_rows(leaf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
@@ -156,7 +165,7 @@ def attn_decode(p: Params, cfg, x1, pos: Pos, cache, *,
     """One-token decode: x1 [B, 1, D] at position ``pos`` (an int, or an
     int32 ``[B]`` tensor with ``kv_max`` a host bound of ``pos + 1``).
     Returns ``(y, cache)``; ``cache`` is updated in place."""
-    positions = decode_positions(pos, x1.shape[0], x1.device)
+    positions = decode_positions(cfg, pos, x1.shape[0], x1.device)
     q, k1, v1 = project_qkv(p, cfg, x1, positions)
     w = window or cfg.window
     cache_write_decode(cache, k1, v1, pos, w)

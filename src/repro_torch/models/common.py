@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, activations, RoPE, inits.
+"""Shared building blocks: norms, activations, RoPE and M-RoPE, inits.
 
 Counterpart of ``repro.models.common``. Traps the port keeps:
 
@@ -10,7 +10,8 @@ Counterpart of ``repro.models.common``. Traps the port keeps:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from functools import lru_cache
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,14 +20,14 @@ import torch.nn.functional as F
 def dense_init(shape, dtype, gen: Optional[torch.Generator],
                scale: Optional[float] = None, device=None) -> torch.Tensor:
     """Truncated normal in [-2, 2] times 1/sqrt(fan_in) (fan_in is the
-    first axis), as the reference initialises its dense weights. With no
-    generator the tensor is allocated and left unset, for a caller that
-    loads a state dict into it next."""
+    first axis), as the reference initialises its dense weights, drawn on
+    the generator's device. With no generator the tensor is allocated and
+    left unset, for a caller that loads a state dict into it next."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.empty(shape, dtype=torch.float32)
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * std).to(device=device, dtype=dtype)
 
@@ -34,7 +35,8 @@ def dense_init(shape, dtype, gen: Optional[torch.Generator],
 def embed_init(shape, dtype, gen: Optional[torch.Generator], device=None):
     if gen is None:
         return torch.empty(shape, dtype=dtype, device=device)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32) * 0.02
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * 0.02
     return w.to(device=device, dtype=dtype)
 
 
@@ -85,6 +87,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     half = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)
     ang = positions[..., None].float() * freqs          # [B, S, half]
+    cos = torch.cos(ang)[..., None, :]                  # [B, S, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+@lru_cache(maxsize=None)
+def mrope_band(sections: Tuple[int, ...], device) -> torch.Tensor:
+    """The position component each frequency band reads, ``[half]`` int
+    on ``device``: section i's bands read component i. Built once per
+    (sections, device) and reused by every call."""
+    return torch.repeat_interleave(
+        torch.arange(len(sections)), torch.tensor(sections)).to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]):
+    """Multimodal RoPE (qwen2-vl). x: [B, S, H, dh]; positions3: [3, B, S]
+    (int), the (temporal, height, width) components; ``sections`` sum to
+    dh // 2 and give each component its run of frequency bands. With the
+    three components equal (text) this is :func:`apply_rope`."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to {half}")
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    band = mrope_band(tuple(sections), x.device)
+    pos = positions3.index_select(0, band).movedim(0, -1)   # [B, S, half]
+    ang = pos.float() * freqs
     cos = torch.cos(ang)[..., None, :]                  # [B, S, 1, half]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()

@@ -134,7 +134,7 @@ def mla_decode(p: Params, cfg, x1, pos: Pos, cache, *,
     int, or an int32 ``[B]`` tensor with ``kv_max`` a host bound of
     ``pos + 1``). Returns ``(y, cache)``; ``cache`` is updated in place."""
     m = cfg.mla
-    positions = decode_positions(pos, x1.shape[0], x1.device)
+    positions = decode_positions(cfg, pos, x1.shape[0], x1.device)
     q_nope, q_rope = _queries(p, cfg, x1, positions)
     ckv1, krope1 = _latents(p, cfg, x1, positions)
     write_rows(cache["ckv"], ckv1[:, 0], pos)

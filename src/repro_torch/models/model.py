@@ -1,6 +1,6 @@
-"""Model facade for decoder-only models (the dense and SSM families, and
-deepseek-v3 cut to its dense MLA layers): prefill with prefix resume, and
-one-token decode.
+"""Model facade for decoder-only models (the dense, VLM and SSM families,
+and deepseek-v3 cut to its dense MLA layers): prefill with prefix resume,
+and one-token decode.
 
 Counterpart of ``repro.models.model.Model`` (serving modes only). The
 parameters live in this ``nn.Module`` under the reference's tree paths,
@@ -42,13 +42,16 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Model(nn.Module):
-    """``seed`` draws the random weights; ``seed=None`` allocates them
-    unset, for a caller that loads a state dict next."""
+    """``seed`` draws the random weights with a generator on the model's
+    device: on the card they are drawn there, not on the host, and differ
+    from the CPU's for the same seed. ``seed=None`` allocates them unset,
+    for a caller that loads a state dict next."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, seed: Optional[int] = 0):
         super().__init__()
-        if cfg.family not in ("dense", "ssm", "moe") or cfg.n_meta_tokens:
+        if cfg.family not in ("dense", "vlm", "ssm", "moe") or \
+                cfg.n_meta_tokens:
             raise NotImplementedError(
                 f"family {cfg.family!r} (meta tokens: {cfg.n_meta_tokens}) "
                 "is not in this port yet (ROADMAP Queue 1, item 9)")
@@ -60,7 +63,8 @@ class Model(nn.Module):
         self.segment_specs = tf.segments_for(cfg)
         self.dtype = dtype
         self.device = resolve_device(device)
-        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        gen = None if seed is None else \
+            torch.Generator(device=self.device).manual_seed(seed)
         vp = padded_vocab(cfg.vocab)
         self.embed = nn.Parameter(
             embed_init((vp, cfg.d_model), dtype, gen, device=self.device),
@@ -115,7 +119,9 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, inputs, cache, start_pos: int = 0, last_index=None,
                 *, resume: bool = False):
-        """Prefill ``inputs["tokens"]`` ([B, S]) at ``start_pos``; with
+        """Prefill ``inputs["tokens"]`` ([B, S]) at ``start_pos``, or a
+        VLM's ``inputs["embeds"]`` ([B, S, D]) at ``inputs["positions"]``
+        ([3, B, S]), the stub vision encoder's merged embeddings; with
         ``start_pos`` > 0 the cache already holds that prefix (the paper's
         partial-match resume; ``resume`` only matters for meta-token
         models, which this port does not run). ``last_index`` picks the
@@ -141,12 +147,21 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill_stream_embed(self, inputs, start_pos: int):
         """The suffix's hidden states and positions: ``(x, positions,
-        eff_start)``, as :meth:`prefill` computes them."""
+        eff_start)``, as :meth:`prefill` computes them. A VLM's embeddings
+        come with their own positions; text tokens under M-RoPE take
+        ``[3, B, S]`` positions, the three components equal."""
+        eff_start = start_pos + self.cfg.n_meta_tokens
+        if self.cfg.family == "vlm" and "embeds" in inputs:
+            x = torch.as_tensor(inputs["embeds"], device=self.device)
+            positions = torch.as_tensor(inputs["positions"], dtype=torch.long,
+                                        device=self.device)
+            return x.to(self.dtype), positions, eff_start
         tokens = self._tokens(inputs["tokens"])
         B, S = tokens.shape
         x = F.embedding(tokens, self.embed)
         pos1 = start_pos + torch.arange(S, device=self.device)
-        return x, pos1.expand(B, S), start_pos + self.cfg.n_meta_tokens
+        shape = (3, B, S) if self.cfg.rope == "mrope" else (B, S)
+        return x, pos1.expand(shape), eff_start
 
     @torch.no_grad()
     def prefill_stream_group(self, x, positions, cache_group, eff_start: int,
@@ -179,7 +194,8 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos, kv_max: Optional[int] = None):
         """tokens: [B, 1]; pos: the tokens' position, an int for every row
-        or an int32 ``[B]`` tensor on the model's device, one a row; then
+        or an int32 ``[B]`` tensor on the model's device, one a row (under
+        M-RoPE all three components take it, as in the reference); then
         ``kv_max`` (a host int, default the cache's length) bounds every
         ``pos + 1`` and sizes the decode kernels' grids. Returns
         ``(logits [B, V] fp32, cache)``."""

@@ -33,7 +33,9 @@ def init_ssm(cfg, dtype, gen: torch.Generator, device=None) -> Params:
     conv_dim = di + 2 * s.n_groups * s.d_state
     d_in_proj = 2 * di + 2 * s.n_groups * s.d_state + H
     lo, hi = math.log(0.001), math.log(0.1)
-    dt = torch.exp(torch.rand((H,), generator=gen) * (hi - lo) + lo)
+    dt = torch.exp(torch.rand((H,), generator=gen,
+                              device=None if gen is None else gen.device)
+                   * (hi - lo) + lo)
     f32 = dict(dtype=torch.float32, device=device)
     return {
         "in_proj": dense_init((d, d_in_proj), dtype, gen, device=device),

@@ -31,7 +31,7 @@ class Segment(NamedTuple):
 def segments_for(cfg) -> List[Segment]:
     if cfg.family == "ssm":
         return [Segment("ssm", cfg.n_layers, 0)]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):     # a VLM's text stack is dense
         return [Segment("dense", cfg.n_layers, cfg.d_ff)]
     if cfg.family == "moe":
         fk = cfg.moe.first_k_dense

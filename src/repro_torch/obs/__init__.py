@@ -1,8 +1,7 @@
 """Observability for the port: tracing, metrics, export, flight recorder,
-decision ledger and calibration.
+decision ledger, calibration and the fleet console.
 
-The port's copy of ``repro.obs`` less its fleet console
-(``repro/obs/console.py``, not ported yet). Like the reference's, this
+The port's copy of ``repro.obs``. Like the reference's, this
 package imports nothing but the standard library and
 :mod:`repro_torch.clock`, never ``torch``: the peer daemons, the
 gateway's HTTP thread and the supervisor import it.
@@ -20,7 +19,10 @@ gateway's HTTP thread and the supervisor import it.
 * :mod:`~repro_torch.obs.ledger` — the planner's decision records, closed
   with the realized outcome for regret and savings;
 * :mod:`~repro_torch.obs.calibrate` — estimate-vs-actual error a peer,
-  drift alarms, and the Bloom false-positive probe.
+  drift alarms, and the Bloom false-positive probe;
+* :mod:`~repro_torch.obs.console` — the operator's terminal view of a
+  gateway and its daemons (``python -m repro_torch.obs.console``); not
+  imported here, it is an entry point.
 """
 from repro_torch.obs.calibrate import CalibrationTracker  # noqa: F401
 from repro_torch.obs.export import (  # noqa: F401

@@ -71,9 +71,12 @@ class InferenceEngine:
         return self.model.supports_layer_stream
 
     def _pad_inputs(self, inputs: Dict[str, np.ndarray], start_pos: int = 0):
-        """Pad the token axis to a bucket; returns (padded, true_len)."""
-        tokens = np.asarray(inputs["tokens"])
-        n = tokens.shape[1]
+        """Pad the sequence axis to a bucket; returns (padded, true_len).
+        Tokens are edge-padded; a VLM's embeddings are padded with zeros
+        and their ``[3, B, S]`` positions edge-padded, as the reference
+        pads them."""
+        key = "embeds" if "embeds" in inputs else "tokens"
+        n = np.shape(inputs[key])[1]
         room = self.max_len - start_pos
         if n > room:
             raise ValueError(f"{n} tokens at position {start_pos} do not fit "
@@ -83,13 +86,23 @@ class InferenceEngine:
         b = min(_bucket(n), room)
         if b == n:
             return inputs, n
+        pad = b - n
         out = dict(inputs)
-        out["tokens"] = np.pad(tokens, ((0, 0), (0, b - n)), mode="edge")
+        if key == "tokens":
+            out["tokens"] = np.pad(np.asarray(inputs["tokens"]),
+                                   ((0, 0), (0, pad)), mode="edge")
+        else:
+            out["embeds"] = np.pad(np.asarray(inputs["embeds"]),
+                                   ((0, 0), (0, pad), (0, 0)))
+            out["positions"] = np.pad(np.asarray(inputs["positions"]),
+                                      ((0, 0), (0, 0), (0, pad)), mode="edge")
         return out, n
 
     # ------------------------------------------------------------------
     def start(self, inputs) -> EngineState:
-        """Fresh prefill of the full prompt (cache miss)."""
+        """Fresh prefill of the full prompt (cache miss). Here and in the
+        resumes ``inputs`` holds ``tokens`` [B, S], or a VLM's ``embeds``
+        [B, S, D] and ``positions`` [3, B, S] (numpy arrays)."""
         return self._run_prefill(inputs, self.new_cache(), 0, resume=False)
 
     def resume(self, inputs, cache, n_prefix: int) -> EngineState:
@@ -207,7 +220,8 @@ class BatchedEngine:
     takes the positions as one int32 ``[B]`` tensor on the device, and
     the decode kernels read each row's ``kv_len`` from it: every slot
     decodes at its own position in one launch per layer, whatever the
-    batch size.
+    batch size. Under M-RoPE (qwen2-vl) every component of a row's
+    position is that row's entry of the same tensor, a view on the device.
 
     Slot lifecycle (driven by the Scheduler):
       ``prefill_slots``  — batched prefill of fresh prompts

@@ -44,6 +44,15 @@ PREFILL_CASES = [
     (1, 40, 64, 4, 1, 64, 40, 8),          # rows at qpos >= 72 see no key
     (1, 37, 512, 4, 1, 256, 300, None),    # gemma3-270m widths, ragged Sq
     (4, 512, 512, 4, 1, 256, 0, None),     # the batched fresh prefill, B=4
+    # the dense configs' widths: (H, KV, dh), cold and resumed
+    (1, 291, 1024, 32, 8, 64, 0, None),    # llama3.2-1b
+    (1, 31, 1024, 32, 8, 64, 253, None),
+    (1, 291, 1024, 12, 2, 128, 0, None),   # qwen2-vl-2b
+    (1, 31, 1024, 12, 2, 128, 253, None),
+    (1, 291, 1024, 32, 8, 128, 0, None),   # qwen3-4b
+    (1, 291, 1024, 32, 4, 128, 0, None),   # yi-6b
+    (1, 291, 1024, 48, 8, 128, 0, None),   # nemotron-4-15b
+    (4, 306, 512, 32, 8, 64, 0, None),     # llama3.2-1b batched, B=4
 ]
 
 DECODE_CASES = [
@@ -61,6 +70,13 @@ DECODE_CASES = [
     (1, 1024, 4, 1, 256, 256, 700, 100),   # gemma3-270m with a window
     (2, 2048, 4, 1, 128, 128, 2000, None),  # 63 splits per head group
     (1, 4096, 4, 1, 64, 64, 4096, None),   # 128 splits in one merge
+    # the dense configs' widths: (H, KV, dh)
+    (1, 1024, 32, 8, 64, 64, 300, None),    # llama3.2-1b
+    (4, 1024, 32, 8, 64, 64, 1024, None),
+    (1, 1024, 12, 2, 128, 128, 300, None),  # qwen2-vl-2b
+    (1, 1024, 32, 8, 128, 128, 300, None),  # qwen3-4b
+    (1, 1024, 32, 4, 128, 128, 300, None),  # yi-6b
+    (1, 1024, 48, 8, 128, 128, 300, None),  # nemotron-4-15b
 ]
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -183,6 +199,8 @@ PER_ROW_DECODE_CASES = [
     (200, 16, 1, 576, 512, (150, 0), None, 150),            # MLA latent widths
     (300, 4, 4, 128, 128, (0, 0, 0), None, 0),              # every row empty
     (1024, 4, 1, 256, 256, (0, 1, 300, 1024), 100, 512),    # a row past kv_max
+    (1024, 32, 8, 64, 64, (0, 1, 300, 1024), None, 1024),   # llama3.2-1b slots
+    (1024, 12, 2, 128, 128, (0, 1, 300, 1024), None, 1024),  # qwen2-vl-2b
 ]
 
 
@@ -354,7 +372,8 @@ def test_a_larger_batch_reuses_the_reserved_counters(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["gemma3-270m", "deepseek-v3-671b"])
+@pytest.mark.parametrize("name", ["gemma3-270m", "deepseek-v3-671b",
+                                  "llama3.2-1b", "qwen2-vl-2b"])
 def test_batched_decode_is_one_launch_a_layer(name, cuda_device):
     """A decode step of four slots at their own positions (one inactive)
     launches the decode kernel once a layer and equals each row decoded
@@ -605,3 +624,20 @@ def test_gateway_on_the_card_matches_a_direct_run(cuda_device):
     assert outs[1]["cache"]["matched_tokens"] == len(segs.token_ids)
     for out in outs:
         assert out["choices"][0]["token_ids"] == req.stats.output_tokens
+
+
+@pytest.mark.cuda
+def test_weights_are_drawn_on_the_card_from_the_seed(cuda_device):
+    """``Model(seed=...)`` on the card draws with a generator there: the
+    same seed gives the same weights, another seed others, and the dense
+    weights keep the reference's truncated-normal bound (2 / sqrt(fan_in))."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("llama3.2-1b").reduced()
+    a, b = (Model(cfg, device=cuda_device, seed=3) for _ in range(2))
+    c = Model(cfg, device=cuda_device, seed=4)
+    for name, t in a.state_dict().items():
+        assert t.is_cuda and torch.equal(t, b.state_dict()[name]), name
+    wq = a.state_dict()["segments.0.attn.wq"]
+    assert not torch.equal(wq, c.state_dict()["segments.0.attn.wq"])
+    assert wq.abs().max() <= 2.0 / cfg.d_model ** 0.5 + 1e-6

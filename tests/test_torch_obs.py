@@ -494,7 +494,8 @@ def test_traced_request_tree_reaches_the_daemon(world):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("module", [
-    "repro_torch.obs", "repro_torch.chaos", "repro_torch.clock",
+    "repro_torch.obs", "repro_torch.obs.console", "repro_torch.chaos",
+    "repro_torch.clock",
     "repro_torch.core.net.daemon", "repro_torch.core.net.supervisor"])
 def test_daemon_side_modules_import_without_torch(module):
     code = ("import importlib, sys;"
