@@ -23,12 +23,21 @@ lengths in every run. It
    kernels also at the (H, KV, dh) of llama3.2-1b, qwen2-vl-2b, qwen3-4b,
    yi-6b and nemotron-4-15b (a 291-token prefill, a 31-token resume at
    253, a decode at 300 keys; timed in bf16 at the prefill and the
-   decode);
-4. runs the paper's edge request on full-width gemma3-270m, on full-width,
-   full-depth mamba2-780m, on full-width deepseek-v3-671b cut to its
-   three dense MLA layers, and on full-width, full-depth llama3.2-1b and
+   decode), and at hymba-1.5b's (25/5, 64) as its ring feeds them:
+   flash_prefill on the linearised ring with the window of 1024 (cold
+   prefills of 128 + 291 and 128 + 1095 rows, 31-token resumes over 381
+   and over 1024 ring slots), the ring gather timed beside it, and
+   flash_decode over a full ring with no window (B=1, and B=4 rows of
+   their own kv_len); ssd_scan also at hymba's SSM widths (50 heads,
+   state 16, chunk 64);
+4. runs the paper's edge request on full-width gemma3-270m, on full-width
+   mamba2-780m cut to 24 of its 48 layers (for the script's time), on
+   full-width deepseek-v3-671b cut to its
+   three dense MLA layers, on full-width, full-depth llama3.2-1b and
    qwen2-vl-2b (text prompts: M-RoPE with its three position components
-   equal) (random weights from a seed), each in bf16 and
+   equal), and on full-width, full-depth hymba-1.5b (a ring KV cache of
+   1024 slots and an SSM state a layer, 128 meta tokens) (random weights
+   from a seed), each in bf16 and
    in fp32: client A misses (Case 1) and uploads, client B resumes a
    partial hit (Case 4), then adopts A's full prompt (Case 5), and a
    poisoned catalog falls back to local prefill; it checks the cases and
@@ -59,18 +68,24 @@ lengths in every run. It
    pays none; fp32 tokens must equal the in-process run's, the launches
    what the requests need, the spans project onto the timings (B's Case 5
    tree holds the daemon's folded spans), and every daemon must exit 0;
+   on hymba-1.5b then a request past the ring's wrap (24-shot prompts of
+   ~1,100 tokens: A's miss, B's Case 4 monolithic and streamed from a
+   prefix that already fills the ring, B's Case 5; fp32 tokens equal to
+   cold);
 5. profiles a prefill and 8 decode steps of each model, then one prefill
    alone (its device time and its attention kernel's share) and the head
    matmul's share of a decode step, and checks the card's fp32 logits
    against the same model on the CPU (mamba2-780m cut to 4 layers there,
-   deepseek-v3-671b to 1, llama3.2-1b and qwen2-vl-2b to 2); on
+   deepseek-v3-671b to 1, llama3.2-1b, qwen2-vl-2b and hymba-1.5b to 2);
+   on
    qwen2-vl-2b the reference's VLM round trip (stub patch embeddings at
    image positions, one prefill against a prefill and a resume, then a
    decode) must agree in fp32 within its test's tolerance;
 6. serves 8 requests over a pool of 4 slots (``BatchedEngine`` and the
    continuous-batching ``Scheduler``) on each of those models and on
    full-width gemma3-1b (mamba2-780m and gemma3-1b cut to 8 layers,
-   llama3.2-1b and qwen2-vl-2b to 4), in bf16 and fp32: prompts cut to
+   llama3.2-1b, qwen2-vl-2b and hymba-1.5b to 4; hymba's fourth request
+   960 tokens, past its ring's wrap), in bf16 and fp32: prompts cut to
    mixed lengths, so slots decode at their own positions and recycle; fp32
    tokens must equal sequential runs; it prints tokens/s, TTFT and TTLT
    percentiles and decode ms per step at B=1 and B=4, and checks that a
@@ -157,9 +172,29 @@ DENSE_WIDTHS = {"llama3.2-1b": (32, 8, 64), "qwen2-vl-2b": (12, 2, 128),
                 "qwen3-4b": (32, 8, 128), "yi-6b": (32, 4, 128),
                 "nemotron-4-15b": (48, 8, 128)}
 DENSE_PREFILL_SHAPES = [(291, 0), (31, 253)]
-# ssd_scan at mamba2-780m's widths: (S, random h0); chunk 256, one B/C group
-SSD_SHAPES = [(271, False), (48, True), (1024, True)]
-SSD_H, SSD_P, SSD_N, SSD_G, SSD_CHUNK = 48, 64, 128, 1, 256
+# hymba-1.5b's attention (H, KV, dh) and window over its ring of 1024
+# slots. flash_prefill reads the ring linearised: (Sq, q_offset) over a
+# buffer of q_offset + Sq keys (the ring's live slots, then the new
+# ones), with the window: the 5-shot edge request's cold prefill of 128 +
+# 291 rows and its 31-token resume at 128 + 253, the 24-shot request's
+# cold 128 + 1095 rows and its 31-token resume past the wrap (1024 ring
+# slots before it); the timed ones. flash_decode over the full ring with
+# no window (B=1), and B=4 rows of their own kv_len
+HYMBA_ATTN, HYMBA_WINDOW = (25, 5, 64), 1024
+HYMBA_PREFILL_SHAPES = [(419, 0), (31, 381), (1223, 0), (31, 1024)]
+HYMBA_PREFILL_TIMED = [(419, 0), (31, 1024)]
+HYMBA_ROW_KV_LENS = [1024, 420, 1024, 700]
+# the resumes' ring gathers: (new keys, the ring's next position): the
+# 5-shot resume at 128 + 253 (not wrapped), the 24-shot one at 128 + 1057
+HYMBA_GATHERS = [(31, 381), (31, 1185)]
+# ssd_scan at its paths' widths: (S, random h0) at each geometry (heads,
+# head dim, state, B/C groups, chunk); mamba2-780m's, then hymba-1.5b's
+# SSM branch (its cold 5-shot prefill of 128 + 291 rows, a 31-token
+# resume, the cold 24-shot prefill of 128 + 1095 rows)
+SSD_GEOS = {"mamba2-780m": (dict(H=48, P=64, N=128, G=1, chunk=256),
+                            [(271, False), (48, True), (1024, True)]),
+            "hymba-1.5b": (dict(H=50, P=64, N=16, G=1, chunk=64),
+                           [(419, False), (31, True), (1223, True)])}
 SSD_TOL = dict(atol=2e-4, rtol=1e-3)           # tests/test_kernels.py:86-89
 MAX_NEW = 16
 # the batched phase: a pool of BATCH slots serves one request per entry of
@@ -216,14 +251,23 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
 # the configurations the paths run: the depth each is cut to (None: the
 # config's own), the depth of the CPU cross-check, whether the edge request
 # runs on it, and the depth of its batched phase (every configuration runs
-# one; mamba2-780m's is cut to keep the script's time: its full-depth
-# decode and one-at-a-time prefills cost ~25 s more in both dtypes)
+# one). mamba2-780m runs 24 of its 48 layers, and its batched phase 8, to
+# keep the script's time (at full depth its edge and fabric phases took
+# 143-159 s of a 869-999 s script once hymba-1.5b joined)
 PATHS = [("gemma3-270m", None, None, True, None),
-         ("mamba2-780m", None, 4, True, 8),
+         ("mamba2-780m", 24, 4, True, 8),
          ("deepseek-v3-671b", 3, 1, True, None),
          ("llama3.2-1b", None, 2, True, 4),
          ("qwen2-vl-2b", None, 2, True, 4),
+         ("hymba-1.5b", None, 2, True, 4),
          ("gemma3-1b", None, None, False, 8)]
+# a windowed model's request past its ring's wrap: WRAP_SHOTS-shot prompts
+# of WRAP_DOMAIN (A: question 0, 1095 tokens; B: question 1, 1057 of its
+# 1088 tokens shared), with 128 meta tokens past hymba's window of 1024,
+# served with WRAP_MAX_LEN; the batched phase cuts A to BATCH_WRAP_CUT
+# tokens for its fourth request
+WRAP_SHOTS, WRAP_DOMAIN, WRAP_MAX_LEN, BATCH_WRAP_CUT = \
+    24, "astronomy", 2048, 960
 # dense configs whose full depth does not fit the card in fp32 and bf16
 # together (nemotron-4-15b: ~62 GB in fp32 alone): full width, cut to
 # WIDE_LAYERS layers, a Case 1 miss and a Case 5 hit in fp32, one bf16
@@ -397,6 +441,22 @@ def kernels_per_call(fn, iters=5):
     return profile_call(fn, iters)[0]
 
 
+def path_launches(cfg, prefills, decode_steps):
+    """Launches by wrapper name of a path of ``prefills`` prefills and
+    ``decode_steps`` decoded tokens: each runs every layer once, through
+    ssd_scan (an SSM, a hybrid) and flash_prefill, and flash_decode or
+    mla_decode (all but an SSM)."""
+    L = cfg.n_layers
+    out = {}
+    if cfg.family in ("ssm", "hybrid"):
+        out["ssd_scan"] = prefills * L
+    if cfg.family != "ssm":
+        out["flash_prefill"] = prefills * L
+        out["mla_decode" if cfg.uses_mla else "flash_decode"] = \
+            decode_steps * L
+    return out
+
+
 def bound(nbytes, flops, dtype):
     t_b, t_f = nbytes / MEM_BW * 1e3, flops / PEAK[dtype] * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -411,10 +471,11 @@ def _err(out, ref, atol, rtol):
 
 
 def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
-                   B=1, timed=True):
+                   B=1, timed=True, window=None):
     """flash_prefill against its plain version over a [B, cache_len, KV, .]
-    cache, at each (Sq, q_offset) with kv_len = q_offset + Sq, each timed
-    unless ``timed`` is False. Returns {(Sq, q_offset): row}."""
+    cache, at each (Sq, q_offset) with kv_len = q_offset + Sq and
+    ``window`` (None for none), each timed unless ``timed`` is False.
+    Returns {(Sq, q_offset): row}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill import (flash_prefill,
@@ -427,7 +488,7 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
     for sq, off in shapes:
         q = torch.randn((B, sq, H, dh), generator=gen).to(dev, dt)
         kv_len = off + sq
-        args = dict(q_offset=off, kv_len=kv_len)
+        args = dict(q_offset=off, kv_len=kv_len, window=window)
         err, ok = _err(flash_prefill(q, k, v, **args),
                        flash_prefill_plain(q, k, v, **args), TOL[dname],
                        TOL[dname])
@@ -436,34 +497,42 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
                                  f"Sq={sq} off={off}: max err {err}")
         if not timed:
             print(f"flash_prefill {tag} {dname} B={B} Sq={sq} q_offset={off}"
-                  f" kv_len={kv_len}: max_abs_err={err:.3g} (tol "
+                  f" kv_len={kv_len} window={window}: max_abs_err="
+                  f"{err:.3g} (tol "
                   f"{TOL[dname]}; not timed)")
             rows[(sq, off)] = dict(max_abs_err=err)
             continue
         ms = device_ms(lambda: flash_prefill(q, k, v, **args))
         call_ms = time_ms(lambda: flash_prefill(q, k, v, **args))
         plain_ms = device_ms(lambda: flash_prefill_plain(q, k, v, **args))
-        # yardstick: SDPA on the live keys with the same causal mask and,
-        # when the queries start at 0, with is_causal (no explicit mask, so
-        # its fused backends may run); the faster call is library_ms
+        # yardstick: SDPA on the live keys with the same causal (and
+        # window) mask and, when the queries start at 0 and no window cuts
+        # a key, with is_causal (no explicit mask, so its fused backends
+        # may run); the faster call is library_ms
         qpos = off + torch.arange(sq, device=dev)
-        mask = torch.arange(kv_len, device=dev)[None, :] <= qpos[:, None]
+        kpos = torch.arange(kv_len, device=dev)[None, :]
+        mask = kpos <= qpos[:, None]
+        if window:
+            mask = mask & (kpos > qpos[:, None] - window)
         qs = q.transpose(1, 2)
         ks, vs = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
         libs = {"sdpa mask": device_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True))}
-        if off == 0:
+        if off == 0 and (not window or kv_len <= window):
             libs["sdpa is_causal"] = device_ms(
                 lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=True, enable_gqa=True))
         lib_name = min(libs, key=libs.get)
         lib_ms = libs[lib_name]
-        pairs = sum(min(kv_len, off + i + 1) for i in range(sq))
+        pairs = sum(min(kv_len, off + i + 1)
+                    - (max(0, off + i + 1 - window) if window else 0)
+                    for i in range(sq))
         nbytes = es * B * (sq * H * (dh + dv) + kv_len * KV * (dh + dv))
         flops = 2 * (dh + dv) * H * pairs * B
         b_ms, b_by = bound(nbytes, flops, dname)
         print(f"flash_prefill {tag} {dname} B={B} Sq={sq} q_offset={off} "
-              f"kv_len={kv_len}: max_abs_err={err:.3g} (tol {TOL[dname]}) "
+              f"kv_len={kv_len} window={window}: max_abs_err={err:.3g} (tol "
+              f"{TOL[dname]}) "
               f"device ms: kernel {ms:.4f} plain {plain_ms:.4f} "
               + " ".join(f"{n} {t:.4f}" for n, t in libs.items())
               + f" bound {b_ms:.5f} ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s,"
@@ -527,7 +596,63 @@ def kernel_checks():
                 + [g["max_abs_err"] for g in got.values()])
             r["max_abs_err"] = max(r["max_abs_err"], decode_check(
                 dname, dt, gen, h, kv, dh, 300, tag, timed)["max_abs_err"])
+        errs = hymba_attention_checks(dname, dt, gen, timed)
+        for name in rows:
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            errs[name])
     return rows
+
+
+def hymba_attention_checks(dname, dt, gen, timed):
+    """Both attention kernels at hymba-1.5b's widths as its ring feeds
+    them (HYMBA_PREFILL_SHAPES on the linearised buffer with the window,
+    decode over the full ring with no window, B=1 and B=4), checked in
+    ``dname`` and timed (the HYMBA_PREFILL_TIMED shapes and the B=1
+    decode) when ``timed``; then, timed, each of HYMBA_GATHERS's ring
+    gathers beside the flash_prefill call it feeds. Returns each kernel's
+    largest error."""
+    import torch
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models.attention import ring_gather
+    h, kv, dh = HYMBA_ATTN
+    tag = f"hymba-1.5b ({h}/{kv}, {dh}) ring"
+    errs = {"flash_prefill": 0.0, "flash_decode": 0.0}
+    for sq, off in HYMBA_PREFILL_SHAPES:
+        got = prefill_checks(dname, dt, gen, h, kv, dh, dh, off + sq,
+                             [(sq, off)], tag, window=HYMBA_WINDOW,
+                             timed=timed and (sq, off) in HYMBA_PREFILL_TIMED)
+        errs["flash_prefill"] = max(errs["flash_prefill"],
+                                    got[(sq, off)]["max_abs_err"])
+    errs["flash_decode"] = max(
+        decode_check(dname, dt, gen, h, kv, dh, HYMBA_WINDOW, tag,
+                     timed)["max_abs_err"],
+        decode_rows_check(dname, dt, gen, h, kv, dh, HYMBA_ROW_KV_LENS,
+                          [None], tag))
+    if not timed:
+        return errs
+    dev = torch.device("cuda")
+    for sq, start in HYMBA_GATHERS:
+        off = min(start, HYMBA_WINDOW)     # the ring's live slots
+        ring = [torch.randn((1, HYMBA_WINDOW, kv, dh), generator=gen).to(
+            dev, dt) for _ in range(2)]
+        new = [torch.randn((1, sq, kv, dh), generator=gen).to(dev, dt)
+               for _ in range(2)]
+        q = torch.randn((1, sq, h, dh), generator=gen).to(dev, dt)
+        kb, vb = (ring_gather(r, n, start) for r, n in zip(ring, new))
+        if kb.shape[1] != off + sq:
+            raise AssertionError(f"ring gather at {start}: {kb.shape[1]} "
+                                 f"keys, not {off + sq}")
+        g_ms = device_ms(lambda: [ring_gather(r, n, start)
+                                  for r, n in zip(ring, new)])
+        k_ms = device_ms(lambda: flash_prefill(
+            q, kb, vb, q_offset=off, kv_len=off + sq, window=HYMBA_WINDOW))
+        nbytes = 2 * 2 * (off + sq) * kv * dh * kb.element_size()
+        print(f"ring gather {tag} {dname} at position {start} (ring "
+              f"{HYMBA_WINDOW} slots, {off} live, {sq} new; k and v): "
+              f"device ms {g_ms:.4f} (bytes bound "
+              f"{nbytes / MEM_BW * 1e3:.5f}) beside its flash_prefill call "
+              f"{k_ms:.4f}; gather / kernel {g_ms / k_ms:.2f}")
+    return errs
 
 
 def decode_check(dname, dt, gen, H, KV, dh, kv_len, tag, timed=True):
@@ -570,24 +695,25 @@ def decode_check(dname, dt, gen, H, KV, dh, kv_len, tag, timed=True):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def decode_rows_check(dname, dt, gen):
+def decode_rows_check(dname, dt, gen, H=H, KV=KV, DH=DH, lens=ROW_KV_LENS,
+                      windows=ROW_WINDOWS, tag="(256, 256)"):
     """flash_decode with one kv_len a row, read from device memory: a pool
-    of len(ROW_KV_LENS) slots at (256, 256) against the plain version, with
-    and without a window. Returns the largest error."""
+    of len(lens) slots (by default at (256, 256), with and without a
+    window) against the plain version. Returns the largest error."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain,
                                                   live_mask)
     dev = torch.device("cuda")
-    B = len(ROW_KV_LENS)
+    B, kv_max = len(lens), max(lens)
     k = torch.randn((B, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
     v = torch.randn((B, CACHE_LEN, KV, DH), generator=gen).to(dev, dt)
     q = torch.randn((B, H, DH), generator=gen).to(dev, dt)
-    lens = torch.tensor(ROW_KV_LENS, dtype=torch.int32, device=dev)
+    row_lens, lens = lens, torch.tensor(lens, dtype=torch.int32, device=dev)
     worst = 0.0
-    for win in ROW_WINDOWS:
-        args = dict(kv_len=lens, window=win, kv_max=max(ROW_KV_LENS))
+    for win in windows:
+        args = dict(kv_len=lens, window=win, kv_max=kv_max)
         err, ok = _err(flash_decode(q, k, v, **args),
                        flash_decode_plain(q, k, v, kv_len=lens, window=win),
                        TOL[dname], TOL[dname])
@@ -601,7 +727,7 @@ def decode_rows_check(dname, dt, gen):
         live = int(live_mask(lens, CACHE_LEN, win, "cpu").sum())
         nbytes = k.element_size() * (2 * q.numel() + 2 * live * KV * DH)
         b_ms, b_by = bound(nbytes, 4 * DH * H * live, dname)
-        print(f"flash_decode {dname} B={B} kv_len per row {ROW_KV_LENS} "
+        print(f"flash_decode {tag} {dname} B={B} kv_len per row {row_lens} "
               f"window={win}: max_abs_err={err:.3g} (tol {TOL[dname]}) "
               f"device ms: kernel {ms:.4f} plain {plain_ms:.4f} sdpa (mask) "
               f"{lib_ms:.4f} bound {b_ms:.5f} ({b_by})")
@@ -723,80 +849,89 @@ def mla_rows_check(dname, dt, gen):
     return worst
 
 
-def ssd_inputs(S, dtype, random_h0, gen):
-    """ssd_scan's inputs as mamba2-780m's prefill gives them: x, B and C
-    are views of one conv output [1, S, H*P + 2*G*N] in the model dtype;
-    dt and A follow the model's init (dt in [0.001, 0.1], A = -1..-48)."""
+def ssd_inputs(S, dtype, random_h0, gen, H, P, N, G, chunk):
+    """ssd_scan's inputs as a prefill of the SSM (``H`` heads of ``P``,
+    state ``N``, ``G`` B/C groups) gives them: x, B and C are views of one
+    conv output [1, S, H*P + 2*G*N] in the model dtype; dt and A follow
+    the model's init (dt in [0.001, 0.1], A = -1..-H)."""
     import math
     import torch
     dev = torch.device("cuda")
-    hp, gn = SSD_H * SSD_P, SSD_G * SSD_N
+    hp, gn = H * P, G * N
     xbc = (torch.randn((1, S, hp + 2 * gn), generator=gen) * 0.5).to(
         dev, dtype)
-    x = xbc[..., :hp].unflatten(-1, (SSD_H, SSD_P))
-    B_ = xbc[..., hp:hp + gn].unflatten(-1, (SSD_G, SSD_N))
-    C_ = xbc[..., hp + gn:].unflatten(-1, (SSD_G, SSD_N))
+    x = xbc[..., :hp].unflatten(-1, (H, P))
+    B_ = xbc[..., hp:hp + gn].unflatten(-1, (G, N))
+    C_ = xbc[..., hp + gn:].unflatten(-1, (G, N))
     lo, hi = math.log(0.001), math.log(0.1)
-    dt = torch.exp(torch.rand((1, S, SSD_H), generator=gen) * (hi - lo)
+    dt = torch.exp(torch.rand((1, S, H), generator=gen) * (hi - lo)
                    + lo).to(dev)
-    A = -torch.arange(1, SSD_H + 1, dtype=torch.float32, device=dev)
-    h0 = torch.randn((1, SSD_H, SSD_P, SSD_N), generator=gen) * 0.2 \
-        if random_h0 else torch.zeros((1, SSD_H, SSD_P, SSD_N))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    h0 = torch.randn((1, H, P, N), generator=gen) * 0.2 \
+        if random_h0 else torch.zeros((1, H, P, N))
     return x, dt, A, B_, C_, h0.to(dev)
 
 
-def ssd_work(S, es):
+def ssd_work(S, es, H, P, N, G, chunk):
     """(bytes, flops) the chunked scan needs for S positions: each input
     read once, each output written once; per chunk of L positions the
     causal half of C.B once per group, and per head the scores times x,
     C.h_in and the state update."""
-    H, P, N, G = SSD_H, SSD_P, SSD_N, SSD_G
     nbytes = (es * S * (H * P + 2 * G * N) + 4 * S * H + 4 * H
               + 4 * S * H * P + 2 * 4 * H * P * N)
     flops = 0
-    for t0 in range(0, S, SSD_CHUNK):
-        L = min(SSD_CHUNK, S - t0)
+    for t0 in range(0, S, chunk):
+        L = min(chunk, S - t0)
         flops += G * L * (L + 1) * N + H * (L * (L + 1) * P + 4 * L * N * P)
     return nbytes, flops
 
 
 def ssd_checks():
-    """ssd_scan against ssd_scan_plain at mamba2-780m's shapes. Returns
-    the row for the JSON line (timed in bf16 at S=271, the cold path)."""
+    """ssd_scan against ssd_scan_plain at each geometry of SSD_GEOS.
+    Returns the row for the JSON line (timed in bf16 at mamba2-780m's
+    S=271, the cold path) and hymba-1.5b's bf16 rows by S."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cpu").manual_seed(2)
     row = {"max_abs_err": 0.0, "library_ms": None}
-    for dname, dt_ in (("float32", torch.float32),
-                       ("bfloat16", torch.bfloat16)):
-        for S, random_h0 in SSD_SHAPES:
-            args = ssd_inputs(S, dt_, random_h0, gen)
-            y, h = ssd_scan(*args, chunk=SSD_CHUNK)
-            yr, hr = ssd_scan_plain(*args, chunk=SSD_CHUNK)
-            torch.cuda.synchronize()
-            err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
-            ok = torch.allclose(y, yr, **SSD_TOL) and \
-                torch.allclose(h, hr, **SSD_TOL)
-            ms = device_ms(lambda: ssd_scan(*args, chunk=SSD_CHUNK))
-            n_k = kernels_per_call(lambda: ssd_scan(*args, chunk=SSD_CHUNK))
-            call_ms = time_ms(lambda: ssd_scan(*args, chunk=SSD_CHUNK))
-            plain_ms = device_ms(lambda: ssd_scan_plain(*args,
-                                                        chunk=SSD_CHUNK))
-            nbytes, flops = ssd_work(S, args[0].element_size())
-            b_ms, b_by = bound(nbytes, flops, dname)
-            print(f"ssd_scan {dname} S={S} h0={'random' if random_h0 else 0}"
-                  f": max_abs_err={err:.3g} (atol 2e-4, rtol 1e-3; max |y| "
-                  f"{yr.abs().max().item():.3g}) device ms: kernel {ms:.4f} "
-                  f"plain {plain_ms:.4f} bound {b_ms:.5f} ({b_by}); "
-                  f"{flops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.3f} of the "
-                  f"bound, {n_k:g} CUDA kernels a call; kernel call "
-                  f"{call_ms:.4f} ms (events)")
-            if not ok:
-                raise AssertionError(f"ssd_scan {dname} S={S}: max err {err}")
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            if dname == "bfloat16" and S == 271:
-                row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by)
+    for name, (geo, shapes) in SSD_GEOS.items():
+        chunk = geo["chunk"]
+        tag = "H={H} P={P} N={N} G={G} chunk={chunk}".format(**geo)
+        for dname, dt_ in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            for S, random_h0 in shapes:
+                args = ssd_inputs(S, dt_, random_h0, gen, **geo)
+                y, h = ssd_scan(*args, chunk=chunk)
+                yr, hr = ssd_scan_plain(*args, chunk=chunk)
+                torch.cuda.synchronize()
+                err = max((y - yr).abs().max().item(),
+                          (h - hr).abs().max().item())
+                ok = torch.allclose(y, yr, **SSD_TOL) and \
+                    torch.allclose(h, hr, **SSD_TOL)
+                ms = device_ms(lambda: ssd_scan(*args, chunk=chunk))
+                n_k = kernels_per_call(lambda: ssd_scan(*args, chunk=chunk))
+                call_ms = time_ms(lambda: ssd_scan(*args, chunk=chunk))
+                plain_ms = device_ms(lambda: ssd_scan_plain(*args,
+                                                            chunk=chunk))
+                nbytes, flops = ssd_work(S, args[0].element_size(), **geo)
+                b_ms, b_by = bound(nbytes, flops, dname)
+                print(f"ssd_scan {name} ({tag}) {dname} S={S} h0="
+                      f"{'random' if random_h0 else 0}"
+                      f": max_abs_err={err:.3g} (atol 2e-4, rtol 1e-3; "
+                      f"max |y| "
+                      f"{yr.abs().max().item():.3g}) device ms: kernel "
+                      f"{ms:.4f} plain {plain_ms:.4f} bound {b_ms:.5f} "
+                      f"({b_by}); {flops / ms / 1e9:.2f} TFLOP/s, "
+                      f"{b_ms / ms:.3f} of the bound, {n_k:g} CUDA kernels "
+                      f"a call; kernel call {call_ms:.4f} ms (events)")
+                if not ok:
+                    raise AssertionError(f"ssd_scan {name} {dname} S={S}: "
+                                         f"max err {err}")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                if dname == "bfloat16" and name == "mamba2-780m" and \
+                        S == 271:
+                    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by)
     return row
 
 
@@ -1076,6 +1211,88 @@ def edge_path(model, label, expect, max_len=1024):
     refs = {"A": r_miss.output_tokens, "B": r_cold_b.output_tokens,
             "C": r_cold_c.output_tokens}
     return launches, str_launches, (p_a, p_b, p_c), refs
+
+
+def wrapped_ring_path(model, label, expect):
+    """A windowed model's edge request past its ring's wrap (WRAP_SHOTS-
+    shot prompts, ``max_len`` WRAP_MAX_LEN): A misses (the cold prefill
+    runs past the wrap) and uploads each range's own state; B resumes a
+    partial hit whose prefix already fills the ring (its cache position
+    past the window), monolithic and streamed; B adopts A's full prompt.
+    The counts are set to 0 just before and read just after, and must be
+    what the requests need; fp32 tokens must equal a cold run's. Returns
+    the launch counts."""
+    collect_profiles()
+    import torch
+    from repro_torch.config import CacheConfig
+    from repro_torch.core.client import EdgeClient
+    from repro_torch.core.server import CacheServer
+    from repro_torch.data.mmlu import MMLUGenerator
+    from repro_torch.data.tokenizer import WordHashTokenizer
+    from repro_torch.obs.ledger import LEDGER
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = model.cfg
+    gen = MMLUGenerator(WordHashTokenizer(cfg.vocab), n_shot=WRAP_SHOTS)
+    p_a, p_b = (gen.prompt(WRAP_DOMAIN, i).segments for i in (0, 1))
+    server = CacheServer(CacheConfig())
+    LEDGER.clear()                     # no learned baseline cuts the stream
+
+    def client(name, srv=server, overlap=False):
+        return EdgeClient(name, InferenceEngine(model, max_len=WRAP_MAX_LEN),
+                          srv, CacheConfig(), overlap=overlap)
+
+    for k in expect:
+        k.launches = 0
+    a, b, s = client("A"), client("B"), client("S", overlap=True)
+    r_miss = a.infer(p_a, MAX_NEW)
+    b.sync_catalog()
+    s.sync_catalog()
+    r_part = b.infer(p_b, MAX_NEW, upload_on_miss=False)
+    LEDGER.clear()
+    r_str = s.infer(p_b, MAX_NEW, upload_on_miss=False)
+    r_full = b.infer(p_a, MAX_NEW, upload_on_miss=False)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in expect}
+    r_cold = client("cold", CacheServer(CacheConfig())).infer(
+        p_b, MAX_NEW, upload_on_miss=False)
+    runs = (("A miss", r_miss), ("B partial, monolithic", r_part),
+            ("B partial, streamed", r_str), ("B full", r_full),
+            ("B cold", r_cold))
+    for tag, r in runs:
+        t = r.timings
+        print(f"[{label}] past the wrap, {tag}: case {r.case} matched "
+              f"{r.matched_tokens}/{r.prompt_tokens} (cache positions "
+              f"{model.cache_len(r.matched_tokens) if r.matched_tokens else 0}"
+              f"/{model.cache_len(r.prompt_tokens)}, ring {cfg.window}) ttft "
+              f"{r.ttft_s * 1e3:.2f} ms ttlt {r.ttlt_s * 1e3:.2f} ms up "
+              f"{r.blob_bytes_up} B down {r.blob_bytes_down} B | fetch "
+              f"{t['fetch_s'] * 1e3:.2f} restore {t['restore_s'] * 1e3:.2f} "
+              f"prefill {t['prefill_s'] * 1e3:.2f} decode "
+              f"{t['decode_s'] * 1e3:.2f} ms "
+              f"({t['decode_s'] / MAX_NEW * 1e3:.2f} ms/tok) upload "
+              f"{t['upload_s'] * 1e3:.2f} ms")
+    agree = {tag: sum(x == y for x, y in zip(r.output_tokens, ref))
+             for tag, r, ref in (
+                 ("resumed_vs_cold", r_part, r_cold.output_tokens),
+                 ("streamed_vs_cold", r_str, r_cold.output_tokens),
+                 ("adopted_vs_miss", r_full, r_miss.output_tokens))}
+    ranges = len(p_a.keys(a.meta))
+    want = path_launches(cfg, ranges + 2, 4 * MAX_NEW)
+    print(f"[{label}] past the wrap: tokens agreeing of {MAX_NEW}: {agree};"
+          f" launches {launches}, the requests need {want}")
+    if [r.case for _, r in runs[:4]] != [1, 4, 4, 5] or not r_str.streamed \
+            or model.cache_len(r_part.matched_tokens) <= cfg.window or \
+            model.cache_len(r_miss.prompt_tokens) <= cfg.window:
+        raise AssertionError(f"[{label}] past the wrap: cases "
+                             f"{[r.case for _, r in runs]}, matched "
+                             f"{r_part.matched_tokens}")
+    if launches != want:
+        raise AssertionError(f"[{label}] past the wrap: launches {launches}")
+    if model.dtype == torch.float32 and min(agree.values()) != MAX_NEW:
+        raise AssertionError(f"[{label}] past the wrap: tokens differ "
+                             f"{agree}")
+    return launches
 
 
 def trace_check(label, runs):
@@ -1451,18 +1668,12 @@ def fabric_path(model, label, expect, prompts, refs, max_len=1024):
           f"of {MAX_NEW}: {agree}")
     if model.dtype == torch.float32 and min(agree.values()) != MAX_NEW:
         raise AssertionError(f"[{label}] fabric tokens differ: {agree}")
-    cfg = model.cfg
-    L = cfg.n_layers
     prefills = sum(res.matched_tokens < res.prompt_tokens
                    for _, res in runs)
-    if model.has_recurrent_state:
-        ranges = len(p_a.keys(a.meta, ccfg.max_ranges, ccfg.range_stride))
-        want = {k.__name__: 0 for k in expect}
-        want["ssd_scan"] = (prefills + ranges - 1) * L
-    else:
-        want = {"flash_prefill": prefills * L,
-                ("mla_decode" if cfg.uses_mla else "flash_decode"):
-                    len(runs) * MAX_NEW * L}
+    if model.has_recurrent_state:      # A's shorter ranges at upload
+        prefills += len(p_a.keys(a.meta, ccfg.max_ranges,
+                                 ccfg.range_stride)) - 1
+    want = path_launches(model.cfg, prefills, len(runs) * MAX_NEW)
     if launches != want:
         raise AssertionError(f"[{label}] fabric launches {launches}, the "
                              f"requests need {want}")
@@ -1500,7 +1711,7 @@ def batched_path(model, label, max_len=1024):
     cfg = model.cfg
     L = cfg.n_layers
     kernels = (flash_prefill, flash_decode, ssd_scan, mla_decode)
-    decode_k = None if model.has_recurrent_state else \
+    decode_k = None if cfg.family == "ssm" else \
         mla_decode if cfg.uses_mla else flash_decode
     gen = MMLUGenerator(WordHashTokenizer(cfg.vocab), n_shot=5)
     prompts = []
@@ -1508,6 +1719,11 @@ def batched_path(model, label, max_len=1024):
         toks = np.asarray(gen.prompt(BATCH_DOMAINS[i % len(BATCH_DOMAINS)],
                                      i).segments.token_ids, np.int32)
         prompts.append(toks[:cut_to])
+    if cfg.window:                     # one request past the ring's wrap
+        toks = MMLUGenerator(WordHashTokenizer(cfg.vocab),
+                             n_shot=WRAP_SHOTS).prompt(WRAP_DOMAIN, 0)
+        prompts[3] = np.asarray(toks.segments.token_ids,
+                                np.int32)[:BATCH_WRAP_CUT]
     eng = BatchedEngine(model, max_len, BATCH)
     Scheduler(eng).run([Request(tokens=p, max_new_tokens=2)       # warm-up
                         for p in prompts[:BATCH]])
@@ -1550,10 +1766,11 @@ def batched_path(model, label, max_len=1024):
     if model.dtype == torch.float32 and outs != seq:
         raise AssertionError(f"[{label}] batched tokens differ from "
                              f"sequential runs: {agree}")
-    if decode_k is None:
-        want = {"ssd_scan": len(prompts) * L}
-    else:
-        want = {decode_k.__name__: sched.n_steps * L}
+    # a recurrent state takes one exact prefill a request; padded batched
+    # prefills launch flash_prefill once a layer per batch
+    want = path_launches(cfg, len(prompts), sched.n_steps)
+    if not model.has_recurrent_state:
+        del want["flash_prefill"]
         n_pre = launches["flash_prefill"]
         if n_pre <= 0 or n_pre % L:
             raise AssertionError(f"[{label}] flash_prefill launched {n_pre}"
@@ -2752,6 +2969,8 @@ def model_pair(name, n_layers=None):
     m16.load_state_dict(m32.state_dict())
     n = sum(t.numel() for t in m32.parameters()) / 1e6
     extra = {"ssm": cfg.ssm} if cfg.family == "ssm" else \
+        {"ssm": cfg.ssm, "window": cfg.window,
+         "meta_tokens": cfg.n_meta_tokens} if cfg.family == "hybrid" else \
         {"mla": cfg.mla, "dense_ff": cfg.moe.dense_ff} if cfg.uses_mla else {}
     print(f"model {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
           f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.dh} ff={cfg.d_ff} "
@@ -2780,21 +2999,24 @@ def main():
     rows["ssd_scan"] = ssd_checks()
     rows["mla_decode"] = mla_checks()
 
+    wrappers = {k.__name__: k for k in (flash_prefill, flash_decode,
+                                        ssd_scan, mla_decode)}
+
     def needs(cfg):
-        """Launches each path needs: 4 requests of MAX_NEW decode steps;
-        3 prefills with a KV cache (A's miss, B's suffix, the fallback),
-        6 with a recurrent state (and A's 3 shorter ranges at upload)."""
-        L, steps = cfg.n_layers, 4 * MAX_NEW
-        if cfg.family == "ssm":
-            return {ssd_scan: 6 * L}
-        decode = mla_decode if cfg.uses_mla else flash_decode
-        return {flash_prefill: 3 * L, decode: steps * L}
+        """Launches each path needs, by wrapper: 4 requests of MAX_NEW
+        decode steps; 3 prefills with a KV cache (A's miss, B's suffix,
+        the fallback), 6 with a recurrent state (and A's 3 shorter ranges
+        at upload)."""
+        recurrent = cfg.family in ("ssm", "hybrid")
+        return {wrappers[n]: c for n, c in path_launches(
+            cfg, 6 if recurrent else 3, 4 * MAX_NEW).items()}
 
     launches = {k: 0 for k in SOURCES}
     launches32 = dict(launches)
     served = []                        # (name, bf16, fp32) of GATEWAY_PATHS
     llama_calls = None                 # a llama3.2-1b decode step's host calls
     for name, n_layers, cross_layers, edge, batched_layers in PATHS:
+        t_model = clock.monotonic()
         m32, m16 = model_pair(name, n_layers)
         expect = needs(m32.cfg)
         for m, total in ((m16, launches), (m32, launches32)):
@@ -2807,6 +3029,10 @@ def main():
                 for k in got:
                     total[k] += got[k] + streamed[k] + fab[k]
             t2 = clock.monotonic()
+            if m.cfg.window:
+                for k, n in wrapped_ring_path(m, label, expect).items():
+                    total[k] += n
+            t3 = clock.monotonic()
             full = m
             if batched_layers:
                 m = cut_model(m, batched_layers)
@@ -2822,7 +3048,8 @@ def main():
             print(f"[{label}] seconds: "
                   + (f"edge {t1 - t0:.1f}, fabric {t2 - t1:.1f}, "
                      if edge else "")
-                  + f"batched {clock.monotonic() - t2:.1f}")
+                  + (f"past the wrap {t3 - t2:.1f}, " if m.cfg.window else "")
+                  + f"batched {clock.monotonic() - t3:.1f}")
             del m, full
         if edge:
             where_time_goes(m16, prompts[0])
@@ -2833,6 +3060,8 @@ def main():
             served.append((name, m16, m32))
         del m32, m16
         torch.cuda.empty_cache()
+        print(f"[{name}] all its phases, both dtypes: "
+              f"{clock.monotonic() - t_model:.1f} s")
     for name in WIDE_PATHS:
         wide_path(name, launches, launches32)
     serve_check()

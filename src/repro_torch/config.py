@@ -1,8 +1,10 @@
-"""Model and prompt-cache configuration (dense, VLM, SSM and MLA models).
+"""Model and prompt-cache configuration (dense, VLM, SSM, hybrid and MLA
+models).
 
-A copy of the dense, VLM, SSM, MoE and MLA parts of ``repro.config``: the
-same field names and defaults, so :func:`repro_torch.core.keys.model_meta`
-hashes a config to the same bytes as the reference does.
+A copy of the dense, VLM, SSM, hybrid, MoE and MLA parts of
+``repro.config``: the same field names and defaults, so
+:func:`repro_torch.core.keys.model_meta` hashes a config to the same
+bytes as the reference does.
 """
 from __future__ import annotations
 
@@ -46,8 +48,8 @@ class MLAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # this port runs "dense", "vlm", "ssm" and
-                                  # "moe" with no MoE layer
+    family: str                   # this port runs "dense", "vlm", "ssm",
+                                  # "hybrid" and "moe" with no MoE layer
     n_layers: int
     d_model: int
     n_heads: int
@@ -65,7 +67,7 @@ class ModelConfig:
     mrope_sections: Tuple[int, ...] = ()
     tie_embeddings: bool = False
     window: Optional[int] = None  # sliding-window size (None = full attention)
-    n_meta_tokens: int = 0        # learned prefix tokens (not in this port)
+    n_meta_tokens: int = 0        # learned prefix tokens (hymba)
     mtp: bool = False             # deepseek multi-token prediction head
     moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
@@ -114,13 +116,15 @@ class ModelConfig:
                 first_k_dense=min(self.moe.first_k_dense, 1),
                 dense_ff=min(self.moe.dense_ff, 128) if self.moe.dense_ff else 0,
             )
-        if self.family == "ssm":
+        if self.family in ("ssm", "hybrid"):
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=min(self.ssm.d_state, 16),
                 head_dim=16, chunk=16)
         if self.rope == "mrope":
             # 3 sections summing to head_dim // 2 = 16
             kw["mrope_sections"] = (4, 6, 6)
+        if self.n_meta_tokens:
+            kw["n_meta_tokens"] = 8
         if self.window is not None:
             kw["window"] = min(self.window, 16)
         return self.replace(**kw)
@@ -157,6 +161,9 @@ class ModelConfig:
                 mo.dense_ff or self.d_ff)
         else:
             mlp_total = self.n_layers * mult * d * self.d_ff
+        if self.family == "hybrid":    # the SSM branch beside attention
+            di, ns = self.ssm_d_inner, self.ssm.d_state
+            attn += d * (2 * di + 2 * ns + self.ssm_n_heads) + di * d
         return emb + self.n_layers * attn + mlp_total
 
     def active_param_count(self) -> int:

@@ -6,17 +6,17 @@ other architectures raise a ``KeyError`` that names the ROADMAP item
 that ports them.
 """
 from repro_torch.configs import (deepseek_v3_671b, gemma3_1b, gemma3_270m,
-                                 llama3_2_1b, mamba2_780m, nemotron_4_15b,
-                                 qwen2_vl_2b, qwen3_4b, yi_6b)
+                                 hymba_1_5b, llama3_2_1b, mamba2_780m,
+                                 nemotron_4_15b, qwen2_vl_2b, qwen3_4b, yi_6b)
 
 ARCHS = {c.name: c for c in (
     gemma3_270m.CONFIG, gemma3_1b.CONFIG, llama3_2_1b.CONFIG,
     qwen3_4b.CONFIG, yi_6b.CONFIG, nemotron_4_15b.CONFIG,
-    qwen2_vl_2b.CONFIG, mamba2_780m.CONFIG, deepseek_v3_671b.CONFIG)}
+    qwen2_vl_2b.CONFIG, mamba2_780m.CONFIG, hymba_1_5b.CONFIG,
+    deepseek_v3_671b.CONFIG)}
 
 # reference architectures the port does not run yet -> what ports them
 NOT_YET = {
-    "hymba-1.5b": "ROADMAP Queue 1, item 9.3 (hybrid SSM + ring caches)",
     "granite-moe-3b-a800m": "ROADMAP Queue 1, item 9.4 (MoE layers)",
     "whisper-base": "ROADMAP Queue 1, item 9.5 (encoder-decoder)",
 }

@@ -123,6 +123,7 @@ from repro_torch.core.server import CacheServer
 from repro_torch.core.transport import (InProcTransport, StreamCancelled,
                                         TransportError)
 from repro_torch.device import dtype_name
+from repro_torch.models.common import tree_map
 from repro_torch.obs.flight import CHUNK_ERROR, FLIGHT, PLAN_EXHAUSTED
 from repro_torch.obs.ledger import LEDGER, LEDGER_KEY
 from repro_torch.obs.trace import Tracer, current_span
@@ -474,7 +475,9 @@ class EdgeClient:
         ttft = clock.monotonic() - t0
         upload = matched == 0 and upload_on_miss
         prompt_cache = st.cache
-        if upload and recurrent:       # decode advances the state in place
+        if upload and (recurrent or model.cfg.window):
+            # decode advances a state, and overwrites a ring's slots, in
+            # place
             prompt_cache = _clone(st.cache)
 
         # Step 4: decode the response
@@ -974,5 +977,4 @@ class EdgeClient:
 
 
 def _clone(cache):
-    return {"segments": [{name: t.clone() for name, t in seg.items()}
-                         for seg in cache["segments"]]}
+    return tree_map(lambda t: t.clone(), cache)

@@ -65,6 +65,7 @@ from repro_torch.core import packer
 from repro_torch.core.chunkfmt import (  # noqa: F401  (re-exported)
     CHUNK_MAGIC, is_chunked, pack_container, split_container)
 from repro_torch.device import dtype_from_name, dtype_name
+from repro_torch.models.common import tree_map
 
 try:                                   # optional: nothing is installed for it
     import zstandard as zstd
@@ -396,7 +397,7 @@ def segment_index(seg: str) -> int:
     return int(parts[1])
 
 
-def _segment_of(template, seg: str) -> Dict[str, torch.Tensor]:
+def _segment_of(template, seg: str) -> Dict[str, Any]:
     try:
         return template["segments"][segment_index(seg)]
     except (KeyError, IndexError, TypeError) as e:
@@ -617,9 +618,8 @@ class ChunkedRestorer:
         Positions the blob does not hold keep the template's values."""
         seg, lo, hi = gid
         leaves = _segment_of(template, seg)
-        self._place_group(gid, {f"{seg}/{name}": t
-                                for name, t in leaves.items()})
-        return {name: t[lo:hi] for name, t in leaves.items()}
+        self._place_group(gid, dict(_flatten(leaves, f"{seg}/")))
+        return tree_map(lambda t: t[lo:hi], leaves)
 
     def result(self, template):
         """Write the whole stored cache into ``template`` and return

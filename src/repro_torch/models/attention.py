@@ -1,4 +1,4 @@
-"""GQA attention with prefix-resume prefill over a linear KV cache.
+"""GQA attention with prefix-resume prefill over a linear or ring KV cache.
 
 Counterpart of ``repro.models.attention``. The ``cache`` of
 :func:`attn_prefill` may already hold a prefix downloaded from the cache
@@ -12,10 +12,26 @@ follow each row's position, in one launch each. Under M-RoPE (qwen2-vl)
 positions are ``[3, B, S]``; a decode step's three components are equal,
 as in the reference.
 
+A windowed model whose cache has exactly ``window`` slots keeps a ring,
+as in the reference: position ``p`` lives in slot ``p % window``. Neither
+kernel reads ring positions; the ring is fed to them so that it needs
+none:
+
+* prefill linearises it. The ring holds positions ``[kbase, start)``,
+  ``kbase = max(0, start - window)``; those slots, gathered in position
+  order, and the S new keys after them make one contiguous buffer that
+  ``flash_prefill`` reads with ``q_offset = start - kbase`` and the
+  window (relative positions are what the mask compares). The last
+  ``min(S, window)`` new entries are then written into their slots.
+* decode reads it unordered. Once the entry at ``pos`` is written, the
+  ring holds exactly positions ``[max(0, pos - window + 1), pos]``, all
+  inside the window, and softmax does not depend on the keys' order: so
+  ``flash_decode`` runs with ``kv_len = min(pos + 1, window)`` and no
+  window.
+
 Unlike the reference, these functions write the new K/V entries into
 the cache tensors IN PLACE and the kernels read that layer's cache slice
-where it lies. Ring (sliding-window) caches are not in this port yet and
-raise ``NotImplementedError``.
+where it lies (a ring prefill reads the gathered buffer).
 """
 from __future__ import annotations
 
@@ -93,24 +109,49 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, device=None):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _linear_cache(cache, window) -> int:
+def ring_size(cache, window) -> Optional[int]:
+    """The slot count of a ring cache, or None for a linear one: a cache
+    is a ring exactly when it has ``window`` slots, as in the
+    reference."""
     size = cache["k"].shape[1]
-    if window and size == window:
-        raise NotImplementedError(
-            "ring (sliding-window) KV caches are not in this port yet "
-            "(ROADMAP Queue 1: ring caches and windowed configs)")
-    return size
+    return size if window and size == window else None
 
 
 def cache_write_prefill(cache, k_new, v_new, start_pos: int, window) -> None:
-    """Write S new entries at ``start_pos`` IN PLACE (linear cache)."""
-    size = _linear_cache(cache, window)
+    """Write S new entries at ``start_pos`` IN PLACE: at their positions
+    in a linear cache, the last ``min(S, size)`` of them at their slots
+    ``p % size`` in a ring."""
+    size = cache["k"].shape[1]
     S = k_new.shape[1]
+    if ring_size(cache, window):
+        m = min(S, size)
+        s0 = (start_pos + S - m) % size
+        first = min(m, size - s0)          # slots up to the ring's end
+        for name, new in (("k", k_new), ("v", v_new)):
+            tail = new[:, S - m:]
+            cache[name][:, s0:s0 + first] = tail[:, :first]
+            cache[name][:, :m - first] = tail[:, first:]
+        return
     if start_pos < 0 or start_pos + S > size:
         raise ValueError(f"prefill of {S} tokens at {start_pos} overflows "
                          f"a cache of {size} positions")
     cache["k"][:, start_pos:start_pos + S] = k_new
     cache["v"][:, start_pos:start_pos + S] = v_new
+
+
+def ring_gather(leaf: torch.Tensor, new: torch.Tensor,
+                start_pos: int) -> torch.Tensor:
+    """The ring ``leaf`` ``[B, size, ...]`` about to take position
+    ``start_pos``, linearised: its slots in position order (positions
+    ``[max(0, start_pos - size), start_pos)``) with ``new`` after them,
+    one contiguous ``[B, n_old + S, ...]`` copy."""
+    size = leaf.shape[1]
+    if start_pos <= size:                  # not wrapped: slot p holds p
+        parts = [leaf[:, :start_pos]] if start_pos else []
+    else:
+        a = start_pos % size               # the oldest position's slot
+        parts = [leaf[:, a:], leaf[:, :a]]
+    return torch.cat(parts + [new], dim=1) if parts else new
 
 
 def decode_positions(cfg, pos: Pos, B: int, device) -> torch.Tensor:
@@ -139,10 +180,12 @@ def write_rows(leaf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
 
 
 def cache_write_decode(cache, k1, v1, pos: Pos, window) -> None:
-    """Write one entry a row at ``pos`` IN PLACE (linear cache)."""
-    _linear_cache(cache, window)
-    write_rows(cache["k"], k1[:, 0], pos)
-    write_rows(cache["v"], v1[:, 0], pos)
+    """Write one entry a row at ``pos`` IN PLACE: at ``pos`` in a linear
+    cache, at slot ``pos % size`` in a ring (a tensor's on the device)."""
+    size = ring_size(cache, window)
+    slot = pos % size if size else pos
+    write_rows(cache["k"], k1[:, 0], slot)
+    write_rows(cache["v"], v1[:, 0], slot)
 
 
 def attn_prefill(p: Params, cfg, x, positions, cache, start_pos: int, *,
@@ -153,9 +196,18 @@ def attn_prefill(p: Params, cfg, x, positions, cache, start_pos: int, *,
     q, k_new, v_new = project_qkv(p, cfg, x, positions)
     S = x.shape[1]
     w = window or cfg.window
-    cache_write_prefill(cache, k_new, v_new, start_pos, w)
-    o = flash_prefill(q, cache["k"], cache["v"], q_offset=start_pos,
-                      kv_len=start_pos + S, window=w)
+    size = ring_size(cache, w)
+    if size:                # linearise: old ring + new keys, then write
+        n_old = start_pos - max(0, start_pos - size)
+        k_att = ring_gather(cache["k"], k_new, start_pos)
+        v_att = ring_gather(cache["v"], v_new, start_pos)
+        o = flash_prefill(q, k_att, v_att, q_offset=n_old, kv_len=n_old + S,
+                          window=w)
+        cache_write_prefill(cache, k_new, v_new, start_pos, w)
+    else:
+        cache_write_prefill(cache, k_new, v_new, start_pos, w)
+        o = flash_prefill(q, cache["k"], cache["v"], q_offset=start_pos,
+                          kv_len=start_pos + S, window=w)
     return out_proj(p, cfg, o), cache
 
 
@@ -164,11 +216,20 @@ def attn_decode(p: Params, cfg, x1, pos: Pos, cache, *,
                 kv_max: Optional[int] = None):
     """One-token decode: x1 [B, 1, D] at position ``pos`` (an int, or an
     int32 ``[B]`` tensor with ``kv_max`` a host bound of ``pos + 1``).
-    Returns ``(y, cache)``; ``cache`` is updated in place."""
+    A ring is read unordered: ``kv_len = min(pos + 1, size)``, no window
+    (see the module docstring). Returns ``(y, cache)``; ``cache`` is
+    updated in place."""
     positions = decode_positions(cfg, pos, x1.shape[0], x1.device)
     q, k1, v1 = project_qkv(p, cfg, x1, positions)
     w = window or cfg.window
     cache_write_decode(cache, k1, v1, pos, w)
-    o = flash_decode(q[:, 0], cache["k"], cache["v"], kv_len=pos + 1,
+    kv_len = pos + 1
+    size = ring_size(cache, w)
+    if size:
+        kv_len = kv_len.clamp(max=size) if torch.is_tensor(pos) \
+            else min(kv_len, size)
+        kv_max = size if kv_max is None else min(kv_max, size)
+        w = None
+    o = flash_decode(q[:, 0], cache["k"], cache["v"], kv_len=kv_len,
                      window=w, kv_max=kv_max)
     return out_proj(p, cfg, o[:, None]), cache

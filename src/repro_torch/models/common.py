@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, activations, RoPE and M-RoPE, inits.
+"""Shared building blocks: norms, activations, RoPE and M-RoPE, inits,
+and :func:`tree_map` over the nested dicts of parameters and caches.
 
 Counterpart of ``repro.models.common``. Traps the port keeps:
 
@@ -15,6 +16,18 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists (``rest``: trees
+    of the same structure, their leaves passed beside)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def dense_init(shape, dtype, gen: Optional[torch.Generator],

@@ -1,19 +1,28 @@
-"""Model facade for decoder-only models (the dense, VLM and SSM families,
-and deepseek-v3 cut to its dense MLA layers): prefill with prefix resume,
-and one-token decode.
+"""Model facade for decoder-only models (the dense, VLM, SSM and hybrid
+families, and deepseek-v3 cut to its dense MLA layers): prefill with
+prefix resume, and one-token decode.
 
 Counterpart of ``repro.models.model.Model`` (serving modes only). The
 parameters live in this ``nn.Module`` under the reference's tree paths,
 with ``.`` for ``/`` (``segments.0.attn.wq`` is the reference's
-``segments/0/attn/wq``, same ``[L, d, H, dh]`` layout), so
+``segments/0/attn/wq``, same ``[L, d, H, dh]`` layout; a hybrid's
+``segments.0.hyb.attn.wq`` one level deeper), so
 :func:`repro_torch.params.from_jax_params` is a copy. The cache returned
 by :meth:`init_cache` has the reference's structure, layout and per-leaf
 dtypes, ``{"segments": [{"k": [L,B,S,KV,dh], "v": ...}]}`` for a dense
 model, ``{"segments": [{"conv": [L,B,K-1,C], "ssd": [L,B,H,P,N] fp32}]}``
-for an SSM and ``{"segments": [{"ckv": [L,B,S,R], "krope": [L,B,S,Dr]},
-...]}`` for MLA (an empty MoE segment has ``L = 0``): it is the state the
-paper ships between devices (``core/state_io.py``). :meth:`prefill` and :meth:`decode_step` update it
-IN PLACE and return it.
+for an SSM, ``{"segments": [{"attn": {"k", "v"}, "ssm": {"conv",
+"ssd"}}]}`` for a hybrid and ``{"segments": [{"ckv": [L,B,S,R], "krope":
+[L,B,S,Dr]}, ...]}`` for MLA (an empty MoE segment has ``L = 0``): it is
+the state the paper ships between devices (``core/state_io.py``).
+:meth:`prefill` and :meth:`decode_step` update it IN PLACE and return it.
+
+Meta tokens (hymba's learned prefix of ``R`` rows, ``meta [R, d]``) take
+cache positions ``0..R-1`` and text token ``i`` position ``R + i``: a
+cold prefill prepends them and writes the cache from 0, a resume adds
+none and continues at ``start_pos + R``, and a decode step at text
+position ``pos`` runs at ``pos + R``. Positions the caller passes
+(``start_pos``, ``pos``, ``last_index``) are text positions.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import apply_norm, embed_init
+from repro_torch.models.common import apply_norm, embed_init, tree_map
 
 
 def padded_vocab(vocab: int) -> int:
@@ -41,6 +50,31 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
                              for k, t in tensors.items()})
 
 
+class ParamTree(nn.Module):
+    """Nested dicts of tensors as a module under the same names: a tensor
+    is a parameter, a dict a child module, so the state dict's keys are
+    the tree's paths with ``.`` (a ``ParameterDict`` key cannot hold
+    one). ``tree[name]`` reads a child or a parameter."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        for k, v in tree.items():
+            if torch.is_tensor(v):
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, ParamTree(v))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def tree(self) -> Dict:
+        """The parameters as nested dicts of tensors."""
+        out = dict(self._parameters)
+        out.update((k, m.tree()) for k, m in self._modules.items())
+        return out
+
+
 class Model(nn.Module):
     """``seed`` draws the random weights with a generator on the model's
     device: on the card they are drawn there, not on the host, and differ
@@ -50,11 +84,10 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, seed: Optional[int] = 0):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "ssm", "moe") or \
-                cfg.n_meta_tokens:
+        if cfg.family not in ("dense", "vlm", "ssm", "hybrid", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r} (meta tokens: {cfg.n_meta_tokens}) "
-                "is not in this port yet (ROADMAP Queue 1, item 9)")
+                f"family {cfg.family!r} is not in this port yet (ROADMAP "
+                "Queue 1, item 9)")
         if cfg.mtp:
             raise NotImplementedError(
                 "the MTP head is a training head; serve the model with "
@@ -74,18 +107,21 @@ class Model(nn.Module):
             self.head = nn.Parameter(
                 embed_init((cfg.d_model, vp), dtype, gen, device=self.device),
                 requires_grad=False)
-        self.segments = nn.ModuleList([nn.ModuleDict(
-            {group: _pdict(ps) for group, ps in tf.init_segment(
-                cfg, spec, dtype, gen, device=self.device).items()})
+        if cfg.n_meta_tokens:          # drawn after the head, as the
+            self.meta = nn.Parameter(   # reference draws it
+                embed_init((cfg.n_meta_tokens, cfg.d_model), dtype, gen,
+                           device=self.device), requires_grad=False)
+        self.segments = nn.ModuleList([ParamTree(tf.init_segment(
+            cfg, spec, dtype, gen, device=self.device))
             for spec in self.segment_specs])
 
     @property
     def has_recurrent_state(self) -> bool:
-        """True when the cache is a state that every token advances (an
-        SSM's conv window and SSD state) rather than per-position K/V: it
-        cannot take padding or a re-run token, and it is not cut to a
-        prefix when serialized."""
-        return any(s.kind == "ssm" for s in self.segment_specs)
+        """True when the cache holds a state that every token advances (an
+        SSM's or a hybrid's conv window and SSD state) beside or instead
+        of per-position K/V: it cannot take padding or a re-run token, and
+        it is not cut to a prefix when serialized."""
+        return any(s.kind in ("ssm", "hybrid") for s in self.segment_specs)
 
     # ------------------------------------------------------------------
     def cache_len(self, n_tokens: int) -> int:
@@ -95,10 +131,6 @@ class Model(nn.Module):
         return {"segments": [tf.init_segment_cache(
             self.cfg, spec, batch, max_len, dtype or self.dtype, self.device)
             for spec in self.segment_specs]}
-
-    def _segment_params(self, si: int):
-        return {group: dict(ps.items())
-                for group, ps in self.segments[si].items()}
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
@@ -123,15 +155,22 @@ class Model(nn.Module):
         VLM's ``inputs["embeds"]`` ([B, S, D]) at ``inputs["positions"]``
         ([3, B, S]), the stub vision encoder's merged embeddings; with
         ``start_pos`` > 0 the cache already holds that prefix (the paper's
-        partial-match resume; ``resume`` only matters for meta-token
-        models, which this port does not run). ``last_index`` picks the
-        position whose logits return (bucket-padded prompts): one for
-        every row, or one a row. Returns ``(logits [B, V] fp32, cache)``."""
-        x, positions, eff_start = self.prefill_stream_embed(inputs, start_pos)
+        partial-match resume). ``resume`` matters for meta-token models
+        only: without it the meta tokens are prepended (see the module
+        docstring). ``last_index`` picks the text index whose logits
+        return (bucket-padded prompts): one for every row, or one a row.
+        Returns ``(logits [B, V] fp32, cache)``."""
+        x, positions, eff_start = self.prefill_stream_embed(
+            inputs, start_pos, resume=resume)
         for si, spec in enumerate(self.segment_specs):
             x, _ = self.prefill_stream_group(
                 x, positions, cache["segments"][si], eff_start, si=si, lo=0,
                 hi=spec.n_layers)
+        R = self.cfg.n_meta_tokens
+        if R and not resume and last_index is not None:
+            # a text index: the row past the meta rows
+            last_index = int(last_index) + R if np.ndim(last_index) == 0 \
+                else [int(i) + R for i in last_index]
         return self.prefill_stream_head(x, last_index), cache
 
     # -- layer-streamed prefill ------------------------------------------
@@ -145,12 +184,18 @@ class Model(nn.Module):
         return True                    # every family this port runs
 
     @torch.no_grad()
-    def prefill_stream_embed(self, inputs, start_pos: int):
+    def prefill_stream_embed(self, inputs, start_pos: int, *,
+                             resume: bool = True):
         """The suffix's hidden states and positions: ``(x, positions,
-        eff_start)``, as :meth:`prefill` computes them. A VLM's embeddings
-        come with their own positions; text tokens under M-RoPE take
-        ``[3, B, S]`` positions, the three components equal."""
-        eff_start = start_pos + self.cfg.n_meta_tokens
+        eff_start)``, as :meth:`prefill` computes them (a streamed prefill
+        is a resume). A VLM's embeddings come with their own positions;
+        text tokens under M-RoPE take ``[3, B, S]`` positions, the three
+        components equal. Text takes positions ``start_pos + R + i``; a
+        cold prefill (``resume=False``) of a meta-token model prepends
+        the ``R`` meta rows at positions ``0..R-1`` and writes the cache
+        from ``start_pos``."""
+        R = self.cfg.n_meta_tokens
+        eff_start = start_pos + (R if resume else 0)
         if self.cfg.family == "vlm" and "embeds" in inputs:
             x = torch.as_tensor(inputs["embeds"], device=self.device)
             positions = torch.as_tensor(inputs["positions"], dtype=torch.long,
@@ -159,7 +204,11 @@ class Model(nn.Module):
         tokens = self._tokens(inputs["tokens"])
         B, S = tokens.shape
         x = F.embedding(tokens, self.embed)
-        pos1 = start_pos + torch.arange(S, device=self.device)
+        pos1 = start_pos + R + torch.arange(S, device=self.device)
+        if R and not resume:
+            x = torch.cat([self.meta.expand(B, R, -1).to(x.dtype), x], 1)
+            pos1 = torch.cat([torch.arange(R, device=self.device), pos1])
+            S += R
         shape = (3, B, S) if self.cfg.rope == "mrope" else (B, S)
         return x, pos1.expand(shape), eff_start
 
@@ -170,8 +219,7 @@ class Model(nn.Module):
         segment's parameters cut to those layers and ``cache_group``, its
         cache leaves cut to them (updated in place). Returns ``(x,
         cache_group)``."""
-        sp = {group: {name: t[lo:hi] for name, t in ps.items()}
-              for group, ps in self.segments[si].items()}
+        sp = tree_map(lambda t: t[lo:hi], self.segments[si].tree())
         spec = self.segment_specs[si]._replace(n_layers=hi - lo)
         x = tf.stack_prefill(sp, self.cfg, spec, x, positions, cache_group,
                              eff_start)
@@ -193,14 +241,19 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos, kv_max: Optional[int] = None):
-        """tokens: [B, 1]; pos: the tokens' position, an int for every row
-        or an int32 ``[B]`` tensor on the model's device, one a row (under
-        M-RoPE all three components take it, as in the reference); then
-        ``kv_max`` (a host int, default the cache's length) bounds every
-        ``pos + 1`` and sizes the decode kernels' grids. Returns
-        ``(logits [B, V] fp32, cache)``."""
+        """tokens: [B, 1]; pos: the tokens' text position, an int for
+        every row or an int32 ``[B]`` tensor on the model's device, one a
+        row (under M-RoPE all three components take it, as in the
+        reference); then ``kv_max`` (a host int, default the cache's
+        length) bounds every ``pos + 1`` and sizes the decode kernels'
+        grids. A meta-token model runs at ``pos + R`` (on the device for
+        a tensor). Returns ``(logits [B, V] fp32, cache)``."""
+        R = self.cfg.n_meta_tokens
+        if R:
+            pos = pos + R
+            kv_max = None if kv_max is None else kv_max + R
         x1 = F.embedding(self._tokens(tokens), self.embed)
         for si, sc in enumerate(cache["segments"]):
-            x1 = tf.stack_decode(self._segment_params(si), self.cfg,
+            x1 = tf.stack_decode(self.segments[si].tree(), self.cfg,
                                  self.segment_specs[si], x1, pos, sc, kv_max)
         return self._head(x1)[:, 0], cache

@@ -1,13 +1,14 @@
 """Layer stacks: segments of one layer kind, run as a Python loop over
 layers.
 
-Counterpart of ``repro.models.transformer`` for ``dense``, ``ssm`` and
-``mla_dense`` segments. Parameters and caches keep the reference's
-stacked layout, a leading ``[L, ...]`` layer axis, so parameter trees and
-state blobs line up leaf for leaf; the loop over layers replaces
-``lax.scan``. A segment of MoE layers runs no experts here: it must be
-empty, as in deepseek-v3 cut to its leading dense layers, and then keeps
-the reference's leaves with a zero layer axis.
+Counterpart of ``repro.models.transformer`` for ``dense``, ``ssm``,
+``hybrid`` and ``mla_dense`` segments. Parameters and caches keep the
+reference's stacked layout, a leading ``[L, ...]`` layer axis on every
+leaf of their nested dicts, so parameter trees and state blobs line up
+leaf for leaf; the loop over layers replaces ``lax.scan``. A segment of
+MoE layers runs no experts here: it must be empty, as in deepseek-v3 cut
+to its leading dense layers, and then keeps the reference's leaves with
+a zero layer axis.
 """
 from __future__ import annotations
 
@@ -16,14 +17,16 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import hybrid as hyb
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import apply_norm
+from repro_torch.models.common import apply_norm, tree_map
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
 
 class Segment(NamedTuple):
-    kind: str          # dense | ssm | mla_dense | (empty) moe, mla_moe
+    kind: str          # dense | ssm | hybrid | mla_dense | (empty) moe,
+                       # mla_moe
     n_layers: int
     d_ff: int          # for the dense kinds' MLP
 
@@ -31,6 +34,8 @@ class Segment(NamedTuple):
 def segments_for(cfg) -> List[Segment]:
     if cfg.family == "ssm":
         return [Segment("ssm", cfg.n_layers, 0)]
+    if cfg.family == "hybrid":
+        return [Segment("hybrid", cfg.n_layers, cfg.d_ff)]
     if cfg.family in ("dense", "vlm"):     # a VLM's text stack is dense
         return [Segment("dense", cfg.n_layers, cfg.d_ff)]
     if cfg.family == "moe":
@@ -82,6 +87,11 @@ def init_layer(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
     if seg.kind == "ssm":
         return {"ln1": init_norm(cfg, dtype, device),
                 "ssm": ssm_mod.init_ssm(cfg, dtype, gen, device=device)}
+    if seg.kind == "hybrid":
+        return {"ln1": init_norm(cfg, dtype, device),
+                "hyb": hyb.init_hybrid_attn(cfg, dtype, gen, device=device),
+                "ln2": init_norm(cfg, dtype, device),
+                "mlp": init_mlp(cfg, dtype, gen, seg.d_ff, device=device)}
     p = {"ln1": init_norm(cfg, dtype, device),
          "ln2": init_norm(cfg, dtype, device)}
     if seg.kind.startswith("mla_"):
@@ -101,19 +111,15 @@ def init_segment(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
     layers has the leaves of one layer, each with a zero layer axis."""
     if seg.n_layers == 0:
         one = init_layer(cfg, seg, dtype, None, device="meta")
-        return {group: {name: torch.empty((0,) + tuple(t.shape),
-                                          dtype=t.dtype, device=device)
-                        for name, t in ps.items()}
-                for group, ps in one.items()}
+        return tree_map(lambda t: torch.empty(
+            (0,) + tuple(t.shape), dtype=t.dtype, device=device), one)
     if seg.kind.endswith("moe"):
         raise NotImplementedError(
             "MoE layers (routed experts) are not in this port yet (ROADMAP "
             "Queue 1, item 9)")
     layers = [init_layer(cfg, seg, dtype, gen, device)
               for _ in range(seg.n_layers)]
-    return {group: {name: torch.stack([lp[group][name] for lp in layers])
-                    for name in layers[0][group]}
-            for group in layers[0]}
+    return tree_map(lambda *ts: torch.stack(ts), *layers)
 
 
 def init_segment_cache(cfg, seg: Segment, batch: int, max_len: int, dtype,
@@ -122,19 +128,20 @@ def init_segment_cache(cfg, seg: Segment, batch: int, max_len: int, dtype,
     dtype (an SSM's ``ssd`` state is fp32 in a bf16 cache)."""
     if seg.kind == "ssm":
         single = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+    elif seg.kind == "hybrid":
+        single = hyb.init_hybrid_cache(cfg, batch, max_len, dtype, device)
     elif seg.kind.startswith("mla_"):
         single = mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
     else:
         single = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
-    return {name: torch.zeros((seg.n_layers,) + tuple(t.shape),
-                              dtype=t.dtype, device=device)
-            for name, t in single.items()}
+    return tree_map(lambda t: torch.zeros(
+        (seg.n_layers,) + tuple(t.shape), dtype=t.dtype, device=device),
+        single)
 
 
 def layer_params(sp: Dict, i: int) -> Dict:
-    """Layer ``i``'s views of the stacked segment parameters."""
-    return {group: {name: t[i] for name, t in ps.items()}
-            for group, ps in sp.items()}
+    """Layer ``i``'s views of the stacked segment parameters (or cache)."""
+    return tree_map(lambda t: t[i], sp)
 
 
 def layer_prefill(lp, cfg, seg: Segment, x, positions, lc, start_pos: int):
@@ -142,7 +149,10 @@ def layer_prefill(lp, cfg, seg: Segment, x, positions, lc, start_pos: int):
     if seg.kind == "ssm":
         y, _ = ssm_mod.ssm_prefill(lp["ssm"], cfg, h, lc)
         return x + y
-    if seg.kind.startswith("mla_"):
+    if seg.kind == "hybrid":
+        y, _ = hyb.hybrid_prefill(lp["hyb"], cfg, h, positions, lc,
+                                  start_pos)
+    elif seg.kind.startswith("mla_"):
         y, _ = mla_mod.mla_prefill(lp["mla"], cfg, h, positions, lc,
                                    start_pos)
     else:
@@ -160,16 +170,14 @@ def layer_decode(lp, cfg, seg: Segment, x1, pos: attn.Pos, lc,
     if seg.kind == "ssm":
         y, _ = ssm_mod.ssm_decode(lp["ssm"], cfg, h, lc)
         return x1 + y
-    if seg.kind.startswith("mla_"):
+    if seg.kind == "hybrid":
+        y, _ = hyb.hybrid_decode(lp["hyb"], cfg, h, pos, lc, kv_max=kv_max)
+    elif seg.kind.startswith("mla_"):
         y, _ = mla_mod.mla_decode(lp["mla"], cfg, h, pos, lc, kv_max=kv_max)
     else:
         y, _ = attn.attn_decode(lp["attn"], cfg, h, pos, lc, kv_max=kv_max)
     x1 = x1 + y
     return x1 + mlp_forward(lp["mlp"], cfg, apply_norm(lp["ln2"], x1))
-
-
-def _layer_cache(cache, i: int):
-    return {name: t[i] for name, t in cache.items()}
 
 
 def stack_prefill(sp, cfg, seg: Segment, x, positions, cache,
@@ -178,7 +186,7 @@ def stack_prefill(sp, cfg, seg: Segment, x, positions, cache,
     updated in place, one layer slice at a time."""
     for i in range(seg.n_layers):
         x = layer_prefill(layer_params(sp, i), cfg, seg, x, positions,
-                          _layer_cache(cache, i), start_pos)
+                          layer_params(cache, i), start_pos)
     return x
 
 
@@ -186,5 +194,5 @@ def stack_decode(sp, cfg, seg: Segment, x1, pos: attn.Pos, cache,
                  kv_max: Optional[int] = None):
     for i in range(seg.n_layers):
         x1 = layer_decode(layer_params(sp, i), cfg, seg, x1, pos,
-                          _layer_cache(cache, i), kv_max)
+                          layer_params(cache, i), kv_max)
     return x1

@@ -19,9 +19,10 @@ past the true length; the
 next prefill or decode starts at the true length and the kernels mask by
 ``kv_len``, so it is never read. Unlike the reference, the bucket is also
 capped at the room left in the cache after ``start_pos``, so a resume
-near the end of the cache never writes past it. A model whose cache holds
-recurrent state (an SSM) is never padded: every pad token would advance
-its state (the reference pads it; ROADMAP Queue 3).
+near the end of the cache never writes past it. A windowed model is never
+padded (pad entries would rotate into its ring), nor is a model whose
+cache holds recurrent state (an SSM, a hybrid): every pad token would
+advance its state (the reference pads an SSM; ROADMAP Queue 3).
 
 :class:`BatchedEngine` is the counterpart of
 ``repro.serving.engine.BatchedEngine``: a fixed pool of cache slots, each
@@ -37,6 +38,7 @@ import torch
 
 from repro_torch import clock
 from repro_torch.kernels.flash_decode import arrival_counters
+from repro_torch.models.common import tree_map
 from repro_torch.serving.sampler import greedy
 
 
@@ -239,11 +241,14 @@ class BatchedEngine:
     ``len(slots)`` rows into a cache of ``bucket`` positions (eager
     PyTorch has no compile count to bound, so the batch is not padded to
     ``batch_size`` as the reference pads it), then copies the rows into
-    the pool. A model with recurrent state (an SSM), or with a window
-    shorter than ``max_len``, takes exact per-row prefill instead: padding
-    would run through the state (the reference pads an SSM; ROADMAP Queue
-    3), and a ring cache cannot take it (the reference falls back only for
-    windows). ``prefill_slot`` runs in place on the slot's view.
+    the pool. A model with recurrent state (an SSM, a hybrid), or whose
+    cache is a ring (a window no longer than the cache), takes exact
+    per-row prefill instead: padding would run through the state (the
+    reference pads an SSM; ROADMAP Queue 3), and a ring cache cannot take
+    it (the reference falls back only for windows shorter than
+    ``max_len``). ``prefill_slot`` runs in place on the slot's view; a
+    ring row is written at its slots ``p % window`` and decodes with
+    ``kv_len`` capped at the window, on the device.
 
     The cache takes the model's dtype, which the decode kernels need of
     it. Their arrival counters are reserved here, on the current stream,
@@ -257,8 +262,8 @@ class BatchedEngine:
         self.model = model
         self.max_len = max_len
         self.batch_size = batch_size
-        self._pad_prefill = not (model.has_recurrent_state or
-                                 (cfg.window and cfg.window < max_len))
+        ring = cfg.window and cfg.window <= model.cache_len(max_len)
+        self._pad_prefill = not (model.has_recurrent_state or ring)
         self.cache = model.init_cache(batch_size, model.cache_len(max_len))
         self.pos = np.zeros(batch_size, np.int32)     # next token position
         arrival_counters(model.device, batch_size * cfg.n_heads)
@@ -266,9 +271,7 @@ class BatchedEngine:
     # -- slot plumbing ---------------------------------------------------
     def slot_cache(self, slot: int):
         """A B=1 view of one slot's cache (for state_io extraction)."""
-        return {"segments": [{name: t[:, slot:slot + 1]
-                              for name, t in seg.items()}
-                             for seg in self.cache["segments"]]}
+        return tree_map(lambda t: t[:, slot:slot + 1], self.cache)
 
     def free_slot(self, slot: int) -> None:
         self.pos[slot] = 0
@@ -279,10 +282,10 @@ class BatchedEngine:
         first ``s`` entries of each leaf's third axis."""
         idx = torch.as_tensor(np.asarray(slots), dtype=torch.long,
                               device=self.model.device)
-        for big_seg, seg in zip(self.cache["segments"], rows["segments"]):
-            for name, big in big_seg.items():
-                new = seg[name]
-                big[:, idx, :new.shape[2]] = new.to(big.device, big.dtype)
+
+        def put(big, new):
+            big[:, idx, :new.shape[2]] = new.to(big.device, big.dtype)
+        tree_map(put, self.cache, rows)
 
     def adopt_slot(self, slot: int, cache1, n_tokens: int) -> None:
         """Install a restored B=1 cache (full prompt-cache hit)."""
@@ -333,9 +336,7 @@ class BatchedEngine:
         if cache1 is not None:
             self._put(cache1, [slot])
         elif self.model.has_recurrent_state:
-            for seg in self.cache["segments"]:
-                for t in seg.values():
-                    t[:, slot].zero_()
+            tree_map(lambda t: t[:, slot].zero_(), self.cache)
         logits, _ = self.model.prefill({"tokens": toks}, self.slot_cache(slot),
                                        start_pos, n - 1,
                                        resume=start_pos > 0)

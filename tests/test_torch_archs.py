@@ -63,7 +63,7 @@ def _close(a, b):
 
 
 def test_registry_lists_what_the_port_runs():
-    assert list_archs() == sorted(ARCHS) and len(ARCHS) == 9
+    assert list_archs() == sorted(ARCHS) and len(ARCHS) == 10
     assert set(NEW) <= set(ARCHS)
     from repro.configs.registry import ARCHS as JAX_ARCHS
     for arch in set(JAX_ARCHS) - set(ARCHS):

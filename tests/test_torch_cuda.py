@@ -53,6 +53,11 @@ PREFILL_CASES = [
     (1, 291, 1024, 32, 4, 128, 0, None),   # yi-6b
     (1, 291, 1024, 48, 8, 128, 0, None),   # nemotron-4-15b
     (4, 306, 512, 32, 8, 64, 0, None),     # llama3.2-1b batched, B=4
+    # hymba-1.5b's widths (25/5, dh 64) on its linearised ring, window 1024
+    (1, 419, 419, 25, 5, 64, 0, 1024),     # cold, 128 meta + 291 tokens
+    (1, 31, 412, 25, 5, 64, 381, 1024),    # resume, ring not full
+    (1, 1223, 1223, 25, 5, 64, 0, 1024),   # cold past the window
+    (1, 31, 1055, 25, 5, 64, 1024, 1024),  # resume over a full ring
 ]
 
 DECODE_CASES = [
@@ -77,6 +82,8 @@ DECODE_CASES = [
     (1, 1024, 32, 8, 128, 128, 300, None),  # qwen3-4b
     (1, 1024, 32, 4, 128, 128, 300, None),  # yi-6b
     (1, 1024, 48, 8, 128, 128, 300, None),  # nemotron-4-15b
+    (1, 1024, 25, 5, 64, 64, 1024, None),   # hymba-1.5b, a full ring
+    (4, 1024, 25, 5, 64, 64, 420, None),
 ]
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -373,11 +380,13 @@ def test_a_larger_batch_reuses_the_reserved_counters(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gemma3-270m", "deepseek-v3-671b",
-                                  "llama3.2-1b", "qwen2-vl-2b"])
+                                  "llama3.2-1b", "qwen2-vl-2b",
+                                  "hymba-1.5b"])
 def test_batched_decode_is_one_launch_a_layer(name, cuda_device):
     """A decode step of four slots at their own positions (one inactive)
     launches the decode kernel once a layer and equals each row decoded
-    alone (fp32, reduced widths)."""
+    alone (fp32, reduced widths; hymba's rows on rings of 16 slots, two
+    of them wrapped)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.deepseek_v3_671b import dense_cut
@@ -494,6 +503,8 @@ SSD_CASES = [
     (100, True, 32, 4, 32, 16, 4),         # G = H, the TPU kernel's contract
     (200, True, 100, 8, 64, 128, 2),       # chunks end mid-tile (100 = 64 + 36)
     (130, True, 64, 2, 128, 64, 1),        # two 64-row p blocks, N = 64
+    (419, False, 64, 50, 64, 16, 1),       # hymba-1.5b's SSM, cold
+    (31, True, 64, 50, 64, 16, 1),         # hymba-1.5b, a resume
 ]
 
 

@@ -77,6 +77,19 @@ def world(tiny_setup):
 # supervised daemons
 # ---------------------------------------------------------------------------
 
+def _pushes_landed(sup, timeout_s: float) -> bool:
+    """Poll, to a bounded deadline, until no live daemon has a pending
+    replication push or handoff (each daemon pumps its own on its gossip
+    period). False at the timeout."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if all(sup.request(pid, "health", {})["repl"]["pending"] == 0
+               for pid, pp in sup.procs.items() if pp.alive):
+            return True
+        time.sleep(0.05)
+    return False
+
+
 def test_supervisor_spawns_heals_and_stops():
     with PeerSupervisor.fleet(3, max_store_bytes=1_000_000) as sup:
         assert all(sup.health().values())
@@ -84,6 +97,10 @@ def test_supervisor_spawns_heals_and_stops():
         # the others without any client sync
         sup.request("peer0", "put", {"key": b"g" * 32, "blob": b"b"})
         assert sup.wait_converged([b"g" * 32], timeout_s=10.0)
+        # peer1 is the key's primary: peer0's handoff to it (and its push
+        # to peer2) must have landed before peer1 dies, or its retry
+        # refills the restarted peer1's store below
+        assert _pushes_landed(sup, timeout_s=10.0)
         # the store budget reached the daemons
         big = sup.request("peer2", "put", {"key": b"h" * 32,
                                            "blob": b"x" * 2_000_000})
