@@ -29,15 +29,24 @@ lengths in every run. It
    and over 1024 ring slots), the ring gather timed beside it, and
    flash_decode over a full ring with no window (B=1, and B=4 rows of
    their own kv_len); ssd_scan also at hymba's SSM widths (50 heads,
-   state 16, chunk 64);
+   state 16, chunk 64); both attention kernels also at
+   granite-moe-3b-a800m's (24/8, 64), GQA 3; moe_gemm, the grouped
+   expert GEMM, at granite-moe-3b-a800m's and deepseek-v3-671b's expert
+   shapes (up/gate and down) for a decode step at B=1 and B=4 and a
+   512-row prefill bucket (8 rows a token), with empty groups, beside its
+   plain version and ``torch._grouped_mm``;
+3b. on an empty card, deepseek-v3-671b at full width cut to its three
+   dense MLA layers and its first MoE layer (15.1B parameters), drawn in
+   bf16 only: a Case 1 miss, a Case 5 hit with Case 1's tokens, a Case 4;
 4. runs the paper's edge request on full-width gemma3-270m, on full-width
    mamba2-780m cut to 24 of its 48 layers (for the script's time), on
    full-width deepseek-v3-671b cut to its
    three dense MLA layers, on full-width, full-depth llama3.2-1b and
    qwen2-vl-2b (text prompts: M-RoPE with its three position components
-   equal), and on full-width, full-depth hymba-1.5b (a ring KV cache of
-   1024 slots and an SSM state a layer, 128 meta tokens) (random weights
-   from a seed), each in bf16 and
+   equal), on full-width hymba-1.5b cut to 8 of its 32 layers (a ring KV
+   cache of 1024 slots and an SSM state a layer, 128 meta tokens), and on
+   full-width, full-depth granite-moe-3b-a800m (32 MoE layers of 40
+   experts, top 8) (random weights from a seed), each in bf16 and
    in fp32: client A misses (Case 1) and uploads, client B resumes a
    partial hit (Case 4), then adopts A's full prompt (Case 5), and a
    poisoned catalog falls back to local prefill; it checks the cases and
@@ -74,9 +83,11 @@ lengths in every run. It
    cold);
 5. profiles a prefill and 8 decode steps of each model, then one prefill
    alone (its device time and its attention kernel's share) and the head
-   matmul's share of a decode step, and checks the card's fp32 logits
-   against the same model on the CPU (mamba2-780m cut to 4 layers there,
-   deepseek-v3-671b to 1, llama3.2-1b, qwen2-vl-2b and hymba-1.5b to 2);
+   matmul's share of a decode step (granite-moe-3b-a800m's decode step
+   also by part: attention, route, sort, moe_gemm, combine, host), and
+   checks the card's fp32 logits against the same model on the CPU
+   (mamba2-780m cut to 4 layers there, deepseek-v3-671b to 1,
+   llama3.2-1b, qwen2-vl-2b, hymba-1.5b and granite-moe-3b-a800m to 2);
    on
    qwen2-vl-2b the reference's VLM round trip (stub patch embeddings at
    image positions, one prefill against a prefill and a resume, then a
@@ -84,7 +95,8 @@ lengths in every run. It
 6. serves 8 requests over a pool of 4 slots (``BatchedEngine`` and the
    continuous-batching ``Scheduler``) on each of those models and on
    full-width gemma3-1b (mamba2-780m and gemma3-1b cut to 8 layers,
-   llama3.2-1b, qwen2-vl-2b and hymba-1.5b to 4; hymba's fourth request
+   llama3.2-1b, qwen2-vl-2b, hymba-1.5b and granite-moe-3b-a800m to 4,
+   granite's MoE layers kept; hymba's fourth request
    960 tokens, past its ring's wrap), in bf16 and fp32: prompts cut to
    mixed lengths, so slots decode at their own positions and recycle; fp32
    tokens must equal sequential runs; it prints tokens/s, TTFT and TTLT
@@ -95,7 +107,7 @@ lengths in every run. It
    (its CUDA kernels printed beside); a qwen2-vl-2b decode step must make
    the host's kernel launch calls of the same step with standard rope
    plus its M-RoPE band gathers (2 a layer), and no more device-to-host
-   copies than a llama3.2-1b step;
+   copies than a llama3.2-1b step, nor may a granite-moe-3b-a800m step;
 6b. runs qwen3-4b, yi-6b and nemotron-4-15b at full width cut to 2
    layers: a Case 1 miss and a Case 5 hit in fp32 with a cold run's
    tokens, one bf16 request, the CPU cross-check at 1 layer; then
@@ -170,7 +182,8 @@ PREFILL_BATCH = 4                  # flash_prefill as the batched prefill runs i
 # 1024-position cache, and a decode at 300 keys
 DENSE_WIDTHS = {"llama3.2-1b": (32, 8, 64), "qwen2-vl-2b": (12, 2, 128),
                 "qwen3-4b": (32, 8, 128), "yi-6b": (32, 4, 128),
-                "nemotron-4-15b": (48, 8, 128)}
+                "nemotron-4-15b": (48, 8, 128),
+                "granite-moe-3b-a800m": (24, 8, 64)}
 DENSE_PREFILL_SHAPES = [(291, 0), (31, 253)]
 # hymba-1.5b's attention (H, KV, dh) and window over its ring of 1024
 # slots. flash_prefill reads the ring linearised: (Sq, q_offset) over a
@@ -196,6 +209,18 @@ SSD_GEOS = {"mamba2-780m": (dict(H=48, P=64, N=128, G=1, chunk=256),
             "hymba-1.5b": (dict(H=50, P=64, N=16, G=1, chunk=64),
                            [(419, False), (31, True), (1223, True)])}
 SSD_TOL = dict(atol=2e-4, rtol=1e-3)           # tests/test_kernels.py:86-89
+# moe_gemm at its paths' shapes: (model, product, K, N, stored experts,
+# experts the router picks from); each at M = 8 x tokens rows: a decode
+# step at B=1 and B=4, and a 512-row prefill bucket, rows routed top-8 to
+# distinct experts by a seed (the padded experts, and at decode most
+# others, get none)
+MOE_SHAPES = [("granite-moe-3b-a800m", "up/gate", 1536, 512, 48, 40),
+              ("granite-moe-3b-a800m", "down", 512, 1536, 48, 40),
+              ("deepseek-v3-671b", "up/gate", 7168, 2048, 256, 256),
+              ("deepseek-v3-671b", "down", 2048, 7168, 256, 256)]
+MOE_TOKENS, MOE_TOP_K = (1, 4, 512), 8
+# the row of moe_gemm in the JSON line: granite's up product at B=1 decode
+MOE_ROW = ("granite-moe-3b-a800m", "up/gate", 1)
 MAX_NEW = 16
 # the batched phase: a pool of BATCH slots serves one request per entry of
 # BATCH_CUTS, its prompt cut to that many tokens (None: the whole prompt)
@@ -247,19 +272,25 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
                  "src/repro/kernels/ssd_scan.py:66"),
     "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
                    "src/repro/kernels/mla_decode.py:25"),
+    # no TPU kernel: the reference's expert FFN calls jax.lax.ragged_dot
+    "moe_gemm": ("src/repro_torch/kernels/csrc/moe_gemm.cu",
+                 "src/repro/models/moe.py:93"),
 }
 # the configurations the paths run: the depth each is cut to (None: the
 # config's own), the depth of the CPU cross-check, whether the edge request
 # runs on it, and the depth of its batched phase (every configuration runs
 # one). mamba2-780m runs 24 of its 48 layers, and its batched phase 8, to
 # keep the script's time (at full depth its edge and fabric phases took
-# 143-159 s of a 869-999 s script once hymba-1.5b joined)
+# 143-159 s of a 869-999 s script once hymba-1.5b joined); hymba-1.5b
+# runs 8 of its 32 layers since granite-moe-3b-a800m joined (its phases
+# took 209.8 s at 32)
 PATHS = [("gemma3-270m", None, None, True, None),
          ("mamba2-780m", 24, 4, True, 8),
          ("deepseek-v3-671b", 3, 1, True, None),
          ("llama3.2-1b", None, 2, True, 4),
          ("qwen2-vl-2b", None, 2, True, 4),
-         ("hymba-1.5b", None, 2, True, 4),
+         ("hymba-1.5b", 8, 2, True, 4),
+         ("granite-moe-3b-a800m", None, 2, True, 4),
          ("gemma3-1b", None, None, False, 8)]
 # a windowed model's request past its ring's wrap: WRAP_SHOTS-shot prompts
 # of WRAP_DOMAIN (A: question 0, 1095 tokens; B: question 1, 1057 of its
@@ -445,7 +476,8 @@ def path_launches(cfg, prefills, decode_steps):
     """Launches by wrapper name of a path of ``prefills`` prefills and
     ``decode_steps`` decoded tokens: each runs every layer once, through
     ssd_scan (an SSM, a hybrid) and flash_prefill, and flash_decode or
-    mla_decode (all but an SSM)."""
+    mla_decode (all but an SSM), and moe_gemm three times a MoE layer (up,
+    gate, down)."""
     L = cfg.n_layers
     out = {}
     if cfg.family in ("ssm", "hybrid"):
@@ -454,6 +486,9 @@ def path_launches(cfg, prefills, decode_steps):
         out["flash_prefill"] = prefills * L
         out["mla_decode" if cfg.uses_mla else "flash_decode"] = \
             decode_steps * L
+    n_moe = L - cfg.moe.first_k_dense if cfg.family == "moe" else 0
+    if n_moe:
+        out["moe_gemm"] = 3 * n_moe * (prefills + decode_steps)
     return out
 
 
@@ -847,6 +882,94 @@ def mla_rows_check(dname, dt, gen):
                                  f"window={win}: max err {err}")
         worst = max(worst, err)
     return worst
+
+
+def moe_offsets(tokens, E, picked, gen, dev):
+    """Group offsets [E + 1] int32 on ``dev`` of ``tokens`` x MOE_TOP_K
+    rows, each token's rows routed to distinct experts among the first
+    ``picked`` (the others, padded experts among them, get none); and the
+    number of experts with rows."""
+    import torch
+    ids = torch.rand((tokens, picked), generator=gen).argsort(-1)[
+        :, :MOE_TOP_K]
+    sizes = torch.bincount(ids.reshape(-1), minlength=E)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long), sizes.cumsum(0)])
+    return offsets.to(dev, torch.int32), int((sizes > 0).sum())
+
+
+def moe_checks():
+    """moe_gemm against moe_gemm_plain at each of MOE_SHAPES for MOE_TOKENS
+    tokens (M = 8 rows a token), in fp32 and bf16, each with empty groups.
+    The tolerance is TOL of max(1, max |plain|): both sum K products of
+    unit-scale rows, ~N(0, 1) outputs. Timed: the kernel in both dtypes;
+    in bf16 also the plain version (by CUDA events around each call: its
+    loop reads the offsets on the host, and the profiler's windows of it
+    lose device events) and ``torch._grouped_mm`` (the card's PyTorch, a
+    yardstick the port never calls), beside the bound: the
+    rows, the weights of the experts that have rows, and the output,
+    over 3.35 TB/s, or 2 M K N flops. Returns the row for the JSON line
+    (MOE_ROW)."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    wgen = torch.Generator(device=dev).manual_seed(4)
+    row = {"max_abs_err": 0.0}
+    grouped = getattr(torch, "_grouped_mm", None)
+    for name, prod, K, N, E, picked in MOE_SHAPES:
+        w32 = torch.randn((E, K, N), generator=wgen, device=dev) / K ** 0.5
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            w = w32 if dt == torch.float32 else w32.to(dt)
+            for tokens in MOE_TOKENS:
+                M = tokens * MOE_TOP_K
+                offsets, live = moe_offsets(tokens, E, picked, gen, dev)
+                xs = torch.randn((M, K), generator=gen).to(dev, dt)
+                out = moe_gemm(xs, w, offsets)
+                ref = moe_gemm_plain(xs, w, offsets)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = max(1.0, ref.float().abs().max().item())
+                ms = device_ms(lambda: moe_gemm(xs, w, offsets))
+                es = xs.element_size()
+                nbytes = es * (M * K + live * K * N + M * N) + 4 * (E + 1)
+                b_ms, b_by = bound(nbytes, 2 * M * K * N, dname)
+                times = f"kernel {ms:.4f}"
+                plain_ms = lib_ms = None
+                if dt == torch.bfloat16:
+                    plain_ms = time_ms(lambda: moe_gemm_plain(xs, w,
+                                                              offsets))
+                    times += f" plain {plain_ms:.4f} (CUDA events)"
+                    if grouped is not None:
+                        try:
+                            lib = grouped(xs, w, offs=offsets[1:])
+                            lib_err = (lib.float() - ref.float()).abs(
+                                ).max().item()
+                            lib_ms = device_ms(lambda: grouped(
+                                xs, w, offs=offsets[1:]))
+                            times += (f" torch._grouped_mm {lib_ms:.4f} "
+                                      f"(max err {lib_err:.3g})")
+                        except RuntimeError as e:
+                            times += f" torch._grouped_mm refused: {e}"
+                print(f"moe_gemm {name} {prod} {dname} M={M} ({tokens} "
+                      f"tokens x top-{MOE_TOP_K}) K={K} N={N} E={E}, "
+                      f"{live} experts with rows: max_abs_err={err:.3g} "
+                      f"(tol {TOL[dname]} x {scale:.3g}) device ms: {times}"
+                      f" bound {b_ms:.5f} ({b_by}); {b_ms / ms:.3f} of the "
+                      f"bound, {nbytes / ms / 1e6:.0f} GB/s")
+                if err > TOL[dname] * scale or \
+                        torch.count_nonzero(out[int(offsets[-1]):]):
+                    raise AssertionError(f"moe_gemm {name} {prod} {dname} "
+                                         f"M={M}: max err {err}")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                if (name, prod, tokens) == MOE_ROW and \
+                        dt == torch.bfloat16:
+                    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+            del w
+        del w32
+        torch.cuda.empty_cache()
+    return row
 
 
 def ssd_inputs(S, dtype, random_h0, gen, H, P, N, G, chunk):
@@ -1688,7 +1811,8 @@ def batched_path(model, label, max_len=1024):
     run and read just after: each decode step launches the decode kernel
     once a layer, the prefills launch flash_prefill once a layer per
     batched prefill (an SSM: ssd_scan once a layer per request, each
-    prompt prefilled alone at its exact length). The tokens are held
+    prompt prefilled alone at its exact length), and moe_gemm three times
+    a MoE layer per decode step and per batched prefill. The tokens are held
     against sequential ``InferenceEngine`` runs (equal in fp32, counted in
     bf16). Then a steady Scheduler step with its requests traced must run
     what an untraced one runs (``sched_kernels``); one decode_batch step's
@@ -1703,6 +1827,7 @@ def batched_path(model, label, max_len=1024):
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.moe_gemm import moe_gemm
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.obs.trace import Tracer
     from repro_torch.serving.engine import BatchedEngine, InferenceEngine
@@ -1710,7 +1835,7 @@ def batched_path(model, label, max_len=1024):
 
     cfg = model.cfg
     L = cfg.n_layers
-    kernels = (flash_prefill, flash_decode, ssd_scan, mla_decode)
+    kernels = (flash_prefill, flash_decode, ssd_scan, mla_decode, moe_gemm)
     decode_k = None if cfg.family == "ssm" else \
         mla_decode if cfg.uses_mla else flash_decode
     gen = MMLUGenerator(WordHashTokenizer(cfg.vocab), n_shot=5)
@@ -1768,13 +1893,14 @@ def batched_path(model, label, max_len=1024):
                              f"sequential runs: {agree}")
     # a recurrent state takes one exact prefill a request; padded batched
     # prefills launch flash_prefill once a layer per batch
-    want = path_launches(cfg, len(prompts), sched.n_steps)
+    n_pre = len(prompts)
     if not model.has_recurrent_state:
-        del want["flash_prefill"]
-        n_pre = launches["flash_prefill"]
-        if n_pre <= 0 or n_pre % L:
-            raise AssertionError(f"[{label}] flash_prefill launched {n_pre}"
-                                 f" times, not a multiple of {L} layers")
+        n_pre = launches["flash_prefill"] // L
+        if n_pre <= 0 or launches["flash_prefill"] % L:
+            raise AssertionError(f"[{label}] flash_prefill launched "
+                                 f"{launches['flash_prefill']} times, not a "
+                                 f"multiple of {L} layers")
+    want = path_launches(cfg, n_pre, sched.n_steps)
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"[{label}] {name} launched "
@@ -2759,6 +2885,21 @@ def step_host_calls(model, label):
     return seen[0]
 
 
+def moe_host_check(model, label, llama_calls):
+    """A MoE model's ``decode_batch`` step makes no more device-to-host
+    copies than a llama3.2-1b step (``llama_calls``): the MoE layers read
+    nothing on the host."""
+    calls, dtoh = step_host_calls(model, label)
+    print(f"[{label}] a decode_batch step at B={BATCH}: kernel launch calls "
+          f"on the host {calls} ({model.cfg.n_layers} MoE layers), "
+          f"device-to-host copies {dtoh} (llama3.2-1b at 4 layers: "
+          f"{llama_calls[0]} launch calls, {llama_calls[1]} copies)")
+    if dtoh > llama_calls[1]:
+        raise AssertionError(f"[{label}] a MoE decode step made {dtoh} "
+                             f"device-to-host copies, llama3.2-1b's "
+                             f"{llama_calls[1]}")
+
+
 def mrope_check(model, llama_calls):
     """M-RoPE adds no host sync to a decode step: a step of ``model``
     (qwen2-vl-2b) makes the kernel launch calls of the same step with the
@@ -2856,6 +2997,194 @@ def wide_path(name, launches, launches32):
           f"included)")
 
 
+def moe_step_split(model, prompt):
+    """A MoE model's decode step (B=1) by part: the step's wall ms (host
+    clock, 8 steps) and device ms (profiler, 4 steps), and each part of
+    one layer timed alone at that layer's decode inputs (layer 0, the
+    cache after the prompt): the attention sublayer, and the MoE's route,
+    sort (``dispatch``), the three moe_gemm products, the gated
+    activation and the combine. For each part its wall ms a call (host
+    clock over 20 back-to-back calls and a synchronise: the host's
+    dispatch where that is longer than the kernels, as in a decode step)
+    and its device ms and CUDA kernels a call (the profiler over 20 calls,
+    ``profile_call``; a window that loses events reads low, and the
+    kernel count shows it). Layers times a part is its share of the
+    step; the rest is the norms, residual adds, embedding and head."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import clock
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import activation, apply_norm
+    from repro_torch.serving.engine import InferenceEngine
+    collect_profiles()
+    cfg, L = model.cfg, model.cfg.n_layers
+    eng = InferenceEngine(model, max_len=1024)
+    st = eng.start({"tokens": np.asarray(prompt.token_ids, np.int32)[None]})
+    eng.generate(st, 4)
+    torch.cuda.synchronize()
+    t0 = clock.monotonic()
+    eng.generate(st, 8)
+    torch.cuda.synchronize()
+    wall = (clock.monotonic() - t0) / 8 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate(st, 4)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy = sum(_dev_us(e) for e in rows) / 4 / 1e3
+    n_kern = sum(e.count for e in rows) / 4
+    lp = tf.layer_params(model.segments[0].tree(), 0)
+    lc = tf.layer_params(st.cache["segments"][0], 0)
+    p = lp["moe"]
+    x1 = torch.randn((1, 1, cfg.d_model), device=model.device,
+                     dtype=model.dtype)
+    xf = apply_norm(lp["ln2"], x1).reshape(1, -1)
+    w, ids, _ = moe.route(p, cfg, xf, aux=False)
+    d = moe.dispatch(xf, w, ids, p["w_up"].shape[0])
+    up, gate = (moe_gemm(d.xs, p[k], d.offsets) for k in ("w_up", "w_gate"))
+    h = activation(gate, cfg.act) * up
+    y = moe_gemm(h, p["w_down"], d.offsets)
+    parts = {
+        "attention sublayer": lambda: attn.attn_decode(
+            lp["attn"], cfg, apply_norm(lp["ln1"], x1), st.pos, lc),
+        "route": lambda: moe.route(p, cfg, xf, aux=False),
+        "sort": lambda: moe.dispatch(xf, w, ids, p["w_up"].shape[0]),
+        "moe_gemm x3": lambda: (moe_gemm(d.xs, p["w_up"], d.offsets),
+                                moe_gemm(d.xs, p["w_gate"], d.offsets),
+                                moe_gemm(h, p["w_down"], d.offsets)),
+        "activation": lambda: activation(gate, cfg.act) * up,
+        "combine": lambda: moe.combine(y, d),
+    }
+    def part_wall(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = clock.monotonic()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (clock.monotonic() - t0) / iters * 1e3
+
+    got = {name: (part_wall(fn),) + profile_call(fn, iters=20)[::-1]
+           for name, fn in parts.items()}
+    moe_wall, moe_dev = (sum(g[i] for name, g in got.items()
+                             if name != "attention sublayer") * L
+                         for i in (0, 1))
+    att = got["attention sublayer"]
+    print(f"[{cfg.name} {str(model.dtype)[6:]}] decode step (B=1, {L} "
+          f"layers): wall {wall:.2f} ms, device {busy:.3f} ms in "
+          f"{n_kern:g} CUDA kernels (idle share {1 - busy / wall:.3f}); "
+          f"a layer's parts, wall ms / device ms (CUDA kernels) a call: "
+          + ", ".join(f"{n} {w:.4f} / {d:.4f} ({k:g})"
+                      for n, (w, d, k) in got.items())
+          + f"; x {L} layers, wall / device: attention {att[0] * L:.2f} / "
+          f"{att[1] * L:.3f} ms, MoE {moe_wall:.2f} / {moe_dev:.3f} ms "
+          f"(moe_gemm {got['moe_gemm x3'][0] * L:.2f} / "
+          f"{got['moe_gemm x3'][1] * L:.3f}), the rest "
+          f"{wall - moe_wall - att[0] * L:.2f} / "
+          f"{busy - moe_dev - att[1] * L:.3f} ms")
+
+
+def moe_cut_path(smi):
+    """deepseek-v3-671b at full width cut to its three dense MLA layers and
+    its first MoE layer (``moe_cut``; 15.1B parameters, ~30 GB), drawn in
+    bf16 on the card (an fp32 copy beside it would not fit): A misses
+    (Case 1) and uploads, B adopts A's prompt (Case 5, the tokens of Case
+    1) and resumes a partial hit (Case 4, printed). The counts are set to
+    0 just before the requests and read just after: flash_prefill and
+    mla_decode once a layer a prefill and a decode step, moe_gemm three
+    times. The model is freed at the end. Returns the launches."""
+    collect_profiles()
+    import numpy as np
+    import torch
+    from repro_torch import clock
+    from repro_torch.config import CacheConfig
+    from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v3_671b import moe_cut
+    from repro_torch.core.client import EdgeClient
+    from repro_torch.core.server import CacheServer
+    from repro_torch.data.mmlu import MMLUGenerator
+    from repro_torch.data.tokenizer import WordHashTokenizer
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models.model import Model, padded_vocab
+    from repro_torch.serving.engine import InferenceEngine
+    t0 = clock.monotonic()
+    cfg = moe_cut(get_config("deepseek-v3-671b"), 1)
+    label = f"{cfg.name} moe_cut(1) bf16"
+    torch.cuda.reset_peak_memory_stats()
+    m = Model(cfg, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in m.parameters()) / 1e6
+    print(f"[{label}] L={cfg.n_layers} ({cfg.moe.first_k_dense} dense MLA, "
+          f"{cfg.n_layers - cfg.moe.first_k_dense} MoE: {cfg.moe}), "
+          f"{cfg.param_count() / 1e6:.1f}M params by param_count, {n:.1f}M "
+          f"stored, random weights (seed 0) drawn in bf16 in "
+          f"{clock.monotonic() - t0:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB ({smi})")
+    gen = MMLUGenerator(WordHashTokenizer(cfg.vocab), n_shot=5)
+    p_a = gen.prompt("astronomy", 0).segments
+    p_b = gen.prompt("astronomy", 1).segments
+    server = CacheServer(CacheConfig())
+
+    def client(name, srv=server):
+        return EdgeClient(name, InferenceEngine(m, max_len=1024), srv,
+                          CacheConfig())
+    client("warm", CacheServer(CacheConfig())).infer(
+        gen.prompt("anatomy", 3).segments, max_new_tokens=2,
+        upload_on_miss=False)
+    kernels = (flash_prefill, mla_decode, moe_gemm)
+    for k in kernels:
+        k.launches = 0
+    t1 = clock.monotonic()
+    r1 = client("A").infer(p_a, MAX_NEW)
+    b = client("B")
+    b.sync_catalog()
+    r5 = b.infer(p_a, MAX_NEW)
+    r4 = b.infer(p_b, MAX_NEW)
+    launches = {k.__name__: k.launches for k in kernels}
+    want = path_launches(cfg, 2, 3 * MAX_NEW)
+    for tag, r in (("A miss", r1), ("B full", r5), ("B partial", r4)):
+        t = r.timings
+        print(f"[{label}] {tag}: case {r.case} matched {r.matched_tokens}/"
+              f"{r.prompt_tokens} ttft {r.ttft_s * 1e3:.2f} ms ttlt "
+              f"{r.ttlt_s * 1e3:.2f} ms up {r.blob_bytes_up} B down "
+              f"{r.blob_bytes_down} B | restore {t['restore_s'] * 1e3:.2f} "
+              f"prefill {t['prefill_s'] * 1e3:.2f} decode "
+              f"{t['decode_s'] / max(len(r.output_tokens), 1) * 1e3:.2f} "
+              f"ms/tok; tokens {r.output_tokens}")
+    print(f"[{label}] launches {launches} (the requests need {want}); "
+          f"requests {clock.monotonic() - t1:.1f} s")
+    if [r.case for r in (r1, r5, r4)] != [1, 5, 4]:
+        raise AssertionError(f"[{label}] cases "
+                             f"{[r.case for r in (r1, r5, r4)]}")
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, the path "
+                             f"needs {want}")
+    if r5.output_tokens != r1.output_tokens:
+        raise AssertionError(f"[{label}] Case 5 tokens {r5.output_tokens} "
+                             f"differ from Case 1's {r1.output_tokens}")
+    eng = InferenceEngine(m, max_len=1024)
+    lg = eng.start({"tokens": np.asarray(p_b.token_ids, np.int32)[None]}
+                   ).last_logits
+    if lg.shape != (1, padded_vocab(cfg.vocab)) or \
+            not np.isfinite(lg).all() or any(
+                len(r.output_tokens) != MAX_NEW or not all(
+                    0 <= t < cfg.vocab for t in r.output_tokens)
+                for r in (r1, r5, r4)):
+        raise AssertionError(f"[{label}] malformed output")
+    del m, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{label}] seconds: {clock.monotonic() - t0:.1f} (weights "
+          f"included)")
+    return launches
+
+
 def serve_check():
     """``python -m repro_torch.launch.serve``: a ``server`` process, and a
     ``client`` process at SERVE_ARCH's full width (``--no-reduced``) on
@@ -2943,9 +3272,11 @@ def cut_model(model, n_layers, device="cuda"):
 
 
 def cut(cfg, n_layers):
-    """``cfg`` at ``n_layers`` layers; a deepseek-style config keeps them
-    all dense MLA (its MoE segment empty)."""
-    if cfg.family == "moe":
+    """``cfg`` at ``n_layers`` layers; a deepseek-style config (leading
+    dense MLA layers) keeps them all dense MLA, its MoE segment empty. A
+    MoE config with no leading dense layer (granite) keeps its MoE
+    layers."""
+    if cfg.moe.first_k_dense and cfg.uses_mla:
         from repro_torch.configs.deepseek_v3_671b import dense_cut
         return dense_cut(cfg, n_layers)
     return cfg.replace(n_layers=n_layers)
@@ -2971,7 +3302,8 @@ def model_pair(name, n_layers=None):
     extra = {"ssm": cfg.ssm} if cfg.family == "ssm" else \
         {"ssm": cfg.ssm, "window": cfg.window,
          "meta_tokens": cfg.n_meta_tokens} if cfg.family == "hybrid" else \
-        {"mla": cfg.mla, "dense_ff": cfg.moe.dense_ff} if cfg.uses_mla else {}
+        {"mla": cfg.mla, "dense_ff": cfg.moe.dense_ff} if cfg.uses_mla else \
+        {"moe": cfg.moe} if cfg.family == "moe" else {}
     print(f"model {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
           f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.dh} ff={cfg.d_ff} "
           f"vocab={cfg.vocab} tied={cfg.tie_embeddings} {extra}, "
@@ -2991,6 +3323,7 @@ def main():
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.moe_gemm import moe_gemm
     from repro_torch.kernels.ssd_scan import ssd_scan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2998,9 +3331,14 @@ def main():
     rows = kernel_checks()
     rows["ssd_scan"] = ssd_checks()
     rows["mla_decode"] = mla_checks()
+    print(f"kernel checks: {clock.monotonic() - t_script:.1f} s after the "
+          f"device line")
+    rows["moe_gemm"] = moe_checks()
+    print(f"moe_gemm checks: {clock.monotonic() - t_script:.1f} s after the "
+          f"device line")
 
     wrappers = {k.__name__: k for k in (flash_prefill, flash_decode,
-                                        ssd_scan, mla_decode)}
+                                        ssd_scan, mla_decode, moe_gemm)}
 
     def needs(cfg):
         """Launches each path needs, by wrapper: 4 requests of MAX_NEW
@@ -3013,6 +3351,9 @@ def main():
 
     launches = {k: 0 for k in SOURCES}
     launches32 = dict(launches)
+    # first, on an empty card: deepseek-v3 with its first MoE layer, bf16
+    for k, n in moe_cut_path(smi).items():
+        launches[k] += n
     served = []                        # (name, bf16, fp32) of GATEWAY_PATHS
     llama_calls = None                 # a llama3.2-1b decode step's host calls
     for name, n_layers, cross_layers, edge, batched_layers in PATHS:
@@ -3045,6 +3386,9 @@ def main():
                 llama_calls = step_host_calls(m, label)
             if m.dtype == torch.bfloat16 and m.cfg.rope == "mrope":
                 mrope_check(m, llama_calls)
+            if m.dtype == torch.bfloat16 and m.cfg.family == "moe" and \
+                    not m.cfg.uses_mla:
+                moe_host_check(m, label, llama_calls)
             print(f"[{label}] seconds: "
                   + (f"edge {t1 - t0:.1f}, fabric {t2 - t1:.1f}, "
                      if edge else "")
@@ -3053,6 +3397,8 @@ def main():
             del m, full
         if edge:
             where_time_goes(m16, prompts[0])
+            if m16.cfg.family == "moe" and not m16.cfg.uses_mla:
+                moe_step_split(m16, prompts[0])
             cpu_cross_check(m32, prompts[1], cross_layers or m32.cfg.n_layers)
         if m32.cfg.family == "vlm":
             vlm_roundtrip((m32, m16))
@@ -3086,7 +3432,7 @@ def main():
     del served
 
     out = []
-    for name in ("flash_prefill", "flash_decode", "ssd_scan", "mla_decode"):
+    for name in SOURCES:
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": SOURCES[name][0],
                     "replaces": SOURCES[name][1], "launches": launches[name],

@@ -49,7 +49,7 @@ class MLAConfig:
 class ModelConfig:
     name: str
     family: str                   # this port runs "dense", "vlm", "ssm",
-                                  # "hybrid" and "moe" with no MoE layer
+                                  # "hybrid" and "moe"
     n_layers: int
     d_model: int
     n_heads: int

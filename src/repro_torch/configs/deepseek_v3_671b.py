@@ -8,8 +8,9 @@ kv_lora 512, qk_nope 128, qk_rope 64, v 128. The MLA latent cache holds
 576 values per token per layer, so a prompt-cache blob is small while
 the model is large: the paper's best case for cache sharing.
 
-This port serves the model cut to its leading dense layers
-(:func:`dense_cut`): no expert runs, and the MoE segment is empty.
+The whole model (671B parameters) does not fit one card, so the port
+serves it cut: to its leading dense layers (:func:`dense_cut`, an empty
+MoE segment), or to those and its first MoE layers (:func:`moe_cut`).
 """
 import dataclasses
 
@@ -43,3 +44,10 @@ def dense_cut(cfg: ModelConfig, n_layers: int) -> ModelConfig:
     return cfg.replace(n_layers=n_layers, mtp=False,
                        moe=dataclasses.replace(cfg.moe,
                                                first_k_dense=n_layers))
+
+
+def moe_cut(cfg: ModelConfig, n_moe: int) -> ModelConfig:
+    """``cfg``'s ``first_k_dense`` dense MLA layers followed by its first
+    ``n_moe`` MoE layers, with no MTP head. Apply the same ``replace`` to
+    the reference's config to get the same ``model_meta``."""
+    return cfg.replace(n_layers=cfg.moe.first_k_dense + n_moe, mtp=False)

@@ -24,8 +24,9 @@ byte, so a JAX peer and a torch peer share one cache.
 
 The leaves: one per cache tensor, in JAX's flatten order (dict keys
 sorted), at paths such as ``segments/0/k``. Sequence leaves (``k``,
-``v`` and MLA's ``ckv``, ``krope``) are cut to ``n_eff`` positions along
-axis 2 of ``[L, B, S, ...]``; state leaves (an SSM's ``conv`` and
+``v`` and MLA's ``ckv``, ``krope``; a MoE segment's cache is its
+attention's) are cut to ``n_eff`` positions along axis 2 of ``[L, B, S,
+...]``; state leaves (an SSM's ``conv`` and
 ``ssd``) ship whole. Each leaf keeps its dtype string, ``float32`` or
 ``bfloat16`` (an SSM's ``ssd`` stays fp32 in a bf16 cache); bf16 travels
 as its raw 16-bit pattern, since numpy has no bf16. With ``quantize``,

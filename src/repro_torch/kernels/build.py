@@ -21,7 +21,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("flash_prefill", "flash_decode", "ssd_scan", "mla_decode")
+KERNELS = ("flash_prefill", "flash_decode", "ssd_scan", "mla_decode",
+           "moe_gemm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -42,6 +43,7 @@ SIGNATURES = {
     "ssd_scan": [_c_p] * 9 + [_c_i] * 9 + [_c_i64] * 12 + [_c_p],
     "mla_decode": (
         [_c_p] * 10 + [_c_i] * 11 + [_c_i64] * 8 + [_c_f, _c_p]),
+    "moe_gemm": [_c_p] * 4 + [_c_i] * 5 + [_c_i64] * 4 + [_c_p],
 }
 
 

@@ -1,6 +1,6 @@
-"""Model facade for decoder-only models (the dense, VLM, SSM and hybrid
-families, and deepseek-v3 cut to its dense MLA layers): prefill with
-prefix resume, and one-token decode.
+"""Model facade for decoder-only models (the dense, VLM, SSM, hybrid and
+MoE families; deepseek-v3 cut to its dense MLA layers or to those and
+its first MoE layers): prefill with prefix resume, and one-token decode.
 
 Counterpart of ``repro.models.model.Model`` (serving modes only). The
 parameters live in this ``nn.Module`` under the reference's tree paths,
@@ -13,8 +13,10 @@ dtypes, ``{"segments": [{"k": [L,B,S,KV,dh], "v": ...}]}`` for a dense
 model, ``{"segments": [{"conv": [L,B,K-1,C], "ssd": [L,B,H,P,N] fp32}]}``
 for an SSM, ``{"segments": [{"attn": {"k", "v"}, "ssm": {"conv",
 "ssd"}}]}`` for a hybrid and ``{"segments": [{"ckv": [L,B,S,R], "krope":
-[L,B,S,Dr]}, ...]}`` for MLA (an empty MoE segment has ``L = 0``): it is
-the state the paper ships between devices (``core/state_io.py``).
+[L,B,S,Dr]}, ...]}`` for MLA (a MoE segment's cache is its attention's:
+k/v for granite, latents for deepseek; an empty MoE segment has ``L =
+0``): it is the state the paper ships between devices
+(``core/state_io.py``).
 :meth:`prefill` and :meth:`decode_step` update it IN PLACE and return it.
 
 Meta tokens (hymba's learned prefix of ``R`` rows, ``meta [R, d]``) take

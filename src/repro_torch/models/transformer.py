@@ -1,14 +1,14 @@
 """Layer stacks: segments of one layer kind, run as a Python loop over
 layers.
 
-Counterpart of ``repro.models.transformer`` for ``dense``, ``ssm``,
-``hybrid`` and ``mla_dense`` segments. Parameters and caches keep the
-reference's stacked layout, a leading ``[L, ...]`` layer axis on every
-leaf of their nested dicts, so parameter trees and state blobs line up
-leaf for leaf; the loop over layers replaces ``lax.scan``. A segment of
-MoE layers runs no experts here: it must be empty, as in deepseek-v3 cut
-to its leading dense layers, and then keeps the reference's leaves with
-a zero layer axis.
+Counterpart of ``repro.models.transformer`` for ``dense``, ``moe``,
+``ssm``, ``hybrid``, ``mla_dense`` and ``mla_moe`` segments. Parameters
+and caches keep the reference's stacked layout, a leading ``[L, ...]``
+layer axis on every leaf of their nested dicts, so parameter trees and
+state blobs line up leaf for leaf; the loop over layers replaces
+``lax.scan``. A MoE layer's FFN is :func:`repro_torch.models.moe.moe_forward`;
+an empty segment (deepseek-v3 cut to its leading dense layers) keeps the
+reference's leaves with a zero layer axis.
 """
 from __future__ import annotations
 
@@ -19,14 +19,14 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, tree_map
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
 
 class Segment(NamedTuple):
-    kind: str          # dense | ssm | hybrid | mla_dense | (empty) moe,
-                       # mla_moe
+    kind: str          # dense | moe | ssm | hybrid | mla_dense | mla_moe
     n_layers: int
     d_ff: int          # for the dense kinds' MLP
 
@@ -60,27 +60,6 @@ def init_norm(cfg, dtype, device):
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def moe_leaves(cfg, dtype, device=None) -> Dict:
-    """The reference's MoE leaves (``repro/models/moe.py::init_moe``),
-    unset: an empty MoE segment carries them with a zero layer axis. The
-    router stays fp32; the expert axis is padded to a multiple of 16 from
-    16 experts up, as the reference stores it."""
-    mo, d = cfg.moe, cfg.d_model
-    e, f = mo.n_experts, mo.expert_ff
-    es = -(-e // 16) * 16 if e >= 16 else e
-    shapes = {"router": ((d, e), torch.float32), "w_up": ((es, d, f), dtype),
-              "w_down": ((es, f, d), dtype)}
-    if cfg.gated_mlp:
-        shapes["w_gate"] = ((es, d, f), dtype)
-    if mo.n_shared:
-        fs = (mo.shared_ff or mo.expert_ff) * mo.n_shared
-        shapes.update(ws_up=((d, fs), dtype), ws_down=((fs, d), dtype))
-        if cfg.gated_mlp:
-            shapes["ws_gate"] = ((d, fs), dtype)
-    return {name: torch.empty(shape, dtype=dt, device=device)
-            for name, (shape, dt) in shapes.items()}
-
-
 def init_layer(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
                device=None) -> Dict:
     """One layer's parameters; with no generator, allocated and unset."""
@@ -99,7 +78,7 @@ def init_layer(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
     else:
         p["attn"] = attn.init_attention(cfg, dtype, gen, device=device)
     if seg.kind.endswith("moe"):
-        p["moe"] = moe_leaves(cfg, dtype, device)
+        p["moe"] = moe_mod.init_moe(cfg, dtype, gen, device=device)
     else:
         p["mlp"] = init_mlp(cfg, dtype, gen, seg.d_ff, device=device)
     return p
@@ -113,12 +92,10 @@ def init_segment(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
         one = init_layer(cfg, seg, dtype, None, device="meta")
         return tree_map(lambda t: torch.empty(
             (0,) + tuple(t.shape), dtype=t.dtype, device=device), one)
-    if seg.kind.endswith("moe"):
-        raise NotImplementedError(
-            "MoE layers (routed experts) are not in this port yet (ROADMAP "
-            "Queue 1, item 9)")
     layers = [init_layer(cfg, seg, dtype, gen, device)
               for _ in range(seg.n_layers)]
+    if len(layers) == 1:               # a view: no second copy of a layer
+        return tree_map(lambda t: t.unsqueeze(0), layers[0])
     return tree_map(lambda *ts: torch.stack(ts), *layers)
 
 
@@ -144,6 +121,14 @@ def layer_params(sp: Dict, i: int) -> Dict:
     return tree_map(lambda t: t[i], sp)
 
 
+def _ffn(lp, cfg, seg: Segment, x):
+    """The layer's FFN: the routed experts of a MoE layer (its aux loss
+    unused in serving), else the dense MLP."""
+    if seg.kind.endswith("moe"):
+        return moe_mod.moe_forward(lp["moe"], cfg, x, aux=False)[0]
+    return mlp_forward(lp["mlp"], cfg, x)
+
+
 def layer_prefill(lp, cfg, seg: Segment, x, positions, lc, start_pos: int):
     h = apply_norm(lp["ln1"], x)
     if seg.kind == "ssm":
@@ -159,7 +144,7 @@ def layer_prefill(lp, cfg, seg: Segment, x, positions, lc, start_pos: int):
         y, _ = attn.attn_prefill(lp["attn"], cfg, h, positions, lc,
                                  start_pos)
     x = x + y
-    return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["ln2"], x))
+    return x + _ffn(lp, cfg, seg, apply_norm(lp["ln2"], x))
 
 
 def layer_decode(lp, cfg, seg: Segment, x1, pos: attn.Pos, lc,
@@ -177,7 +162,7 @@ def layer_decode(lp, cfg, seg: Segment, x1, pos: attn.Pos, lc,
     else:
         y, _ = attn.attn_decode(lp["attn"], cfg, h, pos, lc, kv_max=kv_max)
     x1 = x1 + y
-    return x1 + mlp_forward(lp["mlp"], cfg, apply_norm(lp["ln2"], x1))
+    return x1 + _ffn(lp, cfg, seg, apply_norm(lp["ln2"], x1))
 
 
 def stack_prefill(sp, cfg, seg: Segment, x, positions, cache,

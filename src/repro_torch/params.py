@@ -5,9 +5,11 @@ The reference's parameters are a pytree keyed by path
 the same layouts under the same names with ``.`` for ``/``, so the
 conversion is a copy: give :func:`from_jax_params` the tree with its
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and load
-the result with ``model.load_state_dict``. Leaves with no elements (an
-empty MoE segment's ``[0, ...]`` stacks) come across as empty tensors of
-the same shape.
+the result with ``model.load_state_dict``. A MoE segment's expert stacks
+``[L, E, d, f]`` are copied as they are, and its router stays fp32 in a
+bf16 model, as the reference keeps it. Leaves with no elements (an empty
+MoE segment's ``[0, ...]`` stacks) come across as empty tensors of the
+same shape.
 """
 from __future__ import annotations
 

@@ -13,11 +13,13 @@ Counterpart of ``repro.serving.engine.InferenceEngine``:
                                            chunks land
   * ``generate(state, n, sampler)``      — greedy decode loop
 
-Prefill inputs of a dense or MLA model are padded to power-of-two
+Prefill inputs of a dense, MoE or MLA model are padded to power-of-two
 buckets, as in the reference. The padding writes junk K/V (or latents)
 past the true length; the
 next prefill or decode starts at the true length and the kernels mask by
-``kv_len``, so it is never read. Unlike the reference, the bucket is also
+``kv_len``, so it is never read. In a MoE layer the pad rows are routed
+through the experts like any row; ``moe_local`` has no capacity, so the
+real rows do not depend on them. Unlike the reference, the bucket is also
 capped at the room left in the cache after ``start_pos``, so a resume
 near the end of the cache never writes past it. A windowed model is never
 padded (pad entries would rotate into its ring), nor is a model whose
@@ -241,7 +243,8 @@ class BatchedEngine:
     ``len(slots)`` rows into a cache of ``bucket`` positions (eager
     PyTorch has no compile count to bound, so the batch is not padded to
     ``batch_size`` as the reference pads it), then copies the rows into
-    the pool. A model with recurrent state (an SSM, a hybrid), or whose
+    the pool (a MoE model's rows of all slots go through one MoE call a
+    layer). A model with recurrent state (an SSM, a hybrid), or whose
     cache is a ring (a window no longer than the cache), takes exact
     per-row prefill instead: padding would run through the state (the
     reference pads an SSM; ROADMAP Queue 3), and a ring cache cannot take

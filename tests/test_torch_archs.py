@@ -1,8 +1,9 @@
-"""The port's dense and VLM configs against the JAX reference.
+"""The port's dense, VLM and MoE configs against the JAX reference.
 
 llama3.2-1b (dh 64, GQA 4), qwen3-4b (qk-norm), yi-6b (GQA 8, untied),
-nemotron-4-15b (layernorm, ungated relu²) and qwen2-vl-2b (q/k/v/o
-biases, M-RoPE): the registry holds the reference's fields, the models'
+nemotron-4-15b (layernorm, ungated relu²), qwen2-vl-2b (q/k/v/o
+biases, M-RoPE) and granite-moe-3b-a800m (MoE layers, GQA 3): the
+registry holds the reference's fields, the models'
 ``reduced()`` variants take the reference's params through
 ``from_jax_params`` and give its prefill and decode logits within 1e-5
 in fp32 on the CPU (the same function; only the summation order of the
@@ -31,7 +32,8 @@ from repro_torch.params import from_jax_params
 from repro_torch.serving.engine import InferenceEngine
 
 TOL = 1e-5
-NEW = ("llama3.2-1b", "qwen3-4b", "yi-6b", "nemotron-4-15b", "qwen2-vl-2b")
+NEW = ("llama3.2-1b", "qwen3-4b", "yi-6b", "nemotron-4-15b", "qwen2-vl-2b",
+       "granite-moe-3b-a800m")
 # the leaves each new config adds to the parameter tree
 NEW_LEAVES = {
     "llama3.2-1b": (),
@@ -41,6 +43,9 @@ NEW_LEAVES = {
                        "segments.0.ln2.bias"),
     "qwen2-vl-2b": ("segments.0.attn.bq", "segments.0.attn.bk",
                     "segments.0.attn.bv", "segments.0.attn.bo"),
+    "granite-moe-3b-a800m": ("segments.0.moe.router", "segments.0.moe.w_up",
+                             "segments.0.moe.w_gate",
+                             "segments.0.moe.w_down"),
 }
 _WORLDS = {}
 
@@ -63,12 +68,12 @@ def _close(a, b):
 
 
 def test_registry_lists_what_the_port_runs():
-    assert list_archs() == sorted(ARCHS) and len(ARCHS) == 10
+    assert list_archs() == sorted(ARCHS) and len(ARCHS) == 11
     assert set(NEW) <= set(ARCHS)
     from repro.configs.registry import ARCHS as JAX_ARCHS
-    for arch in set(JAX_ARCHS) - set(ARCHS):
-        with pytest.raises(KeyError, match="item 9"):
-            get_config(arch)
+    assert set(JAX_ARCHS) - set(ARCHS) == {"whisper-base"}
+    with pytest.raises(KeyError, match="item 9.5"):
+        get_config("whisper-base")
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
 
@@ -185,10 +190,11 @@ def test_state_blob_crosses_packages_both_ways(arch):
 def test_every_config_allocates_unset_and_loads_a_drawn_model(arch):
     """``Model(seed=None)`` allocates every family's parameters unset (the
     card's bf16 copy and the layer cuts are made so), and takes a drawn
-    model's state dict."""
+    model's state dict. deepseek-v3 is cut to its dense layers (its MTP
+    head is a training head); granite keeps its MoE layers."""
     from repro_torch.configs.deepseek_v3_671b import dense_cut
     cfg = get_config(arch).reduced()
-    if cfg.family == "moe":
+    if cfg.moe.first_k_dense and cfg.uses_mla:
         cfg = dense_cut(cfg, 2)
     drawn = Model(cfg, device="cpu", seed=0)
     empty = Model(cfg, device="cpu", seed=None)

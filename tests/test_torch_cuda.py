@@ -11,7 +11,10 @@ fp32 1e-5 (the same fp32 arithmetic in another
 order; exp differs in the last bits), bf16 2e-2 (both outputs rounded to
 bf16 once from fp32 results, up to 2^-8 relative each); ``ssd_scan``
 atol 2e-4, rtol 1e-3, the reference's kernel tolerance (fp32 outputs in
-both dtypes; the chunked products sum in another order).
+both dtypes; the chunked products sum in another order); ``moe_gemm``
+fp32 1e-5 and bf16 2e-2 (fp32 sums in another order; one bf16 rounding
+of the output) against the largest magnitude of the plain output, whose
+sums over K of up to 7168 reach tens.
 """
 import math
 
@@ -24,6 +27,7 @@ from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
 from repro_torch.kernels.mla_decode import mla_decode, mla_decode_plain
 from repro_torch.kernels.mla_decode import split_plan as mla_split_plan
+from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
 from repro_torch.kernels.ssd_scan import (rows_vectorizable, ssd_scan,
                                           ssd_scan_plain)
 
@@ -381,22 +385,24 @@ def test_a_larger_batch_reuses_the_reserved_counters(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gemma3-270m", "deepseek-v3-671b",
                                   "llama3.2-1b", "qwen2-vl-2b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "granite-moe-3b-a800m"])
 def test_batched_decode_is_one_launch_a_layer(name, cuda_device):
     """A decode step of four slots at their own positions (one inactive)
-    launches the decode kernel once a layer and equals each row decoded
-    alone (fp32, reduced widths; hymba's rows on rings of 16 slots, two
-    of them wrapped)."""
+    launches the decode kernel once a layer (and ``moe_gemm`` three times a
+    MoE layer: all rows in one call) and equals each row decoded alone
+    (fp32, reduced widths; hymba's rows on rings of 16 slots, two of them
+    wrapped; deepseek-v3 cut to its dense layers)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.deepseek_v3_671b import dense_cut
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import BatchedEngine, InferenceEngine
     cfg = get_config(name).reduced()
-    if cfg.family == "moe":
+    if cfg.moe.first_k_dense and cfg.uses_mla:
         cfg = dense_cut(cfg, 2)
     kernel = mla_decode if cfg.uses_mla else flash_decode
     m = Model(cfg, device=cuda_device)
+    n_moe = sum(s.n_layers for s in m.segment_specs if s.kind.endswith("moe"))
     rng = np.random.default_rng(3)
     prompts = [rng.integers(3, cfg.vocab, (n,)) for n in (21, 9, 30)]
     eng = BatchedEngine(m, 64, batch_size=4)
@@ -404,9 +410,10 @@ def test_batched_decode_is_one_launch_a_layer(name, cuda_device):
     single = InferenceEngine(m, 64)
     sts = [single.start({"tokens": p[None]}) for p in prompts]
     toks = np.array([5, 6, 0, 7], np.int32)
-    n0 = kernel.launches
+    n0, g0 = kernel.launches, moe_gemm.launches
     step = eng.decode_batch(toks, np.array([True, True, False, True]))
     assert kernel.launches == n0 + cfg.n_layers
+    assert moe_gemm.launches == g0 + 3 * n_moe
     for row, st in zip((0, 1, 3), sts):
         want = single.decode_one(st, toks[row:row + 1, None])
         np.testing.assert_allclose(step[row], want[0], atol=2e-5, rtol=1e-4)
@@ -652,3 +659,108 @@ def test_weights_are_drawn_on_the_card_from_the_seed(cuda_device):
     wq = a.state_dict()["segments.0.attn.wq"]
     assert not torch.equal(wq, c.state_dict()["segments.0.attn.wq"])
     assert wq.abs().max() <= 2.0 / cfg.d_model ** 0.5 + 1e-6
+
+
+MOE_GEMM_CASES = [
+    # M, K, N, experts, group sizes: a tuple, or M rows spread over the
+    # first `used` experts (None: all) by a seed, the rest left empty as
+    # padded experts are
+    (8, 128, 128, 4, None),                # reduced widths, decode (top 2)
+    (40, 64, 48, 10, (0, 7, 0, 12, 1, 0, 13, 0, 0, 0)),  # empty groups;
+                                           # rows past the last group are 0
+    (8, 1536, 512, 48, 40),                # granite up/gate, decode
+    (32, 512, 1536, 48, 40),               # granite down, 4 rows decoding
+    (4096, 1536, 512, 48, 40),             # granite up, a 512-row bucket
+    (8, 7168, 2048, 256, None),            # deepseek up/gate, decode
+    (4096, 2048, 7168, 256, None),         # deepseek down, a 512-row bucket
+]
+
+
+def _moe_gemm_inputs(case, dtype, dev, seed=21):
+    """xs [M, K] ~ N(0, 1), w [E, K, N] ~ N(0, 1) / sqrt(K) (drawn on the
+    card: deepseek's stacks hold 3.8G values), int32 offsets."""
+    M, K, N, E, groups = case
+    gen = torch.Generator().manual_seed(seed)
+    wgen = torch.Generator(device=dev).manual_seed(seed)
+    if isinstance(groups, tuple):
+        sizes = torch.tensor(groups)
+    else:
+        ids = torch.randint(0, groups or E, (M,), generator=gen)
+        sizes = torch.bincount(ids, minlength=E)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long),
+                         sizes.cumsum(0)]).to(dev, torch.int32)
+    xs = _rand(gen, (M, K), dtype, dev)
+    w = (torch.randn((E, K, N), generator=wgen, device=dev)
+         / K ** 0.5).to(dtype)
+    return xs, w, offsets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_GEMM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_cuda_vs_plain(case, dtype, cuda_device):
+    xs, w, offsets = _moe_gemm_inputs(case, dtype, cuda_device)
+    n0 = moe_gemm.launches
+    out = moe_gemm(xs, w, offsets)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == n0 + 1 and out.shape == (xs.shape[0],
+                                                          w.shape[2])
+    plain = moe_gemm_plain(xs, w, offsets)
+    err = (out.float() - plain.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(1.0, plain.float().abs().max().item())
+    last = int(offsets[-1])
+    assert torch.count_nonzero(out[last:]) == 0
+
+
+@pytest.mark.cuda
+def test_moe_gemm_reads_a_layer_view_and_refuses_what_it_cannot_take(
+        cuda_device):
+    """A layer's ``[E, K, N]`` view of an ``[L, E, K, N]`` stack is read in
+    place; wrong dtypes, widths off 16 bytes and int64 offsets raise."""
+    gen = torch.Generator().manual_seed(5)
+    stack = _rand(gen, (2, 4, 64, 32), torch.bfloat16, cuda_device)
+    xs = _rand(gen, (6, 64), torch.bfloat16, cuda_device)
+    off = torch.tensor([0, 2, 2, 5, 6], dtype=torch.int32, device=cuda_device)
+    torch.testing.assert_close(moe_gemm(xs, stack[1], off),
+                               moe_gemm_plain(xs, stack[1], off),
+                               atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="int32"):
+        moe_gemm(xs, stack[1], off.long())
+    with pytest.raises(ValueError, match="dtypes"):
+        moe_gemm(xs.float(), stack[1], off)
+    with pytest.raises(ValueError, match="16-byte"):
+        moe_gemm(xs[:, :60], stack[1][:, :60], off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_is_captured_by_a_cuda_graph(dtype, cuda_device):
+    """``moe_forward`` at granite-reduced widths, decode (4 tokens) and a
+    prefill of 37: captured by ``torch.cuda.graph`` (which fails on any
+    device-to-host read) and replayed on new inputs, equal to the eager
+    result; the shared expert's path on deepseek-reduced too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for name in ("granite-moe-3b-a800m", "deepseek-v3-671b"):
+        cfg = get_config(name).reduced()
+        p = moe.init_moe(cfg, dtype, gen, device=cuda_device)
+        for T in (4, 37):
+            x = torch.randn((1, T, cfg.d_model), device=cuda_device,
+                            dtype=dtype)
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                moe.moe_forward(p, cfg, x, aux=False)      # warm up
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            n0 = moe_gemm.launches
+            with torch.cuda.graph(graph):
+                out, _ = moe.moe_forward(p, cfg, x, aux=False)
+            assert moe_gemm.launches == n0 + 3
+            x.copy_(torch.randn(x.shape, device=cuda_device, dtype=dtype))
+            graph.replay()
+            torch.cuda.synchronize()
+            want, _ = moe.moe_forward(p, cfg, x, aux=False)
+            torch.testing.assert_close(out, want, atol=TOL[dtype],
+                                       rtol=TOL[dtype])

@@ -87,4 +87,4 @@ def test_reduced_flag_parses_in_both_packages(monkeypatch):
     assert p.parse_args(["client", "--reduced"]).reduced is True
     assert p.parse_args(["client", "--no-reduced"]).reduced is False
     with pytest.raises(SystemExit):
-        p.parse_args(["client", "--arch", "granite-moe-3b-a800m"])
+        p.parse_args(["client", "--arch", "whisper-base"])
