@@ -35,9 +35,21 @@ lengths in every run. It
    shapes (up/gate and down) for a decode step at B=1 and B=4 and a
    512-row prefill bucket (8 rows a token), with empty groups, beside its
    plain version and ``torch._grouped_mm``;
+   both attention kernels also at whisper-base's (8/8, 64), GQA 1:
+   flash_prefill bidirectional (q_offset = kv_len = 1500) over 1500
+   frames for the encoder (1500 queries) and the cross-attention (256),
+   and causal for the decoder (256 queries over a 448-position cache),
+   flash_decode over the 1500 frames and over 300 self keys, each timed
+   in both dtypes beside SDPA;
 3b. on an empty card, deepseek-v3-671b at full width cut to its three
    dense MLA layers and its first MoE layer (15.1B parameters), drawn in
    bf16 only: a Case 1 miss, a Case 5 hit with Case 1's tokens, a Case 4;
+3c. whisper-base at full width and depth (6 encoder and 6 decoder
+   layers, 1500 frames) in bf16 and fp32, through ``InferenceEngine``
+   and blobs (the edge client refuses an encoder-decoder): a Case 1 cold
+   start, A's v2 and ``PC3`` blobs (cross and self K/V apart), a Case 5
+   restore and adopt and a Case 4 resume, fp32 tokens equal to Case 1's,
+   launches per request, and the CPU cross-check at 2 + 2 layers;
 4. runs the paper's edge request on full-width gemma3-270m, on full-width
    mamba2-780m cut to 24 of its 48 layers (for the script's time), on
    full-width deepseek-v3-671b cut to its
@@ -200,6 +212,19 @@ HYMBA_ROW_KV_LENS = [1024, 420, 1024, 700]
 # the resumes' ring gathers: (new keys, the ring's next position): the
 # 5-shot resume at 128 + 253 (not wrapped), the 24-shot one at 128 + 1057
 HYMBA_GATHERS = [(31, 381), (31, 1185)]
+# whisper-base's attention (H, KV, dh), GQA 1, over its frames and its
+# decoder's cache of max_target_positions: flash_prefill bidirectional
+# (q_offset = kv_len = the frames, ``models/encdec.py::attend_all``) for
+# the encoder (every frame a query) and a prefill's cross-attention
+# (WHISPER_SQ queries), causal for the decoder's self-attention
+# (WHISPER_SQ queries from 0); flash_decode over every frame (cross) and
+# over WHISPER_SELF_KEYS self keys
+WHISPER, WHISPER_ATTN = "whisper-base", (8, 8, 64)
+WHISPER_FRAMES, WHISPER_TARGETS = 1500, 448
+WHISPER_SQ, WHISPER_SELF_KEYS = 256, 300
+# the whisper phase: the prompt cut to at most WHISPER_PROMPT tokens, and
+# the depth of its CPU cross-check (encoder and decoder layers)
+WHISPER_PROMPT, WHISPER_CROSS_LAYERS = 300, 2
 # ssd_scan at its paths' widths: (S, random h0) at each geometry (heads,
 # head dim, state, B/C groups, chunk); mamba2-780m's, then hymba-1.5b's
 # SSM branch (its cold 5-shot prefill of 128 + 291 rows, a 31-token
@@ -508,8 +533,10 @@ def _err(out, ref, atol, rtol):
 def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
                    B=1, timed=True, window=None):
     """flash_prefill against its plain version over a [B, cache_len, KV, .]
-    cache, at each (Sq, q_offset) with kv_len = q_offset + Sq and
-    ``window`` (None for none), each timed unless ``timed`` is False.
+    cache, at each (Sq, q_offset) with kv_len = min(q_offset + Sq,
+    cache_len) and ``window`` (None for none), each timed unless ``timed``
+    is False. A q_offset of cache_len is the bidirectional attention
+    (``models/encdec.py::attend_all``): every key live for every query.
     Returns {(Sq, q_offset): row}."""
     import torch
     import torch.nn.functional as F
@@ -522,7 +549,7 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
     rows = {}
     for sq, off in shapes:
         q = torch.randn((B, sq, H, dh), generator=gen).to(dev, dt)
-        kv_len = off + sq
+        kv_len = min(off + sq, cache_len)
         args = dict(q_offset=off, kv_len=kv_len, window=window)
         err, ok = _err(flash_prefill(q, k, v, **args),
                        flash_prefill_plain(q, k, v, **args), TOL[dname],
@@ -543,7 +570,8 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
         # yardstick: SDPA on the live keys with the same causal (and
         # window) mask and, when the queries start at 0 and no window cuts
         # a key, with is_causal (no explicit mask, so its fused backends
-        # may run); the faster call is library_ms
+        # may run), or with no mask where every key is live; the faster
+        # call is library_ms
         qpos = off + torch.arange(sq, device=dev)
         kpos = torch.arange(kv_len, device=dev)[None, :]
         mask = kpos <= qpos[:, None]
@@ -557,6 +585,10 @@ def prefill_checks(dname, dt, gen, H, KV, dh, dv, cache_len, shapes, tag,
             libs["sdpa is_causal"] = device_ms(
                 lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=True, enable_gqa=True))
+        if off >= kv_len and not window:
+            libs["sdpa no mask"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, enable_gqa=True))
         lib_name = min(libs, key=libs.get)
         lib_ms = libs[lib_name]
         pairs = sum(min(kv_len, off + i + 1)
@@ -631,11 +663,37 @@ def kernel_checks():
                 + [g["max_abs_err"] for g in got.values()])
             r["max_abs_err"] = max(r["max_abs_err"], decode_check(
                 dname, dt, gen, h, kv, dh, 300, tag, timed)["max_abs_err"])
-        errs = hymba_attention_checks(dname, dt, gen, timed)
-        for name in rows:
-            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
-                                            errs[name])
+        for errs in (hymba_attention_checks(dname, dt, gen, timed),
+                     whisper_attention_checks(dname, dt, gen)):
+            for name in rows:
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                errs[name])
     return rows
+
+
+def whisper_attention_checks(dname, dt, gen):
+    """Both attention kernels at whisper-base's (8/8, 64), GQA 1, in
+    ``dname``, each timed beside SDPA: flash_prefill bidirectional over
+    the 1500 frames (the encoder: 1500 queries; the cross-attention:
+    WHISPER_SQ queries) and causal over the decoder's cache (WHISPER_SQ
+    queries from 0), flash_decode over the 1500 frames and over
+    WHISPER_SELF_KEYS self keys. Returns each kernel's largest error."""
+    h, kv, dh = WHISPER_ATTN
+    tag = f"{WHISPER} ({h}/{kv}, {dh})"
+    fr = WHISPER_FRAMES
+    got = {}
+    for what, cache_len, shape in (
+            ("encoder", fr, (fr, fr)), ("cross", fr, (WHISPER_SQ, fr)),
+            ("causal self", WHISPER_TARGETS, (WHISPER_SQ, 0))):
+        got.update(prefill_checks(dname, dt, gen, h, kv, dh, dh, cache_len,
+                                  [shape], f"{tag} {what}"))
+    dec = [decode_check(dname, dt, gen, h, kv, dh, n, f"{tag} {what}",
+                        cache_len=cache_len)
+           for what, n, cache_len in (("cross", fr, fr),
+                                      ("self", WHISPER_SELF_KEYS,
+                                       WHISPER_TARGETS))]
+    return {"flash_prefill": max(g["max_abs_err"] for g in got.values()),
+            "flash_decode": max(g["max_abs_err"] for g in dec)}
 
 
 def hymba_attention_checks(dname, dt, gen, timed):
@@ -690,9 +748,10 @@ def hymba_attention_checks(dname, dt, gen, timed):
     return errs
 
 
-def decode_check(dname, dt, gen, H, KV, dh, kv_len, tag, timed=True):
+def decode_check(dname, dt, gen, H, KV, dh, kv_len, tag, timed=True,
+                 cache_len=CACHE_LEN):
     """flash_decode against its plain version for one query a head over a
-    [1, CACHE_LEN, KV, dh] cache at ``kv_len`` keys, timed (unless
+    [1, cache_len, KV, dh] cache at ``kv_len`` keys, timed (unless
     ``timed`` is False) beside SDPA on the live keys and the bound.
     Returns the row."""
     import torch
@@ -700,8 +759,8 @@ def decode_check(dname, dt, gen, H, KV, dh, kv_len, tag, timed=True):
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain)
     dev = torch.device("cuda")
-    k = torch.randn((1, CACHE_LEN, KV, dh), generator=gen).to(dev, dt)
-    v = torch.randn((1, CACHE_LEN, KV, dh), generator=gen).to(dev, dt)
+    k = torch.randn((1, cache_len, KV, dh), generator=gen).to(dev, dt)
+    v = torch.randn((1, cache_len, KV, dh), generator=gen).to(dev, dt)
     q = torch.randn((1, H, dh), generator=gen).to(dev, dt)
     err, ok = _err(flash_decode(q, k, v, kv_len=kv_len),
                    flash_decode_plain(q, k, v, kv_len=kv_len), TOL[dname],
@@ -3185,6 +3244,202 @@ def moe_cut_path(smi):
     return launches
 
 
+def whisper_path(smi):
+    """whisper-base at full width and depth (6 encoder and 6 decoder
+    layers, d 512, 8/8 heads of 64, 1500 frames, vocab 51865), drawn on
+    the card from seed 0 in fp32 and cast to bf16, through
+    ``InferenceEngine`` and ``state_io`` blobs (the edge client does not
+    serve an encoder-decoder). Per dtype, on a pinned prompt cut to
+    WHISPER_PROMPT tokens and frames ``[1, 1500, 512]`` (N(0, 1) x 0.02
+    from seed 0, as ``tests/conftest.py`` makes them), with ``max_len``
+    448 (``max_target_positions``): Case 1, a cold start; A's blob as v2
+    and as ``PC3`` (its cross and self K/V apart); Case 5, the ``PC3``
+    blob parsed, restored and adopted; Case 4, a ``PC3`` blob of two
+    thirds of the prompt restored and the rest resumed with no frames;
+    MAX_NEW greedy tokens each. In fp32 the tokens of Cases 4 and 5 must
+    equal Case 1's. The counts are set to 0 just before each request and
+    read just after: flash_prefill 18 a cold prefill (6 encoder, 6 self,
+    6 cross) and 12 a resume, flash_decode 12 a decode step, neither in
+    an adopt. Then the card's fp32 logits against the CPU's plain path at
+    WHISPER_CROSS_LAYERS encoder and decoder layers over all the frames.
+    The models are freed at the end. Returns the launches of the bf16 and
+    the fp32 runs."""
+    collect_profiles()
+    import numpy as np
+    import torch
+    from repro_torch import clock
+    from repro_torch.core import state_io
+    from repro_torch.core.keys import model_meta
+    from repro_torch.data.mmlu import MMLUGenerator
+    from repro_torch.data.tokenizer import WordHashTokenizer
+    from repro_torch.device import dtype_name
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models.model import padded_vocab
+    from repro_torch.serving.engine import InferenceEngine
+    t0 = clock.monotonic()
+    m32, m16 = model_pair(WHISPER)
+    cfg = m32.cfg
+    L, fr, kv, dh = cfg.n_layers, cfg.encdec.n_frames, cfg.n_kv_heads, cfg.dh
+    cold = cfg.encdec.n_enc_layers + 2 * L   # encoder, self, cross
+    frames = (np.random.default_rng(0).normal(size=(1, fr, cfg.d_model))
+              * 0.02).astype(np.float32)
+    prompt = MMLUGenerator(WordHashTokenizer(cfg.vocab), n_shot=5).prompt(
+        "astronomy", 0)
+    toks = np.asarray(prompt.segments.token_ids[:WHISPER_PROMPT],
+                      np.int32)[None]
+    n = toks.shape[1]
+    n_pre = 2 * n // 3
+    kernels = (flash_prefill, flash_decode)
+    out = []
+    for m in (m16, m32):
+        label = f"{WHISPER} {'bf16' if m is m16 else 'fp32'}"
+        eng = InferenceEngine(m, max_len=cfg.encdec.max_target_positions)
+        meta = model_meta(cfg, dtype_name(m.dtype))
+        es = torch.finfo(m.dtype).bits // 8
+        total = {k.__name__: 0 for k in kernels}
+
+        def counted(fn, want, what):
+            """``fn()`` with the counts set to 0 just before and read just
+            after; they must equal ``want`` (flash_prefill, flash_decode)."""
+            for k in kernels:
+                k.launches = 0
+            res = fn()
+            torch.cuda.synchronize()
+            got = {k.__name__: k.launches for k in kernels}
+            if tuple(got.values()) != want:
+                raise AssertionError(f"[{label}] {what}: launches {got}, the "
+                                     f"request needs {want}")
+            for k, c in got.items():
+                total[k] += c
+            return res
+
+        def decode(st, what):
+            return counted(lambda: eng.generate(st, MAX_NEW),
+                           (0, 2 * L * MAX_NEW), f"{what} decode")[0].tolist()
+
+        def restore(blob):
+            """(state, restore ms): the blob parsed, restored into a fresh
+            cache on the card and adopted."""
+            t = clock.monotonic()
+            cache, n_eff, lg = state_io.restore_state(
+                state_io.parse_state(blob, meta), eng.new_cache())
+            torch.cuda.synchronize()
+            return eng.adopt(cache, n_eff, lg), (clock.monotonic() - t) * 1e3
+
+        # warm-up: cuBLAS handles, the allocator, the kernels' shapes
+        eng.generate(eng.start({"tokens": toks, "frames": frames}), 2)
+        st1 = counted(lambda: eng.start({"tokens": toks, "frames": frames}),
+                      (cold, 0), "Case 1 prefill")
+        ttft1 = st1.timings["prefill_wall"] * 1e3
+        lg1 = st1.last_logits.copy()
+        tok1 = decode(st1, "Case 1")
+        ms_tok1 = st1.timings["decode_wall"] / MAX_NEW * 1e3
+        t = clock.monotonic()
+        v2 = state_io.extract_state(st1.cache, n, meta, logits=lg1)
+        t_v2 = clock.monotonic() - t
+        t = clock.monotonic()
+        pc3 = state_io.pack_container(state_io.extract_state_chunks(
+            st1.cache, n, meta, logits=lg1))
+        t_pc3 = clock.monotonic() - t
+        cross_mb = 2 * L * fr * kv * dh * es / 1e6
+        self_mb = 2 * L * n * kv * dh * es / 1e6
+        print(f"[{label}] A's blob at {n} tokens: v2 {len(v2) / 1e6:.3f} MB "
+              f"({t_v2 * 1e3:.1f} ms to write), PC3 {len(pc3) / 1e6:.3f} MB "
+              f"({t_pc3 * 1e3:.1f} ms); leaves before the codec: cross K/V "
+              f"{cross_mb:.3f} MB ({L} layers x {fr} frames), self K/V "
+              f"{self_mb:.3f} MB ({n} positions), cross "
+              f"{cross_mb / (cross_mb + self_mb):.3f} of it")
+
+        st5, ms5 = counted(lambda: restore(pc3), (0, 0), "Case 5 restore")
+        lg5 = st5.last_logits.copy()
+        tok5 = decode(st5, "Case 5")
+        ms_tok5 = st5.timings["decode_wall"] / MAX_NEW * 1e3
+        pre = eng.start({"tokens": toks[:, :n_pre], "frames": frames})
+        blob4 = state_io.pack_container(state_io.extract_state_chunks(
+            pre.cache, n_pre, meta))
+
+        def case4():
+            st, ms = restore(blob4)
+            return eng.resume({"tokens": toks[:, n_pre:]}, st.cache,
+                              n_pre), ms
+        st4, ms4 = counted(case4, (2 * L, 0), "Case 4 restore and resume")
+        # the first token's logits against Case 1's: a resume computes the
+        # same function in fp32; an adopt reads them from the blob (fp16)
+        v = cfg.vocab
+        err4 = float(np.abs(st4.last_logits - lg1)[:, :v].max())
+        err5 = float(np.abs(lg5[:, :v] - lg1[:, :v].astype(
+            np.float16).astype(np.float32)).max())
+        tok4 = decode(st4, "Case 4")
+        ms_tok4 = st4.timings["decode_wall"] / MAX_NEW * 1e3
+        pf4 = st4.timings["prefill_wall"] * 1e3
+        print(f"[{label}] Case 1 (cold, {n} tokens, {fr} frames): TTFT "
+              f"{ttft1:.2f} ms, {ms_tok1:.2f} ms/tok; tokens {tok1}")
+        print(f"[{label}] Case 5 (PC3 restore {ms5:.2f} ms, adopt): TTFT "
+              f"{ms5:.2f} ms, {ms_tok5:.2f} ms/tok; tokens {tok5}")
+        print(f"[{label}] Case 4 ({n_pre} of {n} tokens restored, PC3 "
+              f"{len(blob4) / 1e6:.3f} MB; {n - n_pre} resumed): TTFT "
+              f"{ms4 + pf4:.2f} ms (restore {ms4:.2f}, prefill {pf4:.2f}), "
+              f"{ms_tok4:.2f} ms/tok; tokens {tok4}")
+        print(f"[{label}] first-token logits against Case 1's: Case 4 max "
+              f"|diff| {err4:.3g} (fp32 tol 1e-4), Case 5 {err5:.3g} (the "
+              f"blob's fp16 logits, fp32 tol 0)")
+        print(f"[{label}] launches {total} (flash_prefill {cold} a cold "
+              f"prefill, {2 * L} a resume; flash_decode {2 * L} a step; "
+              f"none in an adopt)")
+        if lg1.shape != (1, padded_vocab(cfg.vocab)) or \
+                not np.isfinite(lg1[:, :cfg.vocab]).all() or any(
+                    len(t) != MAX_NEW or not all(0 <= x < cfg.vocab
+                                                 for x in t)
+                    for t in (tok1, tok5, tok4)):
+            raise AssertionError(f"[{label}] malformed output")
+        if m is m32 and not (tok1 == tok5 == tok4 and err4 <= 1e-4
+                             and err5 == 0):
+            raise AssertionError(f"[{label}] Case 5 {tok5} / Case 4 {tok4} "
+                                 f"differ from Case 1's {tok1}, or their "
+                                 f"logits: {err5} / {err4}")
+        out.append(total)
+    whisper_cross_check(m32, toks, frames)
+    del m32, m16
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{WHISPER}] seconds: {clock.monotonic() - t0:.1f} (both dtypes,"
+          f" weights and the CPU cross-check included; {smi})")
+    return out
+
+
+def whisper_cross_check(model_fp32, toks, frames):
+    """The fp32 whisper-base cut to WHISPER_CROSS_LAYERS encoder and decoder
+    layers, on the card and on the CPU (the plain path), over all the
+    frames: last logits within 1e-4."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import InferenceEngine
+    n = WHISPER_CROSS_LAYERS
+    cfg = model_fp32.cfg
+    cfg = cfg.replace(n_layers=n, encdec=dataclasses.replace(
+        cfg.encdec, n_enc_layers=n))
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        m = Model(cfg, device=dev, seed=None)
+        m.load_state_dict({k: (t[:n] if k.startswith(("enc.", "dec."))
+                               else t).to(dev)
+                           for k, t in model_fp32.state_dict().items()})
+        logits[dev] = InferenceEngine(m, max_len=WHISPER_TARGETS).start(
+            {"tokens": toks, "frames": frames}).last_logits
+    err = float(np.abs(logits["cpu"] - logits["cuda"]).max())
+    scale = float(np.abs(logits["cpu"][:, :cfg.vocab]).max())
+    same = int(logits["cpu"].argmax()) == int(logits["cuda"].argmax())
+    print(f"cpu cross-check ({WHISPER} fp32, {n} of "
+          f"{model_fp32.cfg.encdec.n_enc_layers} encoder and {n} of "
+          f"{model_fp32.cfg.n_layers} decoder layers, {toks.shape[1]} tokens,"
+          f" {frames.shape[1]} frames): max |logit cuda - cpu| {err:.3g} "
+          f"(max |logit| {scale:.3g}, tol 1e-4) argmax equal {same}")
+    if err > 1e-4 or not same:
+        raise AssertionError(f"card and CPU disagree: {err}")
+
+
 def serve_check():
     """``python -m repro_torch.launch.serve``: a ``server`` process, and a
     ``client`` process at SERVE_ARCH's full width (``--no-reduced``) on
@@ -3354,6 +3609,11 @@ def main():
     # first, on an empty card: deepseek-v3 with its first MoE layer, bf16
     for k, n in moe_cut_path(smi).items():
         launches[k] += n
+    for total, got in zip((launches, launches32), whisper_path(smi)):
+        for k, n in got.items():
+            total[k] += n
+    print(f"whisper phase: {clock.monotonic() - t_script:.1f} s after the "
+          f"device line")
     served = []                        # (name, bf16, fp32) of GATEWAY_PATHS
     llama_calls = None                 # a llama3.2-1b decode step's host calls
     for name, n_layers, cross_layers, edge, batched_layers in PATHS:

@@ -1,8 +1,8 @@
-"""Model and prompt-cache configuration (dense, VLM, SSM, hybrid and MLA
-models).
+"""Model and prompt-cache configuration (dense, VLM, SSM, hybrid, MoE,
+MLA and encoder-decoder models).
 
-A copy of the dense, VLM, SSM, hybrid, MoE and MLA parts of
-``repro.config``: the same field names and defaults, so
+A copy of the model and cache parts of ``repro.config``: the same field
+names and defaults, so
 :func:`repro_torch.core.keys.model_meta` hashes a config to the same
 bytes as the reference does.
 """
@@ -46,10 +46,16 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    n_enc_layers: int = 6
+    n_frames: int = 1500          # stub audio frontend output length
+    max_target_positions: int = 448
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # this port runs "dense", "vlm", "ssm",
-                                  # "hybrid" and "moe"
+    family: str                   # dense | vlm | ssm | hybrid | moe | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,6 +78,7 @@ class ModelConfig:
     moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
     mla: MLAConfig = field(default_factory=MLAConfig)
+    encdec: EncDecConfig = field(default_factory=EncDecConfig)
     source: str = ""              # citation for the config
 
     @property
@@ -120,6 +127,9 @@ class ModelConfig:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=min(self.ssm.d_state, 16),
                 head_dim=16, chunk=16)
+        if self.family == "encdec":
+            kw["encdec"] = dataclasses.replace(
+                self.encdec, n_enc_layers=2, n_frames=16)
         if self.rope == "mrope":
             # 3 sections summing to head_dim // 2 = 16
             kw["mrope_sections"] = (4, 6, 6)
@@ -133,6 +143,15 @@ class ModelConfig:
         """Analytical parameter count N, as the reference counts it."""
         d, dh = self.d_model, self.dh
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        if self.family == "encdec":
+            # encoder self-attention + MLP; decoder self- and
+            # cross-attention + MLP (biases and norms not counted)
+            attn = 2 * d * (self.n_heads + 2 * self.n_kv_heads) * dh + \
+                self.n_heads * dh * d
+            enc_l = attn + 2 * d * self.d_ff
+            dec_l = 2 * attn + 2 * d * self.d_ff
+            return emb + self.encdec.n_enc_layers * enc_l + \
+                self.n_layers * dec_l
         if self.family == "ssm":
             di, ns = self.ssm_d_inner, self.ssm.d_state
             in_proj = d * (2 * di + 2 * self.ssm.n_groups * ns

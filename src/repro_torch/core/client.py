@@ -173,6 +173,13 @@ class EdgeClient:
                  overlap: bool = False,
                  policy: Optional[FetchPolicy] = None, broker=None,
                  tracer: Optional[Tracer] = None):
+        if engine.model.cfg.family == "encdec":
+            raise NotImplementedError(
+                "EdgeClient does not serve an encoder-decoder: its prompt "
+                "keys hash text tokens alone, so two audios with one "
+                "prompt would share a key (the reference's client passes "
+                "no frames and fails with KeyError: 'frames'); drive its "
+                "InferenceEngine and state_io blobs directly")
         self.name = name
         # every request gets a span tree, and ``wall`` is its projection:
         # pass a shared tracer to stitch the client's spans into a larger

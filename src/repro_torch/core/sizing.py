@@ -1,8 +1,9 @@
-"""Analytic state-blob sizes (bytes) for the port's three cache families.
+"""Analytic state-blob sizes (bytes) for the port's cache families.
 
 A copy of what ``repro.core.sizing`` computes for K/V caches, recurrent
-(SSM) state and MLA latent caches. The fetch planner prices a (peer,
-range) candidate from these numbers before any byte moves.
+(SSM) state, MLA latent caches and an encoder-decoder's audio K/V. The
+fetch planner prices a (peer, range) candidate from these numbers before
+any byte moves.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ def state_bytes_per_token(cfg, dtype_bytes: int = 2) -> float:
 def state_bytes_const(cfg, dtype_bytes: int = 2,
                       with_logits: bool = True) -> float:
     """State that does not grow with the prompt: the SSM's conv window
-    and fp32 recurrent state, and the last token's fp16 logits."""
+    and fp32 recurrent state, an encoder-decoder's cross K/V over its
+    frames, and the last token's fp16 logits."""
     const = 0.0
     if cfg.family == "ssm":
         s = cfg.ssm
@@ -28,6 +30,9 @@ def state_bytes_const(cfg, dtype_bytes: int = 2,
         const += cfg.n_layers * ((s.d_conv - 1) * conv_dim * dtype_bytes
                                  + cfg.ssm_n_heads * s.head_dim
                                  * s.d_state * 4)
+    if cfg.family == "encdec":
+        const += cfg.n_layers * 2 * cfg.encdec.n_frames * cfg.n_kv_heads \
+            * cfg.dh * dtype_bytes
     if with_logits:
         const += cfg.vocab * 2
     return const

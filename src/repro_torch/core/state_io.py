@@ -27,8 +27,11 @@ sorted), at paths such as ``segments/0/k``. Sequence leaves (``k``,
 ``v`` and MLA's ``ckv``, ``krope``; a MoE segment's cache is its
 attention's) are cut to ``n_eff`` positions along axis 2 of ``[L, B, S,
 ...]``; state leaves (an SSM's ``conv`` and
-``ssd``) ship whole. Each leaf keeps its dtype string, ``float32`` or
-``bfloat16`` (an SSM's ``ssd`` stays fp32 in a bf16 cache); bf16 travels
+``ssd``) ship whole, and so do an encoder-decoder's audio K/V
+(``dec/cross_k``, ``dec/cross_v``; its ``dec/self/k`` and ``v`` are
+cut). A chunk group is a segment (``segments/0``) or ``dec``. Each leaf
+keeps its dtype string, ``float32`` or ``bfloat16`` (an SSM's ``ssd``
+stays fp32 in a bf16 cache); bf16 travels
 as its raw 16-bit pattern, since numpy has no bf16. With ``quantize``,
 the leaves in ``QUANT_LEAVES`` travel as int8 with fp16 scales, one per
 last-axis row. Logits travel as float16; ``meta_hash = blake2b(meta,
@@ -391,7 +394,9 @@ def extract_state_chunks(cache, n_eff: int, meta: bytes,
 # ---------------------------------------------------------------------------
 
 def segment_index(seg: str) -> int:
-    """``segments/3`` -> 3: the model segment a chunk group belongs to."""
+    """``segments/3`` -> 3: the model segment a chunk group belongs to (a
+    streamed resume runs segments; an encoder-decoder's ``dec`` is
+    none)."""
     parts = seg.split("/")
     if len(parts) != 2 or parts[0] != "segments" or not parts[1].isdigit():
         raise ChunkError(f"chunk group of an unknown segment {seg!r}")
@@ -399,11 +404,19 @@ def segment_index(seg: str) -> int:
 
 
 def _segment_of(template, seg: str) -> Dict[str, Any]:
+    """The subtree of ``template`` at a chunk group's path, as the
+    reference walks it: ``segments/3`` (a segment), or ``dec`` (an
+    encoder-decoder's decoder)."""
+    sub = template
     try:
-        return template["segments"][segment_index(seg)]
+        for part in seg.split("/"):
+            sub = sub[int(part)] if part.isdigit() else sub[part]
     except (KeyError, IndexError, TypeError) as e:
         raise ChunkError(f"segment {seg!r} not in the restore template"
                          ) from e
+    if not isinstance(sub, dict):
+        raise ChunkError(f"chunk group {seg!r} is a leaf of the template")
+    return sub
 
 
 class ChunkedRestorer:

@@ -12,7 +12,9 @@ config's ``reduced()`` variant unless ``--no-reduced`` asks for its full
 width and depth (the reference's ``--reduced`` is a ``store_true`` that
 defaults to true, so it can never be turned off), with random weights
 from ``--seed``, on ``--device`` (default ``cuda``: a machine without a
-card raises, it never falls back to the CPU). The server stops cleanly
+card raises, it never falls back to the CPU). ``--arch`` offers the
+configs the edge client serves: every one but the encoder-decoder
+(whisper-base), which ``EdgeClient`` refuses. The server stops cleanly
 on SIGINT or SIGTERM and exits 0.
 """
 from __future__ import annotations
@@ -87,7 +89,8 @@ def parser() -> argparse.ArgumentParser:
     c = sub.add_parser("client")
     c.add_argument("--host", default="127.0.0.1")
     c.add_argument("--port", type=int, default=7077)
-    c.add_argument("--arch", default="gemma3-270m", choices=list_archs())
+    c.add_argument("--arch", default="gemma3-270m", choices=[
+        a for a in list_archs() if get_config(a).family != "encdec"])
     c.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="the config's reduced() variant (default), or "

@@ -1,5 +1,6 @@
-"""Shared building blocks: norms, activations, RoPE and M-RoPE, inits,
-and :func:`tree_map` over the nested dicts of parameters and caches.
+"""Shared building blocks: norms, activations, RoPE and M-RoPE,
+sinusoidal positions, inits, and :func:`tree_map` over the nested dicts
+of parameters and caches.
 
 Counterpart of ``repro.models.common``. Traps the port keeps:
 
@@ -134,6 +135,29 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """``[n, d]`` fp32 table of positions ``offset .. offset + n - 1``:
+    sin at the even columns, cos at the odd ones, as the reference builds
+    it."""
+    pos = (torch.arange(n, dtype=torch.float32, device=device)
+           + offset)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def add_sinusoidal(x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """``x [B, S, d]`` plus the table of positions ``offset ..``, cast to
+    ``x``'s dtype and added in it: ``offset`` is a prefill's start
+    position, or a decode step's token position."""
+    return x + sinusoidal_positions(x.shape[1], x.shape[-1], offset,
+                                    x.device).to(x.dtype)
 
 
 def safe_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Model facade for decoder-only models (the dense, VLM, SSM, hybrid and
-MoE families; deepseek-v3 cut to its dense MLA layers or to those and
-its first MoE layers): prefill with prefix resume, and one-token decode.
+"""Model facade for the six families (dense, VLM, SSM, hybrid, MoE and
+the encoder-decoder; deepseek-v3 cut to its dense MLA layers or to those
+and its first MoE layers): prefill with prefix resume, and one-token
+decode.
 
 Counterpart of ``repro.models.model.Model`` (serving modes only). The
 parameters live in this ``nn.Module`` under the reference's tree paths,
@@ -16,7 +17,12 @@ for an SSM, ``{"segments": [{"attn": {"k", "v"}, "ssm": {"conv",
 [L,B,S,Dr]}, ...]}`` for MLA (a MoE segment's cache is its attention's:
 k/v for granite, latents for deepseek; an empty MoE segment has ``L =
 0``): it is the state the paper ships between devices
-(``core/state_io.py``).
+(``core/state_io.py``). An encoder-decoder (whisper) holds ``enc``
+(stacked ``[L_enc, ...]``), ``enc_ln`` and ``dec`` instead of segments,
+and its cache is ``{"dec": {"self": {"k", "v"}, "cross_k", "cross_v"}}``
+with a leading ``[L]`` on every leaf, the cross K/V ``[L, B, n_frames,
+KV, dh]``: a cold prefill runs the encoder over ``inputs["frames"]`` and
+stores them, a resume reads them (``models/encdec.py``).
 :meth:`prefill` and :meth:`decode_step` update it IN PLACE and return it.
 
 Meta tokens (hymba's learned prefix of ``R`` rows, ``meta [R, d]``) take
@@ -37,8 +43,10 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import apply_norm, embed_init, tree_map
+from repro_torch.models.common import (add_sinusoidal, apply_norm,
+                                       embed_init, tree_map)
 
 
 def padded_vocab(vocab: int) -> int:
@@ -86,16 +94,13 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, seed: Optional[int] = 0):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "ssm", "hybrid", "moe"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not in this port yet (ROADMAP "
-                "Queue 1, item 9)")
         if cfg.mtp:
             raise NotImplementedError(
                 "the MTP head is a training head; serve the model with "
                 "mtp=False (training: ROADMAP Queue 1, item 10)")
         self.cfg = cfg
-        self.segment_specs = tf.segments_for(cfg)
+        self.is_encdec = cfg.family == "encdec"
+        self.segment_specs = [] if self.is_encdec else tf.segments_for(cfg)
         self.dtype = dtype
         self.device = resolve_device(device)
         gen = None if seed is None else \
@@ -116,6 +121,14 @@ class Model(nn.Module):
         self.segments = nn.ModuleList([ParamTree(tf.init_segment(
             cfg, spec, dtype, gen, device=self.device))
             for spec in self.segment_specs])
+        if self.is_encdec:
+            def stacked(init, n):
+                return ParamTree(tf.stack_layers([
+                    init(cfg, dtype, gen, device=self.device)
+                    for _ in range(n)]))
+            self.enc = stacked(ed.init_enc_layer, cfg.encdec.n_enc_layers)
+            self.enc_ln = _pdict(tf.init_norm(cfg, dtype, self.device))
+            self.dec = stacked(ed.init_dec_layer, cfg.n_layers)
 
     @property
     def has_recurrent_state(self) -> bool:
@@ -130,8 +143,14 @@ class Model(nn.Module):
         return n_tokens + self.cfg.n_meta_tokens
 
     def init_cache(self, batch: int, max_len: int, dtype=None):
+        dtype = dtype or self.dtype
+        if self.is_encdec:
+            one = ed.init_dec_cache(self.cfg, batch, max_len, dtype, "meta")
+            return {"dec": tree_map(lambda t: torch.zeros(
+                (self.cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
+                device=self.device), one)}
         return {"segments": [tf.init_segment_cache(
-            self.cfg, spec, batch, max_len, dtype or self.dtype, self.device)
+            self.cfg, spec, batch, max_len, dtype, self.device)
             for spec in self.segment_specs]}
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -161,7 +180,12 @@ class Model(nn.Module):
         only: without it the meta tokens are prepended (see the module
         docstring). ``last_index`` picks the text index whose logits
         return (bucket-padded prompts): one for every row, or one a row.
+        An encoder-decoder also takes ``inputs["frames"]`` ([B, n_frames,
+        d], numpy or a tensor), encoded when ``resume`` is false.
         Returns ``(logits [B, V] fp32, cache)``."""
+        if self.is_encdec:
+            return self._prefill_encdec(inputs, cache, start_pos,
+                                        last_index, resume)
         x, positions, eff_start = self.prefill_stream_embed(
             inputs, start_pos, resume=resume)
         for si, spec in enumerate(self.segment_specs):
@@ -175,6 +199,35 @@ class Model(nn.Module):
                 else [int(i) + R for i in last_index]
         return self.prefill_stream_head(x, last_index), cache
 
+    @torch.no_grad()
+    def encode(self, frames) -> torch.Tensor:
+        """The encoder over frame embeddings ``[B, n_frames, d]`` (numpy or
+        a tensor, moved to the model's device and dtype): ``[B, n_frames,
+        d]`` after ``enc_ln``."""
+        if not torch.is_tensor(frames):
+            frames = torch.from_numpy(np.array(frames))
+        x = add_sinusoidal(frames.to(self.device, self.dtype))
+        ep = self.enc.tree()
+        for i in range(self.cfg.encdec.n_enc_layers):
+            x = ed.enc_layer(tf.layer_params(ep, i), self.cfg, x)
+        return apply_norm(self.enc_ln, x)
+
+    def _prefill_encdec(self, inputs, cache, start_pos, last_index, resume):
+        """The encoder (unless ``resume``), then the decoder over the tokens
+        at ``start_pos``, as the reference's ``_prefill_encdec``."""
+        enc = None if resume else self.encode(inputs["frames"])
+        tokens = self._tokens(inputs["tokens"])
+        B, S = tokens.shape
+        x = add_sinusoidal(F.embedding(tokens, self.embed), start_pos)
+        positions = (start_pos + torch.arange(S, device=self.device)
+                     ).expand(B, S)
+        dp = self.dec.tree()
+        for i in range(self.cfg.n_layers):
+            x, _ = ed.dec_layer_prefill(
+                tf.layer_params(dp, i), self.cfg, x, positions,
+                tf.layer_params(cache["dec"], i), start_pos, enc_out=enc)
+        return self.prefill_stream_head(x, last_index), cache
+
     # -- layer-streamed prefill ------------------------------------------
     # The prefill in three pieces, so a streamed resume runs layers
     # [lo:hi) of the suffix as soon as that layer group's cache chunks
@@ -183,7 +236,8 @@ class Model(nn.Module):
 
     @property
     def supports_layer_stream(self) -> bool:
-        return True                    # every family this port runs
+        """Every family but the encoder-decoder, as in the reference."""
+        return not self.is_encdec
 
     @torch.no_grad()
     def prefill_stream_embed(self, inputs, start_pos: int, *,
@@ -249,7 +303,17 @@ class Model(nn.Module):
         reference); then ``kv_max`` (a host int, default the cache's
         length) bounds every ``pos + 1`` and sizes the decode kernels'
         grids. A meta-token model runs at ``pos + R`` (on the device for
-        a tensor). Returns ``(logits [B, V] fp32, cache)``."""
+        a tensor); an encoder-decoder takes an int ``pos`` and adds its
+        sinusoid. Returns ``(logits [B, V] fp32, cache)``."""
+        if self.is_encdec:
+            x1 = add_sinusoidal(F.embedding(self._tokens(tokens), self.embed),
+                                pos)
+            dp = self.dec.tree()
+            for i in range(self.cfg.n_layers):
+                x1, _ = ed.dec_layer_decode(
+                    tf.layer_params(dp, i), self.cfg, x1, pos,
+                    tf.layer_params(cache["dec"], i))
+            return self._head(x1)[:, 0], cache
         R = self.cfg.n_meta_tokens
         if R:
             pos = pos + R

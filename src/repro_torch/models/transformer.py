@@ -47,9 +47,8 @@ def segments_for(cfg) -> List[Segment]:
                                 cfg.moe.dense_ff or cfg.d_ff))
         segs.append(Segment(att + "moe", cfg.n_layers - fk, 0))
         return segs
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not in this port yet (ROADMAP Queue 1, "
-        "item 9)")
+    raise ValueError(f"family {cfg.family!r} has no layer segments "
+                     "(an encoder-decoder runs models/encdec.py)")
 
 
 def init_norm(cfg, dtype, device):
@@ -92,8 +91,12 @@ def init_segment(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
         one = init_layer(cfg, seg, dtype, None, device="meta")
         return tree_map(lambda t: torch.empty(
             (0,) + tuple(t.shape), dtype=t.dtype, device=device), one)
-    layers = [init_layer(cfg, seg, dtype, gen, device)
-              for _ in range(seg.n_layers)]
+    return stack_layers([init_layer(cfg, seg, dtype, gen, device)
+                         for _ in range(seg.n_layers)])
+
+
+def stack_layers(layers: List[Dict]) -> Dict:
+    """Layer trees stacked into one tree of ``[L, ...]`` leaves."""
     if len(layers) == 1:               # a view: no second copy of a layer
         return tree_map(lambda t: t.unsqueeze(0), layers[0])
     return tree_map(lambda *ts: torch.stack(ts), *layers)

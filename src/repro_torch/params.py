@@ -7,9 +7,11 @@ conversion is a copy: give :func:`from_jax_params` the tree with its
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and load
 the result with ``model.load_state_dict``. A MoE segment's expert stacks
 ``[L, E, d, f]`` are copied as they are, and its router stays fp32 in a
-bf16 model, as the reference keeps it. Leaves with no elements (an empty
-MoE segment's ``[0, ...]`` stacks) come across as empty tensors of the
-same shape.
+bf16 model, as the reference keeps it. An encoder-decoder's ``enc``
+(stacked ``[L_enc, ...]``), ``enc_ln`` and ``dec`` trees come across the
+same way, their q/k/v/o and layernorm biases with them. Leaves with no
+elements (an empty MoE segment's ``[0, ...]`` stacks) come across as
+empty tensors of the same shape.
 """
 from __future__ import annotations
 

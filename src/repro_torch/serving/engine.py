@@ -24,7 +24,9 @@ capped at the room left in the cache after ``start_pos``, so a resume
 near the end of the cache never writes past it. A windowed model is never
 padded (pad entries would rotate into its ring), nor is a model whose
 cache holds recurrent state (an SSM, a hybrid): every pad token would
-advance its state (the reference pads an SSM; ROADMAP Queue 3).
+advance its state (the reference pads an SSM; ROADMAP Queue 3). An
+encoder-decoder's ``frames`` pass through the padding untouched, and a
+resume takes none (the cache holds the audio's K/V).
 
 :class:`BatchedEngine` is the counterpart of
 ``repro.serving.engine.BatchedEngine``: a fixed pool of cache slots, each
@@ -135,8 +137,13 @@ class InferenceEngine:
         or a stream that ends before every layer ran, raises ``ValueError``.
         The input is padded as :meth:`resume` pads it. ``prefill_wall`` is
         the compute alone (the device synchronised after each group);
-        ``stream_wall`` the whole call, waits for chunks included."""
+        ``stream_wall`` the whole call, waits for chunks included. An
+        encoder-decoder raises, as in the reference."""
         model = self.model
+        if not self.supports_layer_stream:
+            raise NotImplementedError(
+                f"layer-streamed resume unsupported for family "
+                f"{model.cfg.family!r}")
         t0 = clock.monotonic()
         padded, true_n = self._pad_inputs(inputs, n_prefix)
         specs = model.segment_specs
@@ -262,6 +269,12 @@ class BatchedEngine:
 
     def __init__(self, model, max_len: int, batch_size: int):
         cfg = model.cfg
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "BatchedEngine does not serve an encoder-decoder: its slot "
+                "prefill takes tokens alone, with no audio frames, and the "
+                "reference's BatchedEngine cannot prefill one either "
+                "(KeyError: 'frames')")
         self.model = model
         self.max_len = max_len
         self.batch_size = batch_size

@@ -62,6 +62,10 @@ PREFILL_CASES = [
     (1, 31, 412, 25, 5, 64, 381, 1024),    # resume, ring not full
     (1, 1223, 1223, 25, 5, 64, 0, 1024),   # cold past the window
     (1, 31, 1055, 25, 5, 64, 1024, 1024),  # resume over a full ring
+    # whisper-base (8/8, 64): bidirectional through q_offset = kv_len = Sk
+    (1, 1500, 1500, 8, 8, 64, 1500, None),  # the encoder over 1500 frames
+    (1, 256, 1500, 8, 8, 64, 1500, None),   # cross-attention, 256 queries
+    (1, 256, 448, 8, 8, 64, 0, None),       # the decoder's causal self
 ]
 
 DECODE_CASES = [
@@ -88,6 +92,9 @@ DECODE_CASES = [
     (1, 1024, 48, 8, 128, 128, 300, None),  # nemotron-4-15b
     (1, 1024, 25, 5, 64, 64, 1024, None),   # hymba-1.5b, a full ring
     (4, 1024, 25, 5, 64, 64, 420, None),
+    # whisper-base (8/8, 64): cross over 1500 frames, self over 448
+    (1, 1500, 8, 8, 64, 64, 1500, None),
+    (1, 448, 8, 8, 64, 64, 300, None),
 ]
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -764,3 +771,63 @@ def test_moe_layer_is_captured_by_a_cuda_graph(dtype, cuda_device):
             want, _ = moe.moe_forward(p, cfg, x, aux=False)
             torch.testing.assert_close(out, want, atol=TOL[dtype],
                                        rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attend_all_is_bidirectional_on_the_card(dtype, cuda_device):
+    """``models.encdec.attend_all`` launches ``flash_prefill`` once and
+    gives softmax attention with no mask (einsum in fp32), at whisper's
+    encoder (1500 over 1500) and cross (256 over 1500) shapes."""
+    from repro_torch.models.encdec import attend_all
+    gen = torch.Generator().manual_seed(13)
+    for sq in (1500, 256):
+        q = _rand(gen, (1, sq, 8, 64), dtype, cuda_device)
+        k = _rand(gen, (1, 1500, 8, 64), dtype, cuda_device)
+        v = _rand(gen, (1, 1500, 8, 64), dtype, cuda_device)
+        n0 = flash_prefill.launches
+        out = attend_all(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_prefill.launches == n0 + 1
+        s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) / 8.0
+        ref = torch.einsum("bhqs,bshd->bqhd", torch.softmax(s, -1),
+                           v.float())
+        torch.testing.assert_close(out.float(), ref, atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_whisper_cases_1_and_5_on_the_card(cuda_device):
+    """whisper-base at full width and depth in fp32 on the card: a cold
+    start on a 40-token prompt and 1500 frames (18 flash_prefill launches:
+    6 encoder, 6 self, 6 cross), then its v2 and ``PC3`` blobs restored
+    and adopted; 6 greedy tokens each, equal, 12 flash_decode launches a
+    step."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import state_io
+    from repro_torch.core.keys import model_meta
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = get_config("whisper-base")
+    m = Model(cfg, device=cuda_device, seed=0)
+    eng = InferenceEngine(m, max_len=cfg.encdec.max_target_positions)
+    rng = np.random.default_rng(0)
+    frames = (rng.normal(size=(1, 1500, 512)) * 0.02).astype(np.float32)
+    toks = rng.integers(3, cfg.vocab, (1, 40)).astype(np.int32)
+    p0, d0 = flash_prefill.launches, flash_decode.launches
+    st = eng.start({"tokens": toks, "frames": frames})
+    assert flash_prefill.launches - p0 == 18
+    want = eng.generate(st, 6)
+    assert flash_decode.launches - d0 == 6 * 12
+    meta = model_meta(cfg, "float32")
+    lg = eng.start({"tokens": toks, "frames": frames}).last_logits
+    for blob in (state_io.extract_state(st.cache, 40, meta, logits=lg),
+                 state_io.pack_container(state_io.extract_state_chunks(
+                     st.cache, 40, meta, logits=lg))):
+        p0 = flash_prefill.launches
+        cache, n, logits = state_io.restore_state(
+            state_io.parse_state(blob, meta), eng.new_cache())
+        got = eng.generate(eng.adopt(cache, n, logits), 6)
+        assert flash_prefill.launches == p0
+        assert np.array_equal(got, want)

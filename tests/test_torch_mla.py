@@ -194,14 +194,15 @@ def test_the_cut_keeps_full_widths_and_an_empty_moe_segment():
 
 
 def test_model_refuses_what_it_cannot_run():
-    """The MTP head (a training head, item 10) and a family the port does
-    not run yet (whisper-base's encoder-decoder, item 9.5) raise; the MoE
-    layers after the dense ones now run."""
+    """The MTP head (a training head, item 10) raises; an encoder-decoder
+    config now builds (its encoder and decoder stacks, no segments), and
+    the MoE layers after the dense ones run."""
     cfg = get_config("deepseek-v3-671b").reduced()
     with pytest.raises(NotImplementedError, match="MTP"):
         Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        Model(cfg.replace(mtp=False, family="encdec"), device="cpu")
+    e = Model(cfg.replace(mtp=False, family="encdec"), device="cpu")
+    assert e.segment_specs == [] and not e.supports_layer_stream
+    assert e.enc["attn"]["wq"].shape[0] == cfg.encdec.n_enc_layers
     m = Model(cfg.replace(mtp=False), device="cpu")
     assert [s.kind for s in m.segment_specs] == ["mla_dense", "mla_moe"]
 
