@@ -10,7 +10,12 @@ lengths in every run. It
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once) and prints the build time;
+   (one ``nvcc`` per source, all at once) and prints the build time; then
+   ``python -m repro_torch.launch.train --arch llama3.2-1b --no-reduced
+   --steps 3`` trains as a process alone on the card, and its ~10 GB
+   checkpoint is written, then read back by ``python -m
+   repro_torch.training.checkpoint``, beside the rest of the script on
+   one core at nice 19 (the digests are compared at the end);
 3. holds each kernel against its plain PyTorch version at its paths'
    shapes, in float32 and bfloat16, and times the kernel, the plain version
    and, for attention, ``F.scaled_dot_product_attention`` on the same work
@@ -41,6 +46,21 @@ lengths in every run. It
    and causal for the decoder (256 queries over a 448-position cache),
    flash_decode over the 1500 frames and over 300 self keys, each timed
    in both dtypes beside SDPA;
+3a. the training phase: flash_prefill's backward kernel against the plain version's autograd
+   at every training width (gemma3-270m (4/1, 256), llama3.2-1b (32/8,
+   64), qwen2-vl-2b (12/2, 128), granite (24/8, 64), whisper-base (8/8,
+   64) causal and bidirectional over 1500 frames, deepseek's MLA
+   (128/128, (192, 128))) and moe_gemm's (dX on moe_gemm reading W
+   transposed, dW on moe_gemm_wgrad) at granite's and deepseek's expert
+   shapes, in both dtypes, timed beside the plain versions and SDPA's /
+   ``torch._grouped_mm``'s backward; then train steps (AdamW, remat a
+   layer, launches a step asserted): gemma3-270m at full width and depth
+   in fp32 (B=4, S=1024: the chunked CE; the loss must fall; its first
+   2 layers on the card and on the CPU must agree on loss and grad
+   norm), the deepseek-v3-671b dense cut to one MLA layer with its MTP
+   head (an MoE layer of 32 of its 256 experts) in bf16, granite cut to 4
+   layers in both dtypes (loss falls, aux > 0), whisper-base at full
+   width and depth in fp32 over 1500 frames;
 3b. on an empty card, deepseek-v3-671b at full width cut to its three
    dense MLA layers and its first MoE layer (15.1B parameters), drawn in
    bf16 only: a Case 1 miss, a Case 5 hit with Case 1's tokens, a Case 4;
@@ -53,8 +73,9 @@ lengths in every run. It
 4. runs the paper's edge request on full-width gemma3-270m, on full-width
    mamba2-780m cut to 24 of its 48 layers (for the script's time), on
    full-width deepseek-v3-671b cut to its
-   three dense MLA layers, on full-width, full-depth llama3.2-1b and
-   qwen2-vl-2b (text prompts: M-RoPE with its three position components
+   three dense MLA layers, on full-width, full-depth llama3.2-1b, on
+   full-width qwen2-vl-2b cut to 8 of its 28 layers since the training
+   phase joined (text prompts: M-RoPE with its three position components
    equal), on full-width hymba-1.5b cut to 8 of its 32 layers (a ring KV
    cache of 1024 slots and an SSM state a layer, 128 meta tokens), and on
    full-width, full-depth granite-moe-3b-a800m (32 MoE layers of 40
@@ -156,7 +177,9 @@ lengths in every run. It
    a step from a streamed ``EdgeClient``; every request answered, fp32
    tokens equal to a cold run, attempts, flight dumps and TTFT p50 / max
    by the faults live, and every daemon's exit code 0;
-9. prints the kernels' JSON line, then ``{"ok": true, ...}`` last.
+9. waits for the launcher and its checkpoint's reader (both exit 0, the
+   digests equal), prints the kernels' JSON line, then ``{"ok": true,
+   ...}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. It needs the card and the repository beside it.
@@ -300,6 +323,12 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
     # no TPU kernel: the reference's expert FFN calls jax.lax.ragged_dot
     "moe_gemm": ("src/repro_torch/kernels/csrc/moe_gemm.cu",
                  "src/repro/models/moe.py:93"),
+    # no TPU kernel has a backward: the reference trains through JAX's
+    # autodiff of its plain attention and of ragged_dot
+    "flash_prefill_bwd": ("src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
+                          "src/repro/models/attention.py:99"),
+    "moe_gemm_wgrad": ("src/repro_torch/kernels/csrc/moe_gemm.cu",
+                       "src/repro/models/moe.py:93"),
 }
 # the configurations the paths run: the depth each is cut to (None: the
 # config's own), the depth of the CPU cross-check, whether the edge request
@@ -308,12 +337,13 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
 # keep the script's time (at full depth its edge and fabric phases took
 # 143-159 s of a 869-999 s script once hymba-1.5b joined); hymba-1.5b
 # runs 8 of its 32 layers since granite-moe-3b-a800m joined (its phases
-# took 209.8 s at 32)
+# took 209.8 s at 32); qwen2-vl-2b 8 of its 28 since the training phase
+# joined (the script took 1254.9 s with it at 28, and 92.4-129.0 s of it)
 PATHS = [("gemma3-270m", None, None, True, None),
          ("mamba2-780m", 24, 4, True, 8),
          ("deepseek-v3-671b", 3, 1, True, None),
          ("llama3.2-1b", None, 2, True, 4),
-         ("qwen2-vl-2b", None, 2, True, 4),
+         ("qwen2-vl-2b", 8, 2, True, 4),
          ("hymba-1.5b", 8, 2, True, 4),
          ("granite-moe-3b-a800m", None, 2, True, 4),
          ("gemma3-1b", None, None, False, 8)]
@@ -417,6 +447,40 @@ def time_ms(fn, iters=50, warmup=5):
         events.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def events_ms(fn, iters=20, warmup=3):
+    """Device ms a call by CUDA events: the card is first held by a sleep
+    kernel (``torch.cuda._sleep``) longer than the host takes to queue
+    ``iters`` calls, so the events around them time the device running
+    them back to back (warm L2), not the host's dispatch; the median of 3
+    runs over ``iters``. ``fn`` must not wait for the device. For the
+    backward kernels and their yardsticks, whose profiler windows lose a
+    device event (59 of 60 kernels in every window on the card), so that
+    ``device_ms`` finds no whole window (PERF.md §7)."""
+    import time
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(min(max(2 * host_s, 1e-3), 2.0) * 2e9)   # >= 2x at 2 GHz
+    out = []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e) / iters)
+    return statistics.median(out)
 
 
 def _dev_us(e):
@@ -3514,6 +3578,501 @@ def console_check(port, addresses):
                              f"{rows}, DOWN rows {down}; {proc.stderr}")
 
 
+# -- the training phase (ROADMAP item 10) ------------------------------------
+# flash_prefill's backward at each training width: (tag, H, KV, dh, dv, B,
+# Sq, Sk, q_offset) with kv_len = Sk, no window (none of these configs has
+# one); q_offset = Sk is whisper's bidirectional attention. Timed in bf16,
+# and in fp32 at the fp32 training runs' widths (gemma3-270m, whisper)
+TRAIN_BWD = [
+    ("gemma3-270m (4/1, 256)", 4, 1, 256, 256, 4, 1024, 1024, 0),
+    ("llama3.2-1b (32/8, 64)", 32, 8, 64, 64, 4, 256, 256, 0),
+    ("qwen2-vl-2b (12/2, 128)", 12, 2, 128, 128, 1, 512, 512, 0),
+    ("granite-moe-3b-a800m (24/8, 64)", 24, 8, 64, 64, 1, 512, 512, 0),
+    ("whisper-base (8/8, 64) causal self", 8, 8, 64, 64, 2, 256, 256, 0),
+    ("whisper-base (8/8, 64) encoder", 8, 8, 64, 64, 2, 1500, 1500, 1500),
+    ("whisper-base (8/8, 64) cross", 8, 8, 64, 64, 2, 256, 1500, 1500),
+    ("deepseek-v3-671b (128/128, (192, 128))", 128, 128, 192, 128, 1, 512,
+     512, 0)]
+TRAIN_BWD_FP32_TIMED = ("gemma3-270m", "whisper-base")
+TRAIN_BWD_ROW = "deepseek-v3-671b (128/128, (192, 128))"   # JSON row, bf16
+# moe_gemm's backward at the training runs' expert shapes: (model,
+# product, K, N, stored experts, experts picked, tokens x top-8 rows);
+# deepseek's at the MTP run's MTP_EXPERTS experts
+MTP_EXPERTS = 32
+TRAIN_MOE = [("granite-moe-3b-a800m", "up/gate", 1536, 512, 48, 40, 512),
+             ("granite-moe-3b-a800m", "down", 512, 1536, 48, 40, 512),
+             ("deepseek-v3-671b", "up/gate", 7168, 2048, MTP_EXPERTS,
+              MTP_EXPERTS, 511),
+             ("deepseek-v3-671b", "down", 2048, 7168, MTP_EXPERTS,
+              MTP_EXPERTS, 511)]
+TRAIN_MOE_ROW = ("granite-moe-3b-a800m", "up/gate")          # JSON row, bf16
+# the training runs: (B, S) and steps; AdamW at lr 1e-3 with a one-step
+# warmup, clip 1.0 (the reference's defaults otherwise)
+GEMMA_TRAIN, GEMMA_STEPS, GEMMA_CROSS = (4, 1024), 5, (1, 128)
+MTP_TRAIN, MTP_STEPS = (1, 512), 2
+GRANITE_TRAIN, GRANITE_STEPS, GRANITE_LAYERS = (1, 512), 3, 4
+WHISPER_TRAIN, WHISPER_STEPS = (2, 256), 3
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
+# the launcher, as a process, at llama3.2-1b's full width and depth
+LAUNCH_ARGS = ["--arch", "llama3.2-1b", "--no-reduced", "--steps", "3",
+               "--batch", "4", "--seq", "256", "--log-every", "1"]
+
+
+def bwd_checks():
+    """flash_prefill's backward kernel (through autograd: the forward
+    keeps its rows' log-sum-exp) against the plain version's autograd at
+    each of TRAIN_BWD, in both dtypes, the error the largest over dq, dk
+    and dv against each one's largest magnitude; timed beside the plain
+    backward (autograd of the plain forward, which recomputes it) and
+    SDPA's backward (``is_causal``, or no mask where every key is live),
+    with the bound: q, k, v, o, dO and the lse read, dq, dk, dv written,
+    over 3.35 TB/s, or 2 (3 dh + 2 dv) flops a (head, live pair). Returns
+    the JSON row (TRAIN_BWD_ROW in bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as fp
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    row = {"max_abs_err": 0.0}
+    for tag, h, kv, dh, dv, B, sq, sk, off in TRAIN_BWD:
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            q = torch.randn((B, sq, h, dh), generator=gen).to(dev, dt)
+            k = torch.randn((B, sk, kv, dh), generator=gen).to(dev, dt)
+            v = torch.randn((B, sk, kv, dv), generator=gen).to(dev, dt)
+            dout = torch.randn((B, sq, h, dv), generator=gen).to(dev, dt)
+            args = dict(q_offset=off, kv_len=sk)
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            got = torch.autograd.grad(fp.flash_prefill(qq, kk, vv, **args),
+                                      (qq, kk, vv), dout)
+            ref = fp.flash_prefill_bwd_plain(q, k, v, dout, **args)
+            torch.cuda.synchronize()
+            err = max((g.float() - r.float()).abs().max().item()
+                      / r.float().abs().max().item()
+                      for g, r in zip(got, ref))
+            if not err <= TOL[dname]:
+                raise AssertionError(f"flash_prefill_bwd {tag} {dname}: "
+                                     f"relative error {err}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if dname == "float32" and not tag.startswith(
+                    TRAIN_BWD_FP32_TIMED):
+                print(f"flash_prefill_bwd {tag} {dname} B={B} Sq={sq} "
+                      f"Sk={sk} q_offset={off}: max err {err:.3g} of the "
+                      f"largest gradient (tol {TOL[dname]}; not timed)")
+                continue
+            lse = torch.empty((B, h, sq), dtype=torch.float32, device=dev)
+            out = fp._forward(q, k, v, off, sk, None, lse)
+            ms = events_ms(lambda: fp.flash_prefill_bwd(q, k, v, out, dout,
+                                                        lse, **args))
+            plain_ms = events_ms(lambda: fp.flash_prefill_bwd_plain(
+                q, k, v, dout, **args))
+            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            lib_ms, lib, o_l = None, "sdpa backward refused", None
+            try:
+                o_l = F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=off < sk, enable_gqa=True)
+                d_l = dout.transpose(1, 2)
+                lib_ms = events_ms(lambda: torch.autograd.grad(
+                    o_l, (qs, ks, vs), d_l, retain_graph=True))
+                lib = f"sdpa backward {lib_ms:.4f}"
+            except RuntimeError as e:
+                lib += f": {str(e)[:80]}"
+            pairs = sum(min(sk, off + i + 1) for i in range(sq))
+            es = q.element_size()
+            nbytes = es * B * (2 * sq * h * (dh + dv) + 2 * sk * kv
+                               * (dh + dv)) + 4 * B * h * sq
+            flops = 2 * (3 * dh + 2 * dv) * h * pairs * B
+            b_ms, b_by = bound(nbytes, flops, dname)
+            print(f"flash_prefill_bwd {tag} {dname} B={B} Sq={sq} Sk={sk} "
+                  f"q_offset={off}: max err {err:.3g} of the largest "
+                  f"gradient (tol {TOL[dname]}) ms (CUDA events): kernel "
+                  f"{ms:.4f} (3-4 launches a call) plain {plain_ms:.4f} {lib} "
+                  f"bound "
+                  f"{b_ms:.5f} ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{b_ms / ms:.3f} of the bound")
+            if tag == TRAIN_BWD_ROW and dname == "bfloat16":
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+            del o_l, qs, ks, vs
+    return row
+
+
+def moe_bwd_checks():
+    """moe_gemm's backward through autograd (dX on the forward kernel
+    reading w transposed, dW on moe_gemm_wgrad) against the plain
+    versions at TRAIN_MOE, in both dtypes, each error against its
+    gradient's largest magnitude. Timed in bf16: dX and dW apart, the
+    plain dW (a host loop: CUDA events) and ``torch._grouped_mm``'s dW
+    by autograd where it has one, with dW's bound (xs, dY read, dW
+    written, or 2 M K N flops). Returns the JSON row of moe_gemm_wgrad
+    (TRAIN_MOE_ROW in bf16)."""
+    import torch
+    from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_plain,
+                                              moe_gemm_wgrad,
+                                              moe_gemm_wgrad_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8)
+    wgen = torch.Generator(device=dev).manual_seed(8)
+    grouped = getattr(torch, "_grouped_mm", None)
+    row = {"max_abs_err": 0.0}
+    for name, prod, K, N, E, picked, tokens in TRAIN_MOE:
+        w32 = torch.randn((E, K, N), generator=wgen, device=dev) / K ** 0.5
+        M = tokens * MOE_TOP_K
+        offsets, live = moe_offsets(tokens, E, picked, gen, dev)
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            w = w32.to(dt)
+            xs = torch.randn((M, K), generator=gen).to(dev, dt)
+            dy = torch.randn((M, N), generator=gen).to(dev, dt)
+            xr, wr = xs.clone().requires_grad_(), w.clone().requires_grad_()
+            dx, dw = torch.autograd.grad(moe_gemm(xr, wr, offsets), (xr, wr),
+                                         dy)
+            ref_x = moe_gemm_plain(dy, w.transpose(1, 2), offsets)
+            ref_w = moe_gemm_wgrad_plain(xs, dy, offsets, E)
+            torch.cuda.synchronize()
+            err = max((g.float() - r.float()).abs().max().item()
+                      / r.float().abs().max().item()
+                      for g, r in ((dx, ref_x), (dw, ref_w)))
+            if not err <= TOL[dname]:
+                raise AssertionError(f"moe_gemm backward {name} {prod} "
+                                     f"{dname}: relative error {err}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            del dx, dw, xr, wr
+            if dt != torch.bfloat16:
+                print(f"moe_gemm backward {name} {prod} {dname} M={M} K={K} "
+                      f"N={N} E={E}: max err {err:.3g} of the largest "
+                      f"gradient (tol {TOL[dname]}; not timed)")
+                continue
+            wt = w.transpose(1, 2)
+            dx_ms = events_ms(lambda: moe_gemm(dy, wt, offsets))
+            ms = events_ms(lambda: moe_gemm_wgrad(xs, dy, offsets, E))
+            # the plain loop reads the offsets on the host: per-call events
+            plain_ms = time_ms(lambda: moe_gemm_wgrad_plain(xs, dy, offsets,
+                                                            E), iters=5)
+            lib_ms, lib = None, "torch._grouped_mm: none"
+            if grouped is not None:
+                try:
+                    wl = w.clone().requires_grad_()
+                    o_l = grouped(xs, wl, offs=offsets[1:])
+                    lib_ms = events_ms(lambda: torch.autograd.grad(
+                        o_l, (wl,), dy, retain_graph=True))
+                    lib = f"torch._grouped_mm dW {lib_ms:.4f}"
+                    del o_l, wl
+                except RuntimeError as e:
+                    lib = f"torch._grouped_mm backward refused: {str(e)[:80]}"
+            es = xs.element_size()
+            nbytes = es * (M * K + M * N + E * K * N) + 4 * (E + 1)
+            b_ms, b_by = bound(nbytes, 2 * M * K * N, dname)
+            print(f"moe_gemm backward {name} {prod} {dname} M={M} K={K} "
+                  f"N={N} E={E}, {live} experts with rows: max err {err:.3g} "
+                  f"(tol {TOL[dname]}) ms (CUDA events): dX (moe_gemm, w read "
+                  f"transposed) {dx_ms:.4f}; dW (moe_gemm_wgrad) {ms:.4f} "
+                  f"plain {plain_ms:.4f} {lib} bound "
+                  f"{b_ms:.5f} ({b_by}); {b_ms / ms:.3f} of the bound "
+                  f"(device ms by CUDA events behind a sleep; the plain loop "
+                  f"by per-call events)")
+            if (name, prod) == TRAIN_MOE_ROW:
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+        del w, w32
+        torch.cuda.empty_cache()
+    return row
+
+
+TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd", "moe_gemm",
+                 "moe_gemm_wgrad")
+
+
+def train_kernels():
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_bwd)
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_wgrad
+    return (flash_prefill, flash_prefill_bwd, moe_gemm, moe_gemm_wgrad)
+
+
+def train_run(model, label, batches, moments=None, expect=None):
+    """``len(batches)`` train steps of ``model`` (AdamW, TRAIN_OPT, moments
+    in ``moments``), the kernels' counts set to 0 just before the first
+    step and read just after the last. Prints each step's metrics and
+    time; every metric must be finite, and with ``expect`` (launches a
+    step by wrapper name) the counts must equal it times the steps.
+    Returns (metrics a step, counts)."""
+    import math
+    import torch
+    from repro_torch import clock
+    from repro_torch.training import adamw, make_train_step
+    opt = adamw(moment_dtype=moments, **TRAIN_OPT)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(model, opt)
+    kernels = train_kernels()
+    for k in kernels:
+        k.launches = 0
+    out = []
+    for i, b in enumerate(batches):
+        t0 = clock.monotonic()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        m = {k: float(v) for k, v in m.items()}
+        out.append(m)
+        print(f"[{label}] step {i + 1}: "
+              + " ".join(f"{k} {v:.4f}" for k, v in m.items())
+              + f", {(clock.monotonic() - t0) * 1e3:.1f} ms")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"[{label}] step {i + 1}: {m}")
+    counts = {k.__name__: k.launches for k in kernels}
+    print(f"[{label}] launches over {len(batches)} steps: {counts}"
+          + (f" (a step: {expect})" if expect else ""))
+    if expect:
+        want = {n: c * len(batches) for n, c in expect.items()}
+        if {n: counts[n] for n in want} != want:
+            raise AssertionError(f"[{label}] launches {counts}, want {want}")
+    del state, step, opt
+    return out, counts
+
+
+def step_launches(cfg, remat=True, mtp=False):
+    """Launches a train step makes, by wrapper: each attention forward
+    once, and again in the backward under remat; its backward once; a MoE
+    layer's three products forward (again under remat), their dX on
+    moe_gemm and their dW on moe_gemm_wgrad. An encoder-decoder's
+    encoder, self and cross attentions; an MTP head's layer once (no
+    remat)."""
+    if cfg.family == "encdec":
+        attn, moe = cfg.encdec.n_enc_layers + 2 * cfg.n_layers, 0
+    else:
+        attn = cfg.n_layers
+        moe = cfg.n_layers - cfg.moe.first_k_dense \
+            if cfg.family == "moe" else 0
+    r = 2 if remat else 1
+    out = {"flash_prefill": r * attn, "flash_prefill_bwd": attn,
+           "moe_gemm": 3 * (r + 1) * moe, "moe_gemm_wgrad": 3 * moe}
+    if mtp:
+        out["flash_prefill"] += 1
+        out["flash_prefill_bwd"] += 1
+        out["moe_gemm"] += 6
+        out["moe_gemm_wgrad"] += 3
+    return out
+
+
+class Launcher:
+    """``python -m repro_torch.launch.train`` (LAUNCH_ARGS, ``--ckpt``
+    under build/) as a process, then ``python -m
+    repro_torch.training.checkpoint`` on what it wrote, one after the
+    other on a thread, beside the rest of the script: once the launcher
+    has trained and moved its state to the host (its ``writing`` line),
+    the card is free and the serialization is host work: one zlib call
+    (the reference's format) and, to read it back, one inflate, each on
+    one core. Both run at nice 19, so the script's own host work goes
+    first."""
+
+    def __init__(self):
+        import atexit
+        import threading
+        self.path = REPO / "build" / "chip_smoke_train.ck"
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.lines, self.result, self.procs = [], {}, []
+        self.on_host = threading.Event()
+        atexit.register(self.stop)     # a failed script leaves no process
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if self.path.exists():
+            self.path.unlink()
+
+    def _run(self):
+        import time
+        env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_ARGS,
+             "--ckpt", str(self.path)], cwd=REPO, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        self.procs.append(proc)
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 19)   # host work behind
+        for line in proc.stdout:
+            self.lines.append(line.rstrip())
+            if line.startswith("writing "):
+                self.result["to_host_s"] = time.perf_counter() - t0
+                self.on_host.set()
+        self.result["rc"] = proc.wait()
+        self.result["train_s"] = time.perf_counter() - t0
+        self.on_host.set()
+        if self.result["rc"] == 0:
+            t1 = time.perf_counter()
+            r = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.training.checkpoint",
+                 str(self.path)], cwd=REPO, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            self.procs.append(r)
+            os.setpriority(os.PRIO_PROCESS, r.pid, 19)
+            out, _ = r.communicate(timeout=900)
+            self.result["read_rc"] = r.returncode
+            self.result["read_s"] = time.perf_counter() - t1
+            self.lines += out.strip().splitlines()
+
+    def finish(self):
+        """Wait for both processes; the launcher and the reader exit 0, the
+        loss is finite, and the digest the launcher wrote equals the one
+        its checkpoint reads back to (every leaf's path, shape, dtype and
+        bytes). The checkpoint file is removed."""
+        self.thread.join(timeout=1200)
+        size = self.path.stat().st_size if self.path.exists() else 0
+        self.stop()
+        for line in self.lines:
+            print(f"[launch.train llama3.2-1b --no-reduced] {line}")
+        saved = [ln.split("digest ")[1].split(",")[0] for ln in self.lines
+                 if ln.startswith("saved ")]
+        read = [ln.split("digest ")[1] for ln in self.lines
+                if ln.startswith("checkpoint ")]
+        print(f"[launch.train] exit {self.result.get('rc')} in "
+              f"{self.result.get('train_s', 0):.1f} s (state on the host "
+              f"after {self.result.get('to_host_s', 0):.1f} s), checkpoint "
+              f"{size} bytes read back in {self.result.get('read_s', 0):.1f}"
+              f" s (exit {self.result.get('read_rc')}): digest written "
+              f"{saved}, read {read}")
+        if self.result.get("rc") != 0 or self.result.get("read_rc") != 0 \
+                or not saved or saved != read:
+            raise AssertionError("the launcher's run or its checkpoint "
+                                 "failed (lines above)")
+
+
+def training_path(smi):
+    """The training phase: train steps on the card (every count set to 0
+    just before a run and read just after), then the backward kernel
+    checks: gemma3-270m at full width and depth in fp32 (GEMMA_STEPS
+    steps at GEMMA_TRAIN, the chunked CE; its loss must fall; first the
+    2-layer cut of the same model on the card and on the CPU on one
+    batch: loss and grad norm within 1e-4); granite cut to GRANITE_LAYERS
+    MoE layers in both dtypes (loss falls, aux > 0); whisper-base at full
+    width and depth in fp32 over 1500 frames; the deepseek-v3-671b dense
+    cut to 1 MLA layer with its MTP head, the MTP layer an MoE layer of
+    MTP_EXPERTS of its 256 experts (all 256 with AdamW would need ~112
+    GB), in bf16. The launcher has left the card before this phase (its
+    checkpoint is host work by then). Returns the JSON rows of the
+    backward kernels and the bf16 and fp32 launches by wrapper name."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import clock
+    from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v3_671b import dense_cut
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import lm_batches
+    from repro_torch.training.optimizer import global_norm
+    collect_profiles()
+    t0 = clock.monotonic()
+    totals = ({k: 0 for k in TRAIN_KERNELS}, {k: 0 for k in TRAIN_KERNELS})
+
+    def add(counts, dt):
+        for k, n in counts.items():
+            totals[dt == torch.float32][k] += n
+
+    # gemma3-270m, fp32, full width and depth
+    cfg = get_config("gemma3-270m")
+    m = Model(cfg, seed=0, remat=True)
+    cross = next(lm_batches(cfg, *GEMMA_CROSS, seed=1))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        c = cut_model(m, 2, dev)
+        c.remat = True
+        c.requires_grad_(True)
+        loss, _ = c.loss(cross)
+        loss.backward()
+        got[dev] = (float(loss.detach()), float(global_norm(
+            {k: p.grad for k, p in c.named_parameters()
+             if p.grad is not None})))
+        del c
+    d_loss, d_norm = (abs(a - b) / abs(b) for a, b in zip(got["cuda"],
+                                                          got["cpu"]))
+    print(f"[gemma3-270m fp32 train] cpu cross-check (2 of {cfg.n_layers} "
+          f"layers, B, S = {GEMMA_CROSS}): loss cuda {got['cuda'][0]:.6f} "
+          f"cpu {got['cpu'][0]:.6f}, grad norm cuda {got['cuda'][1]:.6f} "
+          f"cpu {got['cpu'][1]:.6f}: relative {d_loss:.3g}, {d_norm:.3g} "
+          f"(tol 1e-4)")
+    if d_loss > 1e-4 or d_norm > 1e-4:
+        raise AssertionError("card and CPU training steps disagree")
+    data = lm_batches(cfg, *GEMMA_TRAIN, seed=2)
+    mets, counts = train_run(m, "gemma3-270m fp32 train", [
+        next(data) for _ in range(GEMMA_STEPS)], expect=step_launches(cfg))
+    add(counts, torch.float32)
+    if not mets[-1]["loss"] < mets[0]["loss"]:
+        raise AssertionError(f"gemma3-270m: the loss did not fall: {mets}")
+    del m
+
+    # granite-moe-3b-a800m cut to GRANITE_LAYERS layers, both dtypes
+    cfg = get_config("granite-moe-3b-a800m").replace(
+        n_layers=GRANITE_LAYERS)
+    m32 = Model(cfg, seed=0, remat=True)
+    m16 = Model(cfg, dtype=torch.bfloat16, seed=None, remat=True)
+    m16.load_state_dict(m32.state_dict())
+    data = lm_batches(cfg, *GRANITE_TRAIN, seed=4)
+    batches = [next(data) for _ in range(GRANITE_STEPS)]
+    for m, tag in ((m16, "bf16"), (m32, "fp32")):
+        mets, counts = train_run(
+            m, f"granite-moe-3b-a800m {GRANITE_LAYERS} of 32 layers {tag} "
+               f"train", batches, moments=torch.bfloat16,
+            expect=step_launches(cfg))
+        add(counts, m.dtype)
+        if not (mets[-1]["loss"] < mets[0]["loss"]
+                and all(x["aux"] > 0 for x in mets)):
+            raise AssertionError(f"granite {tag}: {mets}")
+    del m, m16, m32
+
+    # whisper-base, fp32, full width and depth, 1500 frames
+    cfg = get_config(WHISPER)
+    m = Model(cfg, seed=0, remat=True)
+    B, S = WHISPER_TRAIN
+    rng = np.random.default_rng(5)
+    data = lm_batches(cfg, B, S, seed=5)
+    batches = [dict(next(data), frames=(rng.normal(size=(
+        B, cfg.encdec.n_frames, cfg.d_model)) * 0.02).astype(np.float32))
+        for _ in range(WHISPER_STEPS)]
+    mets, counts = train_run(m, "whisper-base fp32 train", batches,
+                             expect=step_launches(cfg))
+    add(counts, torch.float32)
+    del m
+    torch.cuda.empty_cache()
+    t1 = clock.monotonic()
+
+    # deepseek-v3-671b: 1 dense MLA layer and the MTP head, bf16
+    base = get_config("deepseek-v3-671b")
+    cfg = dense_cut(base, 1).replace(mtp=True, moe=dataclasses.replace(
+        base.moe, first_k_dense=1, n_experts=MTP_EXPERTS))
+    torch.cuda.reset_peak_memory_stats()
+    m = Model(cfg, dtype=torch.bfloat16, seed=0, remat=True)
+    n = sum(p.numel() for p in m.parameters())
+    print(f"[deepseek-v3-671b mtp bf16 train] {n / 1e9:.2f}B parameters: "
+          f"1 dense MLA layer, the MTP head (its layer an MoE layer of "
+          f"{MTP_EXPERTS} of 256 experts, top {cfg.moe.top_k}), AdamW "
+          f"with bf16 moments")
+    data = lm_batches(cfg, *MTP_TRAIN, seed=3)
+    mets, counts = train_run(m, "deepseek-v3-671b mtp bf16 train",
+                             [next(data) for _ in range(MTP_STEPS)],
+                             moments=torch.bfloat16,
+                             expect=step_launches(cfg, mtp=True))
+    add(counts, torch.bfloat16)
+    print(f"[deepseek-v3-671b mtp bf16 train] peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if not all("mtp" in x for x in mets):  # finite: train_run checks
+        raise AssertionError(f"deepseek MTP run: {mets}")
+    del m
+    torch.cuda.empty_cache()
+    t2 = clock.monotonic()
+    rows = {"flash_prefill_bwd": bwd_checks(),
+            "moe_gemm_wgrad": moe_bwd_checks()}
+    print(f"training phase: {clock.monotonic() - t0:.1f} s (gemma3-270m, "
+          f"granite and whisper-base runs {t1 - t0:.1f} s, the MTP run "
+          f"{t2 - t1:.1f} s, backward checks {clock.monotonic() - t2:.1f} "
+          f"s); {smi}")
+    return rows, totals[False], totals[True]
+
+
 def cut_model(model, n_layers, device="cuda"):
     """``model`` cut to its first ``n_layers`` layers (its weights and
     dtypes) on ``device``."""
@@ -3583,6 +4142,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
+    # the launcher trains first, alone on the card; its checkpoint's
+    # serialization (host work, nice 19) then runs beside the kernel
+    # checks, whose readings are device times
+    launcher = Launcher()
+    launcher.on_host.wait(timeout=600)
+    print(f"launcher off the card: {clock.monotonic() - t_script:.1f} s "
+          f"after the device line")
     rows = kernel_checks()
     rows["ssd_scan"] = ssd_checks()
     rows["mla_decode"] = mla_checks()
@@ -3590,6 +4156,10 @@ def main():
           f"device line")
     rows["moe_gemm"] = moe_checks()
     print(f"moe_gemm checks: {clock.monotonic() - t_script:.1f} s after the "
+          f"device line")
+    train_rows, train16, train32 = training_path(smi)
+    rows.update(train_rows)
+    print(f"training phase: {clock.monotonic() - t_script:.1f} s after the "
           f"device line")
 
     wrappers = {k.__name__: k for k in (flash_prefill, flash_decode,
@@ -3606,6 +4176,9 @@ def main():
 
     launches = {k: 0 for k in SOURCES}
     launches32 = dict(launches)
+    for total, got in ((launches, train16), (launches32, train32)):
+        for k, n in got.items():
+            total[k] += n
     # first, on an empty card: deepseek-v3 with its first MoE layer, bf16
     for k, n in moe_cut_path(smi).items():
         launches[k] += n
@@ -3690,6 +4263,7 @@ def main():
             for k, n in chaos_path(m, label, smi).items():
                 total[k] += n
     del served
+    launcher.finish()
 
     out = []
     for name in SOURCES:

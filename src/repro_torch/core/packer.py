@@ -20,6 +20,12 @@ def packb(obj: Any) -> bytes:
     return b"".join(out)
 
 
+def pack_into(obj: Any, out) -> None:
+    """``packb(obj)``'s bytes handed piece by piece to ``out.append``,
+    never joined: a digest of a large payload without a second copy."""
+    _pack(obj, out)
+
+
 def _pack(obj: Any, out: List[bytes]) -> None:
     if obj is None:
         out.append(b"\xc0")

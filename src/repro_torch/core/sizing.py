@@ -22,9 +22,11 @@ def state_bytes_const(cfg, dtype_bytes: int = 2,
                       with_logits: bool = True) -> float:
     """State that does not grow with the prompt: the SSM's conv window
     and fp32 recurrent state, an encoder-decoder's cross K/V over its
-    frames, and the last token's fp16 logits."""
+    frames, and the last token's fp16 logits. A hybrid (hymba) carries
+    its SSM branch's state beside its attention's K/V, as the reference
+    counts it."""
     const = 0.0
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
         conv_dim = cfg.ssm_d_inner + 2 * s.n_groups * s.d_state
         const += cfg.n_layers * ((s.d_conv - 1) * conv_dim * dtype_bytes

@@ -22,7 +22,9 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("flash_prefill", "flash_decode", "ssd_scan", "mla_decode",
-           "moe_gemm")
+           "moe_gemm", "flash_prefill_bwd")
+# entry points that live in another kernel's library: entry -> library
+ENTRY_LIBRARY = {"moe_gemm_wgrad": "moe_gemm"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -31,11 +33,14 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _c_p, _c_i, _c_i64, _c_f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_float)
 
-# argtypes of each library's launch entry point (see the .cu sources); each
-# library also exports <name>_error_string(int) -> const char*
+# argtypes of each launch entry point <name>_launch (see the .cu sources);
+# each library also exports <library>_error_string(int) -> const char*
 SIGNATURES = {
     "flash_prefill": (
-        [_c_p] * 4 + [_c_i] * 9 + [_c_i64] * 9
+        [_c_p] * 5 + [_c_i] * 9 + [_c_i64] * 9
+        + [_c_i, _c_i, _c_i, _c_f, _c_p]),
+    "flash_prefill_bwd": (
+        [_c_p] * 11 + [_c_i] * 8 + [_c_i64] * 9
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "flash_decode": (
         [_c_p] * 9 + [_c_i] * 8 + [_c_i64] * 8
@@ -43,7 +48,8 @@ SIGNATURES = {
     "ssd_scan": [_c_p] * 9 + [_c_i] * 9 + [_c_i64] * 12 + [_c_p],
     "mla_decode": (
         [_c_p] * 10 + [_c_i] * 11 + [_c_i64] * 8 + [_c_f, _c_p]),
-    "moe_gemm": [_c_p] * 4 + [_c_i] * 5 + [_c_i64] * 4 + [_c_p],
+    "moe_gemm": [_c_p] * 4 + [_c_i] * 5 + [_c_i64] * 5 + [_c_p],
+    "moe_gemm_wgrad": [_c_p] * 4 + [_c_i] * 5 + [_c_i64] * 4 + [_c_p],
 }
 
 
@@ -100,7 +106,8 @@ def build_all(names=KERNELS) -> Dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library of kernel source ``name``, built on first use,
+    with the argtypes of every entry point it holds."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -108,9 +115,11 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all([name])
     lib = ctypes.CDLL(str(path))
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = SIGNATURES[name]
-    launch.restype = ctypes.c_int
+    for entry, sig in SIGNATURES.items():
+        if ENTRY_LIBRARY.get(entry, entry) == name:
+            launch = getattr(lib, f"{entry}_launch")
+            launch.argtypes = sig
+            launch.restype = ctypes.c_int
     err_str = getattr(lib, f"{name}_error_string")
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
@@ -118,12 +127,27 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel with no backward would be launched on an input
+    that requires grad: its result would carry no gradient, and autograd
+    would not say so. The SSD scan's backward kernel, and training of the
+    SSM and hybrid families on the card with it, is ROADMAP item 10b."""
+    import torch                       # this module itself needs no torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: this kernel has no backward on the card yet (ROADMAP "
+            "item 10b: the SSD-scan backward, then mamba2-780m and "
+            "hymba-1.5b training); run it under torch.no_grad, or train "
+            "that family on the CPU")
+
+
 def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C launch entry; raise if it reports a CUDA
-    error (a refused launch never runs, and a later synchronise would
-    not report it)."""
-    lib = library(name)
+    """Call entry point ``name``'s C launch function; raise if it reports
+    a CUDA error (a refused launch never runs, and a later synchronise
+    would not report it)."""
+    src = ENTRY_LIBRARY.get(name, name)
+    lib = library(src)
     err = getattr(lib, f"{name}_launch")(*args)
     if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        msg = getattr(lib, f"{src}_error_string")(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

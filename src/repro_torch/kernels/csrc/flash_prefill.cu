@@ -67,6 +67,11 @@
 // bank conflicts) against the warp's 4 query rows (broadcast reads); for PV
 // the probabilities are shuffled across the warp and V is read along dv by
 // consecutive lanes. GQA: kv head = h / (H / KV).
+//
+// Both kernels can also write each row's log-sum-exp, lse = m + log(l) of the
+// scaled scores (natural log; +inf for a row with no live key), to an fp32
+// [B, H, Sq] buffer: the backward (flash_prefill_bwd.cu) recomputes P from
+// it. Serving passes a null pointer and writes nothing more.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -122,6 +127,7 @@ template <typename T, int DH, int DV>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse,
                      int Sq, int Sk, int H, int rep,
                      int64_t q_sb, int64_t q_ss, int64_t q_sh,
                      int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -265,6 +271,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         T* o = out + (((int64_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
         for (int i = 0; i < NI; ++i) store(o + lane + 32 * i, acc[r][i] * inv);
+        if (lse != nullptr && lane == 0)
+            lse[((int64_t)b * H + h) * Sq + qi] = l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
     }
 }
 
@@ -275,6 +283,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int TC_WARPS = 4;
 constexpr int TC_ROWS = TC_WARPS * 16;  // rows per CTA: 16 per warp
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int DH, int DV>
 struct Tc {
@@ -328,6 +337,7 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse,
                         int Sq, int Sk, int H, int rep, int hp,
                         int64_t q_sb, int64_t q_ss, int64_t q_sh,
                         int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -550,6 +560,9 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
         const int qi = wq0 + g + 8 * i;
         if (!w_live || qi >= Sq) continue;
         const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+        if (lse != nullptr && (lane & 3) == 0)   // m is in the log2 domain
+            lse[((int64_t)b * H + wh) * Sq + qi] =
+                l[i] > 0.f ? (m[i] + log2f(l[i])) * LN2 : INFINITY;
         __nv_bfloat16* orow = out + (((int64_t)b * Sq + qi) * H + wh) * DV + c2;
 #pragma unroll
         for (int n = 0; n < NON; ++n)
@@ -560,7 +573,7 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <typename T, int DH, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int KV,
+                   float* lse, int B, int Sq, int Sk, int H, int KV,
                    const int64_t* st, int q_offset, int kv_len, int window,
                    float scale, cudaStream_t stream) {
     auto kern = flash_prefill_kernel<T, DH, DV>;
@@ -570,7 +583,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return err;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     kern<<<grid, NWARPS * 32, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Sk, H, H / KV,
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Sq, Sk, H, H / KV,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
         q_offset, kv_len, window, scale);
     return cudaGetLastError();
@@ -578,7 +591,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 template <int DH, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int B, int Sq, int Sk, int H, int KV, int hp,
+                      float* lse, int B, int Sq, int Sk, int H, int KV, int hp,
                       const int64_t* st, int q_offset, int kv_len, int window,
                       float scale, cudaStream_t stream) {
     auto kern = flash_prefill_tc_kernel<DH, DV>;
@@ -590,7 +603,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
     dim3 grid((Sq + qb - 1) / qb, H / hp, B);
     kern<<<grid, TC_WARPS * 32, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, Sq, Sk, H, H / KV, hp,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, Sq, Sk, H, H / KV, hp,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
         q_offset, kv_len, window, scale * LOG2E);
     return cudaGetLastError();
@@ -600,13 +613,13 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 // on the scalar kernel
 template <int DH, int DV>
 cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
-                     void* out, int B, int Sq, int Sk, int H, int KV, int hp,
+                     void* out, float* lse, int B, int Sq, int Sk, int H, int KV, int hp,
                      const int64_t* st, int q_offset, int kv_len, int window,
                      float scale, cudaStream_t s) {
     if (dtype == 0 && hp == 1)
-        return launch<float, DH, DV>(q, k, v, out, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
+        return launch<float, DH, DV>(q, k, v, out, lse, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
     if (dtype == 1)
-        return launch_tc<DH, DV>(q, k, v, out, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+        return launch_tc<DH, DV>(q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
     return cudaErrorInvalidValue;
 }
 
@@ -614,12 +627,14 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last axis
 // of q, k and v must be contiguous and rows must start on 16 bytes. q and k
-// are dh wide, v dv wide; out is a contiguous [B, Sq, H, dv]. hp is the
+// are dh wide, v dv wide; out is a contiguous [B, Sq, H, dv]; lse, when not
+// null, a contiguous fp32 [B, H, Sq] that takes each row's log-sum-exp (the
+// backward's input; serving passes null). hp is the
 // number of query heads a CTA packs (the wrapper's grid_plan): 1 for
 // float32; for bfloat16 4, 2 or 1, dividing H / KV. Returns the launch's
 // cudaError_t (0 on success).
 extern "C" int flash_prefill_launch(
-    const void* q, const void* k, const void* v, void* out,
+    const void* q, const void* k, const void* v, void* out, float* lse,
     int dtype, int B, int Sq, int Sk, int H, int KV, int dh, int dv, int hp,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -632,14 +647,14 @@ extern "C" int flash_prefill_launch(
     cudaStream_t s = (cudaStream_t)stream;
     if (dh == dv) {
         switch (dh) {
-            case 32: return by_dtype<32, 32>(dtype, q, k, v, out, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
-            case 64: return by_dtype<64, 64>(dtype, q, k, v, out, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
-            case 128: return by_dtype<128, 128>(dtype, q, k, v, out, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
-            case 256: return by_dtype<256, 256>(dtype, q, k, v, out, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+            case 32: return by_dtype<32, 32>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+            case 64: return by_dtype<64, 64>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+            case 128: return by_dtype<128, 128>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+            case 256: return by_dtype<256, 256>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
         }
     }
     if (dh == 192 && dv == 128)        // MLA: [k_nope; k_rope] against v
-        return by_dtype<192, 128>(dtype, q, k, v, out, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+        return by_dtype<192, 128>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
     return cudaErrorInvalidValue;
 }
 

@@ -50,6 +50,23 @@
 // tile holds one live row, so the kernel's speed is that of its weight
 // loads; wgmma, gate and up fused into one pass over the rows, and a split
 // of K for the few CTAs of a decode step are the next steps (ROADMAP).
+//
+// The backward (training; no TPU kernel, ragged_dot's own transpose rules in
+// the reference) runs on the same machinery, reading no size on the host:
+//  - dX[r] = dY[r] · W[e]^T is moe_gemm_launch with w's k and n strides
+//    swapped (w_sk = 1): the kernel then stages [64 n][32 k] tiles of W as
+//    they lie and reads B with ldmatrix without .trans (fp32: by row). The
+//    [E, K, N] stack is not copied. Serving passes w_sn = 1 and runs the
+//    code path above, unchanged.
+//  - dW[e] = xs[lo:hi]^T · dY[lo:hi] is moe_gemm_wgrad_launch: one CTA a
+//    (64-column tile of N, 64-row tile of K, expert), the expert's rows as
+//    the reduction, through the same four-stage ring; A = xs^T by
+//    ldmatrix.trans of the [rows][k] tile (fp32: by column). It reads the
+//    offsets from device memory, accumulates in fp32 and writes every
+//    element: an expert with no rows (a padded one too) gets zeros. Bound
+//    by bytes at granite's shapes (a 4096-row training step reads xs and dY
+//    once, 2 x 4096 x 1536 x 2 B, and writes E x K x N); by operations at
+//    deepseek's wide experts.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,11 +88,15 @@ constexpr unsigned FULL = 0xffffffffu;
 // K depth of a stage and the padding of the A ([BM][BK]) and B ([BK][BN])
 // rows in shared memory: 16 bytes each
 template <typename T> struct Tile;
+// LDBT: a transposed B tile's rows ([BN][BK], k contiguous); LDAT: a
+// transposed A tile's rows ([BK][BM], m contiguous; wgrad)
 template <> struct Tile<bf16> {
-    static constexpr int BK = 32, LDA = BK + 8, LDB = BN + 8;
+    static constexpr int BK = 32, LDA = BK + 8, LDB = BN + 8, LDBT = BK + 8,
+                         LDAT = BM + 8;
 };
 template <> struct Tile<float> {
-    static constexpr int BK = 16, LDA = BK + 4, LDB = BN + 4;
+    static constexpr int BK = 16, LDA = BK + 4, LDB = BN + 4, LDBT = BK + 4,
+                         LDAT = BM + 4;
 };
 
 struct Args {
@@ -85,7 +106,8 @@ struct Args {
     void* out;
     int M, K, N, E;
     int64_t x_sm;                      // xs row stride (elements)
-    int64_t w_se, w_sk;                // w expert and k strides
+    int64_t w_se, w_sk, w_sn;          // w expert, k and n strides; one
+                                       // of w_sk, w_sn is 1
     int64_t o_sm;                      // out row stride
 };
 
@@ -122,21 +144,32 @@ template <> struct Mma<bf16> {
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
     }
+    // AT: sA is [BK][LDAT] (m contiguous); BT: sB is [BN][LDBT] (k contiguous)
+    template <bool AT = false, bool BT = false>
     __device__ __forceinline__ void step(const bf16* sA, const bf16* sB, int rows,
                                          int tid) {
         constexpr int BK = Tile<bf16>::BK, LDA = Tile<bf16>::LDA,
-                      LDB = Tile<bf16>::LDB;
+                      LDB = Tile<bf16>::LDB, LDBT = Tile<bf16>::LDBT,
+                      LDAT = Tile<bf16>::LDAT;
         const int lane = tid & 31, warp = tid >> 5;
         if (16 * warp >= rows) return;             // warp-uniform
+        // ldmatrix rows of a tile stored [n][k] (or A stored [k][m], .trans)
+        const int t_row = (lane & 7) + ((lane >> 4) << 3), t_col = ((lane >> 3) & 1) * 8;
 #pragma unroll
         for (int kk = 0; kk < BK; kk += 16) {
             uint32_t a[4];
-            ldsm_x4(a, sA + (16 * warp + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
+            if (AT)
+                ldsm_x4_trans(a, sA + (kk + t_row) * LDAT + 16 * warp + t_col);
+            else
+                ldsm_x4(a, sA + (16 * warp + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
 #pragma unroll
             for (int np = 0; np < 4; ++np) {
                 uint32_t b[4];
-                ldsm_x4_trans(b, sB + (kk + (lane & 15)) * LDB + np * 16
-                                     + (lane >> 4) * 8);
+                if (BT)
+                    ldsm_x4(b, sB + (np * 16 + t_row) * LDBT + kk + t_col);
+                else
+                    ldsm_x4_trans(b, sB + (kk + (lane & 15)) * LDB + np * 16
+                                         + (lane >> 4) * 8);
                 mma_bf16(acc[2 * np], a, b[0], b[1]);
                 mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
             }
@@ -171,20 +204,31 @@ template <> struct Mma<float> {
 #pragma unroll
             for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     }
+    template <bool AT = false, bool BT = false>
     __device__ __forceinline__ void step(const float* sA, const float* sB, int rows,
                                          int tid) {
         constexpr int BK = Tile<float>::BK, LDA = Tile<float>::LDA,
-                      LDB = Tile<float>::LDB;
+                      LDB = Tile<float>::LDB, LDBT = Tile<float>::LDBT,
+                      LDAT = Tile<float>::LDAT;
         const int ty = tid >> 3, tx = tid & 7;
         if (ty >= rows) return;                    // no live row of the thread's
 #pragma unroll
         for (int k = 0; k < BK; ++k) {
             float av[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) av[i] = sA[(ty + 16 * i) * LDA + k];
-            const float4 b0 = *reinterpret_cast<const float4*>(sB + k * LDB + 4 * tx);
-            const float4 b1 = *reinterpret_cast<const float4*>(sB + k * LDB + 32 + 4 * tx);
-            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+            for (int i = 0; i < 4; ++i)
+                av[i] = AT ? sA[k * LDAT + ty + 16 * i] : sA[(ty + 16 * i) * LDA + k];
+            float bv[8];
+            if (BT) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                    bv[j] = sB[(32 * (j >> 2) + 4 * tx + (j & 3)) * LDBT + k];
+            } else {
+                const float4 b0 = *reinterpret_cast<const float4*>(sB + k * LDB + 4 * tx);
+                const float4 b1 = *reinterpret_cast<const float4*>(sB + k * LDB + 32 + 4 * tx);
+                bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+                bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+            }
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -210,11 +254,13 @@ template <> struct Mma<float> {
     }
 };
 
-template <typename T>
+// BT: w is read transposed (w_sk = 1, rows of n w_sn apart), for dX
+template <typename T, bool BT>
 __global__ void __launch_bounds__(NT) moe_gemm_kernel(const Args a) {
-    constexpr int BK = Tile<T>::BK, LDA = Tile<T>::LDA, LDB = Tile<T>::LDB;
+    constexpr int BK = Tile<T>::BK, LDA = Tile<T>::LDA, LDB = Tile<T>::LDB,
+                  LDBT = Tile<T>::LDBT;
     __shared__ __align__(16) T sA[STAGES][BM * LDA];
-    __shared__ __align__(16) T sB[STAGES][BK * LDB];
+    __shared__ __align__(16) T sB[STAGES][BT ? BN * LDBT : BK * LDB];
     __shared__ int s_expert;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int n0 = blockIdx.x * BN;
@@ -258,7 +304,14 @@ __global__ void __launch_bounds__(NT) moe_gemm_kernel(const Args a) {
     if (e < 0) return;
     const int r0 = off[e], r_end = min(off[e + 1], a.M);
 
-    const T* W = static_cast<const T*>(a.w) + e * a.w_se + n0;
+    const T* W = static_cast<const T*>(a.w) + e * a.w_se + n0 * a.w_sn;
+    // stage pf's B tile: [BK k][BN n] as it lies, or [BN n][BK k] for BT
+    auto load_b = [&](T* dst, int k0) {
+        if (BT)
+            load_tile<T, BN, BK, LDBT>(dst, W + k0, a.w_sn, ncols, a.K - k0, tid);
+        else
+            load_tile<T, BK, BN, LDB>(dst, W + k0 * a.w_sk, a.w_sk, a.K - k0, ncols, tid);
+    };
     const int nkt = (a.K + BK - 1) / BK;
     for (int m0 = r0; m0 < r_end; m0 += BM) {
         const int rows = min(BM, r_end - m0);
@@ -270,8 +323,7 @@ __global__ void __launch_bounds__(NT) moe_gemm_kernel(const Args a) {
             if (s < nkt) {
                 const int k0 = s * BK;
                 load_tile<T, BM, BK, LDA>(sA[s], X + k0, a.x_sm, rows, a.K - k0, tid);
-                load_tile<T, BK, BN, LDB>(sB[s], W + k0 * a.w_sk, a.w_sk, a.K - k0,
-                                          ncols, tid);
+                load_b(sB[s], k0);
             }
             cp_async_commit();
         }
@@ -282,11 +334,10 @@ __global__ void __launch_bounds__(NT) moe_gemm_kernel(const Args a) {
             if (pf < nkt) {
                 const int k0 = pf * BK, st = pf % STAGES;
                 load_tile<T, BM, BK, LDA>(sA[st], X + k0, a.x_sm, rows, a.K - k0, tid);
-                load_tile<T, BK, BN, LDB>(sB[st], W + k0 * a.w_sk, a.w_sk, a.K - k0,
-                                          ncols, tid);
+                load_b(sB[st], k0);
             }
             cp_async_commit();
-            mma.step(sA[kt % STAGES], sB[kt % STAGES], rows, tid);
+            mma.template step<false, BT>(sA[kt % STAGES], sB[kt % STAGES], rows, tid);
         }
         mma.store(out + m0 * a.o_sm + n0, a.o_sm, rows, ncols, tid);
         __syncthreads();                           // the ring is free again
@@ -296,30 +347,107 @@ __global__ void __launch_bounds__(NT) moe_gemm_kernel(const Args a) {
 template <typename T>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
     const dim3 grid((a.N + BN - 1) / BN, a.E < a.M ? a.E : a.M);
-    moe_gemm_kernel<T><<<grid, NT, 0, stream>>>(a);
+    if (a.w_sn == 1)
+        moe_gemm_kernel<T, false><<<grid, NT, 0, stream>>>(a);
+    else
+        moe_gemm_kernel<T, true><<<grid, NT, 0, stream>>>(a);
     return cudaGetLastError();
+}
+
+struct WArgs {
+    const void* xs;                    // [M, K], rows x_sm apart
+    const void* dy;                    // [M, N], rows y_sm apart
+    const int* offsets;
+    void* dw;                          // [E, K, N], strides (o_se, o_sk, 1)
+    int M, K, N, E;
+    int64_t x_sm, y_sm, o_se, o_sk;
+};
+
+// dW[e][k0:k0+64, n0:n0+64] = xs[lo:hi, k-tile]^T dY[lo:hi, n-tile]
+template <typename T>
+__global__ void __launch_bounds__(NT) moe_wgrad_kernel(const WArgs a) {
+    constexpr int BK = Tile<T>::BK, LDB = Tile<T>::LDB, LDAT = Tile<T>::LDAT;
+    __shared__ __align__(16) T sA[STAGES][BK * LDAT];
+    __shared__ __align__(16) T sB[STAGES][BK * LDB];
+    const int tid = threadIdx.x;
+    const int n0 = blockIdx.x * BN, k0 = blockIdx.y * BM, e = blockIdx.z;
+    const int ncols = min(BN, a.N - n0), mrows = min(BM, a.K - k0);
+    const int r0 = max(0, min(a.offsets[e], a.M));
+    const int r_end = max(r0, min(a.offsets[e + 1], a.M));
+    const int nkt = (r_end - r0 + BK - 1) / BK;
+    const T* X = static_cast<const T*>(a.xs) + r0 * a.x_sm + k0;
+    const T* Y = static_cast<const T*>(a.dy) + r0 * a.y_sm + n0;
+    auto load = [&](int st, int kt) {
+        const int r = kt * BK, left = r_end - r0 - r;
+        load_tile<T, BK, BM, LDAT>(sA[st], X + r * a.x_sm, a.x_sm, left, mrows, tid);
+        load_tile<T, BK, BN, LDB>(sB[st], Y + r * a.y_sm, a.y_sm, left, ncols, tid);
+    };
+    Mma<T> mma;
+    mma.zero();
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < nkt) load(s, s);
+        cp_async_commit();
+    }
+    for (int kt = 0; kt < nkt; ++kt) {
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();                           // stage kt landed; kt - 1 read
+        const int pf = kt + STAGES - 1;
+        if (pf < nkt) load(pf % STAGES, pf);
+        cp_async_commit();
+        mma.template step<true, false>(sA[kt % STAGES], sB[kt % STAGES], mrows, tid);
+    }
+    cp_async_wait<0>();
+    mma.store(static_cast<T*>(a.dw) + e * a.o_se + k0 * a.o_sk + n0, a.o_sk, mrows,
+              ncols, tid);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. xs [M, K] (row stride x_sm), w [E, K, N]
-// (strides w_se, w_sk, 1), out [M, N] (row stride o_sm), all of dtype, with
+// (strides w_se, w_sk, w_sn: w_sn = 1, or w_sk = 1 for a transposed read),
+// out [M, N] (row stride o_sm), all of dtype, with
 // 16-byte aligned rows: K, N and the strides multiples of 16 bytes. offsets
 // [E + 1] int32 in device memory, nondecreasing, 0 <= offsets[0] and
 // offsets[E] <= M. One launch; returns its cudaError_t (0 on success).
 extern "C" int moe_gemm_launch(const void* xs, const void* w, const void* offsets,
                                void* out, int dtype, int M, int K, int N, int E,
                                int64_t x_sm, int64_t w_se, int64_t w_sk,
-                               int64_t o_sm, void* stream) {
+                               int64_t w_sn, int64_t o_sm, void* stream) {
     const int vec = dtype == 1 ? 8 : 4;
+    const int64_t w_row = w_sn == 1 ? w_sk : w_sn;    // the strided axis
     if (M <= 0 || K <= 0 || N <= 0 || E <= 0 || K % vec || N % vec ||
-        x_sm % vec || w_se % vec || w_sk % vec || o_sm % vec)
+        x_sm % vec || w_se % vec || w_row % vec || o_sm % vec ||
+        (w_sn != 1 && w_sk != 1))
         return cudaErrorInvalidValue;
     Args a{xs, w, static_cast<const int*>(offsets), out, M, K, N, E,
-           x_sm, w_se, w_sk, o_sm};
+           x_sm, w_se, w_sk, w_sn, o_sm};
     if (dtype == 0) return launch<float>(a, static_cast<cudaStream_t>(stream));
     if (dtype == 1) return launch<bf16>(a, static_cast<cudaStream_t>(stream));
     return cudaErrorInvalidValue;
+}
+
+// The weight gradient of moe_gemm: dw[e] = xs[lo:hi]^T dy[lo:hi] for
+// offsets[e] <= r < offsets[e + 1], every element of dw [E, K, N] (strides
+// o_se, o_sk, 1) written. xs [M, K] and dy [M, N] with row strides x_sm,
+// y_sm; dtype and alignment as moe_gemm_launch. One launch.
+extern "C" int moe_gemm_wgrad_launch(const void* xs, const void* dy,
+                                     const void* offsets, void* dw, int dtype,
+                                     int M, int K, int N, int E, int64_t x_sm,
+                                     int64_t y_sm, int64_t o_se, int64_t o_sk,
+                                     void* stream) {
+    const int vec = dtype == 1 ? 8 : 4;
+    if (M <= 0 || K <= 0 || N <= 0 || E <= 0 || K % vec || N % vec ||
+        x_sm % vec || y_sm % vec || o_se % vec || o_sk % vec)
+        return cudaErrorInvalidValue;
+    WArgs a{xs, dy, static_cast<const int*>(offsets), dw, M, K, N, E,
+            x_sm, y_sm, o_se, o_sk};
+    const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, E);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0) moe_wgrad_kernel<float><<<grid, NT, 0, s>>>(a);
+    else if (dtype == 1) moe_wgrad_kernel<bf16><<<grid, NT, 0, s>>>(a);
+    else return cudaErrorInvalidValue;
+    return cudaGetLastError();
 }
 
 extern "C" const char* moe_gemm_error_string(int err) {

@@ -149,6 +149,7 @@ def flash_decode(q, k, v, *, kv_len: KvLen, window: Optional[int] = None,
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kv_len=kv_len, window=window,
                                   scale=scale, kv_max=kv_max)
+    build.refuse_grad("flash_decode", q, k, v)
     cap, win, live = decode_span(kv_len, kv_max, Sk, window)
     _check(q, k, v, H, KV, dh, dv, cap)
     per_row = check_kv_lens("flash_decode", kv_len, B, q.device)

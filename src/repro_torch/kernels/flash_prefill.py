@@ -18,6 +18,13 @@ either's CTA shape and grid. On the CPU it runs
 :func:`flash_prefill_plain`, the reference's einsum form. A CUDA tensor
 never falls back to the plain version: an input the kernel does not take
 raises.
+
+Under autograd (an input that requires grad, grad mode on) the CUDA call
+goes through :class:`FlashPrefillFn`: its forward also writes each row's
+log-sum-exp, and its backward launches :func:`flash_prefill_bwd`
+(``csrc/flash_prefill_bwd.cu``: dQ, dK and dV in three launches with no
+atomics). On the CPU autograd runs through :func:`flash_prefill_plain`.
+Serving runs under ``torch.no_grad`` and passes no log-sum-exp buffer.
 """
 from __future__ import annotations
 
@@ -79,14 +86,27 @@ def flash_prefill(q, k, v, *, q_offset: int = 0,
                   window: Optional[int] = None) -> torch.Tensor:
     """q: [B,Sq,H,dh]; k: [B,Sk,KV,dh]; v: [B,Sk,KV,dv] (the cache, read
     in place). ``q_offset``, ``kv_len`` and ``window`` (None for none) are
-    runtime values. Returns [B,Sq,H,dv] in q's dtype."""
-    B, Sq, H, dh = q.shape
-    _, Sk, KV, _ = k.shape
-    dv = v.shape[-1]
-    kv_len = Sk if kv_len is None else int(kv_len)
+    runtime values. Returns [B,Sq,H,dv] in q's dtype, differentiable in
+    q, k and v."""
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, q_offset=q_offset, kv_len=kv_len,
                                    window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashPrefillFn.apply(q, k, v, int(q_offset), kv_len, window)
+    return _forward(q, k, v, int(q_offset), kv_len, window, None)
+
+
+flash_prefill.launches = 0
+
+
+def _forward(q, k, v, q_offset: int, kv_len: int, window,
+             lse: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the forward kernel; ``lse`` (fp32 ``[B, H, Sq]``) takes
+    each row's log-sum-exp when given."""
+    B, Sq, H, dh = q.shape
+    _, Sk, KV, _ = k.shape
+    dv = v.shape[-1]
     _check(q, k, v, H, KV, dh, dv, q_offset, kv_len)
     out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     _, hp, _ = grid_plan(q.dtype, B, Sq, H, KV)
@@ -94,17 +114,103 @@ def flash_prefill(q, k, v, *, q_offset: int = 0,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         build.launch(
             "flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk, H, KV, dh, dv, hp,
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            _DTYPES[q.dtype], B, Sq, Sk, H, KV, dh, dv, hp,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            int(q_offset), kv_len, -1 if not window else int(window),
+            q_offset, kv_len, -1 if not window else int(window),
             1.0 / math.sqrt(dh), stream)
     flash_prefill.launches += 1
     return out
 
 
-flash_prefill.launches = 0
+class FlashPrefillFn(torch.autograd.Function):
+    """``flash_prefill`` on the card with its gradient: the forward keeps
+    q, k, v, the output and the rows' log-sum-exp; the backward is
+    :func:`flash_prefill_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset: int, kv_len: int, window):
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, q_offset, kv_len, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (q_offset, kv_len, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        q_offset, kv_len, window = ctx.args
+        dq, dk, dv = flash_prefill_bwd(q, k, v, out, dout, lse,
+                                       q_offset=q_offset, kv_len=kv_len,
+                                       window=window)
+        return dq, dk, dv, None, None, None
+
+
+def flash_prefill_bwd_plain(q, k, v, dout, *, q_offset: int = 0,
+                            kv_len: Optional[int] = None,
+                            window: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_prefill_plain` by autograd, in the
+    inputs' dtypes: the backward kernel's plain version."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = flash_prefill_plain(qq, kk, vv, q_offset=q_offset, kv_len=kv_len,
+                                window=window)
+        return torch.autograd.grad(o, (qq, kk, vv), dout)
+
+
+def flash_prefill_bwd(q, k, v, out, dout, lse, *, q_offset: int = 0,
+                      kv_len: Optional[int] = None,
+                      window: Optional[int] = None):
+    """Gradients (dq [B,Sq,H,dh], dk [B,Sk,KV,dh], dv [B,Sk,KV,dv], in q's
+    dtype) of ``out = flash_prefill(q, k, v, ...)`` for the output's
+    gradient ``dout``, from the forward's ``out`` and its rows' ``lse``
+    (fp32 ``[B, H, Sq]``). On the card: three launches (delta, dK/dV,
+    dQ; with GQA a fourth sums the query heads' parts of dK and dV, and
+    bf16 at dh + dv > 256 runs dK/dV in two) counted as one call in
+    ``flash_prefill_bwd.launches``; on the CPU the plain version's
+    autograd (``out`` and ``lse`` unused)."""
+    B, Sq, H, dh = q.shape
+    _, Sk, KV, _ = k.shape
+    dv = v.shape[-1]
+    kv_len = Sk if kv_len is None else int(kv_len)
+    if q.device.type == "cpu":
+        return flash_prefill_bwd_plain(q, k, v, dout, q_offset=q_offset,
+                                       kv_len=kv_len, window=window)
+    _check(q, k, v, H, KV, dh, dv, q_offset, kv_len)
+    dout = dout.contiguous()
+    if dout.dtype != q.dtype or not out.is_contiguous() or \
+            lse.dtype != torch.float32 or lse.shape != (B, H, Sq):
+        raise ValueError("flash_prefill_bwd: dout in q's dtype, the "
+                         "forward's contiguous output and fp32 [B, H, Sq] "
+                         "log-sum-exp")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, Sk, KV, dh), dtype=q.dtype, device=q.device)
+    dvv = torch.empty((B, Sk, KV, dv), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # GQA: each query head's fp32 part of dK and dV, summed in a fixed order
+    part = torch.empty(H * B * Sk * (dh + dv), dtype=torch.float32,
+                       device=q.device) if H != KV else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        build.launch(
+            "flash_prefill_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if part is None else part.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), _DTYPES[q.dtype],
+            B, Sq, Sk, H, KV, dh, dv,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            int(q_offset), kv_len, -1 if not window else int(window),
+            1.0 / math.sqrt(dh), stream)
+    flash_prefill_bwd.launches += 1
+    return dq, dk, dvv
+
+
+flash_prefill_bwd.launches = 0
 
 
 def _check(q, k, v, H, KV, dh, dv, q_offset, kv_len) -> None:

@@ -98,6 +98,7 @@ def mla_decode(q_lat, q_rope, ckv, krope, *, kv_len: KvLen, scale: float,
     if q_lat.device.type == "cpu":
         return mla_decode_plain(q_lat, q_rope, ckv, krope, kv_len=kv_len,
                                 scale=scale, window=window, kv_max=kv_max)
+    build.refuse_grad("mla_decode", q_lat, q_rope, ckv, krope)
     cap, win, live = decode_span(kv_len, kv_max, ckv.shape[1], window)
     _check(q_lat, q_rope, ckv, krope, cap)
     B, H, R = q_lat.shape

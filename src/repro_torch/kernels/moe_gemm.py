@@ -20,6 +20,11 @@ from device memory), so nothing here reads a size on the host. On the
 CPU it runs :func:`moe_gemm_plain`, the per-group loop. A CUDA tensor
 never falls back to the plain version: an input the kernel does not take
 raises.
+
+Under autograd the CUDA call goes through :class:`MoeGemmFn`: dX runs on
+the same kernel reading ``w`` transposed (a view, no copy of the stack),
+dW on :func:`moe_gemm_wgrad` (``moe_gemm.cu``'s second entry point). On
+the CPU autograd runs through the plain loop.
 """
 from __future__ import annotations
 
@@ -47,11 +52,21 @@ def moe_gemm_plain(xs: torch.Tensor, w: torch.Tensor,
 
 def moe_gemm(xs: torch.Tensor, w: torch.Tensor,
              offsets: torch.Tensor) -> torch.Tensor:
-    """xs [M, K], w [E, K, N] (last axis contiguous, e.g. a layer's view of
-    the stacked ``[L, E, K, N]`` parameter), offsets [E + 1] int32 on xs'
-    device -> [M, N] in xs' dtype."""
+    """xs [M, K], w [E, K, N] (one of its last two axes contiguous, e.g. a
+    layer's view of the stacked ``[L, E, K, N]`` parameter or its
+    transpose), offsets [E + 1] int32 on xs' device -> [M, N] in xs'
+    dtype, differentiable in xs and w."""
     if xs.device.type == "cpu":
         return moe_gemm_plain(xs, w, offsets)
+    if torch.is_grad_enabled() and (xs.requires_grad or w.requires_grad):
+        return MoeGemmFn.apply(xs, w, offsets)
+    return _launch(xs, w, offsets)
+
+
+moe_gemm.launches = 0
+
+
+def _launch(xs, w, offsets) -> torch.Tensor:
     _check(xs, w, offsets)
     M, K = xs.shape
     E, _, N = w.shape
@@ -61,12 +76,74 @@ def moe_gemm(xs: torch.Tensor, w: torch.Tensor,
         build.launch("moe_gemm", xs.data_ptr(), w.data_ptr(),
                      offsets.data_ptr(), out.data_ptr(), _DTYPES[xs.dtype],
                      M, K, N, E, xs.stride(0), w.stride(0), w.stride(1),
-                     out.stride(0), stream)
+                     w.stride(2), out.stride(0), stream)
     moe_gemm.launches += 1
     return out
 
 
-moe_gemm.launches = 0
+class MoeGemmFn(torch.autograd.Function):
+    """``moe_gemm`` on the card with its gradient: dX = dY · W[e]^T on the
+    forward kernel with ``w`` read transposed, dW = xs^T · dY a group on
+    :func:`moe_gemm_wgrad`."""
+
+    @staticmethod
+    def forward(ctx, xs, w, offsets):
+        ctx.save_for_backward(xs, w, offsets)
+        return _launch(xs, w, offsets)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, w, offsets = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _launch(dy, w.transpose(1, 2), offsets)
+        if ctx.needs_input_grad[1]:
+            dw = moe_gemm_wgrad(xs, dy, offsets, w.shape[0])
+        return dx, dw, None
+
+
+def moe_gemm_wgrad_plain(xs: torch.Tensor, dy: torch.Tensor,
+                         offsets: torch.Tensor, n_experts: int
+                         ) -> torch.Tensor:
+    """dW [E, K, N] in xs' dtype: ``xs[lo:hi]^T @ dy[lo:hi]`` a group, zeros
+    for an empty one (reads ``offsets`` on the host)."""
+    off = [int(v) for v in offsets.tolist()]
+    dw = torch.zeros((n_experts, xs.shape[1], dy.shape[1]), dtype=xs.dtype,
+                     device=xs.device)
+    for e in range(n_experts):
+        lo, hi = off[e], off[e + 1]
+        if hi > lo:
+            dw[e] = (xs[lo:hi].float().t() @ dy[lo:hi].float()).to(xs.dtype)
+    return dw
+
+
+def moe_gemm_wgrad(xs: torch.Tensor, dy: torch.Tensor, offsets: torch.Tensor,
+                   n_experts: int) -> torch.Tensor:
+    """The weight gradient of :func:`moe_gemm`: xs [M, K], dy [M, N],
+    offsets [E + 1] -> dW [E, K, N] in xs' dtype, every expert written
+    (an empty one is 0). On the card one launch that reads the offsets
+    from device memory and accumulates in fp32."""
+    if xs.device.type == "cpu":
+        return moe_gemm_wgrad_plain(xs, dy, offsets, n_experts)
+    E = n_experts
+    M, K = xs.shape
+    N = dy.shape[1]
+    w_like = torch.empty((E, K, N), dtype=xs.dtype, device=xs.device)
+    _check(xs, w_like, offsets)
+    _check(dy, w_like.transpose(1, 2), offsets)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        build.launch("moe_gemm_wgrad", xs.data_ptr(), dy.data_ptr(),
+                     offsets.data_ptr(), w_like.data_ptr(),
+                     _DTYPES[xs.dtype], M, K, N, E, xs.stride(0),
+                     dy.stride(0), w_like.stride(0), w_like.stride(1),
+                     stream)
+    moe_gemm_wgrad.launches += 1
+    return w_like
+
+
+moe_gemm_wgrad.launches = 0
 
 
 def _check(xs, w, offsets) -> None:
@@ -87,10 +164,13 @@ def _check(xs, w, offsets) -> None:
         raise ValueError(f"moe_gemm: shapes xs {tuple(xs.shape)}, w "
                          f"{tuple(w.shape)}, offsets {tuple(offsets.shape)} "
                          "do not agree")
-    if xs.stride(1) != 1 or w.stride(2) != 1 or not offsets.is_contiguous():
-        raise ValueError("moe_gemm: the last axis must be contiguous")
+    if xs.stride(1) != 1 or 1 not in (w.stride(1), w.stride(2)) or \
+            not offsets.is_contiguous():
+        raise ValueError("moe_gemm: xs' last axis and one of w's last two "
+                         "must be contiguous")
     vec = 16 // xs.element_size()     # the kernel loads 16-byte rows
+    w_row = w.stride(1) if w.stride(2) == 1 else w.stride(2)
     if K % vec or N % vec or xs.stride(0) % vec or w.stride(0) % vec or \
-            w.stride(1) % vec or xs.data_ptr() % 16 or w.data_ptr() % 16:
+            w_row % vec or xs.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("moe_gemm: rows must start on 16-byte boundaries "
                          f"(K, N and strides a multiple of {vec} elements)")

@@ -117,6 +117,7 @@ def ssd_scan(x, dt, A, B_, C_, h0, *, chunk: int):
     ``P`` a multiple of 16."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B_, C_, h0, chunk=chunk)
+    build.refuse_grad("ssd_scan", x, dt, A, B_, C_, h0)
     Bsz, S, H, Pd = x.shape
     G, N = B_.shape[2], B_.shape[3]
     Q = min(int(chunk), S)

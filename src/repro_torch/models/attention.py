@@ -32,6 +32,11 @@ none:
 Unlike the reference, these functions write the new K/V entries into
 the cache tensors IN PLACE and the kernels read that layer's cache slice
 where it lies (a ring prefill reads the gathered buffer).
+
+:func:`attn_forward` is the training path: no cache, the S tokens at
+positions ``0..S-1`` attending causally (and within the window) on
+``flash_prefill`` at ``q_offset = 0``, whose gradient runs on its
+backward kernel on the card.
 """
 from __future__ import annotations
 
@@ -186,6 +191,18 @@ def cache_write_decode(cache, k1, v1, pos: Pos, window) -> None:
     slot = pos % size if size else pos
     write_rows(cache["k"], k1[:, 0], slot)
     write_rows(cache["v"], v1[:, 0], slot)
+
+
+def attn_forward(p: Params, cfg, x, positions, *,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """Training / no-cache forward of ``x`` [B, S, D] at positions
+    ``0..S-1`` (the reference's ``attn_forward``, which masks by
+    ``positions[0]``: a text batch's, or one with meta tokens before it,
+    are those). Returns y [B, S, D]."""
+    q, k, v = project_qkv(p, cfg, x, positions)
+    o = flash_prefill(q, k, v, q_offset=0, kv_len=x.shape[1],
+                      window=window or cfg.window)
+    return out_proj(p, cfg, o)
 
 
 def attn_prefill(p: Params, cfg, x, positions, cache, start_pos: int, *,

@@ -20,6 +20,11 @@ computed once, in the prefill that runs the encoder, and stored there:
 they are part of the prompt-cache blob of this architecture, and a
 resume reads them from the cache. Unlike the reference, the layers write
 the cache IN PLACE and the kernels read it where it lies.
+
+Training runs :func:`enc_layer` as it is and :func:`dec_layer_forward`
+(no cache): the decoder's causal self-attention through
+``attn_forward``, the cross-attention over the encoder's output through
+:func:`attend_all`; both on ``flash_prefill`` and its backward kernel.
 """
 from __future__ import annotations
 
@@ -94,6 +99,22 @@ def _cross_q(p, cfg, x):
     return q + p["bq"] if cfg.attn_bias else q
 
 
+def _cross(p, cfg, x, k, v):
+    """x plus the cross-attention of its ``ln2`` over K/V ``k``, ``v``."""
+    pc = p["cross_attn"]
+    o = attend_all(_cross_q(pc, cfg, apply_norm(p["ln2"], x)), k, v)
+    return x + attn.out_proj(pc, cfg, o)
+
+
+def dec_layer_forward(p, cfg, x, positions, enc_out):
+    """Training / no-cache forward of a decoder layer over ``x`` [B, S, d]
+    at positions ``0..S-1`` against the encoder's output ``enc_out``."""
+    h = apply_norm(p["ln1"], x)
+    x = x + attn.attn_forward(p["self_attn"], cfg, h, positions)
+    x = _cross(p, cfg, x, *_cross_kv(p["cross_attn"], cfg, enc_out))
+    return x + mlp_forward(p["mlp"], cfg, apply_norm(p["ln3"], x))
+
+
 def dec_layer_prefill(p, cfg, x, positions, cache, start_pos: int,
                       enc_out=None):
     """A decoder layer over ``S`` tokens at ``start_pos``. With
@@ -108,10 +129,7 @@ def dec_layer_prefill(p, cfg, x, positions, cache, start_pos: int,
         ck, cv = _cross_kv(p["cross_attn"], cfg, enc_out)
         cache["cross_k"].copy_(ck)
         cache["cross_v"].copy_(cv)
-    pc = p["cross_attn"]
-    o = attend_all(_cross_q(pc, cfg, apply_norm(p["ln2"], x)),
-                   cache["cross_k"], cache["cross_v"])
-    x = x + attn.out_proj(pc, cfg, o)
+    x = _cross(p, cfg, x, cache["cross_k"], cache["cross_v"])
     h = apply_norm(p["ln3"], x)
     return x + mlp_forward(p["mlp"], cfg, h), cache
 

@@ -8,7 +8,8 @@ attention branch keeps a sliding-window ring KV cache
 an SSD state (:mod:`repro_torch.models.ssm`); a layer's cache is
 ``{"attn": {k, v}, "ssm": {conv, ssd}}`` and both branches update their
 half IN PLACE. Meta tokens (the learned prefix) are the model's
-(:class:`repro_torch.models.model.Model`).
+(:class:`repro_torch.models.model.Model`). :func:`hybrid_forward` is the
+training path (no cache).
 """
 from __future__ import annotations
 
@@ -16,11 +17,12 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.models.attention import (Pos, attn_decode, attn_prefill,
-                                          init_attention, init_kv_cache)
+from repro_torch.models.attention import (Pos, attn_decode, attn_forward,
+                                          attn_prefill, init_attention,
+                                          init_kv_cache)
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.ssm import (init_ssm, init_ssm_cache, ssm_decode,
-                                    ssm_prefill)
+                                    ssm_forward, ssm_prefill)
 
 
 def init_hybrid_attn(cfg, dtype, gen: Optional[torch.Generator],
@@ -35,6 +37,12 @@ def init_hybrid_attn(cfg, dtype, gen: Optional[torch.Generator],
 
 def _fuse(p, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return 0.5 * (rmsnorm(a, p["norm_attn"]) + rmsnorm(s, p["norm_ssm"]))
+
+
+def hybrid_forward(p, cfg, x, positions) -> torch.Tensor:
+    """Training / no-cache forward: both branches over x [B, S, D]."""
+    return _fuse(p, attn_forward(p["attn"], cfg, x, positions),
+                 ssm_forward(p["ssm"], cfg, x))
 
 
 def hybrid_prefill(p, cfg, x, positions, cache, start_pos: int):

@@ -20,6 +20,11 @@ state the prompt cache ships.
 
 Both write the new latents into the cache tensors IN PLACE. A windowed
 MLA cache (a ring) is not in this port and raises.
+
+* :func:`mla_forward` is the training path: per-head K/V materialised
+  from the S tokens' latents into ``flash_prefill`` at (qk_nope + qk_rope,
+  v_dim) = (192, 128), ``q_offset = 0``, as :func:`mla_prefill` runs it
+  with no cache.
 """
 from __future__ import annotations
 
@@ -105,23 +110,38 @@ def _write(cache, ckv, krope, start: int) -> None:
     cache["krope"][:, start:start + S] = krope
 
 
+def _keys_values(p: Params, cfg, ckv, krope):
+    """Per-head keys ``[k_nope; krope]`` and values of latents ``ckv`` [B,
+    S, kv_lora] and rotary keys ``krope`` [B, S, qk_rope]."""
+    k_nope = _per_head(ckv, p["wk_b"])
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        *k_nope.shape[:3], cfg.mla.qk_rope_dim)], dim=-1)
+    return k, _per_head(ckv, p["wv_b"])
+
+
+def mla_forward(p: Params, cfg, x, positions, *,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Training / no-cache forward of ``x`` [B, S, D] at positions
+    ``0..S-1`` (the reference's ``mla_forward``). Returns y [B, S, D]."""
+    q_nope, q_rope = _queries(p, cfg, x, positions)
+    k, v = _keys_values(p, cfg, *_latents(p, cfg, x, positions))
+    o = flash_prefill(torch.cat([q_nope, q_rope], dim=-1), k, v, q_offset=0,
+                      kv_len=x.shape[1], window=window or cfg.window)
+    return out_proj(p, cfg, o)
+
+
 def mla_prefill(p: Params, cfg, x, positions, cache, start_pos: int, *,
                 window: Optional[int] = None):
     """Prefill ``S`` tokens at ``start_pos`` into ``cache`` (which may hold
     a downloaded prefix) and attend over both. Returns ``(y, cache)``;
     ``cache`` is updated in place."""
-    m = cfg.mla
     S = x.shape[1]
     q_nope, q_rope = _queries(p, cfg, x, positions)
     ckv_new, krope_new = _latents(p, cfg, x, positions)
     _write(cache, ckv_new, krope_new, start_pos)
     kv_end = start_pos + S
-    ckv = cache["ckv"][:, :kv_end]
-    k_nope = _per_head(ckv, p["wk_b"])
-    krope = cache["krope"][:, :kv_end, None, :]
-    k = torch.cat([k_nope, krope.expand(*k_nope.shape[:3], m.qk_rope_dim)],
-                  dim=-1)
-    v = _per_head(ckv, p["wv_b"])
+    k, v = _keys_values(p, cfg, cache["ckv"][:, :kv_end],
+                        cache["krope"][:, :kv_end])
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = flash_prefill(q, k, v, q_offset=start_pos, kv_len=kv_end,
                       window=window or cfg.window)

@@ -1,9 +1,9 @@
 """Model facade for the six families (dense, VLM, SSM, hybrid, MoE and
 the encoder-decoder; deepseek-v3 cut to its dense MLA layers or to those
-and its first MoE layers): prefill with prefix resume, and one-token
-decode.
+and its first MoE layers): the training forward and loss, prefill with
+prefix resume, and one-token decode.
 
-Counterpart of ``repro.models.model.Model`` (serving modes only). The
+Counterpart of ``repro.models.model.Model``. The
 parameters live in this ``nn.Module`` under the reference's tree paths,
 with ``.`` for ``/`` (``segments.0.attn.wq`` is the reference's
 ``segments/0/attn/wq``, same ``[L, d, H, dh]`` layout; a hybrid's
@@ -25,6 +25,15 @@ KV, dh]``: a cold prefill runs the encoder over ``inputs["frames"]`` and
 stores them, a resume reads them (``models/encdec.py``).
 :meth:`prefill` and :meth:`decode_step` update it IN PLACE and return it.
 
+Training (:meth:`forward`, :meth:`loss`) runs the full sequence with no
+cache: each layer's training forward, under a checkpoint a layer with
+``remat``; the cross-entropy sequence-chunked, each chunk under a
+checkpoint, under the reference's condition; deepseek's MTP head (its
+params under ``mtp``, built when ``cfg.mtp``) adds its loss at weight 0.3.
+Parameters are registered frozen: ``model.requires_grad_(True)`` makes
+them trainable (``training.train_step`` does). Serving runs under
+``torch.no_grad`` and ignores the MTP head, as the reference's does.
+
 Meta tokens (hymba's learned prefix of ``R`` rows, ``meta [R, d]``) take
 cache positions ``0..R-1`` and text token ``i`` position ``R + i``: a
 cold prefill prepends them and writes the cache from 0, a resume adds
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -47,6 +57,10 @@ from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (add_sinusoidal, apply_norm,
                                        embed_init, tree_map)
+
+CE_CHUNK = 512                 # positions a chunk of the chunked CE
+CE_CHUNKED_ABOVE = 1 << 25     # S * V past which the CE is chunked
+MTP_WEIGHT = 0.3
 
 
 def padded_vocab(vocab: int) -> int:
@@ -89,16 +103,18 @@ class Model(nn.Module):
     """``seed`` draws the random weights with a generator on the model's
     device: on the card they are drawn there, not on the host, and differ
     from the CPU's for the same seed. ``seed=None`` allocates them unset,
-    for a caller that loads a state dict next."""
+    for a caller that loads a state dict next. ``remat`` recomputes each
+    layer's activations in the backward (training only). With
+    ``cfg.mtp`` the MTP head's params are built too (``mtp.layer`` of the
+    last segment's kind, ``mtp.proj``, ``mtp.ln_h``, ``mtp.ln_e``): the
+    loss trains them, serving leaves them unused."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None, seed: Optional[int] = 0):
+                 device: DeviceLike = None, seed: Optional[int] = 0,
+                 remat: bool = False):
         super().__init__()
-        if cfg.mtp:
-            raise NotImplementedError(
-                "the MTP head is a training head; serve the model with "
-                "mtp=False (training: ROADMAP Queue 1, item 10)")
         self.cfg = cfg
+        self.remat = remat
         self.is_encdec = cfg.family == "encdec"
         self.segment_specs = [] if self.is_encdec else tf.segments_for(cfg)
         self.dtype = dtype
@@ -129,6 +145,15 @@ class Model(nn.Module):
             self.enc = stacked(ed.init_enc_layer, cfg.encdec.n_enc_layers)
             self.enc_ln = _pdict(tf.init_norm(cfg, dtype, self.device))
             self.dec = stacked(ed.init_dec_layer, cfg.n_layers)
+        if cfg.mtp and not self.is_encdec:
+            d = cfg.d_model
+            self.mtp = ParamTree({
+                "layer": tf.init_layer(cfg, self.segment_specs[-1], dtype,
+                                       gen, device=self.device),
+                "proj": embed_init((2 * d, d), dtype, gen,
+                                   device=self.device),
+                "ln_h": tf.init_norm(cfg, dtype, self.device),
+                "ln_e": tf.init_norm(cfg, dtype, self.device)})
 
     @property
     def has_recurrent_state(self) -> bool:
@@ -168,6 +193,130 @@ class Model(nn.Module):
             logits[..., self.cfg.vocab:] = -1e30
         return logits
 
+    # ------------------------------------------------------------------
+    # training / full forward
+    # ------------------------------------------------------------------
+    def _backbone(self, batch):
+        """Hidden states of the whole sequence ``[B, S, D]`` (text rows
+        only: a meta-token model's prefix is dropped) and the MoE layers'
+        summed aux loss. ``batch["tokens"]`` [B, S]; an encoder-decoder
+        also takes ``batch["frames"]`` [B, n_frames, d]."""
+        cfg = self.cfg
+        if self.is_encdec:
+            return self._backbone_encdec(batch), 0.0
+        if cfg.family == "vlm" and "embeds" in batch:
+            raise NotImplementedError(
+                "training on merged image embeddings (their M-RoPE "
+                "positions mask attention) is not in this port; train the "
+                "VLM's text stack on tokens")
+        x, positions, _ = self._embed(batch, 0, resume=False)
+        aux = 0.0
+        for sp, spec in zip(self.segments, self.segment_specs):
+            x, a = tf.stack_forward(sp.tree(), cfg, spec, x, positions,
+                                    remat=self.remat)
+            aux = aux + a
+        return x[:, cfg.n_meta_tokens:], aux
+
+    def _backbone_encdec(self, batch) -> torch.Tensor:
+        cfg = self.cfg
+        frames = batch["frames"]
+        if not torch.is_tensor(frames):
+            frames = torch.from_numpy(np.array(frames))
+        enc = add_sinusoidal(frames.to(self.device, self.dtype))
+        for lp in tf.unbind_layers(self.enc.tree(), cfg.encdec.n_enc_layers):
+            enc = self._layer(ed.enc_layer, lp, cfg, enc)
+        enc = apply_norm(self.enc_ln, enc)
+        tokens = self._tokens(batch["tokens"])
+        B, S = tokens.shape
+        x = add_sinusoidal(F.embedding(tokens, self.embed))
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        for lp in tf.unbind_layers(self.dec.tree(), cfg.n_layers):
+            x = self._layer(ed.dec_layer_forward, lp, cfg, x, positions, enc)
+        return x
+
+    def _layer(self, fn, *args):
+        """``fn(*args)``, under a checkpoint with ``remat``."""
+        if self.remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def forward(self, batch) -> torch.Tensor:
+        """Logits ``[B, S, V]`` fp32 of the whole sequence."""
+        return self._head(self._backbone(batch)[0])
+
+    def _ce(self, h, targets, mask) -> torch.Tensor:
+        """Masked mean cross-entropy of the head over ``h`` [B, S, D].
+        Sequence-chunked under the reference's condition (``S * V`` past
+        2^25, ``S`` a multiple of the 512-position chunk and above it),
+        each chunk's logits recomputed in the backward: at a 262k vocab a
+        whole sequence's fp32 logits would be kept several times over."""
+        S, V, chunk = h.shape[1], self.embed.shape[0], CE_CHUNK
+        if S * V <= CE_CHUNKED_ABOVE or S % chunk or S <= chunk:
+            ll, m = self._ce_chunk(h, targets, mask)
+            return -ll / (m + 1e-9)
+        ll = m = 0.0
+        for c in range(0, S, chunk):
+            lc, mc = checkpoint(self._ce_chunk, h[:, c:c + chunk],
+                                targets[:, c:c + chunk],
+                                mask[:, c:c + chunk], use_reentrant=False)
+            ll, m = ll + lc, m + mc
+        return -ll / (m + 1e-9)
+
+    def _ce_chunk(self, h, targets, mask):
+        """(sum of the masked log-likelihoods, sum of the mask)."""
+        logp = torch.log_softmax(self._head(h), dim=-1)
+        ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+        mask = mask.float()
+        return torch.sum(ll * mask), torch.sum(mask)
+
+    def loss(self, batch):
+        """``(loss, metrics)``: the cross-entropy of ``batch["targets"]``
+        [B, S] (under ``batch["mask"]`` when given) plus the MoE aux loss
+        and, with an MTP head, 0.3 times its loss on the token after the
+        next. ``metrics`` holds ``ce``, ``aux``, ``mtp`` (MTP models) and
+        ``loss``, each a 0-d fp32 tensor."""
+        cfg = self.cfg
+        h, aux = self._backbone(batch)
+        targets = self._tokens(batch["targets"])
+        mask = batch.get("mask")
+        mask = torch.ones(targets.shape, device=self.device) if mask is None \
+            else torch.as_tensor(np.asarray(mask), device=self.device).float()
+        ce = self._ce(h, targets, mask)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=self.device)
+        metrics = {"ce": ce, "aux": aux}
+        total = ce + aux
+        if cfg.mtp and "tokens" in batch:
+            mtp = self._mtp_loss(h, self._tokens(batch["tokens"]), targets,
+                                 mask)
+            metrics["mtp"] = mtp
+            total = total + MTP_WEIGHT * mtp
+        metrics["loss"] = total
+        return total, metrics
+
+    def _mtp_loss(self, h, tokens, targets, mask) -> torch.Tensor:
+        """The MTP head's loss: predict token t + 2 from (h_t, the embedding
+        of token t + 1) through one more layer of the last segment's kind,
+        its CE padded to the chunk's multiple where it is chunked, as the
+        reference pads it."""
+        cfg, mp = self.cfg, self.mtp.tree()
+        hh = apply_norm(mp["ln_h"], h[:, :-1])
+        ee = apply_norm(mp["ln_e"], F.embedding(tokens[:, 1:], self.embed))
+        hm = torch.cat([hh, ee], dim=-1) @ mp["proj"]
+        B, S1 = hm.shape[:2]
+        positions = torch.arange(S1, device=self.device).expand(B, S1)
+        if cfg.rope == "mrope":
+            positions = positions.expand(3, B, S1)
+        hm, _ = tf.layer_forward(mp["layer"], cfg, self.segment_specs[-1], hm,
+                                 positions)
+        tgt, msk = targets[:, 1:], mask[:, 1:]
+        pad = (-S1) % CE_CHUNK
+        if pad and S1 * self.embed.shape[0] > CE_CHUNKED_ABOVE:
+            hm = F.pad(hm, (0, 0, 0, pad))
+            tgt, msk = F.pad(tgt, (0, pad)), F.pad(msk, (0, pad))
+        return self._ce(hm, tgt, msk)
+
+    # ------------------------------------------------------------------
+    # serving
     # ------------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, inputs, cache, start_pos: int = 0, last_index=None,
@@ -250,6 +399,12 @@ class Model(nn.Module):
         cold prefill (``resume=False``) of a meta-token model prepends
         the ``R`` meta rows at positions ``0..R-1`` and writes the cache
         from ``start_pos``."""
+        return self._embed(inputs, start_pos, resume)
+
+    def _embed(self, inputs, start_pos: int, resume: bool):
+        """:meth:`prefill_stream_embed`'s work, differentiable (the
+        training forward's embedding, ``start_pos = 0`` and the meta rows
+        prepended)."""
         R = self.cfg.n_meta_tokens
         eff_start = start_pos + (R if resume else 0)
         if self.cfg.family == "vlm" and "embeds" in inputs:

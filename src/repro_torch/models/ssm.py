@@ -11,7 +11,10 @@ cache's ``ssd``. Per layer:
 
 Unlike the reference, both functions write the new state into the cache
 tensors IN PLACE. :func:`ssm_decode` stays plain PyTorch ops, as the
-reference's decode has no kernel.
+reference's decode has no kernel. :func:`ssm_forward` is the training
+path: the same scan from a zero state, with no cache. Its gradient runs
+on the CPU only: on the card ``ssd_scan`` has no backward kernel yet and
+refuses an input that requires grad (ROADMAP item 10b).
 """
 from __future__ import annotations
 
@@ -96,23 +99,37 @@ def _gate_out(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return rmsnorm(y * F.silu(z), p["norm"]) @ p["out_proj"]
 
 
+def _scan(p: Params, cfg, x: torch.Tensor, conv: torch.Tensor,
+          h0: torch.Tensor):
+    """The layer over x [B,S,D] from the conv window ``conv`` and the SSD
+    state ``h0``: ``(y [B,S,D], conv window after, state after)``."""
+    Bsz, S, _ = x.shape
+    z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])
+    xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv)
+    xh, B_, C_ = _split_xbc(cfg, xBC)
+    dtf = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, h = ssd_scan(xh, dtf, A, B_, C_, h0, chunk=cfg.ssm.chunk)
+    y = y + p["D"][:, None] * xh.float()
+    y = y.reshape(Bsz, S, cfg.ssm_d_inner).to(x.dtype)
+    return _gate_out(p, y, z), conv_state, h
+
+
+def ssm_forward(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Training / no-cache forward of x [B,S,D] from a zero state (the
+    reference's ``ssm_prefill`` with no cache). Returns y [B,S,D]."""
+    zero = init_ssm_cache(cfg, x.shape[0], x.dtype, x.device)
+    return _scan(p, cfg, x, zero["conv"], zero["ssd"])[0]
+
+
 def ssm_prefill(p: Params, cfg, x: torch.Tensor, cache: Params):
     """x: [B,S,D]; ``cache`` holds the state entering the sequence (zeros
     for a cold prefill, a downloaded state for a resume) and is updated
     IN PLACE. Returns ``(y [B,S,D], cache)``."""
-    Bsz, S, _ = x.shape
-    z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])
-    xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"],
-                                   cache["conv"])
-    xh, B_, C_ = _split_xbc(cfg, xBC)
-    dtf = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, h = ssd_scan(xh, dtf, A, B_, C_, cache["ssd"], chunk=cfg.ssm.chunk)
-    y = y + p["D"][:, None] * xh.float()
-    y = y.reshape(Bsz, S, cfg.ssm_d_inner).to(x.dtype)
+    y, conv_state, h = _scan(p, cfg, x, cache["conv"], cache["ssd"])
     cache["conv"].copy_(conv_state)
     cache["ssd"].copy_(h)
-    return _gate_out(p, y, z), cache
+    return y, cache
 
 
 def ssm_decode(p: Params, cfg, x1: torch.Tensor, cache: Params):

@@ -9,12 +9,19 @@ state blobs line up leaf for leaf; the loop over layers replaces
 ``lax.scan``. A MoE layer's FFN is :func:`repro_torch.models.moe.moe_forward`;
 an empty segment (deepseek-v3 cut to its leading dense layers) keeps the
 reference's leaves with a zero layer axis.
+
+:func:`stack_forward` is the training path (no cache): each layer's
+:func:`layer_forward`, under ``torch.utils.checkpoint`` with ``remat``
+(the reference's ``jax.checkpoint`` of its scan body: a layer's
+activations are recomputed in the backward, only its input is kept). It
+returns the MoE layers' summed aux loss beside the hidden states.
 """
 from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import hybrid as hyb
@@ -124,12 +131,59 @@ def layer_params(sp: Dict, i: int) -> Dict:
     return tree_map(lambda t: t[i], sp)
 
 
+def unbind_layers(sp: Dict, n_layers: int) -> List[Dict]:
+    """The ``n_layers`` layer trees of stacked parameters, each leaf a
+    view; under autograd their gradients stack back into the ``[L, ...]``
+    leaf in one op (indexing layer by layer would add L full-size
+    gradients)."""
+    def split(t):
+        if isinstance(t, dict):
+            per = {k: split(v) for k, v in t.items()}
+            return [{k: per[k][i] for k in per} for i in range(n_layers)]
+        return t.unbind(0)
+    return list(split(sp)) if n_layers else []
+
+
 def _ffn(lp, cfg, seg: Segment, x):
     """The layer's FFN: the routed experts of a MoE layer (its aux loss
     unused in serving), else the dense MLP."""
     if seg.kind.endswith("moe"):
         return moe_mod.moe_forward(lp["moe"], cfg, x, aux=False)[0]
     return mlp_forward(lp["mlp"], cfg, x)
+
+
+def layer_forward(lp, cfg, seg: Segment, x, positions, window=None):
+    """One layer's training forward (no cache): ``(x, aux)``, ``aux`` the
+    MoE layer's load-balance loss (0.0 for the other kinds)."""
+    h = apply_norm(lp["ln1"], x)
+    if seg.kind == "ssm":
+        return x + ssm_mod.ssm_forward(lp["ssm"], cfg, h), 0.0
+    if seg.kind == "hybrid":
+        y = hyb.hybrid_forward(lp["hyb"], cfg, h, positions)
+    elif seg.kind.startswith("mla_"):
+        y = mla_mod.mla_forward(lp["mla"], cfg, h, positions, window=window)
+    else:
+        y = attn.attn_forward(lp["attn"], cfg, h, positions, window=window)
+    x = x + y
+    h = apply_norm(lp["ln2"], x)
+    if seg.kind.endswith("moe"):
+        y, aux = moe_mod.moe_forward(lp["moe"], cfg, h)
+        return x + y, aux
+    return x + mlp_forward(lp["mlp"], cfg, h), 0.0
+
+
+def stack_forward(sp, cfg, seg: Segment, x, positions, remat: bool = False):
+    """Every layer's :func:`layer_forward`, each under a checkpoint with
+    ``remat``. Returns ``(x, aux)``, the aux losses summed."""
+    aux = 0.0
+    for lp in unbind_layers(sp, seg.n_layers):
+        if remat:
+            x, a = checkpoint(layer_forward, lp, cfg, seg, x, positions,
+                              use_reentrant=False)
+        else:
+            x, a = layer_forward(lp, cfg, seg, x, positions)
+        aux = aux + a
+    return x, aux
 
 
 def layer_prefill(lp, cfg, seg: Segment, x, positions, lc, start_pos: int):

@@ -11,7 +11,9 @@ bf16 model, as the reference keeps it. An encoder-decoder's ``enc``
 (stacked ``[L_enc, ...]``), ``enc_ln`` and ``dec`` trees come across the
 same way, their q/k/v/o and layernorm biases with them. Leaves with no
 elements (an empty MoE segment's ``[0, ...]`` stacks) come across as
-empty tensors of the same shape.
+empty tensors of the same shape. :func:`to_tree` is the inverse: a
+state dict back to the reference's nested tree (``segments`` a list),
+as a checkpoint in the reference's format holds it.
 """
 from __future__ import annotations
 
@@ -42,3 +44,25 @@ def _tensor(arr) -> torch.Tensor:
 def from_jax_params(tree) -> Dict[str, torch.Tensor]:
     """The reference's params pytree (numpy leaves) -> a state dict."""
     return {name: _tensor(leaf) for name, leaf in _flatten(tree)}
+
+
+def to_tree(state: Dict[str, torch.Tensor]) -> Dict:
+    """A state dict (``segments.0.attn.wq``, ...) -> the reference's
+    nested tree: dicts by name, a level whose keys are all indices a
+    list in index order (``segments``)."""
+    root: Dict = {}
+    for name, t in state.items():
+        *path, leaf = name.split(".")
+        node = root
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return _lists(root)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [_lists(node[k]) for k in sorted(node, key=int)]
+    return {k: _lists(v) for k, v in node.items()}

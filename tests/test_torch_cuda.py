@@ -14,7 +14,11 @@ atol 2e-4, rtol 1e-3, the reference's kernel tolerance (fp32 outputs in
 both dtypes; the chunked products sum in another order); ``moe_gemm``
 fp32 1e-5 and bf16 2e-2 (fp32 sums in another order; one bf16 rounding
 of the output) against the largest magnitude of the plain output, whose
-sums over K of up to 7168 reach tens.
+sums over K of up to 7168 reach tens. The backward kernels
+(``flash_prefill_bwd``, ``moe_gemm`` reading its weights transposed,
+``moe_gemm_wgrad``) are held to the same 1e-5 / 2e-2 against the largest
+magnitude of each gradient of the plain version's autograd: bf16 rounds P
+and dS to bf16 once before their products, as the forward rounds P.
 """
 import math
 
@@ -24,10 +28,13 @@ import torch
 from repro_torch.kernels import flash_decode as decode_mod
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               flash_prefill_bwd,
+                                               flash_prefill_bwd_plain,
                                                flash_prefill_plain)
 from repro_torch.kernels.mla_decode import mla_decode, mla_decode_plain
 from repro_torch.kernels.mla_decode import split_plan as mla_split_plan
-from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_plain,
+                                          moe_gemm_wgrad)
 from repro_torch.kernels.ssd_scan import (rows_vectorizable, ssd_scan,
                                           ssd_scan_plain)
 
@@ -831,3 +838,107 @@ def test_whisper_cases_1_and_5_on_the_card(cuda_device):
         got = eng.generate(eng.adopt(cache, n, logits), 6)
         assert flash_prefill.launches == p0
         assert np.array_equal(got, want)
+
+
+BWD_CASES = [
+    # B, Sq, Sk, H, KV, dh, dv, q_offset, kv_len, window
+    (2, 64, 64, 4, 2, 32, 32, 0, None, None),
+    (1, 37, 128, 4, 4, 64, 64, 91, None, None),    # a resumed suffix
+    (2, 128, 128, 8, 1, 32, 32, 0, None, 48),      # MQA + sliding window
+    (1, 100, 300, 4, 1, 128, 128, 77, 177, None),  # kv_len ends mid-tile
+    (1, 130, 130, 4, 1, 256, 256, 0, None, None),  # gemma3-270m's widths
+    (1, 70, 70, 4, 4, 192, 128, 0, None, None),    # MLA's (192, 128)
+    (1, 96, 200, 8, 8, 64, 64, 200, 200, None),    # bidirectional (whisper)
+    (1, 40, 64, 4, 1, 64, 64, 40, None, 8),        # rows that see no key
+]
+
+
+def _grad_err(got, ref):
+    return max((g.float() - r.float()).abs().max().item()
+               / max(r.float().abs().max().item(), 1e-6)
+               for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_backward_cuda_vs_plain_autograd(case, dtype,
+                                                       cuda_device):
+    B, Sq, Sk, H, KV, dh, dv, off, kv_len, win = case
+    gen = torch.Generator().manual_seed(11)
+    q = _rand(gen, (B, Sq, H, dh), dtype, cuda_device).requires_grad_()
+    k = _rand(gen, (B, Sk, KV, dh), dtype, cuda_device).requires_grad_()
+    v = _rand(gen, (B, Sk, KV, dv), dtype, cuda_device).requires_grad_()
+    dout = _rand(gen, (B, Sq, H, dv), dtype, cuda_device)
+    n_f, n_b = flash_prefill.launches, flash_prefill_bwd.launches
+    out = flash_prefill(q, k, v, q_offset=off, kv_len=kv_len, window=win)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == n_f + 1
+    assert flash_prefill_bwd.launches == n_b + 1
+    ref = flash_prefill_bwd_plain(q.detach(), k.detach(), v.detach(), dout,
+                                  q_offset=off, kv_len=kv_len, window=win)
+    assert _grad_err((q.grad, k.grad, v.grad), ref) <= TOL[dtype]
+    if kv_len is not None:             # keys past kv_len get no gradient
+        assert torch.count_nonzero(k.grad[:, kv_len:]) == 0
+
+
+BWD_MOE_CASES = [
+    # M, K, N, E, groups (as MOE_GEMM_CASES)
+    (40, 64, 32, 4, None),
+    (96, 128, 64, 8, (0, 30, 0, 0, 50, 16, 0, 0)),   # empty experts
+    (512, 1536, 512, 48, 40),                        # granite's up/gate
+    (512, 512, 1536, 48, 40),                        # granite's down
+    (256, 7168, 2048, 32, 32),                       # deepseek's up/gate
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_MOE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_backward_cuda_vs_plain_autograd(case, dtype, cuda_device):
+    xs, w, offsets = _moe_gemm_inputs(case, dtype, cuda_device)
+    xs.requires_grad_()
+    w.requires_grad_()
+    gen = torch.Generator().manual_seed(3)
+    dy = _rand(gen, (xs.shape[0], w.shape[2]), dtype, cuda_device)
+    n_g, n_w = moe_gemm.launches, moe_gemm_wgrad.launches
+    moe_gemm(xs, w, offsets).backward(dy)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == n_g + 2        # forward, then dX
+    assert moe_gemm_wgrad.launches == n_w + 1
+    x0, w0 = xs.detach().requires_grad_(), w.detach().requires_grad_()
+    moe_gemm_plain(x0.float(), w0.float(), offsets).backward(dy.float())
+    assert _grad_err((xs.grad, w.grad), (x0.grad, w0.grad)) <= TOL[dtype]
+    sizes = (offsets[1:] - offsets[:-1]).tolist()
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert torch.count_nonzero(w.grad[e]) == 0
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_grad_on_the_card(cuda_device):
+    """ssd_scan, flash_decode and mla_decode have no backward on the card:
+    an input that requires grad raises (ROADMAP item 10b), rather than
+    returning a result that carries no gradient."""
+    gen = torch.Generator().manual_seed(2)
+    dev = cuda_device
+    q = _rand(gen, (1, 4, 64), torch.float32, dev).requires_grad_()
+    kv = _rand(gen, (1, 32, 2, 64), torch.float32, dev)
+    with pytest.raises(RuntimeError, match="10b"):
+        flash_decode(q, kv, kv, kv_len=32)
+    ql = _rand(gen, (1, 16, 512), torch.float32, dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="10b"):
+        mla_decode(ql, _rand(gen, (1, 16, 64), torch.float32, dev),
+                   _rand(gen, (1, 32, 512), torch.float32, dev),
+                   _rand(gen, (1, 32, 64), torch.float32, dev), kv_len=32,
+                   scale=0.1)
+    x = _rand(gen, (1, 16, 2, 16), torch.float32, dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="10b"):
+        ssd_scan(x, torch.rand((1, 16, 2), generator=gen).to(dev),
+                 -torch.ones(2, device=dev),
+                 _rand(gen, (1, 16, 1, 16), torch.float32, dev),
+                 _rand(gen, (1, 16, 1, 16), torch.float32, dev),
+                 torch.zeros((1, 2, 16, 16), device=dev), chunk=16)
+    with torch.no_grad():              # serving is untouched
+        flash_decode(q, kv, kv, kv_len=32)

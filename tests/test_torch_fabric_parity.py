@@ -65,7 +65,8 @@ from repro_torch.serving.engine import InferenceEngine
 MAX_LEN = 512
 N_NEW = 4
 LINKS = [(30e6, 0.002), (21e6, 0.003), (8e6, 0.008)]
-CONFIGS = ["gemma3-270m", "gemma3-1b", "mamba2-780m", "deepseek-v3-671b"]
+CONFIGS = ["gemma3-270m", "gemma3-1b", "mamba2-780m", "deepseek-v3-671b",
+           "hymba-1.5b"]
 
 
 def _cfg_pair(name):

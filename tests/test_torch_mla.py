@@ -194,12 +194,15 @@ def test_the_cut_keeps_full_widths_and_an_empty_moe_segment():
 
 
 def test_model_refuses_what_it_cannot_run():
-    """The MTP head (a training head, item 10) raises; an encoder-decoder
-    config now builds (its encoder and decoder stacks, no segments), and
-    the MoE layers after the dense ones run."""
+    """An MTP config now builds (the head's params under ``mtp``, its layer
+    of the last segment's kind; serving ignores it); an encoder-decoder
+    config builds (its encoder and decoder stacks, no segments), and the
+    MoE layers after the dense ones run."""
     cfg = get_config("deepseek-v3-671b").reduced()
-    with pytest.raises(NotImplementedError, match="MTP"):
-        Model(cfg, device="cpu")
+    t = Model(cfg, device="cpu")
+    assert sorted(t.mtp.tree()) == ["layer", "ln_e", "ln_h", "proj"]
+    assert "moe" in t.mtp["layer"].tree() and "mla" in t.mtp["layer"].tree()
+    assert t.mtp["proj"].shape == (2 * cfg.d_model, cfg.d_model)
     e = Model(cfg.replace(mtp=False, family="encdec"), device="cpu")
     assert e.segment_specs == [] and not e.supports_layer_stream
     assert e.enc["attn"]["wq"].shape[0] == cfg.encdec.n_enc_layers

@@ -1,0 +1,323 @@
+"""The port's training substrate against the JAX reference, on the CPU:
+mirrors of ``tests/test_training.py`` (loss falls and remat matches, bf16
+moments and clipping, an exact checkpoint round trip, deepseek's MTP and
+aux losses, the data pipeline), AdamW against the reference's, checkpoints
+across packages, and the launchers' ``--reduced`` flag.
+
+Tolerances (fp32): losses and norms within 1e-5 of their value. After
+three AdamW steps the params agree within 1e-6 for all but 0.1% of the
+elements with fp32 moments, and every element within 1e-5 (1% of lr
+1e-3): Adam's update g / (|g| + eps) moves by |dg| / eps where a
+gradient is of the order of eps (at the default 1e-8 a 1e-10 difference
+of a tiny gradient, the sums' order, is 1e-2 of lr on that element). So
+the test runs at eps = 1e-6 on every element, and at the default 1e-8
+on the elements whose clipped gradient was 0 or at least 10 * eps at
+every step, which must be 99% of them. With bf16
+moments every element within 2e-5: a moment 1e-6 apart can round to
+the neighbouring bf16 value (2^-8 relative), which moves that step's
+update by up to 2^-8 of lr, and three steps add up. Checkpoints must be
+bit for bit.
+"""
+import argparse
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.data import MMLUGenerator as JaxMMLUGenerator
+from repro.data import WordHashTokenizer as JaxTokenizer
+from repro.launch import train as jax_train
+from repro.models import Model as JaxModel
+from repro.training import adamw as jax_adamw
+from repro.training import checkpoint as jax_ckpt
+from repro.training import make_train_step as jax_make_train_step
+from repro.training.data import lm_batches as jax_lm_batches
+from repro_torch.configs import get_config
+from repro_torch.data.mmlu import MMLUGenerator
+from repro_torch.data.tokenizer import WordHashTokenizer
+from repro_torch.launch import train
+from repro_torch.models.model import Model
+from repro_torch.params import from_jax_params, to_tree
+from repro_torch.training import AdamWState, adamw, make_train_step
+from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.data import lm_batches
+
+
+def _model(name, seed=0, remat=False):
+    """(reference params, port model holding them)."""
+    cfg = get_config(name).reduced()
+    jp = JaxModel(jax_get_config(name).reduced()).init(
+        jax.random.PRNGKey(seed))
+    m = Model(cfg, device="cpu", seed=None, remat=remat)
+    m.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jp)))
+    return jp, m
+
+
+def _np(t):
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def test_loss_decreases_and_remat_matches():
+    cfg = get_config("llama3.2-1b").reduced()
+    model = Model(cfg, device="cpu", seed=0, remat=True)
+    opt = adamw(lr=1e-3, warmup_steps=2)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(model, opt)
+    it = lm_batches(cfg, batch=4, seq=32)
+    losses = []
+    for _ in range(8):
+        state, m = step(state, next(it))
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0]
+    b = next(it)
+    with torch.no_grad():
+        l_remat = float(model.loss(b)[0])
+        model.remat = False
+        l_plain = float(model.loss(b)[0])
+    assert abs(l_remat - l_plain) < 1e-5
+
+
+def test_bf16_moments_and_grad_clip():
+    cfg = get_config("gemma3-270m").reduced()
+    model = Model(cfg, device="cpu", seed=1)
+    opt = adamw(lr=1e-3, moment_dtype=torch.bfloat16, grad_clip=0.5)
+    state = opt.init(dict(model.named_parameters()))
+    assert next(iter(state.mu.values())).dtype == torch.bfloat16
+    step = make_train_step(model, opt)
+    state, m = step(state, next(lm_batches(cfg, batch=2, seq=16)))
+    assert np.isfinite(float(m["loss"]))
+    assert int(state.count) == 1 and state.count.dtype == torch.int32
+
+
+def test_checkpoint_roundtrip_exact(tmp_path):
+    cfg = get_config("qwen3-4b").reduced()
+    model = Model(cfg, device="cpu", seed=2)
+    params = to_tree(model.state_dict())
+    state = adamw().init(model.state_dict())
+    path = str(tmp_path / "ck.zst")
+    tree = {"p": params, "o": AdamWState(state.count, to_tree(state.mu),
+                                         to_tree(state.nu))}
+    ckpt.save(path, tree, step=123)
+    restored, step = ckpt.load(path, tree)
+    assert step == 123
+    for (ka, a), (kb, b) in zip(ckpt.flatten(tree), ckpt.flatten(restored)):
+        assert ka == kb and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_mtp_loss_present_for_deepseek():
+    cfg = get_config("deepseek-v3-671b").reduced()
+    model = Model(cfg, device="cpu", seed=3)
+    with torch.no_grad():
+        _, metrics = model.loss(next(lm_batches(cfg, batch=2, seq=16)))
+    assert "mtp" in metrics and np.isfinite(float(metrics["mtp"]))
+    assert float(metrics["aux"]) > 0          # MoE load-balance loss active
+
+
+def test_data_pipeline_determinism_and_structure():
+    tok = WordHashTokenizer(4096)
+    gen = MMLUGenerator(tok, n_shot=3, seed=1)
+    p1 = gen.prompt("astronomy", 5)
+    p2 = gen.prompt("astronomy", 5)
+    assert p1.segments.token_ids == p2.segments.token_ids
+    q1 = gen.prompt("astronomy", 6)
+    share = p1.instruction_len + sum(p1.example_lens)
+    assert p1.segments.token_ids[:share] == q1.segments.token_ids[:share]
+    assert p1.segments.token_ids[share:] != q1.segments.token_ids[share:]
+    other = gen.prompt("virology", 5)
+    assert p1.segments.token_ids[:p1.instruction_len] != \
+        other.segments.token_ids[:other.instruction_len]
+    ref = JaxMMLUGenerator(JaxTokenizer(4096), n_shot=3, seed=1)
+    assert ref.prompt("astronomy", 5).segments.token_ids == \
+        p1.segments.token_ids
+    cfg = get_config("gemma3-270m").reduced()
+    it = lm_batches(cfg, batch=3, seq=24)
+    ref_it = jax_lm_batches(jax_get_config("gemma3-270m").reduced(),
+                            batch=3, seq=24)
+    for _ in range(3):
+        b, rb = next(it), next(ref_it)
+        assert b["tokens"].shape == (3, 24)
+        np.testing.assert_array_equal(b["tokens"][:, 1:], b["targets"][:, :-1])
+        for k in ("tokens", "targets"):
+            np.testing.assert_array_equal(b[k], rb[k])
+            assert b[k].dtype == rb[k].dtype
+
+
+@pytest.mark.parametrize("eps", [1e-6, 1e-8])
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_three_adamw_steps_match_the_reference(moments, eps):
+    """Three train steps (warmup 2, clip 0.5 so it clips, weight decay)
+    on the same batches: losses, grad norms, count and every param. At
+    the default eps 1e-8 the params compared are those whose clipped
+    gradient was 0 or at least 10 * eps at every step (the reference's
+    gradients), at least 99% of them (module docstring)."""
+    jdt = {"float32": None, "bfloat16": jnp.bfloat16}[moments]
+    tdt = {"float32": None, "bfloat16": torch.bfloat16}[moments]
+    kw = dict(lr=1e-3, grad_clip=0.5, warmup_steps=2, weight_decay=0.1,
+              eps=eps)
+    jp, m = _model("gemma3-270m", seed=4)
+    jopt = jax_adamw(moment_dtype=jdt, **kw)
+    jstate = jopt.init(jp)
+    jmodel = JaxModel(jax_get_config("gemma3-270m").reduced())
+    jstep = jax.jit(jax_make_train_step(jmodel, jopt))
+    jgrad = jax.jit(jax.grad(lambda p, b: jmodel.loss(p, b)[0]))
+    opt = adamw(moment_dtype=tdt, **kw)
+    state = opt.init(dict(m.named_parameters()))
+    step = make_train_step(m, opt)
+    data = lm_batches(m.cfg, batch=2, seq=16, seed=4)
+    near_eps = {k: np.zeros(p.shape, bool) for k, p in m.named_parameters()}
+    for _ in range(3):
+        b = next(data)
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        grads = from_jax_params(jax.tree.map(np.asarray, jgrad(jp, jb)))
+        jp, jstate, jm = jstep(jp, jstate, jb)
+        clip = min(1.0, 0.5 / float(jm["grad_norm"]))
+        for k, g in grads.items():
+            g = np.abs(_np(g)) * clip
+            if eps < 1e-6:
+                near_eps[k] |= (g > 0) & (g < 10 * eps)
+        state, pm = step(state, b)
+        for k in ("loss", "ce", "grad_norm"):
+            assert abs(float(pm[k]) - float(jm[k])) <= \
+                1e-5 * max(1.0, abs(float(jm[k]))), k
+    assert float(jm["grad_norm"]) > 0.5          # the clip was active
+    assert int(state.count) == int(jstate.count) == 3
+    atol = 1e-5 if moments == "float32" else 2e-5
+    ref = from_jax_params(jax.tree.map(np.asarray, jp))
+    far = total = kept = 0
+    for k, p in m.named_parameters():
+        keep = ~near_eps[k]
+        mine, theirs = _np(p)[keep], _np(ref[k])[keep]
+        np.testing.assert_allclose(mine, theirs, atol=atol, rtol=0,
+                                   err_msg=k)
+        far += int((np.abs(mine - theirs) > 1e-6).sum())
+        kept += int(keep.sum())
+        total += p.numel()
+    assert kept >= 0.99 * total, (kept, total)
+    if moments == "float32":
+        assert far <= 1e-3 * kept
+    ref_mu = from_jax_params(jax.tree.map(np.asarray, jstate.mu))
+    for k, mu in state.mu.items():
+        assert mu.dtype == ref_mu[k].dtype, k
+
+
+def _trained(tmp_path):
+    """A port llama3.2-1b-reduced after one step with bf16 moments, its
+    checkpoint tree and the reference's template of that tree."""
+    cfg = get_config("llama3.2-1b").reduced()
+    m = Model(cfg, device="cpu", seed=5, remat=True)
+    opt = adamw(lr=1e-3, moment_dtype=torch.bfloat16)
+    state = opt.init(dict(m.named_parameters()))
+    state, _ = make_train_step(m, opt)(state, next(lm_batches(cfg, 2, 16)))
+    jcfg = jax_get_config("llama3.2-1b").reduced()
+    jp = JaxModel(jcfg).init(jax.random.PRNGKey(0))
+    template = {"params": jp,
+                "opt": jax_adamw(moment_dtype=jnp.bfloat16).init(jp)}
+    return train.checkpoint_tree(m, state), template
+
+
+def test_port_checkpoint_loads_in_the_reference(tmp_path):
+    tree, template = _trained(tmp_path)
+    path = str(tmp_path / "port.ck")
+    ckpt.save(path, tree, step=1)
+    restored, step = jax_ckpt.load(path, template)
+    assert step == 1
+    mine = ckpt.flatten(tree)
+    theirs = jax.tree_util.tree_flatten_with_path(restored)[0]
+    assert len(mine) == len(theirs)
+    for (path_, t), (_, r) in zip(mine, theirs):
+        r = np.asarray(r)
+        assert str(r.dtype) == ckpt._NP[t.dtype], path_
+        assert ckpt._bits(t).tobytes() == r.tobytes(), path_
+
+
+def test_reference_checkpoint_loads_in_the_port_and_bytes_are_equal(
+        tmp_path):
+    """The reference's checkpoint of its params and bf16-moment AdamW
+    state reads into the port bit for bit; the port writing the same tree
+    with the same codec gives the same file."""
+    jcfg = jax_get_config("llama3.2-1b").reduced()
+    jm = JaxModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(6))
+    jopt = jax_adamw(lr=1e-3, moment_dtype=jnp.bfloat16)
+    jstate = jopt.init(jp)
+    jp, jstate, _ = jax.jit(jax_make_train_step(jm, jopt))(
+        jp, jstate, {k: jnp.asarray(v) for k, v in
+                     next(jax_lm_batches(jcfg, 2, 16)).items()})
+    path = str(tmp_path / "ref.ck")
+    jax_ckpt.save(path, {"params": jp, "opt": jstate}, step=1)
+    items, step = ckpt.read(path)
+    assert step == 1
+    theirs = jax.tree_util.tree_flatten_with_path(
+        {"params": jp, "opt": jstate})[0]
+    assert [p for p, _ in items][:3] == ["opt/.count", "opt/.mu/embed",
+                                        "opt/.mu/final_norm/scale"]
+    for (p, t), (_, r) in zip(items, theirs):
+        assert ckpt._bits(t).tobytes() == np.asarray(r).tobytes(), p
+    m = Model(get_config("llama3.2-1b").reduced(), device="cpu", seed=None)
+    params = dict(items)
+    m.load_state_dict({k: params["params/" + k.replace(".", "/")]
+                       for k in m.state_dict()}, strict=True)
+    tree = {"params": to_tree(m.state_dict()),
+            "opt": AdamWState(params["opt/.count"],
+                              *(to_tree({k: params[f"opt/.{f}/"
+                                                   + k.replace(".", "/")]
+                                         for k in m.state_dict()})
+                                for f in ("mu", "nu")))}
+    mine = str(tmp_path / "port.ck")
+    ckpt.save(mine, tree, step=1)
+    with open(mine, "rb") as a, open(path, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_reduced_flag_parses_in_both_packages(monkeypatch):
+    """The reference's ``--reduced`` is a ``store_true`` with ``default=
+    True``: it cannot train a full config. The port's turns off."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def record(cfg, **_):
+        seen.append(cfg.name)
+        raise Stop
+    monkeypatch.setattr(jax_train, "Model", record)
+    for argv in ([], ["--reduced"]):
+        monkeypatch.setattr(sys, "argv", ["train"] + argv)
+        with pytest.raises(Stop):
+            jax_train.main()
+    assert seen == ["llama3.2-1b-reduced"] * 2
+    monkeypatch.setattr(sys, "argv", ["train", "--no-reduced"])
+    with pytest.raises(SystemExit):
+        jax_train.main()
+    p = train.parser()
+    assert p.parse_args([]).reduced is True
+    assert p.parse_args(["--reduced"]).reduced is True
+    assert p.parse_args(["--no-reduced"]).reduced is False
+    assert isinstance(p._option_string_actions["--reduced"],
+                      argparse.BooleanOptionalAction)
+
+
+def test_launcher_trains_and_its_checkpoint_loads_in_the_reference(
+        tmp_path, capsys):
+    path = str(tmp_path / "run.ck")
+    train.main(["--arch", "gemma3-270m", "--device", "cpu", "--steps", "2",
+                "--batch", "2", "--seq", "16", "--log-every", "1",
+                "--ckpt", path])
+    out = capsys.readouterr().out
+    assert "step     2 loss=" in out and "saved" in out
+    digest = out.split("digest ")[1].split(",")[0]
+    jcfg = jax_get_config("gemma3-270m").reduced()
+    jp = JaxModel(jcfg).init(jax.random.PRNGKey(0))
+    restored, step = jax_ckpt.load(path, {
+        "params": jp, "opt": jax_adamw(moment_dtype=jnp.bfloat16).init(jp)})
+    assert step == 2 and int(restored["opt"].count) == 2
+    assert restored["opt"].mu["embed"].dtype == jnp.bfloat16
+    items, _ = ckpt.read(path)
+    assert ckpt.digest(ckpt.payload(items, 2)) == digest
+    assert os.path.getsize(path) > 0
