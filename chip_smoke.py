@@ -71,12 +71,12 @@ lengths in every run. It
    restore and adopt and a Case 4 resume, fp32 tokens equal to Case 1's,
    launches per request, and the CPU cross-check at 2 + 2 layers;
 4. runs the paper's edge request on full-width gemma3-270m, on full-width
-   mamba2-780m cut to 24 of its 48 layers (for the script's time), on
+   mamba2-780m cut to 12 of its 48 layers (for the script's time), on
    full-width deepseek-v3-671b cut to its
    three dense MLA layers, on full-width, full-depth llama3.2-1b, on
    full-width qwen2-vl-2b cut to 8 of its 28 layers since the training
    phase joined (text prompts: M-RoPE with its three position components
-   equal), on full-width hymba-1.5b cut to 8 of its 32 layers (a ring KV
+   equal), on full-width hymba-1.5b cut to 4 of its 32 layers (a ring KV
    cache of 1024 slots and an SSM state a layer, 128 meta tokens), and on
    full-width, full-depth granite-moe-3b-a800m (32 MoE layers of 40
    experts, top 8) (random weights from a seed), each in bf16 and
@@ -333,18 +333,19 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
 # the configurations the paths run: the depth each is cut to (None: the
 # config's own), the depth of the CPU cross-check, whether the edge request
 # runs on it, and the depth of its batched phase (every configuration runs
-# one). mamba2-780m runs 24 of its 48 layers, and its batched phase 8, to
-# keep the script's time (at full depth its edge and fabric phases took
-# 143-159 s of a 869-999 s script once hymba-1.5b joined); hymba-1.5b
-# runs 8 of its 32 layers since granite-moe-3b-a800m joined (its phases
-# took 209.8 s at 32); qwen2-vl-2b 8 of its 28 since the training phase
-# joined (the script took 1254.9 s with it at 28, and 92.4-129.0 s of it)
+# one). mamba2-780m runs 12 of its 48 layers, and its batched phase 4,
+# hymba-1.5b 4 of its 32, to keep the script's time: on a slow host the
+# script took 1268.7 s with them at 24 (batched 8) and 8, whose phases took
+# 116 and 90 s of it (at full depth mamba2-780m's edge and fabric phases
+# had taken 143-159 s, hymba-1.5b's 209.8 s); qwen2-vl-2b 8 of its 28
+# since the training phase joined (the script took 1254.9 s with it at
+# 28, and 92.4-129.0 s of it)
 PATHS = [("gemma3-270m", None, None, True, None),
-         ("mamba2-780m", 24, 4, True, 8),
+         ("mamba2-780m", 12, 4, True, 4),
          ("deepseek-v3-671b", 3, 1, True, None),
          ("llama3.2-1b", None, 2, True, 4),
          ("qwen2-vl-2b", 8, 2, True, 4),
-         ("hymba-1.5b", 8, 2, True, 4),
+         ("hymba-1.5b", 4, 2, True, 4),
          ("granite-moe-3b-a800m", None, 2, True, 4),
          ("gemma3-1b", None, None, False, 8)]
 # a windowed model's request past its ring's wrap: WRAP_SHOTS-shot prompts
@@ -3595,6 +3596,14 @@ TRAIN_BWD = [
      512, 0)]
 TRAIN_BWD_FP32_TIMED = ("gemma3-270m", "whisper-base")
 TRAIN_BWD_ROW = "deepseek-v3-671b (128/128, (192, 128))"   # JSON row, bf16
+# the first form's bf16 times (PR 25's runs, NVIDIA H100 80GB HBM3, 700 W),
+# printed beside each row's
+BWD_FIRST_FORM_MS = {"gemma3-270m": 0.4150, "llama3.2-1b": 0.0870,
+                     "qwen2-vl-2b": 0.0889, "granite-moe-3b-a800m": 0.0795,
+                     "whisper-base (8/8, 64) causal self": 0.0392,
+                     "whisper-base (8/8, 64) encoder": 0.3726,
+                     "whisper-base (8/8, 64) cross": 0.1231,
+                     "deepseek-v3-671b": 0.4268}
 # moe_gemm's backward at the training runs' expert shapes: (model,
 # product, K, N, stored experts, experts picked, tokens x top-8 rows);
 # deepseek's at the MTP run's MTP_EXPERTS experts
@@ -3606,6 +3615,10 @@ TRAIN_MOE = [("granite-moe-3b-a800m", "up/gate", 1536, 512, 48, 40, 512),
              ("deepseek-v3-671b", "down", 2048, 7168, MTP_EXPERTS,
               MTP_EXPERTS, 511)]
 TRAIN_MOE_ROW = ("granite-moe-3b-a800m", "up/gate")          # JSON row, bf16
+WGRAD_FIRST_FORM_MS = {("granite-moe-3b-a800m", "up/gate"): 0.0958,
+                       ("granite-moe-3b-a800m", "down"): 0.0973,
+                       ("deepseek-v3-671b", "up/gate"): 1.2697,
+                       ("deepseek-v3-671b", "down"): 1.3286}
 # the training runs: (B, S) and steps; AdamW at lr 1e-3 with a one-step
 # warmup, clip 1.0 (the reference's defaults otherwise)
 GEMMA_TRAIN, GEMMA_STEPS, GEMMA_CROSS = (4, 1024), 5, (1, 128)
@@ -3618,6 +3631,22 @@ LAUNCH_ARGS = ["--arch", "llama3.2-1b", "--no-reduced", "--steps", "3",
                "--batch", "4", "--seq", "256", "--log-every", "1"]
 
 
+def bwd_launch_plan(dname, B, sq, sk, h, kv, dh, dv, off):
+    """(kernel launches a backward call, dQ CTAs, dK/dV CTAs) of the
+    backward kernel at a shape, from the wrapper's plan."""
+    import torch
+    from repro_torch.kernels.flash_prefill import BWD_ROWS, bwd_plan
+    dt = torch.bfloat16 if dname == "bfloat16" else torch.float32
+    parts, splits = bwd_plan(dt, B, sq, sk, h, kv, dh, dv, off, sk, None,
+                             torch.cuda.get_device_properties(
+                                 0).multi_processor_count)
+    if dname != "bfloat16":            # delta, dK/dV, [GQA sum], dQ
+        return 3 + (h != kv), -(-sq // 16) * h * B, -(-sk // 16) * h * B
+    q_ctas = -(-sq // BWD_ROWS) * h * B * splits
+    kv_ctas = -(-sk // BWD_ROWS) * kv * B * parts
+    return 2 + (parts > 1) + (splits > 1), q_ctas, kv_ctas
+
+
 def bwd_checks():
     """flash_prefill's backward kernel (through autograd: the forward
     keeps its rows' log-sum-exp) against the plain version's autograd at
@@ -3626,8 +3655,10 @@ def bwd_checks():
     backward (autograd of the plain forward, which recomputes it) and
     SDPA's backward (``is_causal``, or no mask where every key is live),
     with the bound: q, k, v, o, dO and the lse read, dq, dk, dv written,
-    over 3.35 TB/s, or 2 (3 dh + 2 dv) flops a (head, live pair). Returns
-    the JSON row (TRAIN_BWD_ROW in bf16)."""
+    over 3.35 TB/s, or 2 (3 dh + 2 dv) flops a (head, live pair); bf16
+    beside the first form's time (BWD_FIRST_FORM_MS), with the launches a
+    call and the CTAs a launch. At the JSON row two calls must give the
+    same bits. Returns the JSON row (TRAIN_BWD_ROW in bf16)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as fp
@@ -3684,14 +3715,30 @@ def bwd_checks():
                                * (dh + dv)) + 4 * B * h * sq
             flops = 2 * (3 * dh + 2 * dv) * h * pairs * B
             b_ms, b_by = bound(nbytes, flops, dname)
+            n_launch, q_ctas, kv_ctas = bwd_launch_plan(
+                dname, B, sq, sk, h, kv, dh, dv, off)
+            first = next((t for n, t in BWD_FIRST_FORM_MS.items()
+                          if tag.startswith(n)), None)
+            was = (f" (first form {first:.4f}, {first / ms:.2f}x)"
+                   if dname == "bfloat16" and first else "")
             print(f"flash_prefill_bwd {tag} {dname} B={B} Sq={sq} Sk={sk} "
                   f"q_offset={off}: max err {err:.3g} of the largest "
                   f"gradient (tol {TOL[dname]}) ms (CUDA events): kernel "
-                  f"{ms:.4f} (3-4 launches a call) plain {plain_ms:.4f} {lib} "
-                  f"bound "
-                  f"{b_ms:.5f} ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s, "
-                  f"{b_ms / ms:.3f} of the bound")
+                  f"{ms:.4f}{was} ({n_launch} launches a call; CTAs: dQ "
+                  f"{q_ctas}, dK/dV {kv_ctas}) plain {plain_ms:.4f} {lib} "
+                  f"bound {b_ms:.5f} ({b_by}); {flops / ms / 1e9:.1f} "
+                  f"TFLOP/s, {b_ms / ms:.3f} of the bound")
             if tag == TRAIN_BWD_ROW and dname == "bfloat16":
+                again = fp.flash_prefill_bwd(q, k, v, out, dout, lse, **args)
+                first_call = fp.flash_prefill_bwd(q, k, v, out, dout, lse,
+                                                  **args)
+                same = all(torch.equal(x, y) for x, y in zip(again,
+                                                             first_call))
+                print(f"flash_prefill_bwd {tag} {dname}: two calls "
+                      f"bit-identical: {same}")
+                if not same:
+                    raise AssertionError(f"flash_prefill_bwd {tag}: two "
+                                         "calls gave different bits")
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by)
             del o_l, qs, ks, vs
@@ -3764,15 +3811,28 @@ def moe_bwd_checks():
             es = xs.element_size()
             nbytes = es * (M * K + M * N + E * K * N) + 4 * (E + 1)
             b_ms, b_by = bound(nbytes, 2 * M * K * N, dname)
+            tiles = -(-K // 128) * -(-N // 128) * E
+            ctas = min(tiles, 2 * torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            first = WGRAD_FIRST_FORM_MS[(name, prod)]
             print(f"moe_gemm backward {name} {prod} {dname} M={M} K={K} "
                   f"N={N} E={E}, {live} experts with rows: max err {err:.3g} "
                   f"(tol {TOL[dname]}) ms (CUDA events): dX (moe_gemm, w read "
                   f"transposed) {dx_ms:.4f}; dW (moe_gemm_wgrad) {ms:.4f} "
-                  f"plain {plain_ms:.4f} {lib} bound "
-                  f"{b_ms:.5f} ({b_by}); {b_ms / ms:.3f} of the bound "
-                  f"(device ms by CUDA events behind a sleep; the plain loop "
-                  f"by per-call events)")
+                  f"(first form {first:.4f}, {first / ms:.2f}x; 1 launch a "
+                  f"call, {ctas} persistent CTAs over {tiles} tiles of 128 x "
+                  f"128; {nbytes / ms / 1e9:.2f} TB/s) plain {plain_ms:.4f} "
+                  f"{lib} bound {b_ms:.5f} ({b_by}); {b_ms / ms:.3f} of the "
+                  f"bound (device ms by CUDA events behind a sleep; the plain "
+                  f"loop by per-call events)")
             if (name, prod) == TRAIN_MOE_ROW:
+                same = torch.equal(moe_gemm_wgrad(xs, dy, offsets, E),
+                                   moe_gemm_wgrad(xs, dy, offsets, E))
+                print(f"moe_gemm_wgrad {name} {prod} {dname}: two calls "
+                      f"bit-identical: {same}")
+                if not same:
+                    raise AssertionError(f"moe_gemm_wgrad {name} {prod}: two "
+                                         "calls gave different bits")
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by)
         del w, w32

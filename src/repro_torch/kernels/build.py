@@ -40,7 +40,7 @@ SIGNATURES = {
         [_c_p] * 5 + [_c_i] * 9 + [_c_i64] * 9
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "flash_prefill_bwd": (
-        [_c_p] * 11 + [_c_i] * 8 + [_c_i64] * 9
+        [_c_p] * 12 + [_c_i] * 10 + [_c_i64] * 9
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "flash_decode": (
         [_c_p] * 9 + [_c_i] * 8 + [_c_i64] * 8

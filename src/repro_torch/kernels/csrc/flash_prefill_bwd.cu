@@ -20,47 +20,52 @@
 // with P and dS recomputed tile by tile: no [Sq, Sk] matrix is stored. A
 // fully masked row has L = +inf, so P = 0 and it adds nothing.
 //
-// Three launches (a fourth with GQA, one more where bf16 splits dK and dV),
-// no atomics, so the result is the same on every run:
-//  1. delta: D a row, one warp a (b, query, head), in fp32.
-//  2. dK/dV: one CTA a (key tile, query head, batch). It walks the query
-//     tiles that can see its keys (from the first query at or after the
-//     tile's first key, to the window's end) and keeps dK and dV of its
-//     keys in registers. With GQA (rep = H / KV > 1) each of a kv head's
-//     rep query heads adds its own part: the CTA writes it in fp32 to a
-//     scratch [rep, B, Sk, KV, d], and a fourth launch sums the rep parts
-//     in a fixed order into dK and dV. No atomic add: one CTA a (tile,
-//     kv head) looping over the rep heads would leave a GQA model's
-//     backward with B x KV x Sk / 64 CTAs (qwen2-vl-2b at B=1: 16).
-//  3. dQ: one CTA a (query tile, head, batch) over the key tiles its queries
-//     can see, as the forward walks them.
+// bf16 runs two kernels on wgmma (a third and a fourth sum fixed-order fp32
+// shares where the plan splits work), fp32 three on scalar FMAs. No atomics:
+// two calls on the same inputs give the same bits.
+//  1. dQ (bf16 first): CTA (64 queries, head, batch, key split) over the key
+//     tiles its queries see. It also computes D = rowsum(dO * O) and
+//     lse * log2(e) of its rows for the dK/dV kernel (no separate pass).
+//  2. dK/dV: CTA (64 keys, kv head, part) over the (query head, query tile)
+//     pairs that see its keys, the group's heads summed in registers.
+//  (fp32: a delta pass, dK/dV with one fp32 part a query head and their sum,
+//  then dQ, as the first form.)
 //
-// What bounds it on this card. The backward does 2.5x the forward's products
-// (QK^T and dO V^T again, then dV, dK and dQ) over the same bytes plus dO
-// and the three gradients; at the training shapes (gemma3-270m (4/1, 256)
-// B=4 S=1024: 4 x 4 x 1024 x 1024 / 2 causal pairs, 2.7 GFLOP bf16 products
-// over 25 MB) it is bound by operations on paper (0.003 ms at 989 TFLOP/s vs
-// 0.008 ms for the bytes; the byte side wins at that size, the operation
-// side at deepseek's (128/128, (192, 128))). What the design does:
-//  - bf16: every product on the tensor cores, mma.sync m16n8k16 bf16 -> fp32
-//    (mma_bf16.cuh), fragments by ldmatrix from padded shared rows. P and dS
-//    go from the fp32 accumulators straight into the next product's A operand,
-//    rounded to bf16 in registers (as FlashAttention-2 does). The dK/dV CTA
-//    computes S^T = K Q^T (keys as rows), so P^T and dS^T are already in A's
-//    layout for dV += P^T dO and dK += dS^T Q. A warp owns 16 keys (dK/dV) or
-//    16 queries (dQ); tiles go by 16-byte cp.async (async_copy.cuh).
-//  - Registers: a warp's dK and dV accumulators take (dh + dv) / 2 floats a
-//    thread. Up to dh + dv = 256 they stay in registers in one pass; above
-//    (gemma3's (256, 256), MLA's (192, 128)) the dK/dV kernel runs twice, dV
-//    in one launch and dK in the next, each recomputing P: 1.3x the products,
-//    no spills and no shared-memory accumulators. The dQ kernel takes 32-key
-//    tiles at dh = 256, 64 below, as the forward's chunks.
-//  - fp32: scalar FMAs (the tensor cores take no fp32 input at the 1e-5
-//    tolerance). Each kernel mirrors the forward's fp32 kernel: a warp owns 4
-//    rows (queries for dQ, keys for dK/dV), a lane one column (key or query)
-//    of a 32-wide tile for the scores and dims lane + 32 i of the sums.
-// This is the simple first form: single-buffered tiles, no GQA packing in the
-// dQ kernel, mma.sync rather than wgmma. PERF.md keeps its times.
+// What bounds it on this card. The backward does 3.5x the forward's products
+// (7: S and dP twice, dV, dK, dQ) over the forward's bytes plus dO and the
+// three gradients. On paper the bytes bound it at deepseek-v3's (128/128,
+// (192, 128)) B=1 S=512 (0.050 ms; the 28 GFLOP of FlashAttention's 5
+// products take 0.029 ms at 989 TFLOP/s) and the operations at gemma3-270m's
+// (4/1, 256) B=4 S=1024 (0.022 ms). In practice the 64 x 64 tiles'
+// products, the exponentials (at dh 64 they take
+// half the tensor cores' time on the SM's 16 exp units a clock) and each
+// CTA's latency chain bound it; PERF.md has the times. The design, point by
+// point against the first form (single-buffered mma.sync tiles):
+//  - Tiles come by TMA (wgmma.cuh: 64 x 64 boxes, 128-byte swizzle, rows
+//    past a tensor's end zero-filled; k and v mapped only up to kv_len) into
+//    rings of 2 or 3 stages (Wg::S, as shared memory allows), issued S - 1
+//    tiles ahead by one thread of warpgroup 1 and waited on by mbarrier.
+//  - Products on wgmma m64n64k16 over 64-row warpgroup tiles, two warpgroups
+//    a CTA. The first product's fixed operand (K or V in dK/dV, Q or dO in
+//    dQ) is held in registers by ldmatrix where it fits (Wg::KV_AREG), P^T
+//    and dS^T (P and dS) are register A operands, and the second operand of
+//    dV += P^T dO, dK += dS^T Q and dQ += dS K is read MN-major.
+//  - Enough CTAs: flash_prefill.bwd_plan splits dQ's key range (dq_splits)
+//    and dK/dV's (head, query tile) pairs (kv_parts) where the card would
+//    sit idle, each split an fp32 share summed in a fixed order.
+//  - One dK/dV pass at every width: warpgroup 0 owns dV, warpgroup 1 dK of
+//    the same keys, so a thread holds dv / 2 or dh / 2 accumulators (128 at
+//    gemma3's 256) and P^T is computed once; 7 products, not 8. dQ keeps its
+//    own S and dP: without atomics the other ways store dS ([B, H, Sq, Sk])
+//    or a dQ share for every key tile, more bytes than the products save.
+//  - GQA: a dK/dV CTA walks every query head of its kv head, so no per-head
+//    fp32 parts; parts come back only where the plan wants more CTAs (at
+//    gemma3 two of its four heads each, 128 CTAs).
+//  - The warpgroups meet only through mbarriers (a full and an empty one a
+//    stage, and a double-buffered P^T hand-off in dK/dV), so warpgroup 0 can
+//    run tiles ahead of warpgroup 1.
+// fp32 keeps the first form's scalar FMAs (the tensor cores take no fp32
+// input at the 1e-5 tolerance).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,7 +73,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
-#include "mma_bf16.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -79,11 +84,16 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
     const void* q; const void* k; const void* v; const void* o; const void* dout;
-    const float* lse; float* delta;
+    const float* lse;                  // the forward's [B, H, Sq]
+    float* delta;                      // D [B, H, sq_pad] (rows padded to 16 bytes)
+    float* l2;                         // lse * log2(e) [B, H, sq_pad], after delta
     void* dq; void* dk; void* dv;
-    float* part;                       // GQA: fp32 [rep, B, Sk, KV, DH + DV]
-                                       // parts of dK, dV; null when rep = 1
-    int B, Sq, Sk, H, KV, rep;
+    float* part;                       // GQA: fp32 [kv_parts, B, Sk, KV, DH],
+                                       // then [kv_parts, B, Sk, KV, DV]: parts
+                                       // of dK, dV; null when kv_parts = 1
+    float* dq_part;                    // fp32 [dq_splits, B, Sq, H, DH]; null
+                                       // when dq_splits = 1
+    int B, Sq, Sk, H, KV, rep, kv_parts, dq_splits, sq_pad;
     int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
     int q_offset, k_lim, window;       // k_lim = min(kv_len, Sk)
     float scale;
@@ -113,7 +123,9 @@ __global__ void __launch_bounds__(NT) delta_kernel(const Args a) {
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
     if (lane == 0) {
         const int h = row % a.H, bq = row / a.H, qi = bq % a.Sq, b = bq / a.Sq;
-        a.delta[((int64_t)b * a.H + h) * a.Sq + qi] = s;
+        const int64_t bh = (int64_t)b * a.H + h, li = bh * a.sq_pad + qi;
+        a.delta[li] = s;
+        a.l2[li] = a.lse[bh * a.Sq + qi] * LOG2E;
     }
 }
 
@@ -153,7 +165,7 @@ __global__ void __launch_bounds__(NT) dq_fp32_kernel(const Args a) {
         const int qi = q0 + warp * FR + r;
         const int64_t li = ((int64_t)b * a.H + h) * a.Sq + qi;
         L[r] = qi < a.Sq ? a.lse[li] : INFINITY;
-        Dl[r] = qi < a.Sq ? a.delta[li] : 0.f;
+        Dl[r] = qi < a.Sq ? a.delta[li - (int64_t)(b * a.H + h) * (a.Sq - a.sq_pad)] : 0.f;
 #pragma unroll
         for (int i = 0; i < NI; ++i) acc[r][i] = 0.f;
     }
@@ -273,7 +285,8 @@ __global__ void __launch_bounds__(NT) dkv_fp32_kernel(const Args a) {
             if (tid < FC) {
                 const int64_t li = ((int64_t)b * a.H + h) * a.Sq + q0 + tid;
                 sL[tid] = tid < qrows ? a.lse[li] : INFINITY;
-                sDl[tid] = tid < qrows ? a.delta[li] : 0.f;
+                sDl[tid] = tid < qrows
+                    ? a.delta[li - (int64_t)(b * a.H + h) * (a.Sq - a.sq_pad)] : 0.f;
             }
             cp_async_wait<0>();
             __syncthreads();
@@ -333,7 +346,7 @@ __global__ void __launch_bounds__(NT) dkv_fp32_kernel(const Args a) {
     // this head's part: into dK / dV, or into its slot of the GQA scratch
     const int64_t pk = (int64_t)(h % a.rep) * a.B * a.Sk * a.KV;
     float* gk = a.part ? a.part + pk * DH : static_cast<float*>(a.dk);
-    float* gv = a.part ? a.part + (int64_t)a.rep * a.B * a.Sk * a.KV * DH + pk * DV
+    float* gv = a.part ? a.part + (int64_t)a.kv_parts * a.B * a.Sk * a.KV * DH + pk * DV
                        : static_cast<float*>(a.dv);
 #pragma unroll
     for (int r = 0; r < FR; ++r) {
@@ -347,7 +360,7 @@ __global__ void __launch_bounds__(NT) dkv_fp32_kernel(const Args a) {
     }
 }
 
-// dK, dV = the sum of the rep query heads' parts, in head order
+// dK, dV = the sum of the kv_parts parts, in part order
 template <typename T, int DH, int DV>
 __global__ void __launch_bounds__(NT) dkv_reduce_kernel(const Args a) {
     const int64_t nk = (int64_t)a.B * a.Sk * a.KV * DH;
@@ -356,369 +369,578 @@ __global__ void __launch_bounds__(NT) dkv_reduce_kernel(const Args a) {
          i += (int64_t)gridDim.x * NT) {
         const bool is_k = i < nk;
         const int64_t j = is_k ? i : i - nk;
-        const float* p = a.part + (is_k ? 0 : (int64_t)a.rep * nk) + j;
+        const float* p = a.part + (is_k ? 0 : (int64_t)a.kv_parts * nk) + j;
         const int64_t stride = is_k ? nk : n - nk;
         float s = 0.f;
-        for (int r = 0; r < a.rep; ++r) s += p[r * stride];
+        for (int r = 0; r < a.kv_parts; ++r) s += p[r * stride];
         put(static_cast<T*>(is_k ? a.dk : a.dv) + j, s);
     }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on wgmma
 // ---------------------------------------------------------------------------
-// Fragment layouts of m16n8k16 and ldmatrix addresses: mma_bf16.cuh.
+// Tiles of 64 rows (keys or queries) in the swizzled layout of wgmma.cuh,
+// widths below 64 padded with zero columns. Barrier 0 is __syncthreads;
+// barrier 1 hands P^T from the dV warpgroup to the dK warpgroup.
 
-constexpr int TROWS = 64;              // rows a CTA: 4 warps x 16
-constexpr int BMQ = 32;                // queries a dK/dV tile
+constexpr int WR = 64;                 // rows of a tile
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    return bf16x2_bits(__floats2bfloat162_rn(lo, hi));
-}
+__host__ __device__ constexpr int padw(int d) { return d < 64 ? 64 : d; }
 
-template <int DH, int DV>
-struct Bw {
-    static constexpr int KST = DH + 8, VST = DV + 8;       // padded rows
-    static constexpr bool SPLIT = DH + DV > 256;           // dK, dV apart
-    static constexpr int BN = DH >= 256 ? 32 : 64;         // dQ key tile
-    static constexpr size_t SMEM_DKV = sizeof(bf16) *
-        (size_t)(TROWS * KST + TROWS * VST + BMQ * KST + BMQ * VST) +
-        2 * BMQ * sizeof(float);
-    static constexpr size_t SMEM_DQ = sizeof(bf16) *
-        (size_t)(TROWS * KST + TROWS * VST + BN * KST + BN * VST);
+// the bf16 kernels' TMA maps: q, k, v, dout as [d, heads, rows, B] in
+// 64 x 64 boxes (k and v end at kv_len), and the delta pass's D and l2 as
+// fp32 [Sq, B * H, 2] in boxes of 64
+struct Maps {
+    CUtensorMap q, k, v, o, ld;
 };
 
-// dK/dV on the tensor cores. Warp w owns keys k0 + 16 w .. + 15; per query
-// tile it computes S^T [16 x 32] = K_w Q^T and, for dK, dP^T = V_w dO^T.
-template <int DH, int DV, bool DO_K, bool DO_V>
-__global__ void __launch_bounds__(NT, 1) dkv_tc_kernel(const Args a) {
-    using Tr = Bw<DH, DV>;
-    constexpr int KST = Tr::KST, VST = Tr::VST;
-    constexpr int NSN = BMQ / 8;       // n-tiles of S^T (queries)
-    constexpr int NKC = BMQ / 16;      // k-steps over queries
-    constexpr int NKN = DO_K ? DH / 8 : 1, NVN = DO_V ? DV / 8 : 1;
-    extern __shared__ uint4 smem_t[];
-    bf16* sK = reinterpret_cast<bf16*>(smem_t);   // [64][KST]
-    bf16* sV = sK + TROWS * KST;                   // [64][VST]
-    bf16* sQ = sV + TROWS * VST;                   // [32][KST]
-    bf16* sO = sQ + BMQ * KST;                     // [32][VST] dO
-    float* sL = reinterpret_cast<float*>(sO + BMQ * VST);  // [32] lse, log2
-    float* sDl = sL + BMQ;                         // [32] delta
-    const int k0 = blockIdx.x * TROWS, h = blockIdx.y, b = blockIdx.z;
-    const int kvh = h / a.rep;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, c2 = 2 * (lane & 3);
-    const int krows = min(TROWS, a.Sk - k0);
-    const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-    const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-    const bf16* dO = static_cast<const bf16*>(a.dout);
-    load_rows<bf16, NT, TROWS, DH, KST>(sK, K + k0 * a.k_ss, a.k_ss, krows, tid);
-    load_rows<bf16, NT, TROWS, DV, VST>(sV, V + k0 * a.v_ss, a.v_ss, krows, tid);
-    cp_async_commit();
+template <int DH, int DV>
+struct Wg {
+    static constexpr int PH = padw(DH), PV = padw(DV);
+    static constexpr int KB = WR * PH * 2, VB = WR * PV * 2;   // tile bytes
+    static constexpr int PB = 16 * 128 * 4;                    // P^T hand-off
+    // dK/dV's K / V operand in registers: 4 x max(DH, DV) / 16 more a
+    // thread; at (128, 128) they would cost the second CTA an SM, and at
+    // (256, 256) they do not fit
+    static constexpr bool KV_AREG = DH <= 64 || DH == 192;
+    // dK/dV: K, V, then two stages of (Q, dO), P^T, two stages of (L, D)
+    // ring stages: three (loads two tiles ahead) where they fit beside the
+    // occupancy the registers allow, else two
+    static constexpr int S = (DH + DV <= 128 || DH == 192) ? 3 : 2;
+    static constexpr size_t SMEM_KV =
+        (size_t)(S + 1) * (KB + VB) + 2 * PB + S * 2 * WR * 4 + 8 * (2 * S + 4) + 1024;
+    // dQ: Q, dO, then two stages of (K, V), P and dS hand-offs
+    static constexpr size_t SMEM_Q =
+        (size_t)(S + 1) * (KB + VB) + 2 * PB + 8 * S + 2 * WR * 4 + 1024;
+};
 
-    float dk[NKN][4], dv[NVN][4];
-#pragma unroll
-    for (int n = 0; n < NKN; ++n) dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NVN; ++n) dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
 
-    const int k_last = min(k0 + TROWS, a.k_lim) - 1;
-    const int qi_lo = max(0, k0 - a.q_offset);
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// every (key, query) pair of a 64-key tile from kf and a 64-query tile at
+// absolute position qf is live (no mask needed)
+__device__ __forceinline__ bool all_live(int kf, int qf, int qrows, int k_lim, int window) {
+    return qrows == WR && kf + WR - 1 < k_lim && kf + WR - 1 <= qf &&
+           (window <= 0 || kf > qf + WR - 1 - window);
+}
+
+
+// byte offset of k-step kk (16 columns) in a K-major tile of 64 rows
+__device__ __forceinline__ uint32_t kstep(int kk) {
+    return (uint32_t)((kk >> 2) * (WR * 128) + (kk & 3) * 32);
+}
+
+// dK/dV: CTA (64 keys, kv head, batch, part of the (query head, query tile)
+// pairs that see them), two warpgroups on the same keys. Warpgroup 0 computes S^T = K Q^T, P^T and
+// dV += P^T dO; warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T - D) with the
+// P^T that warpgroup 0 hands it through shared memory, and dK += dS^T Q. The
+// query tiles (of each head in turn) come through an S-stage
+// ring filled by TMA, S - 1 tiles ahead. The warpgroups meet only through
+// mbarriers, so warpgroup 0 runs up to S - 1 tiles ahead of warpgroup 1 and
+// its exponentials overlap warpgroup 1's products:
+//   full[s]   the stage's copies landed (TMA bytes)
+//   empty[s]  warpgroup 0's warps are done with the stage (warpgroup 1,
+//             which issues the copies, is past it by program order)
+//   pready[j] P^T of the tile in hand-off buffer j is written (128 arrivals)
+//   pfree[j]  warpgroup 1 has read it (128 arrivals)
+template <int DH, int DV>
+__global__ void __launch_bounds__(256, (DH + DV <= 256 ? 2 : 1))
+dkv_wg_kernel(const Args a, const __grid_constant__ Maps m) {
+    using W = Wg<DH, DV>;
+    constexpr int S = W::S;
+    constexpr int NCM = (W::PH > W::PV ? W::PH : W::PV) / 64;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* sm = align1024(smem_raw);
+    uint8_t* sK = sm;
+    uint8_t* sV = sK + W::KB;
+    uint8_t* sS0 = sV + W::VB;                      // stage s: Q, then dO
+    uint32_t* sP = reinterpret_cast<uint32_t*>(sm + (S + 1) * (W::KB + W::VB));   // [2]
+    float* sLD = reinterpret_cast<float*>(sP + 2 * 16 * 128);   // stage s: D, then L
+    uint64_t* full = reinterpret_cast<uint64_t*>(sLD + S * 2 * WR);
+    uint64_t* empty = full + S;
+    uint64_t* pready = empty + S;                   // [2]
+    uint64_t* pfree = pready + 2;                   // [2]
+    const int tid = threadIdx.x, t128 = tid & 127;
+    const bool vside = tid < 128;                   // warpgroup 0
+    const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, c2 = 2 * (lane & 3);
+    // grid (parts of every kv head and batch, key tiles): the CTAs of key
+    // tile 0, the longest under a causal mask, start first
+    const int k0 = blockIdx.y * WR, part = blockIdx.x % a.kv_parts;
+    const int kvh = (blockIdx.x / a.kv_parts) % a.KV, b = blockIdx.x / a.kv_parts / a.KV;
+    const int h0 = kvh * a.rep;                     // the group's first query head
+
+    // the queries that can see a key of the tile, in 64-query tiles from a
+    // multiple of 64 (TMA reads L and D from a 16-byte boundary)
+    const int k_last = min(k0 + WR, a.k_lim) - 1;
+    const int qi_lo = max(0, k0 - a.q_offset) / WR * WR;
     int qi_hi = a.Sq - 1;
     if (a.window > 0) qi_hi = min(qi_hi, k_last + a.window - 1 - a.q_offset);
     if (k_last < k0) qi_hi = -1;
-    // this warp's keys
-    const int wk0 = k0 + 16 * warp;
-    const bool w_live = wk0 <= k_last;
-    const int a_row = 16 * warp + (lane & 15), a_col = (lane >> 4) * 8;
-    const int bn_row = (lane & 7) + ((lane >> 4) << 3), bn_col = ((lane >> 3) & 1) * 8;
-    const int bt_row = lane & 15, bt_col = (lane >> 4) * 8;
-    const float scale_log2 = a.scale * LOG2E;
-
-    {
-        const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-        for (int q0 = qi_lo; q0 <= qi_hi; q0 += BMQ) {
-            const int qrows = min(BMQ, a.Sq - q0);
-            __syncthreads();                       // the previous tile is read
-            load_rows<bf16, NT, BMQ, DH, KST>(sQ, Q + q0 * a.q_ss, a.q_ss, qrows, tid);
-            load_rows<bf16, NT, BMQ, DV, VST>(
-                sO, dO + (((int64_t)b * a.Sq + q0) * a.H + h) * DV, (int64_t)a.H * DV,
-                qrows, tid);
-            cp_async_commit();
-            if (tid < BMQ) {
-                const int64_t li = ((int64_t)b * a.H + h) * a.Sq + q0 + tid;
-                sL[tid] = tid < qrows ? a.lse[li] * LOG2E : INFINITY;
-                sDl[tid] = tid < qrows ? a.delta[li] : 0.f;
-            }
-            cp_async_wait<0>();
-            __syncthreads();
-            // a warp whose keys all lie past every query of the tile, or
-            // past the keys' end, has nothing to add
-            const int qpos_hi = a.q_offset + q0 + qrows - 1;
-            if (!w_live || wk0 > qpos_hi) continue;
-
-            float s[NSN][4];
-#pragma unroll
-            for (int n = 0; n < NSN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < DH / 16; ++kk) {
-                uint32_t af[4];
-                ldsm_x4(af, sK + a_row * KST + kk * 16 + a_col);
-#pragma unroll
-                for (int jp = 0; jp < NSN / 2; ++jp) {
-                    uint32_t bq[4];
-                    ldsm_x4(bq, sQ + (16 * jp + bn_row) * KST + kk * 16 + bn_col);
-                    mma_bf16(s[2 * jp], af, bq[0], bq[1]);
-                    mma_bf16(s[2 * jp + 1], af, bq[2], bq[3]);
-                }
-            }
-            float dp[DO_K ? NSN : 1][4];
-            if (DO_K) {
-#pragma unroll
-                for (int n = 0; n < (DO_K ? NSN : 1); ++n)
-                    dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-                for (int kk = 0; kk < DV / 16; ++kk) {
-                    uint32_t af[4];
-                    ldsm_x4(af, sV + a_row * VST + kk * 16 + a_col);
-#pragma unroll
-                    for (int jp = 0; jp < NSN / 2; ++jp) {
-                        uint32_t bo[4];
-                        ldsm_x4(bo, sO + (16 * jp + bn_row) * VST + kk * 16 + bn_col);
-                        mma_bf16(dp[DO_K ? 2 * jp : 0], af, bo[0], bo[1]);
-                        mma_bf16(dp[DO_K ? 2 * jp + 1 : 0], af, bo[2], bo[3]);
-                    }
-                }
-            }
-            // P^T (and dS^T): rows keys, columns queries
-#pragma unroll
-            for (int n = 0; n < NSN; ++n) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int col = 8 * n + c2 + (e & 1);
-                    const int kp = wk0 + g + (e >> 1) * 8;
-                    const int qp = a.q_offset + q0 + col;
-                    const bool ok = col < qrows && live(kp, qp, a.k_lim, a.window);
-                    const float p = ok ? exp2f(fmaf(s[n][e], scale_log2, -sL[col])) : 0.f;
-                    s[n][e] = p;
-                    if (DO_K) dp[DO_K ? n : 0][e] = p * (dp[DO_K ? n : 0][e] - sDl[col]);
-                }
-            }
-#pragma unroll
-            for (int kc = 0; kc < NKC; ++kc) {
-                if (DO_V) {
-                    const uint32_t pa[4] = {
-                        pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                        pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                        pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                        pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-                    for (int dpi = 0; dpi < (DO_V ? DV / 16 : 0); ++dpi) {
-                        uint32_t bo[4];
-                        ldsm_x4_trans(bo, sO + (kc * 16 + bt_row) * VST + dpi * 16 + bt_col);
-                        mma_bf16(dv[2 * dpi], pa, bo[0], bo[1]);
-                        mma_bf16(dv[2 * dpi + 1], pa, bo[2], bo[3]);
-                    }
-                }
-                if (DO_K) {
-                    const int n0 = DO_K ? 2 * kc : 0, n1 = DO_K ? 2 * kc + 1 : 0;
-                    const uint32_t da[4] = {
-                        pack_bf16(dp[n0][0], dp[n0][1]), pack_bf16(dp[n0][2], dp[n0][3]),
-                        pack_bf16(dp[n1][0], dp[n1][1]), pack_bf16(dp[n1][2], dp[n1][3])};
-#pragma unroll
-                    for (int dpi = 0; dpi < (DO_K ? DH / 16 : 0); ++dpi) {
-                        uint32_t bq[4];
-                        ldsm_x4_trans(bq, sQ + (kc * 16 + bt_row) * KST + dpi * 16 + bt_col);
-                        mma_bf16(dk[2 * dpi], da, bq[0], bq[1]);
-                        mma_bf16(dk[2 * dpi + 1], da, bq[2], bq[3]);
-                    }
-                }
-            }
+    const int nqt = qi_hi >= qi_lo ? (qi_hi - qi_lo) / WR + 1 : 0;
+    // this part's share of the (query head, query tile) pairs, head-major
+    const int per = (nqt * a.rep + a.kv_parts - 1) / a.kv_parts;
+    const int t_lo = min(nqt * a.rep, part * per);
+    const int T = min(nqt * a.rep, t_lo + per) - t_lo;
+    // pair t_lo + t into stage st: Q, dO, then D and L of its queries; rows
+    // past Sq arrive as zeros
+    auto load = [&](int st, int t, uint32_t extra) {
+        const int h = h0 + (t_lo + t) / nqt, q0 = qi_lo + ((t_lo + t) % nqt) * WR;
+        uint8_t* s = sS0 + st * (W::KB + W::VB);
+        mb_expect(&full[st], W::KB + W::VB + 2 * WR * 4 + extra);
+        for (int c = 0; c < W::PH / 64; ++c)
+            tma_load4(s + c * WR * 128, &m.q, 64 * c, h, q0, b, &full[st]);
+        for (int c = 0; c < W::PV / 64; ++c)
+            tma_load4(s + W::KB + c * WR * 128, &m.o, 64 * c, h, q0, b, &full[st]);
+        tma_load3(sLD + st * 2 * WR, &m.ld, q0, b * a.H + h, 0, &full[st]);
+    };
+    // one thread of warpgroup 1 issues the copies
+    const bool issuer = tid == 128;
+    if (tid == 0 && T > 0) {
+        for (int i = 0; i < S; ++i) {
+            mb_init(&full[i], 1);
+            mb_init(&empty[i], 4);
         }
+        for (int j = 0; j < 2; ++j) {
+            mb_init(&pready[j], 128);
+            mb_init(&pfree[j], 128);
+        }
+        mb_init_fence();
     }
-    cp_async_wait<0>();
-    // rows g and g + 8 of the warp's keys; columns c2, c2 + 1 of each
-    // n-tile: into dK / dV in bf16, or this head's fp32 part (GQA)
-    const int64_t pk = (int64_t)(h % a.rep) * a.B * a.Sk * a.KV;
-    float* pkp = a.part ? a.part + pk * DH : nullptr;
-    float* pvp = a.part ? a.part + (int64_t)a.rep * a.B * a.Sk * a.KV * DH + pk * DV
-                        : nullptr;
+    __syncthreads();
+    if (issuer && T > 0) {                          // K and V (keys past kv_len
+        prefetch_map(&m.q);                         // are zeros) with tile 0
+        prefetch_map(&m.o);
+        prefetch_map(&m.ld);
+        for (int c = 0; c < W::PH / 64; ++c)
+            tma_load4(sK + c * WR * 128, &m.k, 64 * c, kvh, k0, b, &full[0]);
+        for (int c = 0; c < W::PV / 64; ++c)
+            tma_load4(sV + c * WR * 128, &m.v, 64 * c, kvh, k0, b, &full[0]);
+        load(0, 0, W::KB + W::VB);
+        for (int i = 1; i < S - 1 && i < T; ++i) load(i, i, 0);
+    }
+
+    float acc[NCM][32];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int kp = wk0 + g + 8 * i;
-        if (kp >= a.Sk) continue;
-        const int64_t row = ((int64_t)b * a.Sk + kp) * a.KV + kvh;
-        if (DO_K) {
+    for (int n = 0; n < NCM; ++n)
 #pragma unroll
-            for (int n = 0; n < NKN; ++n) {
-                const float x = dk[n][2 * i] * a.scale, y = dk[n][2 * i + 1] * a.scale;
-                if (pkp)
-                    *reinterpret_cast<float2*>(pkp + row * DH + c2 + 8 * n) = make_float2(x, y);
-                else
-                    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dk) + row * DH
-                                                       + c2 + 8 * n) = __floats2bfloat162_rn(x, y);
+        for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+    const int nc = vside ? W::PV / 64 : W::PH / 64;   // 64-column parts of dV / dK
+    const int ksteps = vside ? DH / 16 : DV / 16;
+    const uint32_t uK = smem_u32(sK), uV = smem_u32(sV), uS0 = smem_u32(sS0);
+    const float scale_log2 = a.scale * LOG2E;
+    // the first product's A (this warpgroup's K or V rows) in registers
+    // where they fit (Wg::KV_AREG), else read from shared memory
+    constexpr bool AREG = W::KV_AREG;
+    constexpr int KSM = (DH > DV ? DH : DV) / 16;
+    uint32_t af[AREG ? KSM : 1][4];
+
+    for (int t = 0; t < T; ++t) {
+        const int st = t % S, j = t & 1;
+        mb_wait(&full[st], (t / S) & 1);            // tile t landed
+        if (issuer && t + S - 1 < T) {              // tile t + S - 1 into the
+            if (t > 0) mb_wait(&empty[(t - 1) % S], ((t - 1) / S) & 1);   // slot of t - 1
+            load((t + S - 1) % S, t + S - 1, 0);
+        }
+        const int q0 = qi_lo + ((t_lo + t) % nqt) * WR;
+        const int qrows = min(WR, a.Sq - q0);
+        const uint32_t uQ = uS0 + st * (W::KB + W::VB), uO = uQ + W::KB;
+        // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+        float s[32];
+        {
+            const uint32_t ua = vside ? uK : uV, ub = vside ? uQ : uO;
+            if (AREG && t == 0) {
+#pragma unroll
+                for (int kk = 0; kk < (AREG ? KSM : 0); ++kk)
+                    if (kk < ksteps) ldsm_a(af[AREG ? kk : 0], ua, WR, warp, kk, lane);
+            }
+            wg_fence();
+            if (AREG) {
+#pragma unroll
+                for (int kk = 0; kk < (AREG ? KSM : 0); ++kk)
+                    if (kk < ksteps)
+                        wgmma_rs<0>(s, af[AREG ? kk : 0], desc_k(ub + kstep(kk)), kk > 0);
+            } else {
+                for (int kk = 0; kk < ksteps; ++kk)
+                    wgmma_ss_k(s, desc_k(ua + kstep(kk)), desc_k(ub + kstep(kk)), kk > 0);
+            }
+            wg_commit();
+            wg_wait<0>();
+            reg_fence(s);
+        }
+        const float* sD = sLD + st * 2 * WR;
+        const float* sL = sD + WR;
+        uint32_t* pbuf = sP + j * 16 * 128;
+        uint32_t pa[4][4];
+        if (vside) {
+            if (all_live(k0, a.q_offset + q0, qrows, a.k_lim, a.window)) {
+#pragma unroll
+                for (int i = 0; i < 32; ++i)
+                    s[i] = ex2(fmaf(s[i], scale_log2, -sL[8 * (i >> 2) + c2 + (i & 1)]));
+            } else {
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                    const int row = 16 * warp + g + 8 * ((i & 3) >> 1);
+                    const int col = 8 * (i >> 2) + c2 + (i & 1);
+                    const bool ok = col < qrows &&
+                                    live(k0 + row, a.q_offset + q0 + col, a.k_lim, a.window);
+                    s[i] = ok ? ex2(fmaf(s[i], scale_log2, -sL[col])) : 0.f;
+                }
+            }
+            if (t >= 2) mb_wait(&pfree[j], ((t - 2) >> 1) & 1);   // buffer j read
+#pragma unroll
+            for (int kc = 0; kc < 4; ++kc) {
+                a_frag(pa[kc], s, kc);
+#pragma unroll
+                for (int r = 0; r < 4; ++r) pbuf[(kc * 4 + r) * 128 + t128] = pa[kc][r];
+            }
+            mb_arrive(&pready[j]);
+        } else {
+            mb_wait(&pready[j], (t >> 1) & 1);     // P^T of tile t is in buffer j
+            uint32_t pr[4][4];
+#pragma unroll
+            for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) pr[kc][r] = pbuf[(kc * 4 + r) * 128 + t128];
+            mb_arrive(&pfree[j]);
+#pragma unroll
+            for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const float2 p = __bfloat1622float2(
+                        *reinterpret_cast<const __nv_bfloat162*>(&pr[kc][r]));
+                    const int i = 8 * kc + 2 * r;
+                    const int col = 8 * (i >> 2) + c2;
+                    pa[kc][r] = pack_bf16x2(p.x * (s[i] - sD[col]),
+                                            p.y * (s[i + 1] - sD[col + 1]));
+                }
             }
         }
-        if (DO_V) {
+        // dV += P^T dO or dK += dS^T Q: B is the stage's dO / Q tile, MN-major
+        {
+            const uint32_t ub = vside ? uO : uQ;
+            wg_fence();
 #pragma unroll
-            for (int n = 0; n < NVN; ++n) {
-                const float x = dv[n][2 * i], y = dv[n][2 * i + 1];
-                if (pvp)
-                    *reinterpret_cast<float2*>(pvp + row * DV + c2 + 8 * n) = make_float2(x, y);
-                else
-                    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dv) + row * DV
-                                                       + c2 + 8 * n) = __floats2bfloat162_rn(x, y);
-            }
+            for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+                for (int n = 0; n < NCM; ++n)
+                    if (n < nc)
+                        wgmma_rs<1>(acc[n], pa[kc],
+                                    desc_mn(ub + n * (WR * 128) + kc * 2048, WR * 128));
+            wg_commit();
+            wg_wait<0>();
+#pragma unroll
+            for (int n = 0; n < NCM; ++n) reg_fence(acc[n]);
+        }
+        if (vside && lane == 0) mb_arrive(&empty[st]);   // a warp of warpgroup 0 is done
+    }
+    // rows g and g + 8 of the warp's keys: into dV / dK in bf16, or this
+    // part's fp32 slot of the GQA scratch
+    const int DW = vside ? DV : DH;
+    const float mul = vside ? 1.f : a.scale;
+    const int64_t nkv = (int64_t)a.B * a.Sk * a.KV;
+    float* pp = nullptr;
+    if (a.part)
+        pp = vside ? a.part + a.kv_parts * nkv * DH + part * nkv * DV
+                   : a.part + part * nkv * DH;
+    bf16* out = static_cast<bf16*>(vside ? a.dv : a.dk);
+#pragma unroll
+    for (int n = 0; n < NCM; ++n) {
+        if (n >= nc) break;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+            const int kp = k0 + 16 * warp + g + 8 * ((i & 3) >> 1);
+            const int col = 64 * n + 8 * (i >> 2) + c2;
+            if (kp >= a.Sk || col >= DW) continue;
+            const int64_t at = (((int64_t)b * a.Sk + kp) * a.KV + kvh) * DW + col;
+            const float x = acc[n][i] * mul, y = acc[n][i + 1] * mul;
+            if (pp)
+                *reinterpret_cast<float2*>(pp + at) = make_float2(x, y);
+            else
+                *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(x, y);
         }
     }
 }
 
-// dQ on the tensor cores: CTA (64 queries, head, batch), warp w owns queries
-// q0 + 16 w .. + 15 and walks BN-key tiles: S = Q K^T, dP = dO V^T,
-// dS = P (dP - D), dQ += dS K.
+// dQ: CTA (64 queries, head, batch, key split), two warpgroups on the same
+// queries, as dK/dV's. Per 64-key tile of the split's range (a 2-stage
+// cp.async ring): warpgroup 0 computes S = Q K^T and P, warpgroup 1 dP = dO
+// V^T and, with the P handed over, dS = P (dP - D), which it hands back;
+// then dQ += dS K with dS as the register A operand and K read MN-major,
+// warpgroup 0 over dQ's first NC0 64-column parts, warpgroup 1 over the
+// rest (at (192, 128): one and two, so each does 256 columns' products).
 template <int DH, int DV>
-__global__ void __launch_bounds__(NT, 1) dq_tc_kernel(const Args a) {
-    using Tr = Bw<DH, DV>;
-    constexpr int KST = Tr::KST, VST = Tr::VST, BN = Tr::BN;
-    constexpr int NSN = BN / 8, NKC = BN / 16, NQN = DH / 8;
-    extern __shared__ uint4 smem_t[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem_t);   // [64][KST]
-    bf16* sO = sQ + TROWS * KST;                   // [64][VST] dO
-    bf16* sK = sO + TROWS * VST;                   // [BN][KST]
-    bf16* sV = sK + BN * KST;                      // [BN][VST]
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * TROWS;  // longest first
-    const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.rep;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, c2 = 2 * (lane & 3);
-    const int rows = min(TROWS, a.Sq - q0);
-    const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-    const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-    const bf16* dO = static_cast<const bf16*>(a.dout);
-    load_rows<bf16, NT, TROWS, DH, KST>(sQ, Q + q0 * a.q_ss, a.q_ss, rows, tid);
-    load_rows<bf16, NT, TROWS, DV, VST>(
-        sO, dO + (((int64_t)b * a.Sq + q0) * a.H + h) * DV, (int64_t)a.H * DV, rows, tid);
-    cp_async_commit();
-
-    const int wq0 = q0 + 16 * warp;
-    const bool w_live = wq0 < a.Sq;
-    float L[2], Dl[2];
+__global__ void __launch_bounds__(256, (DH <= 128 ? 2 : 1))
+dq_wg_kernel(const Args a, const __grid_constant__ Maps m) {
+    using W = Wg<DH, DV>;
+    constexpr int NC = W::PH / 64, NC0 = NC / 2, NCM = NC - NC0;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* sm = align1024(smem_raw);
+    uint8_t* sQ = sm;
+    uint8_t* sO = sQ + W::KB;
+    uint8_t* sS0 = sO + W::VB;                      // stage s: K, then V
+    constexpr int S = W::S;
+    uint32_t* sP = reinterpret_cast<uint32_t*>(sm + (S + 1) * (W::KB + W::VB));
+    uint32_t* sDS = sP + 16 * 128;
+    uint64_t* full = reinterpret_cast<uint64_t*>(sDS + 16 * 128);   // a stage each
+    // grid (splits of every head and batch, query tiles from the last): the
+    // CTAs of the last query tile, the longest under a causal mask, first
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * WR, sp = blockIdx.x % a.dq_splits;
+    const int h = (blockIdx.x / a.dq_splits) % a.H, b = blockIdx.x / a.dq_splits / a.H;
+    const int kvh = h / a.rep;
+    const int tid = threadIdx.x, t128 = tid & 127;
+    const bool pside = tid < 128;                   // warpgroup 0
+    const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, c2 = 2 * (lane & 3);
+    const int rows = min(WR, a.Sq - q0);
+    // D = rowsum(O * dO) and lse * log2(e) of the CTA's rows, 4 threads a
+    // row from global memory; split 0 writes them for the dK/dV kernel,
+    // which runs after this one
+    float* sRow = reinterpret_cast<float*>(full + S);   // L [64], then D [64]
+    {
+        const int r = tid >> 2, sub = tid & 3, qi = q0 + r;
+        float d = 0.f, l = INFINITY;
+        if (qi < a.Sq) {
+            const int64_t at = (((int64_t)b * a.Sq + qi) * a.H + h) * DV;
+            const bf16* o = static_cast<const bf16*>(a.o) + at;
+            const bf16* dd = static_cast<const bf16*>(a.dout) + at;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int qi = wq0 + g + 8 * i;
-        const int64_t li = ((int64_t)b * a.H + h) * a.Sq + qi;
-        L[i] = qi < a.Sq ? a.lse[li] * LOG2E : INFINITY;
-        Dl[i] = qi < a.Sq ? a.delta[li] : 0.f;
+            for (int c = 8 * sub; c < DV; c += 32) {
+                const uint4 x = *reinterpret_cast<const uint4*>(o + c);
+                const uint4 y = *reinterpret_cast<const uint4*>(dd + c);
+                const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&x);
+                const __nv_bfloat162* yh = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float2 fx = __bfloat1622float2(xh[e]), fy = __bfloat1622float2(yh[e]);
+                    d = fmaf(fx.x, fy.x, fmaf(fx.y, fy.y, d));
+                }
+            }
+            l = a.lse[((int64_t)b * a.H + h) * a.Sq + qi] * LOG2E;
+        }
+        d += __shfl_xor_sync(FULL, d, 1);
+        d += __shfl_xor_sync(FULL, d, 2);
+        if (sub == 0) {
+            sRow[r] = l;
+            sRow[WR + r] = d;
+            if (sp == 0 && qi < a.Sq) {
+                const int64_t li = ((int64_t)b * a.H + h) * a.sq_pad + qi;
+                a.delta[li] = d;
+                a.l2[li] = l;
+            }
+        }
     }
-    float acc[NQN][4];
-#pragma unroll
-    for (int n = 0; n < NQN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
+    // this split's key tiles
     const int qpos_lo = a.q_offset + q0, qpos_hi = a.q_offset + q0 + rows - 1;
     const int k_end = min(a.k_lim, qpos_hi + 1);
     int k_begin = a.window > 0 ? max(0, qpos_lo - a.window + 1) : 0;
-    k_begin = (k_begin / BN) * BN;
-    const int wpos_lo = a.q_offset + wq0;
-    const int wpos_hi = a.q_offset + min(wq0 + 15, a.Sq - 1);
-    const int a_row = 16 * warp + (lane & 15), a_col = (lane >> 4) * 8;
-    const int bn_row = (lane & 7) + ((lane >> 4) << 3), bn_col = ((lane >> 3) & 1) * 8;
-    const int bt_row = lane & 15, bt_col = (lane >> 4) * 8;
-    const float scale_log2 = a.scale * LOG2E;
-
-    for (int k0 = k_begin; k0 < k_end; k0 += BN) {
-        __syncthreads();                           // the previous tile is read
-        load_rows<bf16, NT, BN, DH, KST>(sK, K + k0 * a.k_ss, a.k_ss, k_end - k0, tid);
-        load_rows<bf16, NT, BN, DV, VST>(sV, V + k0 * a.v_ss, a.v_ss, k_end - k0, tid);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        const bool dead = !w_live || k0 > wpos_hi ||
-                          (a.window > 0 && k0 + BN - 1 <= wpos_lo - a.window);
-        if (dead) continue;
-        float s[NSN][4], dp[NSN][4];
-#pragma unroll
-        for (int n = 0; n < NSN; ++n) {
-            s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-            dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-        }
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-            uint32_t af[4];
-            ldsm_x4(af, sQ + a_row * KST + kk * 16 + a_col);
-#pragma unroll
-            for (int jp = 0; jp < NSN / 2; ++jp) {
-                uint32_t bk[4];
-                ldsm_x4(bk, sK + (16 * jp + bn_row) * KST + kk * 16 + bn_col);
-                mma_bf16(s[2 * jp], af, bk[0], bk[1]);
-                mma_bf16(s[2 * jp + 1], af, bk[2], bk[3]);
-            }
-        }
-#pragma unroll
-        for (int kk = 0; kk < DV / 16; ++kk) {
-            uint32_t af[4];
-            ldsm_x4(af, sO + a_row * VST + kk * 16 + a_col);
-#pragma unroll
-            for (int jp = 0; jp < NSN / 2; ++jp) {
-                uint32_t bv[4];
-                ldsm_x4(bv, sV + (16 * jp + bn_row) * VST + kk * 16 + bn_col);
-                mma_bf16(dp[2 * jp], af, bv[0], bv[1]);
-                mma_bf16(dp[2 * jp + 1], af, bv[2], bv[3]);
-            }
-        }
-#pragma unroll
-        for (int n = 0; n < NSN; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int kp = k0 + 8 * n + c2 + (e & 1);
-                const int qi = wq0 + g + (e >> 1) * 8;
-                const bool ok = qi < a.Sq && live(kp, a.q_offset + qi, k_end, a.window);
-                const float p = ok ? exp2f(fmaf(s[n][e], scale_log2, -L[e >> 1])) : 0.f;
-                dp[n][e] = p * (dp[n][e] - Dl[e >> 1]);   // dS
-            }
-        }
-#pragma unroll
-        for (int kc = 0; kc < NKC; ++kc) {
-            const uint32_t da[4] = {
-                pack_bf16(dp[2 * kc][0], dp[2 * kc][1]),
-                pack_bf16(dp[2 * kc][2], dp[2 * kc][3]),
-                pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]),
-                pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3])};
-#pragma unroll
-            for (int dpi = 0; dpi < DH / 16; ++dpi) {
-                uint32_t bk[4];
-                ldsm_x4_trans(bk, sK + (kc * 16 + bt_row) * KST + dpi * 16 + bt_col);
-                mma_bf16(acc[2 * dpi], da, bk[0], bk[1]);
-                mma_bf16(acc[2 * dpi + 1], da, bk[2], bk[3]);
-            }
-        }
+    k_begin = (k_begin / WR) * WR;
+    const int nkt = k_end > k_begin ? (k_end - k_begin + WR - 1) / WR : 0;
+    const int per = (nkt + a.dq_splits - 1) / a.dq_splits;
+    const int t_lo = min(nkt, sp * per), t_hi = min(nkt, t_lo + per);
+    // key tile t into stage st (one thread); keys past kv_len are zeros
+    auto load = [&](int st, int t, uint32_t extra) {
+        const int kt0 = k_begin + t * WR;
+        uint8_t* s = sS0 + st * (W::KB + W::VB);
+        mb_expect(&full[st], W::KB + W::VB + extra);
+        for (int c = 0; c < W::PH / 64; ++c)
+            tma_load4(s + c * WR * 128, &m.k, 64 * c, kvh, kt0, b, &full[st]);
+        for (int c = 0; c < W::PV / 64; ++c)
+            tma_load4(s + W::KB + c * WR * 128, &m.v, 64 * c, kvh, kt0, b, &full[st]);
+    };
+    // one thread of warpgroup 1 (off the P path) issues the copies
+    const bool issuer = tid == 128;
+    if (tid == 0 && t_lo < t_hi) {
+        for (int i = 0; i < S; ++i) mb_init(&full[i], 1);
+        mb_init_fence();
     }
-    cp_async_wait<0>();
+    __syncthreads();                                // the rows' L and D too
+    float L[2], Dl[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-        const int qi = wq0 + g + 8 * i;
-        if (qi >= a.Sq) continue;
-        bf16* row = static_cast<bf16*>(a.dq) + (((int64_t)b * a.Sq + qi) * a.H + h) * DH + c2;
+        L[i] = sRow[16 * warp + g + 8 * i];
+        Dl[i] = sRow[WR + 16 * warp + g + 8 * i];
+    }
+    if (issuer && t_lo < t_hi) {                    // Q and dO with key tile t_lo
+        prefetch_map(&m.q);
+        prefetch_map(&m.o);
+        prefetch_map(&m.k);
+        prefetch_map(&m.v);
+        for (int c = 0; c < W::PH / 64; ++c)
+            tma_load4(sQ + c * WR * 128, &m.q, 64 * c, h, q0, b, &full[0]);
+        for (int c = 0; c < W::PV / 64; ++c)
+            tma_load4(sO + c * WR * 128, &m.o, 64 * c, h, q0, b, &full[0]);
+        load(0, t_lo, W::KB + W::VB);
+        for (int i = 1; i < S - 1 && t_lo + i < t_hi; ++i) load(i, t_lo + i, 0);
+    }
+
+    float acc[NCM][32];
 #pragma unroll
-        for (int n = 0; n < NQN; ++n)
-            *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) = __floats2bfloat162_rn(
-                acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
+    for (int n = 0; n < NCM; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+    const int n_lo = pside ? 0 : NC0, nc = pside ? NC0 : NCM;   // dQ parts
+    const int ksteps = pside ? DH / 16 : DV / 16;
+    const uint32_t uQ = smem_u32(sQ), uO = smem_u32(sO), uS0 = smem_u32(sS0);
+    const float scale_log2 = a.scale * LOG2E;
+    // the first product's A (the CTA's Q or dO rows) in registers
+    constexpr int KSM = (DH > DV ? DH : DV) / 16;
+    uint32_t af[KSM][4];
+    for (int t = t_lo; t < t_hi; ++t) {
+        const int u = t - t_lo;
+        mb_wait(&full[u % S], (u / S) & 1);        // tile t landed
+        __syncthreads();                           // tile t - 1 is done
+        if (issuer && t + S - 1 < t_hi) load((u + S - 1) % S, t + S - 1, 0);
+        const int kt0 = k_begin + t * WR;
+        const uint32_t uK = uS0 + (u % S) * (W::KB + W::VB), uV = uK + W::KB;
+        // S = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1)
+        float s[32];
+        {
+            const uint32_t ua = pside ? uQ : uO, ub = pside ? uK : uV;
+            if (t == t_lo) {
+#pragma unroll
+                for (int kk = 0; kk < KSM; ++kk)
+                    if (kk < ksteps) ldsm_a(af[kk], ua, WR, warp, kk, lane);
+            }
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < KSM; ++kk)
+                if (kk < ksteps) wgmma_rs<0>(s, af[kk], desc_k(ub + kstep(kk)), kk > 0);
+            wg_commit();
+            wg_wait<0>();
+            reg_fence(s);
+        }
+        uint32_t da[4][4];
+        if (pside) {
+            if (all_live(kt0, qpos_lo, rows, k_end, a.window)) {
+#pragma unroll
+                for (int i = 0; i < 32; ++i)
+                    s[i] = ex2(fmaf(s[i], scale_log2, -L[(i & 3) >> 1]));
+            } else {
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                    const int r = (i & 3) >> 1;
+                    const int qi = q0 + 16 * warp + g + 8 * r;
+                    const int kp = kt0 + 8 * (i >> 2) + c2 + (i & 1);
+                    const bool ok = qi < a.Sq && live(kp, a.q_offset + qi, k_end, a.window);
+                    s[i] = ok ? ex2(fmaf(s[i], scale_log2, -L[r])) : 0.f;
+                }
+            }
+#pragma unroll
+            for (int kc = 0; kc < 4; ++kc) {
+                a_frag(da[kc], s, kc);
+#pragma unroll
+                for (int r = 0; r < 4; ++r) sP[(kc * 4 + r) * 128 + t128] = da[kc][r];
+            }
+            bar_arrive(1, 256);
+            if (NC0 > 0) {
+                bar_sync(2, 256);                  // dS is in sDS
+#pragma unroll
+                for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+                    for (int r = 0; r < 4; ++r) da[kc][r] = sDS[(kc * 4 + r) * 128 + t128];
+            }
+        } else {
+            bar_sync(1, 256);                      // P is in sP
+#pragma unroll
+            for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                        &sP[(kc * 4 + r) * 128 + t128]));
+                    const int i = 8 * kc + 2 * r, rr = (i & 3) >> 1;
+                    da[kc][r] = pack_bf16x2(p.x * (s[i] - Dl[rr]), p.y * (s[i + 1] - Dl[rr]));
+                    if (NC0 > 0) sDS[(kc * 4 + r) * 128 + t128] = da[kc][r];
+                }
+            }
+            if (NC0 > 0) bar_arrive(2, 256);
+        }
+        // dQ += dS K over this warpgroup's parts
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+            for (int n = 0; n < NCM; ++n)
+                if (n < nc)
+                    wgmma_rs<1>(acc[n], da[kc],
+                                desc_mn(uK + (n_lo + n) * (WR * 128) + kc * 2048, WR * 128));
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int n = 0; n < NCM; ++n) reg_fence(acc[n]);
+    }
+    float* pp = a.dq_splits > 1
+        ? a.dq_part + (int64_t)sp * a.B * a.Sq * a.H * DH : nullptr;
+#pragma unroll
+    for (int n = 0; n < NCM; ++n) {
+        if (n >= nc) break;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+            const int qi = q0 + 16 * warp + g + 8 * ((i & 3) >> 1);
+            const int col = 64 * (n_lo + n) + 8 * (i >> 2) + c2;
+            if (qi >= a.Sq || col >= DH) continue;
+            const int64_t at = (((int64_t)b * a.Sq + qi) * a.H + h) * DH + col;
+            const float x = acc[n][i] * a.scale, y = acc[n][i + 1] * a.scale;
+            if (pp)
+                *reinterpret_cast<float2*>(pp + at) = make_float2(x, y);
+            else
+                *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dq) + at) =
+                    __floats2bfloat162_rn(x, y);
+        }
     }
 }
 
-template <typename K>
-cudaError_t go(K kern, dim3 grid, size_t smem, cudaStream_t s, const Args& a) {
+// dQ = the sum of the key splits' parts, in split order
+__global__ void __launch_bounds__(NT) dq_reduce_kernel(const Args a, int DH) {
+    const int64_t n = (int64_t)a.B * a.Sq * a.H * DH;
+    for (int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x; i < n;
+         i += (int64_t)gridDim.x * NT) {
+        float s = 0.f;
+        for (int p = 0; p < a.dq_splits; ++p) s += a.dq_part[p * n + i];
+        static_cast<bf16*>(a.dq)[i] = __float2bfloat16(s);
+    }
+}
+
+template <typename K, typename... P>
+cudaError_t go(K kern, dim3 grid, int threads, size_t smem, cudaStream_t s, P... p) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kern<<<grid, NT, smem, s>>>(a);
+    kern<<<grid, threads, smem, s>>>(p...);
     return cudaGetLastError();
+}
+
+// D and l2 as fp32 [Sq, B * H, 2] (rows sq_pad apart) in boxes of 64 x 1 x 2
+bool ld_map(CUtensorMap* m, const Args& a) {
+    auto enc = tensor_map_encoder();
+    if (!enc) return false;
+    cuuint64_t dims[3] = {(cuuint64_t)a.Sq, (cuuint64_t)a.B * a.H, 2};
+    cuuint64_t strides[2] = {(cuuint64_t)a.sq_pad * 4, (cuuint64_t)a.B * a.H * a.sq_pad * 4};
+    cuuint32_t box[3] = {64, 1, 2}, estr[3] = {1, 1, 1};
+    return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, a.delta, dims, strides, box, estr,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+           CUDA_SUCCESS;
+}
+
+int grid_stride_blocks(int64_t n) {
+    const int64_t b = (n + NT - 1) / NT;
+    return (int)(b < 132 * 16 ? b : 132 * 16);
 }
 
 template <typename T, int DH, int DV>
 cudaError_t reduce(const Args& a, cudaStream_t s) {
     const int64_t n = (int64_t)a.B * a.Sk * a.KV * (DH + DV);
-    const int blocks = (int)((n + NT - 1) / NT < 132 * 16 ? (n + NT - 1) / NT : 132 * 16);
-    dkv_reduce_kernel<T, DH, DV><<<blocks, NT, 0, s>>>(a);
+    dkv_reduce_kernel<T, DH, DV><<<grid_stride_blocks(n), NT, 0, s>>>(a);
     return cudaGetLastError();
 }
 
@@ -732,29 +954,42 @@ cudaError_t run(int dtype, const Args& a, cudaStream_t s) {
         constexpr size_t sm_kv = sizeof(float) *
             ((size_t)FROWS * (DH + DV) + FC * (DH + 4) + FC * (DV + 4) + 2 * FC);
         err = go(dkv_fp32_kernel<DH, DV>, dim3((a.Sk + FROWS - 1) / FROWS, a.H, a.B),
-                 sm_kv, s, a);
+                 NT, sm_kv, s, a);
         if (err == cudaSuccess && a.part) err = reduce<float, DH, DV>(a, s);
         if (err != cudaSuccess) return err;
         constexpr size_t sm_q = sizeof(float) *
             ((size_t)FROWS * (DH + DV) + FC * (DH + 4) + FC * (DV + 4));
         return go(dq_fp32_kernel<DH, DV>, dim3((a.Sq + FROWS - 1) / FROWS, a.H, a.B),
-                  sm_q, s, a);
+                  NT, sm_q, s, a);
     }
-    using Tr = Bw<DH, DV>;
-    delta_kernel<bf16, DV><<<dgrid, NT, 0, s>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const dim3 kgrid((a.Sk + TROWS - 1) / TROWS, a.H, a.B);
-    if constexpr (Tr::SPLIT) {
-        err = go(dkv_tc_kernel<DH, DV, false, true>, kgrid, Tr::SMEM_DKV, s, a);
-        if (err != cudaSuccess) return err;
-        err = go(dkv_tc_kernel<DH, DV, true, false>, kgrid, Tr::SMEM_DKV, s, a);
-    } else {
-        err = go(dkv_tc_kernel<DH, DV, true, true>, kgrid, Tr::SMEM_DKV, s, a);
+    using W = Wg<DH, DV>;
+    // bf16: the dQ kernel computes D and l2 (no delta pass) and runs first
+    Maps m;
+    const int kl = a.k_lim > 0 ? a.k_lim : 1;
+    auto encode = [&]() {
+        return tile_map(&m.q, a.q, DH, a.H, a.Sq, a.B, a.q_sh, a.q_ss, a.q_sb) &&
+               tile_map(&m.k, a.k, DH, a.KV, kl, a.B, a.k_sh, a.k_ss, a.k_sb) &&
+               tile_map(&m.v, a.v, DV, a.KV, kl, a.B, a.v_sh, a.v_ss, a.v_sb) &&
+               tile_map(&m.o, a.dout, DV, a.H, a.Sq, a.B, DV, (int64_t)a.H * DV,
+                        (int64_t)a.Sq * a.H * DV) &&
+               ld_map(&m.ld, a);
+    };
+    // the driver's encoder needs the context current on this thread, which
+    // a thread of autograd's may not have yet: cudaFree(0) binds it
+    if (!encode() && (cudaFree(nullptr) != cudaSuccess || !encode()))
+        return cudaErrorInvalidValue;
+    err = go(dq_wg_kernel<DH, DV>, dim3(a.B * a.H * a.dq_splits, (a.Sq + WR - 1) / WR),
+             256, W::SMEM_Q, s, a, m);
+    if (err == cudaSuccess && a.dq_splits > 1) {
+        dq_reduce_kernel<<<grid_stride_blocks((int64_t)a.B * a.Sq * a.H * DH), NT, 0, s>>>(
+            a, DH);
+        err = cudaGetLastError();
     }
-    if (err == cudaSuccess && a.part) err = reduce<bf16, DH, DV>(a, s);
     if (err != cudaSuccess) return err;
-    return go(dq_tc_kernel<DH, DV>, dim3((a.Sq + TROWS - 1) / TROWS, a.H, a.B),
-              Tr::SMEM_DQ, s, a);
+    err = go(dkv_wg_kernel<DH, DV>, dim3(a.B * a.KV * a.kv_parts, (a.Sk + WR - 1) / WR),
+             256, W::SMEM_KV, s, a, m);
+    if (err == cudaSuccess && a.part) err = reduce<bf16, DH, DV>(a, s);
+    return err;
 }
 
 }  // namespace
@@ -762,28 +997,38 @@ cudaError_t run(int dtype, const Args& a, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16. q [B, Sq, H, dh], k [B, Sk, KV, dh] and
 // v [B, Sk, KV, dv] through their strides (last axis contiguous, rows on 16
 // bytes), as the forward read them; o and dout contiguous [B, Sq, H, dv];
-// lse the forward's fp32 [B, H, Sq]; delta fp32 scratch [B, H, Sq]; part,
-// where H > KV, fp32 scratch of H * B * Sk * (dh + dv) (null where H = KV);
-// dq [B, Sq, H, dh], dk [B, Sk, KV, dh] and dv [B, Sk, KV, dv] contiguous,
-// of dtype, every element written (a key no query sees gets 0). Launches
-// the delta pass, the dK/dV kernel (twice where dh + dv > 256 in bf16),
-// with GQA the sum of its parts, and the dQ kernel on `stream`; returns
-// the first cudaError_t (0 on success).
+// lse the forward's fp32 [B, H, Sq]; delta fp32 scratch [2, B, H, sq_pad]
+// with sq_pad = Sq rounded up to a multiple of 4; dq,
+// dk [B, Sk, KV, dh] and dv [B, Sk, KV, dv] contiguous, of dtype, every
+// element written (a key no query sees gets 0). kv_parts (dividing H / KV)
+// and dq_splits are the wrapper's plan (flash_prefill.bwd_plan): where
+// kv_parts > 1, part is fp32 scratch of kv_parts * B * Sk * KV * (dh + dv)
+// (else null); where dq_splits > 1, dq_part is fp32 scratch of dq_splits *
+// B * Sq * H * dh (else null). fp32 takes kv_parts = H / KV and dq_splits =
+// 1. Launches the delta pass, the dK/dV kernel, the sum of dK/dV's parts
+// where kv_parts > 1, the dQ kernel and the sum of dQ's splits where
+// dq_splits > 1 on `stream`; returns the first cudaError_t (0 on success).
 extern "C" int flash_prefill_bwd_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const void* lse, void* delta, void* part, void* dq, void* dk, void* dv,
-    int dtype, int B, int Sq, int Sk, int H, int KV, int dh, int dv_,
+    const void* lse, void* delta, void* part, void* dq_part, void* dq, void* dk,
+    void* dv, int dtype, int B, int Sq, int Sk, int H, int KV, int dh, int dv_,
+    int kv_parts, int dq_splits,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int q_offset, int kv_len, int window, float scale, void* stream) {
     if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV ||
-        (dtype != 0 && dtype != 1))
+        (dtype != 0 && dtype != 1) || kv_parts <= 0 || dq_splits <= 0)
         return cudaErrorInvalidValue;
-    if ((H != KV) != (part != nullptr)) return cudaErrorInvalidValue;
-    Args a{q, k, v, o, dout, static_cast<const float*>(lse),
-           static_cast<float*>(delta), dq, dk, dv, static_cast<float*>(part),
-           B, Sq, Sk, H, KV, H / KV,
+    if ((kv_parts > 1) != (part != nullptr) || (dq_splits > 1) != (dq_part != nullptr))
+        return cudaErrorInvalidValue;
+    if (dtype == 0 && (kv_parts != H / KV || dq_splits != 1))
+        return cudaErrorInvalidValue;
+    float* dl = static_cast<float*>(delta);
+    const int sq_pad = (Sq + 3) / 4 * 4;
+    Args a{q, k, v, o, dout, static_cast<const float*>(lse), dl,
+           dl + (int64_t)B * H * sq_pad, dq, dk, dv, static_cast<float*>(part),
+           static_cast<float*>(dq_part), B, Sq, Sk, H, KV, H / KV, kv_parts, dq_splits, sq_pad,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            q_offset, kv_len < Sk ? kv_len : Sk, window, scale};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -798,6 +1043,7 @@ extern "C" int flash_prefill_bwd_launch(
     if (dh == 192 && dv_ == 128) return run<192, 128>(dtype, a, s);
     return cudaErrorInvalidValue;
 }
+
 
 extern "C" const char* flash_prefill_bwd_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));

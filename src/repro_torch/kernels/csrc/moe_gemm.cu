@@ -52,21 +52,35 @@
 // of K for the few CTAs of a decode step are the next steps (ROADMAP).
 //
 // The backward (training; no TPU kernel, ragged_dot's own transpose rules in
-// the reference) runs on the same machinery, reading no size on the host:
+// the reference) reads no size on the host either:
 //  - dX[r] = dY[r] · W[e]^T is moe_gemm_launch with w's k and n strides
 //    swapped (w_sk = 1): the kernel then stages [64 n][32 k] tiles of W as
 //    they lie and reads B with ldmatrix without .trans (fp32: by row). The
 //    [E, K, N] stack is not copied. Serving passes w_sn = 1 and runs the
 //    code path above, unchanged.
-//  - dW[e] = xs[lo:hi]^T · dY[lo:hi] is moe_gemm_wgrad_launch: one CTA a
-//    (64-column tile of N, 64-row tile of K, expert), the expert's rows as
-//    the reduction, through the same four-stage ring; A = xs^T by
-//    ldmatrix.trans of the [rows][k] tile (fp32: by column). It reads the
+//  - dW[e] = xs[lo:hi]^T · dY[lo:hi] is moe_gemm_wgrad_launch. It reads the
 //    offsets from device memory, accumulates in fp32 and writes every
-//    element: an expert with no rows (a padded one too) gets zeros. Bound
-//    by bytes at granite's shapes (a 4096-row training step reads xs and dY
-//    once, 2 x 4096 x 1536 x 2 B, and writes E x K x N); by operations at
-//    deepseek's wide experts.
+//    element: an expert with no rows (a padded one too) gets zeros. At the
+//    training shapes it is bound by its output: ~100-128 rows an expert
+//    (4096 routed rows over 40 granite or 32 deepseek experts) make a short
+//    reduction, and dW is most of the bytes (deepseek's 32 x 7168 x 2048 x
+//    2 B = 940 MB of 1.01 GB; 0.28 ms at 3.35 TB/s). The bf16 design for
+//    that (the first form's 64 x 64 mma.sync tiles with 4-byte stores
+//    spent most of each short CTA in its prologue and epilogue):
+//    - 128 x 128 tiles on two wgmma warpgroups (wgmma.cuh), so xs is read
+//      N / 128 times and dY K / 128 times; both operands MN-major, as they
+//      lie in memory.
+//    - TMA loads into a 2-stage ring of 64-row stages, kept two stages ahead
+//      by one thread across the tiles of a persistent CTA (two an SM), so a
+//      tile's loads run under the previous tile's products and stores. A
+//      partial last stage's dY rows of the next expert are zeroed in shared
+//      memory.
+//    - The epilogue stages the bf16 tile in shared memory and TMA stores it
+//      (full 128-byte rows, asynchronously; the buffer is reused once read).
+//    - An expert with no rows gets its zeros by 16-byte stores, no products.
+//    fp32 keeps the first form: one CTA a (64-column tile of N, 64-row tile
+//    of K, expert) through the four-stage cp.async ring, A = xs^T read by
+//    column, scalar FMAs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -74,6 +88,7 @@
 
 #include "async_copy.cuh"
 #include "mma_bf16.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -89,10 +104,9 @@ constexpr unsigned FULL = 0xffffffffu;
 // rows in shared memory: 16 bytes each
 template <typename T> struct Tile;
 // LDBT: a transposed B tile's rows ([BN][BK], k contiguous); LDAT: a
-// transposed A tile's rows ([BK][BM], m contiguous; wgrad)
+// transposed A tile's rows ([BK][BM], m contiguous; the fp32 wgrad)
 template <> struct Tile<bf16> {
-    static constexpr int BK = 32, LDA = BK + 8, LDB = BN + 8, LDBT = BK + 8,
-                         LDAT = BM + 8;
+    static constexpr int BK = 32, LDA = BK + 8, LDB = BN + 8, LDBT = BK + 8;
 };
 template <> struct Tile<float> {
     static constexpr int BK = 16, LDA = BK + 4, LDB = BN + 4, LDBT = BK + 4,
@@ -144,24 +158,21 @@ template <> struct Mma<bf16> {
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
     }
-    // AT: sA is [BK][LDAT] (m contiguous); BT: sB is [BN][LDBT] (k contiguous)
+    // BT: sB is [BN][LDBT] (k contiguous); A is read by row
     template <bool AT = false, bool BT = false>
     __device__ __forceinline__ void step(const bf16* sA, const bf16* sB, int rows,
                                          int tid) {
+        static_assert(!AT, "the bf16 wgrad runs on wgmma");
         constexpr int BK = Tile<bf16>::BK, LDA = Tile<bf16>::LDA,
-                      LDB = Tile<bf16>::LDB, LDBT = Tile<bf16>::LDBT,
-                      LDAT = Tile<bf16>::LDAT;
+                      LDB = Tile<bf16>::LDB, LDBT = Tile<bf16>::LDBT;
         const int lane = tid & 31, warp = tid >> 5;
         if (16 * warp >= rows) return;             // warp-uniform
-        // ldmatrix rows of a tile stored [n][k] (or A stored [k][m], .trans)
+        // ldmatrix rows of a B tile stored [n][k]
         const int t_row = (lane & 7) + ((lane >> 4) << 3), t_col = ((lane >> 3) & 1) * 8;
 #pragma unroll
         for (int kk = 0; kk < BK; kk += 16) {
             uint32_t a[4];
-            if (AT)
-                ldsm_x4_trans(a, sA + (kk + t_row) * LDAT + 16 * warp + t_col);
-            else
-                ldsm_x4(a, sA + (16 * warp + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
+            ldsm_x4(a, sA + (16 * warp + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
 #pragma unroll
             for (int np = 0; np < 4; ++np) {
                 uint32_t b[4];
@@ -363,7 +374,7 @@ struct WArgs {
     int64_t x_sm, y_sm, o_se, o_sk;
 };
 
-// dW[e][k0:k0+64, n0:n0+64] = xs[lo:hi, k-tile]^T dY[lo:hi, n-tile]
+// fp32: dW[e][k0:k0+64, n0:n0+64] = xs[lo:hi, k-tile]^T dY[lo:hi, n-tile]
 template <typename T>
 __global__ void __launch_bounds__(NT) moe_wgrad_kernel(const WArgs a) {
     constexpr int BK = Tile<T>::BK, LDB = Tile<T>::LDB, LDAT = Tile<T>::LDAT;
@@ -400,6 +411,188 @@ __global__ void __launch_bounds__(NT) moe_wgrad_kernel(const WArgs a) {
     cp_async_wait<0>();
     mma.store(static_cast<T*>(a.dw) + e * a.o_se + k0 * a.o_sk + n0, a.o_sk, mrows,
               ncols, tid);
+}
+
+// bf16 on wgmma: 128 x 128 tiles of dW (128 rows of K, 128 columns of N, an
+// expert), two warpgroups of 64 K-rows each, the expert's rows (the
+// reduction) in 64-row stages. Persistent: CTA c takes tiles c, c + grid,
+// ..., and one thread keeps a 2-stage TMA ring two stages ahead across them,
+// so the next tile's loads run under this tile's last products and its
+// store. A stage holds xs[rows, 128 of K] and dY[rows, 128 of N] as two
+// 64-column swizzled blocks each, as they lie in memory: both are MN-major
+// operands (the reduction runs down the rows). A last, partial stage also
+// holds the next expert's first rows: its dY rows past the expert's are
+// zeroed in shared memory before the products, so they add nothing. The
+// epilogue writes the bf16 tile into shared memory in the same swizzled
+// layout and TMA stores send it out, asynchronously; a tile of an expert
+// with no rows gets its zeros by plain 16-byte stores. Two CTAs an SM.
+namespace wg {
+constexpr int NTW = 256, TM = 128, TN = 128, RS = 64, STG = 2;
+constexpr int BLK = RS * 128;                      // a [64 rows][64] block, bytes
+constexpr int STAGE = 4 * BLK;                     // xs 2 blocks, dY 2 blocks
+constexpr int OUT = TM * TN * 2;                   // the bf16 tile: 2 [128][64] blocks
+constexpr size_t SMEM = (size_t)STG * STAGE + OUT + 64 + 1024;
+}  // namespace wg
+
+struct WMaps {
+    CUtensorMap xs, dy, dw;
+};
+
+struct WTile {
+    int n0, m0, e, r0, rows;
+};
+
+__device__ __forceinline__ WTile wtile(const WArgs& a, int tile, int ntn, int ntm) {
+    WTile t;
+    t.n0 = (tile % ntn) * wg::TN;
+    t.m0 = ((tile / ntn) % ntm) * wg::TM;
+    t.e = tile / (ntn * ntm);
+    t.r0 = max(0, min(a.offsets[t.e], a.M));
+    t.rows = max(t.r0, min(a.offsets[t.e + 1], a.M)) - t.r0;
+    return t;
+}
+
+__global__ void __launch_bounds__(wg::NTW, 2)
+moe_wgrad_wgmma_kernel(const WArgs a, const __grid_constant__ WMaps mp, int ntn, int ntm,
+                       int ntiles) {
+    using namespace wg;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* sm = align1024(smem_raw);
+    uint8_t* so = sm + STG * STAGE;
+    uint64_t* full = reinterpret_cast<uint64_t*>(so + OUT);
+    const uint32_t sbase = smem_u32(sm);
+    const int tid = threadIdx.x, wgi = tid >> 7, lane = tid & 31, warp = (tid >> 5) & 3;
+
+    // thread 0's loader: stage ls of tile lt, tiles with no rows skipped
+    int lt = blockIdx.x, ls = 0, issued = 0;
+    WTile lw{};
+    auto seek = [&]() {
+        for (; lt < ntiles; lt += gridDim.x) {
+            lw = wtile(a, lt, ntn, ntm);
+            if (lw.rows > 0) break;
+        }
+    };
+    auto load_next = [&]() {
+        if (lt >= ntiles) return;
+        const int st = issued % STG;
+        uint8_t* s = sm + st * STAGE;
+        mb_expect(&full[st], STAGE);
+        for (int j = 0; j < 2; ++j) {
+            tma_load2(s + j * BLK, &mp.xs, lw.m0 + 64 * j, lw.r0 + ls * RS, &full[st]);
+            tma_load2(s + (2 + j) * BLK, &mp.dy, lw.n0 + 64 * j, lw.r0 + ls * RS, &full[st]);
+        }
+        ++issued;
+        if (++ls * RS >= lw.rows) {
+            ls = 0;
+            lt += gridDim.x;
+            seek();
+        }
+    };
+    if (tid == 0) {
+        for (int i = 0; i < STG; ++i) mb_init(&full[i], 1);
+        mb_init_fence();
+        prefetch_map(&mp.xs);
+        prefetch_map(&mp.dy);
+        prefetch_map(&mp.dw);
+        seek();
+        for (int i = 0; i < STG; ++i) load_next();
+    }
+    __syncthreads();
+
+    int used = 0;                                  // stages consumed
+    const int g = lane >> 2, c2 = 2 * (lane & 3);
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const WTile w = wtile(a, tile, ntn, ntm);
+        if (w.rows == 0) {                         // no rows: stream zeros
+            const int mrows = min(TM, a.K - w.m0), ncols = min(TN, a.N - w.n0);
+            bf16* dw = static_cast<bf16*>(a.dw) + w.e * a.o_se + (int64_t)w.m0 * a.o_sk + w.n0;
+            const uint4 z = make_uint4(0, 0, 0, 0);
+            for (int i = tid; i < TM * (TN / 8); i += NTW) {
+                const int r = i / (TN / 8), c = (i % (TN / 8)) * 8;
+                if (r < mrows && c < ncols)
+                    *reinterpret_cast<uint4*>(dw + (int64_t)r * a.o_sk + c) = z;
+            }
+            continue;
+        }
+        float acc[2][32];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+        const int nst = (w.rows + RS - 1) / RS;
+        for (int t = 0; t < nst; ++t, ++used) {
+            const int st = used % STG, left = w.rows - t * RS;
+            mb_wait(&full[st], (used / STG) & 1);
+            if (left < RS) {                       // dY rows of the next expert -> 0
+                uint8_t* y = sm + st * STAGE + 2 * BLK;
+                const uint4 z = make_uint4(0, 0, 0, 0);
+                for (int i = tid; i < (RS - left) * 16; i += NTW) {
+                    const int r = left + (i >> 4), c = i & 15;
+                    *reinterpret_cast<uint4*>(y + sw128(r, c, RS)) = z;
+                }
+                fence_async_smem();
+                __syncthreads();
+            }
+            const uint32_t ss = sbase + st * STAGE;
+            const uint32_t xa = ss + wgi * BLK, yb = ss + 2 * BLK;
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < RS / 16; ++kk)           // dY's two blocks at once
+                wgmma_ss_mn128(*reinterpret_cast<float(*)[64]>(&acc[0][0]),
+                                 desc_mn(xa + kk * 2048, BLK), desc_mn(yb + kk * 2048, BLK));
+            wg_commit();
+            wg_wait<0>();
+            reg_fence(acc[0]);
+            reg_fence(acc[1]);
+            __syncthreads();                       // both warpgroups read the stage
+            if (tid == 0) load_next();             // into the slot just read
+        }
+        // the bf16 tile in the swizzled layout, block j = columns 64 j .., rows
+        // the tile's 128 K-rows, once the previous tile's store has read it
+        if (tid == 0) tma_store_wait();
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int i = 0; i < 32; i += 2) {
+                const int row = 64 * wgi + 16 * warp + g + 8 * ((i & 3) >> 1);
+                const int col = 8 * (i >> 2) + c2;
+                *reinterpret_cast<__nv_bfloat162*>(so + j * (TM * 128) +
+                                                   sw128(row, col >> 3, TM) + (col & 7) * 2) =
+                    __floats2bfloat162_rn(acc[j][i], acc[j][i + 1]);
+            }
+        fence_async_smem();
+        __syncthreads();
+        if (tid == 0) {                            // clipped at K and N
+            for (int j = 0; j < 2; ++j)
+                tma_store3(&mp.dw, so + j * (TM * 128), w.n0 + 64 * j, w.m0, w.e);
+            tma_store_commit();
+        }
+    }
+    if (tid == 0) tma_store_wait();
+}
+
+// TMA maps of xs [M, K], dY [M, N] (boxes of 64 x 64) and dW [E, K, N]
+// (boxes of 64 columns x 128 rows), all 128-byte swizzled; the driver's
+// encoder needs the context current on the calling thread
+bool wgrad_maps(WMaps* m, const WArgs& a) {
+    auto enc = tensor_map_encoder();
+    if (!enc) return false;
+    const cuuint32_t estr[3] = {1, 1, 1};
+    auto map = [&](CUtensorMap* t, const void* p, int rank, const cuuint64_t* dims,
+                   const cuuint64_t* strides, const cuuint32_t* box) {
+        return enc(t, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims,
+                   strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    };
+    const cuuint64_t xd[2] = {(cuuint64_t)a.K, (cuuint64_t)a.M}, xs[1] = {(cuuint64_t)a.x_sm * 2};
+    const cuuint64_t yd[2] = {(cuuint64_t)a.N, (cuuint64_t)a.M}, ys[1] = {(cuuint64_t)a.y_sm * 2};
+    const cuuint64_t od[3] = {(cuuint64_t)a.N, (cuuint64_t)a.K, (cuuint64_t)a.E};
+    const cuuint64_t os[2] = {(cuuint64_t)a.o_sk * 2, (cuuint64_t)a.o_se * 2};
+    const cuuint32_t in_box[2] = {64, 64}, out_box[3] = {64, 128, 1};
+    return map(&m->xs, a.xs, 2, xd, xs, in_box) && map(&m->dy, a.dy, 2, yd, ys, in_box) &&
+           map(&m->dw, a.dw, 3, od, os, out_box);
 }
 
 }  // namespace
@@ -442,11 +635,31 @@ extern "C" int moe_gemm_wgrad_launch(const void* xs, const void* dy,
         return cudaErrorInvalidValue;
     WArgs a{xs, dy, static_cast<const int*>(offsets), dw, M, K, N, E,
             x_sm, y_sm, o_se, o_sk};
-    const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, E);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) moe_wgrad_kernel<float><<<grid, NT, 0, s>>>(a);
-    else if (dtype == 1) moe_wgrad_kernel<bf16><<<grid, NT, 0, s>>>(a);
-    else return cudaErrorInvalidValue;
+    if (dtype == 0) {
+        const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, E);
+        moe_wgrad_kernel<float><<<grid, NT, 0, s>>>(a);
+    } else if (dtype == 1) {
+        WMaps mp;
+        if (!wgrad_maps(&mp, a) && (cudaFree(nullptr) != cudaSuccess || !wgrad_maps(&mp, a)))
+            return cudaErrorInvalidValue;
+        cudaError_t err = cudaFuncSetAttribute(moe_wgrad_wgmma_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)wg::SMEM);
+        if (err != cudaSuccess) return err;
+        // persistent: two CTAs an SM of this device
+        int dev = 0, sms = 0;
+        if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+            (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+                cudaSuccess)
+            return err;
+        const int ntn = (N + wg::TN - 1) / wg::TN, ntm = (K + wg::TM - 1) / wg::TM;
+        const int ntiles = ntn * ntm * E;
+        moe_wgrad_wgmma_kernel<<<ntiles < 2 * sms ? ntiles : 2 * sms, wg::NTW, wg::SMEM, s>>>(
+            a, mp, ntn, ntm, ntiles);
+    } else {
+        return cudaErrorInvalidValue;
+    }
     return cudaGetLastError();
 }
 

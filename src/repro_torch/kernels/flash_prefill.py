@@ -22,12 +22,15 @@ raises.
 Under autograd (an input that requires grad, grad mode on) the CUDA call
 goes through :class:`FlashPrefillFn`: its forward also writes each row's
 log-sum-exp, and its backward launches :func:`flash_prefill_bwd`
-(``csrc/flash_prefill_bwd.cu``: dQ, dK and dV in three launches with no
-atomics). On the CPU autograd runs through :func:`flash_prefill_plain`.
+(``csrc/flash_prefill_bwd.cu``: dQ, dK and dV on ``wgmma`` in bf16, two
+to four launches with no atomics; :func:`bwd_plan` splits the work where
+the card would otherwise sit idle). On the CPU autograd runs through
+:func:`flash_prefill_plain`.
 Serving runs under ``torch.no_grad`` and passes no log-sum-exp buffer.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -40,6 +43,8 @@ WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_ROWS = 64               # rows of a bf16 CTA: 4 warps x 16
 FP32_ROWS = 16             # queries of an fp32 CTA (one head)
+BWD_ROWS = 64              # keys of a bf16 dK/dV CTA, queries of a dQ CTA
+H100_SMS = 132
 
 
 def flash_prefill_plain(q, k, v, *, q_offset: int = 0,
@@ -161,17 +166,105 @@ def flash_prefill_bwd_plain(q, k, v, dout, *, q_offset: int = 0,
         return torch.autograd.grad(o, (qq, kk, vv), dout)
 
 
+def _tiles(n: int) -> range:
+    return range(0, n, BWD_ROWS)
+
+
+def bwd_tile_counts(Sq: int, Sk: int, q_offset: int, kv_len: int,
+                    window: Optional[int]):
+    """The bf16 kernels' loop lengths, as they compute them: the 64-query
+    tiles each 64-key tile's dK/dV CTA walks (from a multiple of 64), and
+    the 64-key tiles each 64-query tile's dQ CTA walks, for one head."""
+    k_lim = min(kv_len, Sk)
+    win = window if window and window > 0 else 0
+    per_key_tile = []
+    for k0 in _tiles(Sk):
+        k_last = min(k0 + BWD_ROWS, k_lim) - 1
+        lo, hi = max(0, k0 - q_offset) // BWD_ROWS * BWD_ROWS, Sq - 1
+        if win:
+            hi = min(hi, k_last + win - 1 - q_offset)
+        per_key_tile.append((hi - lo) // BWD_ROWS + 1
+                            if k_last >= k0 and hi >= lo else 0)
+    per_query_tile = []
+    for q0 in _tiles(Sq):
+        pos_lo = q_offset + q0
+        pos_hi = pos_lo + min(BWD_ROWS, Sq - q0) - 1
+        k_end = min(k_lim, pos_hi + 1)
+        k_begin = max(0, pos_lo - win + 1) // BWD_ROWS * BWD_ROWS if win else 0
+        per_query_tile.append(-(-(k_end - k_begin) // BWD_ROWS)
+                              if k_end > k_begin else 0)
+    return per_key_tile, per_query_tile
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, H: int, KV: int,
+             dh: int, dv: int, q_offset: int, kv_len: int,
+             window: Optional[int], sms: int = H100_SMS):
+    """(kv_parts, dq_splits) of the backward kernel's bf16 launches.
+
+    A dK/dV CTA takes 64 keys of a kv head and walks the (query head,
+    64-query tile) pairs that see them, summing the heads' gradients in
+    registers; with ``kv_parts > 1`` the pairs are cut into that many runs,
+    one a CTA, each writing an fp32 share that a further launch sums in
+    part order. A dQ CTA takes 64 queries of a head and ``1 / dq_splits``
+    of the key tiles they see, likewise. A split pays for its fp32 shares
+    and a launch, so it is taken only where the card would otherwise sit
+    idle (``sms`` SMs, each holding two CTAs at dh + dv <= 256, else one):
+      - GQA: the smallest divisor of the group whose CTAs fill at least
+        half of the card's CTA slots (the group's heads then split evenly);
+      - MHA: two parts where the CTAs fill their last wave by half or less
+        and each walks 8 or more tiles (shorter ones lose more to the sum);
+      - dQ: the split whose CTAs fill their waves best, the fill of n
+        parts weighed by 0.9^(n - 1), up to the longest walk's key tiles.
+    fp32 keeps one part a query head and no split. The rules were chosen
+    by timing alternative plans at ``chip_smoke.py``'s TRAIN_BWD shapes on
+    an H100 (PERF.md)."""
+    rep = H // KV
+    if dtype != torch.bfloat16:
+        return rep, 1
+    per_key_tile, per_query_tile = bwd_tile_counts(Sq, Sk, q_offset, kv_len,
+                                                   window)
+    slots = sms * (2 if dh + dv <= 256 else 1)
+
+    def fill(ctas):                    # busy share of the waves' CTA slots
+        waves = ctas / slots
+        return waves / math.ceil(waves)
+
+    kv_ctas = len(per_key_tile) * KV * B
+    if rep > 1:
+        kv_parts = next(g for g in range(1, rep + 1) if rep % g == 0 and (
+            kv_ctas * g >= slots / 2 or g == rep))
+    else:
+        kv_parts = 2 if max(per_key_tile) >= 8 and \
+            0.9 * fill(2 * kv_ctas) > fill(kv_ctas) else 1
+    q_ctas = len(per_query_tile) * H * B
+    dq_splits = max(range(1, max(1, max(per_query_tile)) + 1),
+                    key=lambda n: (fill(q_ctas * n) * 0.9 ** (n - 1), -n))
+    return kv_parts, dq_splits
+
+
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
 def flash_prefill_bwd(q, k, v, out, dout, lse, *, q_offset: int = 0,
                       kv_len: Optional[int] = None,
                       window: Optional[int] = None):
     """Gradients (dq [B,Sq,H,dh], dk [B,Sk,KV,dh], dv [B,Sk,KV,dv], in q's
     dtype) of ``out = flash_prefill(q, k, v, ...)`` for the output's
     gradient ``dout``, from the forward's ``out`` and its rows' ``lse``
-    (fp32 ``[B, H, Sq]``). On the card: three launches (delta, dK/dV,
-    dQ; with GQA a fourth sums the query heads' parts of dK and dV, and
-    bf16 at dh + dv > 256 runs dK/dV in two) counted as one call in
-    ``flash_prefill_bwd.launches``; on the CPU the plain version's
-    autograd (``out`` and ``lse`` unused)."""
+    (fp32 ``[B, H, Sq]``). On the card, bf16: the dQ kernel (which also
+    computes each row's D) and the dK/dV kernel, each followed by a
+    fixed-order sum of fp32 shares where :func:`bwd_plan` splits it; fp32:
+    delta, dK/dV, the sum of its per-head parts with GQA, dQ. Counted as
+    one call in ``flash_prefill_bwd.launches``; on the CPU the plain
+    version's autograd (``out`` and ``lse`` unused)."""
     B, Sq, H, dh = q.shape
     _, Sk, KV, _ = k.shape
     dv = v.shape[-1]
@@ -186,26 +279,34 @@ def flash_prefill_bwd(q, k, v, out, dout, lse, *, q_offset: int = 0,
         raise ValueError("flash_prefill_bwd: dout in q's dtype, the "
                          "forward's contiguous output and fp32 [B, H, Sq] "
                          "log-sum-exp")
+    win = -1 if not window else int(window)
+    kv_parts, dq_splits = bwd_plan(q.dtype, B, Sq, Sk, H, KV, dh, dv,
+                                   int(q_offset), kv_len, win,
+                                   _sm_count(q.device))
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((B, Sk, KV, dh), dtype=q.dtype, device=q.device)
     dvv = torch.empty((B, Sk, KV, dv), dtype=q.dtype, device=q.device)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    # GQA: each query head's fp32 part of dK and dV, summed in a fixed order
-    part = torch.empty(H * B * Sk * (dh + dv), dtype=torch.float32,
-                       device=q.device) if H != KV else None
+    # D and lse * log2(e) of each row, rows padded to 16 bytes
+    delta = torch.empty((2, B, H, -(-Sq // 4) * 4), dtype=torch.float32,
+                        device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part = torch.empty(kv_parts * B * Sk * KV * (dh + dv), **f32) \
+        if kv_parts > 1 else None
+    dq_part = torch.empty(dq_splits * B * Sq * H * dh, **f32) \
+        if dq_splits > 1 else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         build.launch(
             "flash_prefill_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            None if part is None else part.data_ptr(), dq.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if dq_part is None else dq_part.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dvv.data_ptr(), _DTYPES[q.dtype],
-            B, Sq, Sk, H, KV, dh, dv,
+            B, Sq, Sk, H, KV, dh, dv, kv_parts, dq_splits,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            int(q_offset), kv_len, -1 if not window else int(window),
-            1.0 / math.sqrt(dh), stream)
+            int(q_offset), kv_len, win, 1.0 / math.sqrt(dh), stream)
     flash_prefill_bwd.launches += 1
     return dq, dk, dvv
 

@@ -850,6 +850,14 @@ BWD_CASES = [
     (1, 70, 70, 4, 4, 192, 128, 0, None, None),    # MLA's (192, 128)
     (1, 96, 200, 8, 8, 64, 64, 200, 200, None),    # bidirectional (whisper)
     (1, 40, 64, 4, 1, 64, 64, 40, None, 8),        # rows that see no key
+    # whisper's cross shape in small: bidirectional, Sk >> Sq, Sq ragged
+    # (the plan splits dQ's keys)
+    (2, 70, 900, 8, 8, 64, 64, 900, 900, None),
+    (1, 100, 100, 6, 2, 64, 64, 0, None, None),    # GQA 3
+    (1, 90, 90, 10, 2, 128, 128, 0, None, None),   # GQA 5
+    (1, 150, 400, 4, 1, 256, 256, 200, 350, 96),   # (256, 256) resumed,
+    (1, 150, 400, 8, 8, 192, 128, 200, 350, 96),   # (192, 128): windows
+    (3, 80, 80, 8, 2, 64, 64, 0, None, None),      # B > 1 with GQA
 ]
 
 
@@ -887,6 +895,9 @@ BWD_MOE_CASES = [
     # M, K, N, E, groups (as MOE_GEMM_CASES)
     (40, 64, 32, 4, None),
     (96, 128, 64, 8, (0, 30, 0, 0, 50, 16, 0, 0)),   # empty experts
+    (40, 64, 32, 4, (1, 0, 30, 9)),                  # an expert of one row
+    (1200, 256, 128, 3, (1100, 0, 100)),             # one of 1100 rows
+    (300, 200, 136, 5, None),                        # K, N past a 128 tile
     (512, 1536, 512, 48, 40),                        # granite's up/gate
     (512, 512, 1536, 48, 40),                        # granite's down
     (256, 7168, 2048, 32, 32),                       # deepseek's up/gate
@@ -914,6 +925,56 @@ def test_moe_gemm_backward_cuda_vs_plain_autograd(case, dtype, cuda_device):
     for e, n in enumerate(sizes):
         if n == 0:
             assert torch.count_nonzero(w.grad[e]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [(1, 1), (2, 3), (3, 2), (5, 1)])
+def test_flash_prefill_backward_any_plan_matches(plan, cuda_device,
+                                                 monkeypatch):
+    """Every split of the bf16 backward's work (dK/dV parts, including ones
+    that do not divide the group, and dQ key splits) gives the plain
+    version's gradients."""
+    from repro_torch.kernels import flash_prefill as fp
+    monkeypatch.setattr(fp, "bwd_plan", lambda *a, **kw: plan)
+    B, Sq, Sk, H, KV, dh, dv, off = 2, 100, 300, 8, 2, 64, 64, 200
+    gen = torch.Generator().manual_seed(5)
+    dt = torch.bfloat16
+    q = _rand(gen, (B, Sq, H, dh), dt, cuda_device)
+    k = _rand(gen, (B, Sk, KV, dh), dt, cuda_device)
+    v = _rand(gen, (B, Sk, KV, dv), dt, cuda_device)
+    dout = _rand(gen, (B, Sq, H, dv), dt, cuda_device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=cuda_device)
+    out = fp._forward(q, k, v, off, Sk, None, lse)
+    got = flash_prefill_bwd(q, k, v, out, dout, lse, q_offset=off)
+    ref = flash_prefill_bwd_plain(q, k, v, dout, q_offset=off)
+    assert _grad_err(got, ref) <= TOL[dt]
+
+
+@pytest.mark.cuda
+def test_backward_kernels_give_the_same_bits_twice(cuda_device):
+    """No atomics: two calls of each backward kernel on the same inputs
+    give bit-identical gradients, with the work split (GQA parts, dQ key
+    splits) and without."""
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator().manual_seed(9)
+    dt = torch.bfloat16
+    for B, Sq, Sk, H, KV, dh, dv, off in [(1, 512, 512, 12, 2, 128, 128, 0),
+                                          (2, 256, 1500, 8, 8, 64, 64, 1500),
+                                          (1, 256, 256, 16, 16, 192, 128, 0)]:
+        q = _rand(gen, (B, Sq, H, dh), dt, cuda_device)
+        k = _rand(gen, (B, Sk, KV, dh), dt, cuda_device)
+        v = _rand(gen, (B, Sk, KV, dv), dt, cuda_device)
+        dout = _rand(gen, (B, Sq, H, dv), dt, cuda_device)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=cuda_device)
+        out = fp._forward(q, k, v, off, Sk, None, lse)
+        one = flash_prefill_bwd(q, k, v, out, dout, lse, q_offset=off)
+        two = flash_prefill_bwd(q, k, v, out, dout, lse, q_offset=off)
+        assert all(torch.equal(x, y) for x, y in zip(one, two))
+    xs, w, offsets = _moe_gemm_inputs((4096, 1536, 512, 48, 40), dt,
+                                      cuda_device)
+    dy = _rand(gen, (xs.shape[0], w.shape[2]), dt, cuda_device)
+    assert torch.equal(moe_gemm_wgrad(xs, dy, offsets, 48),
+                       moe_gemm_wgrad(xs, dy, offsets, 48))
 
 
 @pytest.mark.cuda

@@ -206,6 +206,41 @@ def test_three_adamw_steps_match_the_reference(moments, eps):
         assert mu.dtype == ref_mu[k].dtype, k
 
 
+def test_deepseek_mtp_three_steps_at_the_card_runs_lr_match_the_reference():
+    """deepseek-v3-671b reduced (MLA, MoE, MTP) for 3 train steps at
+    ``chip_smoke.py``'s TRAIN_OPT (lr 1e-3, warmup 1, the reference's
+    defaults otherwise) in both packages on the same batches: every
+    step's loss, its parts and the grad norm within the file's fp32
+    tolerance. On the card the MTP cut's bf16 loss rose over 2 steps at
+    this lr; the reference's losses here, printed, say whether it does
+    so too (the lr, not the port)."""
+    opt_kw = dict(lr=1e-3, warmup_steps=1)
+    jp, m = _model("deepseek-v3-671b", seed=5)
+    jmodel = JaxModel(jax_get_config("deepseek-v3-671b").reduced())
+    jopt = jax_adamw(**opt_kw)
+    jstate = jopt.init(jp)
+    jstep = jax.jit(jax_make_train_step(jmodel, jopt))
+    opt = adamw(**opt_kw)
+    state = opt.init(dict(m.named_parameters()))
+    step = make_train_step(m, opt)
+    data = lm_batches(m.cfg, batch=2, seq=16, seed=5)
+    losses = []
+    for _ in range(3):
+        b = next(data)
+        jp, jstate, jm = jstep(jp, jstate,
+                               {k: jnp.asarray(v) for k, v in b.items()})
+        state, pm = step(state, b)
+        keys = {"loss", "ce", "grad_norm", "mtp", "aux"} & set(jm) & set(pm)
+        assert {"loss", "ce", "grad_norm", "mtp"} <= keys
+        for k in keys:
+            assert abs(float(pm[k]) - float(jm[k])) <= \
+                1e-5 * max(1.0, abs(float(jm[k]))), k
+        losses.append((float(jm["loss"]), float(pm["loss"])))
+    print("deepseek-v3-671b reduced, lr 1e-3 warmup 1: losses "
+          "(reference, port) by step", losses)
+    assert all(np.isfinite(x) for pair in losses for x in pair)
+
+
 def _trained(tmp_path):
     """A port llama3.2-1b-reduced after one step with bf16 moments, its
     checkpoint tree and the reference's template of that tree."""
