@@ -38,8 +38,9 @@ lengths in every run. It
    granite-moe-3b-a800m's (24/8, 64), GQA 3; moe_gemm, the grouped
    expert GEMM, at granite-moe-3b-a800m's and deepseek-v3-671b's expert
    shapes (up/gate and down) for a decode step at B=1 and B=4 and a
-   512-row prefill bucket (8 rows a token), with empty groups, beside its
-   plain version and ``torch._grouped_mm``;
+   512-row prefill bucket (8 rows a token), with empty groups, under its
+   plan (``moe_plan``), two calls bit-identical, beside its plain version
+   and ``torch._grouped_mm``;
    both attention kernels also at whisper-base's (8/8, 64), GQA 1:
    flash_prefill bidirectional (q_offset = kv_len = 1500) over 1500
    frames for the encoder (1500 queries) and the cross-attention (256),
@@ -1021,20 +1022,32 @@ def moe_offsets(tokens, E, picked, gen, dev):
     return offsets.to(dev, torch.int32), int((sizes > 0).sum())
 
 
+# moe_gemm's bf16 first form (mma.sync on 64 x 64 tiles, a cp.async ring):
+# kernel device ms by the profiler's median on an H100 80GB HBM3 at 700 W
+# (PERF.md), printed beside this run's
+MOE_FIRST_FORM_MS = {
+    ("granite-moe-3b-a800m", "up/gate"): (0.0228, 0.0247, 0.0679),
+    ("granite-moe-3b-a800m", "down"): (0.0095, 0.0197, 0.0729),
+    ("deepseek-v3-671b", "up/gate"): (0.1093, 0.3483, 2.5503),
+    ("deepseek-v3-671b", "down"): (0.1034, 0.3112, 2.6563)}
+
+
 def moe_checks():
     """moe_gemm against moe_gemm_plain at each of MOE_SHAPES for MOE_TOKENS
-    tokens (M = 8 rows a token), in fp32 and bf16, each with empty groups.
-    The tolerance is TOL of max(1, max |plain|): both sum K products of
-    unit-scale rows, ~N(0, 1) outputs. Timed: the kernel in both dtypes;
-    in bf16 also the plain version (by CUDA events around each call: its
-    loop reads the offsets on the host, and the profiler's windows of it
-    lose device events) and ``torch._grouped_mm`` (the card's PyTorch, a
-    yardstick the port never calls), beside the bound: the
-    rows, the weights of the experts that have rows, and the output,
-    over 3.35 TB/s, or 2 M K N flops. Returns the row for the JSON line
-    (MOE_ROW)."""
+    tokens (M = 8 rows a token), in fp32 and bf16, each with empty groups;
+    two calls must give the same bits. The tolerance is TOL of max(1, max
+    |plain|): both sum K products of unit-scale rows, ~N(0, 1) outputs.
+    Timed: the kernel in both dtypes and, in bf16, ``torch._grouped_mm``
+    (the card's PyTorch, a yardstick the port never calls) the same way, by
+    CUDA events behind a sleep (``events_ms``); the kernel also by the
+    profiler's median (the first form's way, printed beside its reading); the
+    plain version by per-call events (its loop reads the offsets on the
+    host); the bound: the rows, the weights of the experts that have rows,
+    and the output, over 3.35 TB/s, or 2 M K N flops. Returns the row for
+    the JSON line (MOE_ROW)."""
     import torch
-    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_plain,
+                                              moe_plan)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4)
     wgen = torch.Generator(device=dev).manual_seed(4)
@@ -1045,46 +1058,57 @@ def moe_checks():
         for dname, dt in (("float32", torch.float32),
                           ("bfloat16", torch.bfloat16)):
             w = w32 if dt == torch.float32 else w32.to(dt)
-            for tokens in MOE_TOKENS:
+            for ti, tokens in enumerate(MOE_TOKENS):
                 M = tokens * MOE_TOP_K
                 offsets, live = moe_offsets(tokens, E, picked, gen, dev)
                 xs = torch.randn((M, K), generator=gen).to(dev, dt)
+                plan = moe_plan(dt, M, N, E)
                 out = moe_gemm(xs, w, offsets)
+                same = torch.equal(out, moe_gemm(xs, w, offsets))
                 ref = moe_gemm_plain(xs, w, offsets)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
                 scale = max(1.0, ref.float().abs().max().item())
-                ms = device_ms(lambda: moe_gemm(xs, w, offsets))
+                ms = events_ms(lambda: moe_gemm(xs, w, offsets))
+                prof_ms = device_ms(lambda: moe_gemm(xs, w, offsets))
                 es = xs.element_size()
                 nbytes = es * (M * K + live * K * N + M * N) + 4 * (E + 1)
                 b_ms, b_by = bound(nbytes, 2 * M * K * N, dname)
-                times = f"kernel {ms:.4f}"
+                times = f"kernel {ms:.4f} (profiler {prof_ms:.4f}"
+                if dt == torch.bfloat16:
+                    times += (f"; first form "
+                              f"{MOE_FIRST_FORM_MS[(name, prod)][ti]:.4f}")
+                times += ")"
                 plain_ms = lib_ms = None
                 if dt == torch.bfloat16:
                     plain_ms = time_ms(lambda: moe_gemm_plain(xs, w,
                                                               offsets))
-                    times += f" plain {plain_ms:.4f} (CUDA events)"
+                    times += f" plain {plain_ms:.4f} (per-call events)"
                     if grouped is not None:
                         try:
                             lib = grouped(xs, w, offs=offsets[1:])
                             lib_err = (lib.float() - ref.float()).abs(
                                 ).max().item()
-                            lib_ms = device_ms(lambda: grouped(
+                            lib_ms = events_ms(lambda: grouped(
                                 xs, w, offs=offsets[1:]))
                             times += (f" torch._grouped_mm {lib_ms:.4f} "
-                                      f"(max err {lib_err:.3g})")
+                                      f"(max err {lib_err:.3g}; the kernel "
+                                      f"{ms / lib_ms:.2f}x its time)")
                         except RuntimeError as e:
                             times += f" torch._grouped_mm refused: {e}"
                 print(f"moe_gemm {name} {prod} {dname} M={M} ({tokens} "
                       f"tokens x top-{MOE_TOP_K}) K={K} N={N} E={E}, "
-                      f"{live} experts with rows: max_abs_err={err:.3g} "
-                      f"(tol {TOL[dname]} x {scale:.3g}) device ms: {times}"
-                      f" bound {b_ms:.5f} ({b_by}); {b_ms / ms:.3f} of the "
+                      f"{live} experts with rows, plan {plan.form} "
+                      f"{plan.rows}x{plan.cols} grid {plan.grid}: max_abs_err={err:.3g} (tol {TOL[dname]}"
+                      f" x {scale:.3g}), two calls bit-identical: {same}; "
+                      f"device ms (CUDA events behind a sleep): {times} "
+                      f"bound {b_ms:.5f} ({b_by}); {b_ms / ms:.3f} of the "
                       f"bound, {nbytes / ms / 1e6:.0f} GB/s")
-                if err > TOL[dname] * scale or \
+                if err > TOL[dname] * scale or not same or \
                         torch.count_nonzero(out[int(offsets[-1]):]):
                     raise AssertionError(f"moe_gemm {name} {prod} {dname} "
-                                         f"M={M}: max err {err}")
+                                         f"M={M}: max err {err}, same bits "
+                                         f"{same}")
                 row["max_abs_err"] = max(row["max_abs_err"], err)
                 if (name, prod, tokens) == MOE_ROW and \
                         dt == torch.bfloat16:
@@ -3194,6 +3218,14 @@ def moe_step_split(model, prompt):
 
     got = {name: (part_wall(fn),) + profile_call(fn, iters=20)[::-1]
            for name, fn in parts.items()}
+    # the host's side of one moe_gemm launch (the wrapper's checks, its
+    # plan, the cached tensor maps, the enqueue), with no synchronise
+    torch.cuda.synchronize()
+    t0 = clock.monotonic()
+    for _ in range(50):
+        moe_gemm(d.xs, p["w_up"], d.offsets)
+    host_us = (clock.monotonic() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
     moe_wall, moe_dev = (sum(g[i] for name, g in got.items()
                              if name != "attention sublayer") * L
                          for i in (0, 1))
@@ -3209,7 +3241,9 @@ def moe_step_split(model, prompt):
           f"(moe_gemm {got['moe_gemm x3'][0] * L:.2f} / "
           f"{got['moe_gemm x3'][1] * L:.3f}), the rest "
           f"{wall - moe_wall - att[0] * L:.2f} / "
-          f"{busy - moe_dev - att[1] * L:.3f} ms")
+          f"{busy - moe_dev - att[1] * L:.3f} ms; host {wall - busy:.2f} ms "
+          f"of the step's wall; a moe_gemm launch on the host {host_us:.1f}"
+          f" us (x 3 x {L} layers: {host_us * 3 * L / 1e3:.2f} ms a step)")
 
 
 def moe_cut_path(smi):
@@ -3751,7 +3785,7 @@ def moe_bwd_checks():
     versions at TRAIN_MOE, in both dtypes, each error against its
     gradient's largest magnitude. Timed in bf16: dX and dW apart, the
     plain dW (a host loop: CUDA events) and ``torch._grouped_mm``'s dW
-    by autograd where it has one, with dW's bound (xs, dY read, dW
+    and dX by autograd where it has one, with dW's bound (xs, dY read, dW
     written, or 2 M K N flops). Returns the JSON row of moe_gemm_wgrad
     (TRAIN_MOE_ROW in bf16)."""
     import torch
@@ -3801,11 +3835,16 @@ def moe_bwd_checks():
             if grouped is not None:
                 try:
                     wl = w.clone().requires_grad_()
-                    o_l = grouped(xs, wl, offs=offsets[1:])
+                    xl = xs.clone().requires_grad_()
+                    o_l = grouped(xl, wl, offs=offsets[1:])
                     lib_ms = events_ms(lambda: torch.autograd.grad(
                         o_l, (wl,), dy, retain_graph=True))
-                    lib = f"torch._grouped_mm dW {lib_ms:.4f}"
-                    del o_l, wl
+                    lib_dx = events_ms(lambda: torch.autograd.grad(
+                        o_l, (xl,), dy, retain_graph=True))
+                    lib = (f"torch._grouped_mm dW {lib_ms:.4f}, dX "
+                           f"{lib_dx:.4f} (the kernel's dX {dx_ms / lib_dx:.2f}x"
+                           f" its time)")
+                    del o_l, wl, xl
                 except RuntimeError as e:
                     lib = f"torch._grouped_mm backward refused: {str(e)[:80]}"
             es = xs.element_size()

@@ -48,7 +48,7 @@ SIGNATURES = {
     "ssd_scan": [_c_p] * 9 + [_c_i] * 9 + [_c_i64] * 12 + [_c_p],
     "mla_decode": (
         [_c_p] * 10 + [_c_i] * 11 + [_c_i64] * 8 + [_c_f, _c_p]),
-    "moe_gemm": [_c_p] * 4 + [_c_i] * 5 + [_c_i64] * 5 + [_c_p],
+    "moe_gemm": [_c_p] * 4 + [_c_i] * 7 + [_c_i64] * 5 + [_c_p],
     "moe_gemm_wgrad": [_c_p] * 4 + [_c_i] * 5 + [_c_i64] * 4 + [_c_p],
 }
 

@@ -27,37 +27,55 @@
 // 704 MB (0.21 ms), for 2 flops a weight a row. A 512-row prefill bucket
 // (4096 rows) touches every expert with ~100 (granite) or ~16 (deepseek)
 // rows each, still below the ~295 flops a byte where bf16 products turn
-// bound by the tensor cores. The design:
-//  - Grid (N tiles of 64 columns, min(E, M) expert slots). The CTA of slot s
-//    takes the s-th expert that has rows (warp 0 ballots over offsets, 32
-//    experts a step) and leaves when there is none, so a decode step runs
-//    8 slots, not E, and reads each live expert's weight columns once. It
-//    walks its expert's rows in tiles of 64.
-//  - Each (row tile, N tile) runs the K loop through a four-stage ring in
-//    shared memory (three stages in flight) filled by 16-byte cp.async
-//    (async_copy.cuh); rows past the expert's and columns past N are
-//    zero-filled, not read.
-//  - bf16: the products on the tensor cores, mma.sync m16n8k16 bf16 -> fp32
-//    (mma_bf16.cuh), 4 warps of 16 rows x 64 columns; A by ldmatrix, B by
-//    ldmatrix.trans from the [k][n] tile, rows padded by 16 bytes so the 8
-//    addresses of each 8x8 matrix fall in distinct bank groups. A warp whose
-//    16 rows are all past the expert's rows skips its products (decode: one
-//    row an expert), and still helps with the loads. The output is rounded
+// bound by the tensor cores. So the design keeps as many weight bytes in
+// flight as the card can take and reads each once.
+//
+// bf16, on wgmma (wgmma.cuh), in one of two forms that the wrapper's plan
+// (moe_gemm.py::moe_plan) picks from the host-known shapes M, N and E; it
+// never reads a group size:
+//  - A CTA computes a tile of one expert's rows (64 rows a consumer
+//    warpgroup) by 128 columns of N, over the whole of K. Tile slot y
+//    takes the y-th row tile of the experts that have rows (warp
+//    0 scans the offsets, 32 experts a step; an expert of r rows has
+//    ceil(r / rows) tiles) and leaves at once when there is none: the grid's
+//    M / rows + min(E, M) slots bound the tiles of any routing.
+//  - One producer warp issues TMA loads (128-byte swizzled boxes, 64 deep in
+//    K) of the rows and of the weight tile into a ring of stages completed on
+//    mbarriers; the consumer warpgroups run m64n128k16 products on each stage
+//    as it lands and free it one stage later (a full / empty mbarrier pair a
+//    stage). W is read MN-major as it lies for serving (w_sn = 1: two
+//    [64 k][64 n] boxes a stage) and K-major for dX (w_sk = 1: one [128 n]
+//    [64 k] box).
+//  - decode form (few rows an expert): one consumer warpgroup, 64-row tiles,
+//    a 4-stage ring of 24 KB stages, two CTAs an SM. K is not split: a K
+//    split over a thread-block cluster (partials merged through distributed
+//    shared memory) was timed on an H100 and won at no shape by more than
+//    the runs' spread (PERF.md).
+//  - bucket form (a prefill bucket with ~100 rows an expert): two consumer
+//    warpgroups, 128-row tiles (a granite expert's rows in one tile, so its
+//    weights are read once a column tile), a 3-stage ring of 32 KB stages,
+//    two CTAs an SM.
+//  - A tile's rows past its expert's are loaded (they belong to the next
+//    expert, or lie past M and are zero-filled) and multiplied, never
+//    stored: each thread stores its own bf16 pairs, predicated per row and
+//    column, so no tile writes rows another CTA owns. The output is rounded
 //    to bf16 once, from the fp32 sums.
-//  - fp32: scalar FMAs (the tensor cores take no fp32 input at the 1e-5
-//    tolerance), a 64 x 64 tile, each thread 4 rows x 8 columns.
-// mma.sync on 64-row tiles is this design's simple first form. At decode a
-// tile holds one live row, so the kernel's speed is that of its weight
-// loads; wgmma, gate and up fused into one pass over the rows, and a split
-// of K for the few CTAs of a decode step are the next steps (ROADMAP).
+//  - The tensor maps are encoded on the host and kept in a cache keyed by
+//    (pointer, shape, strides, box), so a layer's weight view is encoded once
+//    and a decode step adds no encoder calls.
+// fp32 keeps its first form (the tensor cores take no fp32 input at the 1e-5
+// tolerance): grid (64-column tiles, min(E, M) expert slots), slot s takes
+// the s-th expert that has rows and walks them in 64-row tiles through a
+// four-stage cp.async ring (async_copy.cuh), scalar FMAs, a 64 x 64 tile,
+// each thread 4 rows x 8 columns.
 //
 // The backward (training; no TPU kernel, ragged_dot's own transpose rules in
 // the reference) reads no size on the host either:
 //  - dX[r] = dY[r] · W[e]^T is moe_gemm_launch with w's k and n strides
-//    swapped (w_sk = 1): the kernel then stages [64 n][32 k] tiles of W as
-//    they lie and reads B with ldmatrix without .trans (fp32: by row). The
-//    [E, K, N] stack is not copied. Serving passes w_sn = 1 and runs the
-//    code path above, unchanged.
+//    swapped (w_sk = 1): the bf16 kernel then loads [128 n][64 k] boxes of W
+//    as they lie and reads them as a K-major B (fp32: [64 n][16 k] tiles,
+//    read by row). The [E, K, N] stack is not copied; the plan is the
+//    forward's at dX's shapes.
 //  - dW[e] = xs[lo:hi]^T · dY[lo:hi] is moe_gemm_wgrad_launch. It reads the
 //    offsets from device memory, accumulates in fp32 and writes every
 //    element: an expert with no rows (a padded one too) gets zeros. At the
@@ -82,32 +100,34 @@
 //    of K, expert) through the four-stage cp.async ring, A = xs^T read by
 //    column, scalar FMAs.
 
+#include <array>
+#include <atomic>
+#include <map>
+#include <mutex>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "async_copy.cuh"
-#include "mma_bf16.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
+// the fp32 kernels
 constexpr int NT = 128;                // threads: 4 warps
 constexpr int BM = 64;                 // rows of a tile
 constexpr int BN = 64;                 // columns of a tile
 constexpr int STAGES = 4;              // cp.async ring depth
 constexpr unsigned FULL = 0xffffffffu;
 
-// K depth of a stage and the padding of the A ([BM][BK]) and B ([BK][BN])
-// rows in shared memory: 16 bytes each
+// fp32: the K depth of a stage and the padding of the A ([BM][BK]) and B
+// ([BK][BN]) rows in shared memory, 16 bytes each; LDBT: a transposed B
+// tile's rows ([BN][BK], k contiguous); LDAT: a transposed A tile's rows
+// ([BK][BM], m contiguous; the wgrad)
 template <typename T> struct Tile;
-// LDBT: a transposed B tile's rows ([BN][BK], k contiguous); LDAT: a
-// transposed A tile's rows ([BK][BM], m contiguous; the fp32 wgrad)
-template <> struct Tile<bf16> {
-    static constexpr int BK = 32, LDA = BK + 8, LDB = BN + 8, LDBT = BK + 8;
-};
 template <> struct Tile<float> {
     static constexpr int BK = 16, LDA = BK + 4, LDB = BN + 4, LDBT = BK + 4,
                          LDAT = BM + 4;
@@ -126,7 +146,6 @@ struct Args {
 };
 
 __device__ __forceinline__ void store_zero(float* p) { *p = 0.f; }
-__device__ __forceinline__ void store_zero(bf16* p) { *p = __float2bfloat16(0.f); }
 
 // ROWS x W elements of T from src (rows `stride` apart) into dst (rows LD
 // apart), 16 bytes a cp.async; rows at or past `rows` and columns at or past
@@ -148,62 +167,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride,
 
 // The accumulators of a thread and the products of one shared-memory stage.
 template <typename T> struct Mma;
-
-template <> struct Mma<bf16> {
-    // warp w: rows 16w..16w+15, the tile's 8 n8 columns tiles
-    float acc[8][4];
-    __device__ __forceinline__ void zero() {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-    }
-    // BT: sB is [BN][LDBT] (k contiguous); A is read by row
-    template <bool AT = false, bool BT = false>
-    __device__ __forceinline__ void step(const bf16* sA, const bf16* sB, int rows,
-                                         int tid) {
-        static_assert(!AT, "the bf16 wgrad runs on wgmma");
-        constexpr int BK = Tile<bf16>::BK, LDA = Tile<bf16>::LDA,
-                      LDB = Tile<bf16>::LDB, LDBT = Tile<bf16>::LDBT;
-        const int lane = tid & 31, warp = tid >> 5;
-        if (16 * warp >= rows) return;             // warp-uniform
-        // ldmatrix rows of a B tile stored [n][k]
-        const int t_row = (lane & 7) + ((lane >> 4) << 3), t_col = ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t a[4];
-            ldsm_x4(a, sA + (16 * warp + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
-#pragma unroll
-            for (int np = 0; np < 4; ++np) {
-                uint32_t b[4];
-                if (BT)
-                    ldsm_x4(b, sB + (np * 16 + t_row) * LDBT + kk + t_col);
-                else
-                    ldsm_x4_trans(b, sB + (kk + (lane & 15)) * LDB + np * 16
-                                         + (lane >> 4) * 8);
-                mma_bf16(acc[2 * np], a, b[0], b[1]);
-                mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-            }
-        }
-    }
-    __device__ __forceinline__ void store(bf16* O, int64_t o_sm, int rows, int ncols,
-                                          int tid) const {
-        const int lane = tid & 31, warp = tid >> 5;
-        const int g = lane >> 2, c = 2 * (lane & 3);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = 8 * j + c;
-            if (col >= ncols) break;               // ncols is a multiple of 8
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int row = 16 * warp + g + 8 * h;
-                if (row < rows)
-                    *reinterpret_cast<__nv_bfloat162*>(O + row * o_sm + col) =
-                        __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
-            }
-        }
-    }
-};
 
 template <> struct Mma<float> {
     // thread (ty, tx) = (tid / 8, tid % 8): rows ty + 16 i, columns
@@ -265,7 +228,7 @@ template <> struct Mma<float> {
     }
 };
 
-// BT: w is read transposed (w_sk = 1, rows of n w_sn apart), for dX
+// fp32. BT: w is read transposed (w_sk = 1, rows of n w_sn apart), for dX
 template <typename T, bool BT>
 __global__ void __launch_bounds__(NT) moe_gemm_kernel(const Args a) {
     constexpr int BK = Tile<T>::BK, LDA = Tile<T>::LDA, LDB = Tile<T>::LDB,
@@ -356,13 +319,283 @@ __global__ void __launch_bounds__(NT) moe_gemm_kernel(const Args a) {
 }
 
 template <typename T>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+cudaError_t launch_scalar(const Args& a, cudaStream_t stream) {
     const dim3 grid((a.N + BN - 1) / BN, a.E < a.M ? a.E : a.M);
     if (a.w_sn == 1)
         moe_gemm_kernel<T, false><<<grid, NT, 0, stream>>>(a);
     else
         moe_gemm_kernel<T, true><<<grid, NT, 0, stream>>>(a);
     return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward on wgmma (the design above). The work of CTA (x, y): column
+// tile x, row tile slot y; tests/test_torch_moe_plan.py::moe_tile_walk is
+// this arithmetic in Python, and the CPU tests check on it that every
+// output element is written once.
+namespace fw {
+constexpr int BN = 128;                            // columns of a tile
+constexpr int BK = 64;                             // K depth of a stage
+}  // namespace fw
+
+template <int NWG> struct FwCfg {
+    static constexpr int BM = 64 * NWG;            // rows of a tile
+    static constexpr int STAGES = NWG == 1 ? 4 : 3;
+    static constexpr int A_BYTES = BM * fw::BK * 2;       // [BM][64] bf16
+    static constexpr int B_BYTES = fw::BK * fw::BN * 2;   // 2 [64][64] or [128][64]
+    static constexpr int STAGE = A_BYTES + B_BYTES;
+    static constexpr int THREADS = 128 * NWG + 32;        // + the producer warp
+    static constexpr size_t SMEM = (size_t)STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+
+struct FArgs {
+    const void* xs;
+    const void* w;
+    const int* offsets;
+    void* out;
+    int M, K, N, E;
+    int64_t o_sm;                      // out row stride
+};
+
+struct FMaps {
+    CUtensorMap xs, w;
+};
+
+// BT: w is read transposed (w_sk = 1), for dX
+template <int NWG, bool BT>
+__global__ void __launch_bounds__(FwCfg<NWG>::THREADS, 2)
+moe_gemm_wgmma_kernel(const FArgs a, const __grid_constant__ FMaps mp) {
+    using C = FwCfg<NWG>;
+    constexpr int BM = C::BM, BN = fw::BN, BK = fw::BK, S = C::STAGES;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* sm = align1024(smem_raw);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + S * C::STAGE);
+    uint64_t* empty = full + S;
+    __shared__ int s_tile[3];                      // expert, first row, rows
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int n0 = blockIdx.x * BN;
+    const int* off = a.offsets;
+    bf16* out = static_cast<bf16*>(a.out);
+
+    // rows outside every group are 0, as ragged_dot leaves them; written by
+    // the first slot of each column tile
+    if (blockIdx.y == 0) {
+        const int lo = max(0, min(off[0], a.M));
+        const int hi = max(lo, min(off[a.E], a.M));
+        const int ncols = min(BN, a.N - n0), n_out = lo + (a.M - hi);
+        for (int i = tid; i < n_out * ncols; i += C::THREADS) {
+            const int rr = i / ncols, cc = i % ncols;
+            const int r = rr < lo ? rr : hi + rr - lo;
+            out[(int64_t)r * a.o_sm + n0 + cc] = __float2bfloat16(0.f);
+        }
+    }
+
+    // this slot's tile: the blockIdx.y-th row tile of the experts with rows
+    if (tid == 0) s_tile[0] = -1;
+    __syncthreads();
+    if (warp == 0) {
+        const int want = blockIdx.y;
+        int seen = 0;
+        for (int base = 0; base < a.E; base += 32) {
+            const int e = base + lane;
+            int r0 = 0, r1 = 0;
+            if (e < a.E) {
+                r0 = min(off[e], a.M);
+                r1 = max(r0, min(off[e + 1], a.M));
+            }
+            const int n = (r1 - r0 + BM - 1) / BM;
+            int inc = n;                           // inclusive scan over lanes
+#pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+                const int v = __shfl_up_sync(FULL, inc, d);
+                if (lane >= d) inc += v;
+            }
+            const int total = __shfl_sync(FULL, inc, 31);
+            if (want < seen + total) {
+                const int first = seen + inc - n;
+                if (n > 0 && want >= first && want < seen + inc) {
+                    const int m0 = r0 + (want - first) * BM;
+                    s_tile[0] = e;
+                    s_tile[1] = m0;
+                    s_tile[2] = min(BM, r1 - m0);
+                }
+                break;
+            }
+            seen += total;
+        }
+    }
+    __syncthreads();
+    const int e = s_tile[0];
+    if (e < 0) return;
+    const int m0 = s_tile[1], rows = s_tile[2];
+    const int nst = (a.K + BK - 1) / BK;
+
+    if (tid == 0) {
+        for (int i = 0; i < S; ++i) {
+            mb_init(&full[i], 1);
+            mb_init(&empty[i], 128 * NWG);
+        }
+        mb_init_fence();
+    }
+    __syncthreads();
+
+    if (warp == 4 * NWG) {                         // the producer warp
+        if (lane == 0) {
+            prefetch_map(&mp.xs);
+            prefetch_map(&mp.w);
+            for (int i = 0; i < nst; ++i) {
+                const int st = i % S, k0 = i * BK;
+                if (i >= S) mb_wait(&empty[st], ((i / S) - 1) & 1);
+                uint8_t* s = sm + st * C::STAGE;
+                mb_expect(&full[st], C::STAGE);
+                tma_load2(s, &mp.xs, k0, m0, &full[st]);
+                if (BT) {
+                    tma_load3(s + C::A_BYTES, &mp.w, k0, n0, e, &full[st]);
+                } else {
+                    tma_load3(s + C::A_BYTES, &mp.w, n0, k0, e, &full[st]);
+                    tma_load3(s + C::A_BYTES + BK * 128, &mp.w, n0 + 64, k0, e, &full[st]);
+                }
+            }
+        }
+    }
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const int wg = warp >> 2;
+    const bool consumer = warp < 4 * NWG;
+    if (consumer) {
+        const uint32_t sbase = smem_u32(sm);
+        for (int i = 0; i < nst; ++i) {
+            const int st = i % S;
+            mb_wait(&full[st], (i / S) & 1);
+            const uint32_t sa = sbase + st * C::STAGE + wg * 64 * 128;
+            const uint32_t sb = sbase + st * C::STAGE + C::A_BYTES;
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+                wgmma_ss_k128<BT ? 0 : 1>(acc, desc_k(sa + kk * 32),
+                                          BT ? desc_k(sb + kk * 32)
+                                             : desc_mn(sb + kk * 2048, BK * 128));
+            wg_commit();
+            wg_wait<1>();                          // stage i - 1's products are done
+            if (i > 0) mb_arrive(&empty[(i - 1) % S]);
+        }
+        wg_wait<0>();
+        reg_fence(acc);
+    }
+
+    if (!consumer) return;
+    const int g = lane >> 2, c2 = 2 * (lane & 3);
+    const int wr = 64 * wg + 16 * (warp & 3) + g;  // the thread's first row
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const int col = n0 + 8 * j + c2;
+        if (col >= a.N) break;                     // N is a multiple of 8
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = wr + 8 * h;
+            if (row < rows)
+                *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)(m0 + row) * a.o_sm + col) =
+                    __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+    }
+}
+
+// Tensor maps, cached on the host by everything the encoder takes (a cache
+// hit is the map it would encode again), so a layer's weight view and a
+// reused row buffer are encoded once. The CUDA driver's encoder needs a
+// current context on the calling thread.
+struct MapCache {
+    std::mutex mu;
+    std::map<std::array<uint64_t, 12>, CUtensorMap> maps;
+};
+
+bool cached_map(CUtensorMap* m, const void* p, int rank, const uint64_t* dims,
+                const uint64_t* strides, const uint32_t* box) {
+    static MapCache cache;
+    std::array<uint64_t, 12> key{};
+    key[0] = reinterpret_cast<uint64_t>(p);
+    key[1] = (uint64_t)rank;
+    for (int i = 0; i < rank; ++i) {
+        key[2 + i] = dims[i];
+        key[5 + i] = box[i];
+        if (i + 1 < rank) key[8 + i] = strides[i];
+    }
+    {
+        std::lock_guard<std::mutex> lock(cache.mu);
+        auto it = cache.maps.find(key);
+        if (it != cache.maps.end()) {
+            *m = it->second;
+            return true;
+        }
+    }
+    auto enc = tensor_map_encoder();
+    if (!enc) return false;
+    cuuint64_t d[3], s[2];
+    cuuint32_t b[3], estr[3] = {1, 1, 1};
+    for (int i = 0; i < rank; ++i) {
+        d[i] = dims[i];
+        b[i] = box[i];
+        if (i + 1 < rank) s[i] = strides[i];
+    }
+    if (enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), d, s, b, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return false;
+    std::lock_guard<std::mutex> lock(cache.mu);
+    if (cache.maps.size() >= 4096) cache.maps.clear();
+    cache.maps[key] = *m;
+    return true;
+}
+
+// xs [M, K] in boxes of 64 x BM rows; w [E, K, N] in boxes of 64 n x 64 k
+// (w_sn = 1) or 64 k x 128 n (w_sk = 1)
+bool fw_maps(FMaps* m, const FArgs& a, int64_t x_sm, int64_t w_se, int64_t w_sk,
+             int64_t w_sn, int bm) {
+    const uint64_t xd[2] = {(uint64_t)a.K, (uint64_t)a.M}, xs[1] = {(uint64_t)x_sm * 2};
+    const uint32_t xb[2] = {64, (uint32_t)bm};
+    if (!cached_map(&m->xs, a.xs, 2, xd, xs, xb)) return false;
+    if (w_sn == 1) {
+        const uint64_t wd[3] = {(uint64_t)a.N, (uint64_t)a.K, (uint64_t)a.E};
+        const uint64_t ws[2] = {(uint64_t)w_sk * 2, (uint64_t)w_se * 2};
+        const uint32_t wb[3] = {64, 64, 1};
+        return cached_map(&m->w, a.w, 3, wd, ws, wb);
+    }
+    const uint64_t wd[3] = {(uint64_t)a.K, (uint64_t)a.N, (uint64_t)a.E};
+    const uint64_t ws[2] = {(uint64_t)w_sn * 2, (uint64_t)w_se * 2};
+    const uint32_t wb[3] = {64, 128, 1};
+    return cached_map(&m->w, a.w, 3, wd, ws, wb);
+}
+
+template <int NWG, bool BT>
+cudaError_t launch_wgmma(const FArgs& a, const FMaps& mp, int row_tiles,
+                         cudaStream_t stream) {
+    using C = FwCfg<NWG>;
+    auto kern = moe_gemm_wgmma_kernel<NWG, BT>;
+    static std::atomic<uint32_t> ready{0};         // a bit a device
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const uint32_t bit = 1u << (dev & 31);
+    if (!(ready.load() & bit)) {
+        err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)C::SMEM);
+        if (err != cudaSuccess) return err;
+        ready.fetch_or(bit);
+    }
+    const dim3 grid((a.N + fw::BN - 1) / fw::BN, row_tiles);
+    kern<<<grid, C::THREADS, C::SMEM, stream>>>(a, mp);
+    return cudaGetLastError();
+}
+
+template <bool BT>
+cudaError_t launch_bf16(const FArgs& a, const FMaps& mp, int nwg, int row_tiles,
+                        cudaStream_t stream) {
+    if (nwg == 1) return launch_wgmma<1, BT>(a, mp, row_tiles, stream);
+    if (nwg == 2) return launch_wgmma<2, BT>(a, mp, row_tiles, stream);
+    return cudaErrorInvalidValue;
 }
 
 struct WArgs {
@@ -602,9 +835,13 @@ bool wgrad_maps(WMaps* m, const WArgs& a) {
 // out [M, N] (row stride o_sm), all of dtype, with
 // 16-byte aligned rows: K, N and the strides multiples of 16 bytes. offsets
 // [E + 1] int32 in device memory, nondecreasing, 0 <= offsets[0] and
-// offsets[E] <= M. One launch; returns its cudaError_t (0 on success).
+// offsets[E] <= M. bf16 runs the plan's form: nwg consumer warpgroups (1:
+// decode, 2: bucket) and row_tiles tile slots (at least M / (64 nwg) +
+// min(E, M)); fp32 ignores the two. One launch; returns its cudaError_t (0
+// on success).
 extern "C" int moe_gemm_launch(const void* xs, const void* w, const void* offsets,
                                void* out, int dtype, int M, int K, int N, int E,
+                               int nwg, int row_tiles,
                                int64_t x_sm, int64_t w_se, int64_t w_sk,
                                int64_t w_sn, int64_t o_sm, void* stream) {
     const int vec = dtype == 1 ? 8 : 4;
@@ -613,11 +850,22 @@ extern "C" int moe_gemm_launch(const void* xs, const void* w, const void* offset
         x_sm % vec || w_se % vec || w_row % vec || o_sm % vec ||
         (w_sn != 1 && w_sk != 1))
         return cudaErrorInvalidValue;
-    Args a{xs, w, static_cast<const int*>(offsets), out, M, K, N, E,
-           x_sm, w_se, w_sk, w_sn, o_sm};
-    if (dtype == 0) return launch<float>(a, static_cast<cudaStream_t>(stream));
-    if (dtype == 1) return launch<bf16>(a, static_cast<cudaStream_t>(stream));
-    return cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0) {
+        Args a{xs, w, static_cast<const int*>(offsets), out, M, K, N, E,
+               x_sm, w_se, w_sk, w_sn, o_sm};
+        return launch_scalar<float>(a, s);
+    }
+    if (dtype != 1 || row_tiles <= 0 || row_tiles > 65535)
+        return cudaErrorInvalidValue;
+    FArgs a{xs, w, static_cast<const int*>(offsets), out, M, K, N, E, o_sm};
+    FMaps mp;
+    if (!fw_maps(&mp, a, x_sm, w_se, w_sk, w_sn, 64 * nwg) &&
+        (cudaFree(nullptr) != cudaSuccess ||
+         !fw_maps(&mp, a, x_sm, w_se, w_sk, w_sn, 64 * nwg)))
+        return cudaErrorInvalidValue;
+    return w_sn == 1 ? launch_bf16<false>(a, mp, nwg, row_tiles, s)
+                     : launch_bf16<true>(a, mp, nwg, row_tiles, s);
 }
 
 // The weight gradient of moe_gemm: dw[e] = xs[lo:hi]^T dy[lo:hi] for

@@ -154,6 +154,19 @@ __device__ __forceinline__ void wgmma_ss_mn128(float (&d)[64], uint64_t da, uint
         : WG_D64_OPS(d)
         : "l"(da), "l"(db));
 }
+
+// d += A B over 128 columns, A K-major from shared memory (desc_k), B
+// MN-major (TB = 1, desc_mn, two 64-column blocks LBO apart) or K-major
+// (TB = 0, desc_k over 128 rows)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_k128(float (&d)[64], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+        ", %64, %65, p, 1, 1, 0, %66;\n}\n"
+        : WG_D64_OPS(d)
+        : "l"(da), "l"(db), "n"(TB));
+}
 #undef WG_D64
 #undef WG_D64_OPS
 

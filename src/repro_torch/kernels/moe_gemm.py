@@ -21,6 +21,11 @@ CPU it runs :func:`moe_gemm_plain`, the per-group loop. A CUDA tensor
 never falls back to the plain version: an input the kernel does not take
 raises.
 
+The bf16 kernel runs the work plan of :func:`moe_plan`, chosen from the
+host-known shapes alone (M, N and E), so one plan serves every call of a
+shape and a CUDA graph of it (the CPU tests in
+``tests/test_torch_moe_plan.py`` hold a model of the kernel's tile walk).
+
 Under autograd the CUDA call goes through :class:`MoeGemmFn`: dX runs on
 the same kernel reading ``w`` transposed (a view, no copy of the stack),
 dW on :func:`moe_gemm_wgrad` (``moe_gemm.cu``'s second entry point). On
@@ -28,11 +33,61 @@ the CPU autograd runs through the plain loop.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Tuple
+
 import torch
 
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE_COLS = 128                 # a bf16 tile's columns (moe_gemm.cu fw::BN)
+
+
+class MoePlan(NamedTuple):
+    """A launch of the kernel: ``form`` "decode" or "bucket" (bf16, on
+    ``wgmma``) or "scalar" (fp32); tiles of ``rows`` x ``cols``; grid
+    (``col_tiles``, ``row_tiles``), the row tile slots bounding the tiles
+    of any routing."""
+    form: str
+    rows: int
+    cols: int
+    row_tiles: int
+    col_tiles: int
+
+    @property
+    def warpgroups(self) -> int:
+        """Consumer warpgroups of a bf16 CTA (64 rows each)."""
+        return self.rows // 64
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return self.col_tiles, self.row_tiles
+
+
+@functools.lru_cache(maxsize=256)
+def moe_plan(dtype: torch.dtype, M: int, N: int, E: int) -> MoePlan:
+    """The kernel's plan for ``xs [M, K]``, ``w [E, K, N]``, from M, N and
+    E alone: it never sees the group sizes, which lie on the device.
+
+    Of the ``min(E, M)`` expert slots any routing fills at most ``M`` rows.
+    bf16:
+      - "bucket" where the rows exceed 64 a slot (a prefill bucket at
+        granite's 48 experts): tiles of 128 rows on two consumer
+        warpgroups, so an expert of ~100 rows reads its weights once a
+        column tile.
+      - "decode" otherwise: tiles of 64 rows on one consumer warpgroup.
+    Both take 128 columns a tile, the whole of K, and ``M // rows +
+    min(E, M)`` row tile slots (a slot with no tile leaves at once). fp32
+    keeps the scalar kernel's grid: 64-column tiles by ``min(E, M)``
+    expert slots."""
+    slots = min(E, M)
+    if dtype != torch.bfloat16:
+        return MoePlan("scalar", 64, 64, slots, -(-N // 64))
+    col_tiles = -(-N // TILE_COLS)
+    if M > 64 * slots:
+        return MoePlan("bucket", 128, TILE_COLS, M // 128 + slots, col_tiles)
+    return MoePlan("decode", 64, TILE_COLS, M // 64 + slots, col_tiles)
 
 
 def moe_gemm_plain(xs: torch.Tensor, w: torch.Tensor,
@@ -70,12 +125,14 @@ def _launch(xs, w, offsets) -> torch.Tensor:
     _check(xs, w, offsets)
     M, K = xs.shape
     E, _, N = w.shape
+    plan = moe_plan(xs.dtype, M, N, E)
     out = torch.empty((M, N), dtype=xs.dtype, device=xs.device)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         build.launch("moe_gemm", xs.data_ptr(), w.data_ptr(),
                      offsets.data_ptr(), out.data_ptr(), _DTYPES[xs.dtype],
-                     M, K, N, E, xs.stride(0), w.stride(0), w.stride(1),
+                     M, K, N, E, plan.warpgroups, plan.row_tiles,
+                     xs.stride(0), w.stride(0), w.stride(1),
                      w.stride(2), out.stride(0), stream)
     moe_gemm.launches += 1
     return out

@@ -687,6 +687,15 @@ MOE_GEMM_CASES = [
     (4096, 1536, 512, 48, 40),             # granite up, a 512-row bucket
     (8, 7168, 2048, 256, None),            # deepseek up/gate, decode
     (4096, 2048, 7168, 256, None),         # deepseek down, a 512-row bucket
+    # adjacent groups at the tiles' edges: a tile that reaches into the next
+    # group must store none of its rows (both forms)
+    (576, 512, 256, 6, (63, 64, 65, 127, 128, 129)),
+    (576, 1536, 512, 48, (63, 64, 65, 127, 128, 129) + (0,) * 42),
+    (4096, 1536, 512, 48, (1,) * 40 + (4056,) + (0,) * 7),
+    (300, 256, 136, 4, (0, 300, 0, 0)),    # one expert with all the rows
+    (4096, 512, 1536, 48, (4096,) + (0,) * 47),
+    (40, 1536, 512, 48, (1,) * 40 + (0,) * 8),   # every picked expert one row
+    (256, 7168, 2048, 256, (1,) * 256),
 ]
 
 
@@ -724,6 +733,59 @@ def test_moe_gemm_cuda_vs_plain(case, dtype, cuda_device):
     assert err <= TOL[dtype] * max(1.0, plain.float().abs().max().item())
     last = int(offsets[-1])
     assert torch.count_nonzero(out[last:]) == 0
+
+
+# dX (w read transposed, its K-major boxes) at the decode and bucket shapes,
+# as the forward's (M, K, N, experts, groups): dY [M, N] times w[e]^T of the
+# forward's w [E, K, N] gives dX [M, K]
+MOE_DX_CASES = [
+    (8, 1536, 512, 48, 40),                # granite up/gate's dX, decode
+    (32, 512, 1536, 48, 40),               # granite down's dX, 4 rows
+    (8, 7168, 2048, 256, None),            # deepseek up/gate's dX, decode
+    (576, 256, 512, 6, (63, 64, 65, 127, 128, 129)),
+    (4096, 1536, 512, 48, 40),             # granite up's dX, a bucket
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_DX_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_dx_cuda_vs_plain(case, dtype, cuda_device):
+    """The kernel reading w transposed, as dX does: the [E, N, K] view of a
+    contiguous [E, K, N] stack (no copy)."""
+    M, K, N, E, groups = case
+    dy, w_nk, offsets = _moe_gemm_inputs((M, N, K, E, groups), dtype,
+                                         cuda_device)
+    wt = w_nk.transpose(1, 2).contiguous().transpose(1, 2)
+    del w_nk
+    assert wt.shape == (E, N, K) and wt.stride(1) == 1
+    n0 = moe_gemm.launches
+    out = moe_gemm(dy, wt, offsets)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == n0 + 1 and out.shape == (M, K)
+    plain = moe_gemm_plain(dy, wt, offsets)
+    err = (out.float() - plain.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(1.0, plain.float().abs().max().item())
+    assert torch.count_nonzero(out[int(offsets[-1]):]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,form", [
+    ((8, 1536, 512, 48, 40), "decode"),    # granite up, B=1
+    ((8, 7168, 2048, 256, None), "decode"),            # deepseek up, B=1
+    ((4096, 1536, 512, 48, 40), "bucket"),             # a 512-row bucket
+    ((4096, 7168, 2048, 256, None), "decode"),
+])
+def test_moe_gemm_two_calls_give_the_same_bits(case, form, cuda_device):
+    """Each output element is summed over the whole of K by one CTA, in
+    one order, and no tile is written twice, so the bf16 kernel is
+    deterministic in both forms."""
+    from repro_torch.kernels.moe_gemm import moe_plan
+    xs, w, offsets = _moe_gemm_inputs(case, torch.bfloat16, cuda_device)
+    assert moe_plan(torch.bfloat16, case[0], case[2], case[3]).form == form
+    a, b = moe_gemm(xs, w, offsets), moe_gemm(xs, w, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

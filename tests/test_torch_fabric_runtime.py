@@ -38,6 +38,7 @@ from repro_torch.core.cluster import CacheCluster
 from repro_torch.core.cluster.directory import PeerDirectory
 from repro_torch.core.cluster.peer import CachePeer
 from repro_torch.core.cluster.placement import PlacementPolicy
+from repro_torch.core import state_io
 from repro_torch.core.deadline import (DEADLINE_KEY, attach,
                                        current_deadline, deadline_scope,
                                        inject_deadline)
@@ -519,6 +520,73 @@ def test_hedged_get_fires_and_the_fast_peer_wins(world):
         assert c.hedges == 1 and c.hedge_wins == 1
         assert handlers[fast].gets == 1 and handlers[slow].gets == 1
         assert r.output_tokens == cold.output_tokens
+    finally:
+        for s in servers.values():
+            s.close()
+
+
+def test_a_hedged_full_hit_adopts_the_blobs_fp16_logits_as_a_plain_one(
+        world):
+    """A full hit's first token is the argmax of the logits its blob
+    stores, in fp16 (the reference's format, kept byte for byte); the
+    hedge changes nothing. The stored prompt's logits are rewritten with
+    two entries that tie in fp16 but not in fp32 (the later one larger),
+    as a prompt whose top two logits lie within fp16 rounding has them
+    (reduced gemma3-270m's top logits sit near 0.5-0.75, where fp16's step
+    is 2^-11). A hedged full hit (the primary stalled) and an unhedged one
+    both take the earlier entry; the cold run, sampling fp32 logits, took
+    its own. This is how ``test_hedged_get_fires_and_the_fast_peer_wins``
+    fails when the worker's hash seed draws such a prompt: the hit takes
+    the lower index of a tie, and no race is involved (ROADMAP Queue 3)."""
+    cfg, engine, gen = world
+    p = gen.prompt("virology", 2).segments
+    n = len(p.token_ids)
+    box = CacheServer(CacheConfig())
+    cold = EdgeClient("cold", engine, box, CacheConfig()).infer(
+        p, max_new_tokens=4)
+    meta = EdgeClient("meta", engine, box, CacheConfig()).meta
+    full = next(k for k in p.keys(meta, CacheConfig().max_ranges,
+                                  CacheConfig().range_stride)
+                if k.n_tokens == n)
+    cache, n_eff, lg = state_io.restore_state(
+        state_io.parse_state(box.store[full.digest], meta),
+        engine.new_cache())
+    assert lg is not None and n_eff == n
+    tie = np.zeros_like(lg)
+    i = (int(np.argmax(lg)) + 7) % lg.shape[-1]
+    j = (i + 3) % lg.shape[-1] if i + 3 < lg.shape[-1] else i - 3
+    lo, hi = min(i, j), max(i, j)
+    tie[0, lo], tie[0, hi] = 0.5, 0.5 + 1e-5
+    assert np.argmax(tie) == hi
+    assert np.argmax(tie.astype(np.float16).astype(np.float32)) == lo
+    box.store[full.digest] = state_io.pack_container(
+        state_io.extract_state_chunks(cache, n_eff, meta, logits=tie))
+
+    plain = EdgeClient("plain", engine, box, CacheConfig())
+    plain.sync_catalog()
+    r_plain = plain.infer(p, max_new_tokens=4)
+    assert r_plain.case == 5 and r_plain.output_tokens[0] == lo
+    assert r_plain.output_tokens != cold.output_tokens
+
+    handlers = {pid: _Slowable(CachePeer(pid)) for pid in ("pa", "pb")}
+    for h in handlers.values():
+        for k, v in box.store.items():
+            h.peer.server.put(k, v)
+    servers = {pid: serve_peer_tcp(h) for pid, h in handlers.items()}
+    try:
+        d = PeerDirectory([TCPPeerLink(pid, "127.0.0.1", s.port,
+                                       timeout=10.0)
+                           for pid, s in servers.items()],
+                          clock=WallClock())
+        c = EdgeClient("hedger", engine, d, CacheConfig())
+        c.sync_catalog()
+        keys = p.keys(c.meta, CacheConfig().max_ranges,
+                      CacheConfig().range_stride)
+        slow = c.planner.plan(keys, n)[0].peer_id
+        handlers[slow].delay = 0.5
+        r = c.infer(p, max_new_tokens=4)
+        assert c.hedges == 1 and c.hedge_wins == 1 and r.served_by != slow
+        assert r.case == 5 and r.output_tokens == r_plain.output_tokens
     finally:
         for s in servers.values():
             s.close()
