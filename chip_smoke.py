@@ -47,6 +47,11 @@ lengths in every run. It
    and causal for the decoder (256 queries over a 448-position cache),
    flash_decode over the 1500 frames and over 300 self keys, each timed
    in both dtypes beside SDPA;
+   ssd_scan's backward (ssd_scan_bwd, through autograd) against the plain
+   version's autograd at mamba2-780m's and hymba-1.5b's widths (their
+   training shapes, S = 1024 and 512 + 128 meta rows, and a short one
+   with random h0 and dh_final), in both dtypes, timed beside the plain
+   backward and the forward, two calls bit-identical at S = 1024 bf16;
 3a. the training phase: flash_prefill's backward kernel against the plain version's autograd
    at every training width (gemma3-270m (4/1, 256), llama3.2-1b (32/8,
    64), qwen2-vl-2b (12/2, 128), granite (24/8, 64), whisper-base (8/8,
@@ -61,7 +66,11 @@ lengths in every run. It
    norm), the deepseek-v3-671b dense cut to one MLA layer with its MTP
    head (an MoE layer of 32 of its 256 experts) in bf16, granite cut to 4
    layers in both dtypes (loss falls, aux > 0), whisper-base at full
-   width and depth in fp32 over 1500 frames;
+   width and depth in fp32 over 1500 frames, mamba2-780m at full width
+   cut to 4 layers (B=1, S=1024: 4 chunks; first its 2-layer card / CPU
+   cross-check at S=300) and hymba-1.5b cut to 4 (B=1, S=512, meta tokens
+   and window) in both dtypes (loss falls; the SSD scan's backward
+   kernel once a layer a step);
 3b. on an empty card, deepseek-v3-671b at full width cut to its three
    dense MLA layers and its first MoE layer (15.1B parameters), drawn in
    bf16 only: a Case 1 miss, a Case 5 hit with Case 1's tokens, a Case 4;
@@ -258,6 +267,17 @@ SSD_GEOS = {"mamba2-780m": (dict(H=48, P=64, N=128, G=1, chunk=256),
             "hymba-1.5b": (dict(H=50, P=64, N=16, G=1, chunk=64),
                            [(419, False), (31, True), (1223, True)])}
 SSD_TOL = dict(atol=2e-4, rtol=1e-3)           # tests/test_kernels.py:86-89
+# ssd_scan's backward at each geometry of SSD_GEOS: (S, random h0 and
+# dh_final); the training shapes first (mamba2-780m S = 1024, 4 chunks;
+# hymba-1.5b 512 tokens + 128 meta rows), zero h0 and no dh_final as a
+# train step has them. Held to the port's training-gradient tolerance in
+# fp32 (tests/test_torch_training_grads.py) and TOL in bf16, each gradient
+# against its own largest magnitude; the JSON row mamba2-780m's S = 1024 in
+# bf16
+SSD_BWD_SHAPES = {"mamba2-780m": [(1024, False), (271, True)],
+                  "hymba-1.5b": [(640, False), (31, True)]}
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_BWD_ROW = ("mamba2-780m", 1024)
 # moe_gemm at its paths' shapes: (model, product, K, N, stored experts,
 # experts the router picks from); each at M = 8 x tokens rows: a decode
 # step at B=1 and B=4, and a 512-row prefill bucket, rows routed top-8 to
@@ -330,6 +350,9 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
                           "src/repro/models/attention.py:99"),
     "moe_gemm_wgrad": ("src/repro_torch/kernels/csrc/moe_gemm.cu",
                        "src/repro/models/moe.py:93"),
+    # the reference trains the SSD scan through JAX's autodiff of _ssd_scan
+    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/models/ssm.py:90"),
 }
 # the configurations the paths run: the depth each is cut to (None: the
 # config's own), the depth of the CPU cross-check, whether the edge request
@@ -1203,6 +1226,101 @@ def ssd_checks():
                         S == 271:
                     row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by)
+    return row
+
+
+def ssd_bwd_work(S, es, H, P, N, G, chunk, dh_final):
+    """(bytes, flops) of the SSD scan's backward for S positions: x, dt, A,
+    B, C, h0, dy (and dh_final) read once, dx, d(dt), dA, dB, dC and dh0
+    written once; flops as ssd_work counts the forward's (2 a multiply-add,
+    the causal half of each chunk's L x L products): per head dy.x^T, S^T
+    dy, V B and V^T C over the causal half, and the four L x P x N products
+    (U, h_in^T dy, x G, B G^T); C.B is the forward's, not recomputed."""
+    io = es * S * (H * P + 2 * G * N) + 4 * S * H + 4 * H + 4 * H * P * N
+    nbytes = 2 * io + 4 * S * H * P + (4 * H * P * N if dh_final else 0)
+    flops = 0
+    for t0 in range(0, S, chunk):
+        L = min(chunk, S - t0)
+        flops += H * (2 * L * (L + 1) * (P + N) + 8 * L * N * P)
+    return nbytes, flops
+
+
+def ssd_bwd_checks():
+    """ssd_scan's backward (ssd_scan_bwd, through autograd: the forward
+    keeps its scratch) against the plain version's autograd at each
+    geometry of SSD_GEOS and shape of SSD_BWD_SHAPES, in both dtypes: the
+    error the largest over dx, d(dt), dA, dB, dC and dh0, each against its
+    own largest magnitude (SSD_BWD_TOL). Timed by CUDA events behind a
+    sleep beside the plain backward (autograd of the plain forward), with
+    the bound (ssd_bwd_work) and CUDA kernels a call; no single PyTorch
+    call computes it (library: none). At SSD_BWD_ROW in bf16 two calls
+    must give the same bits. Returns the JSON row."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (_forward, ssd_scan,
+                                              ssd_scan_bwd,
+                                              ssd_scan_bwd_plain)
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    dev = torch.device("cuda")
+    row = {"max_abs_err": 0.0, "library_ms": None}
+    for name, (geo, _) in SSD_GEOS.items():
+        chunk = geo["chunk"]
+        H, P, N = geo["H"], geo["P"], geo["N"]
+        tag = "H={H} P={P} N={N} G={G} chunk={chunk}".format(**geo)
+        for dname, dt_ in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            for S, rand in SSD_BWD_SHAPES[name]:
+                args = ssd_inputs(S, dt_, rand, gen, **geo)
+                dy = torch.randn((1, S, H, P), generator=gen).to(dev)
+                dh = torch.randn((1, H, P, N), generator=gen).to(dev) \
+                    if rand else None
+                ins = [t.detach().clone().requires_grad_() for t in args]
+                y, h = ssd_scan(*ins, chunk=chunk)
+                got = torch.autograd.grad((y, h) if rand else (y,), ins,
+                                          (dy, dh) if rand else (dy,))
+                ref = ssd_scan_bwd_plain(*args, dy, dh, chunk=chunk)
+                torch.cuda.synchronize()
+                err = max((g.float() - r.float()).abs().max().item()
+                          / max(r.float().abs().max().item(), 1e-12)
+                          for g, r in zip(got, ref))
+                del ins, y, h, got
+                if not err <= SSD_BWD_TOL[dname]:
+                    raise AssertionError(f"ssd_scan_bwd {name} {dname} S={S}:"
+                                         f" relative error {err}")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                scratch = _forward(*args, chunk)[2]
+                ms = events_ms(lambda: ssd_scan_bwd(
+                    *args, dy, dh, chunk=chunk, scratch=scratch))
+                n_k = kernels_per_call(lambda: ssd_scan_bwd(
+                    *args, dy, dh, chunk=chunk, scratch=scratch))
+                fwd_ms = events_ms(lambda: ssd_scan(*args, chunk=chunk))
+                plain_ms = events_ms(lambda: ssd_scan_bwd_plain(
+                    *args, dy, dh, chunk=chunk))
+                nbytes, flops = ssd_bwd_work(S, args[0].element_size(), H, P,
+                                             N, geo["G"], chunk, rand)
+                b_ms, b_by = bound(nbytes, flops, dname)
+                print(f"ssd_scan_bwd {name} ({tag}) {dname} S={S} h0, "
+                      f"dh_final={'random' if rand else '0, none'}: max err "
+                      f"{err:.3g} of the largest gradient (tol "
+                      f"{SSD_BWD_TOL[dname]}) ms (CUDA events): kernel "
+                      f"{ms:.4f} ({n_k:g} CUDA kernels a call; the forward "
+                      f"{fwd_ms:.4f}, {ms / fwd_ms:.2f}x) plain {plain_ms:.4f} "
+                      f"library none bound {b_ms:.5f} ({b_by}); "
+                      f"{flops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.3f} of the "
+                      f"bound")
+                if (name, S) == SSD_BWD_ROW and dname == "bfloat16":
+                    one = ssd_scan_bwd(*args, dy, dh, chunk=chunk,
+                                       scratch=scratch)
+                    two = ssd_scan_bwd(*args, dy, dh, chunk=chunk,
+                                       scratch=scratch)
+                    same = all(torch.equal(a, b) for a, b in zip(one, two))
+                    print(f"ssd_scan_bwd {name} {dname} S={S}: two calls "
+                          f"bit-identical: {same}")
+                    if not same:
+                        raise AssertionError("ssd_scan_bwd: two calls gave "
+                                             "different bits")
+                    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by)
+                del scratch
     return row
 
 
@@ -3659,6 +3777,11 @@ GEMMA_TRAIN, GEMMA_STEPS, GEMMA_CROSS = (4, 1024), 5, (1, 128)
 MTP_TRAIN, MTP_STEPS = (1, 512), 2
 GRANITE_TRAIN, GRANITE_STEPS, GRANITE_LAYERS = (1, 512), 3, 4
 WHISPER_TRAIN, WHISPER_STEPS = (2, 256), 3
+# the SSM and hybrid runs: (B, S), steps, layers; mamba2-780m's 2-layer
+# card / CPU cross-check at MAMBA_CROSS (two chunks of its 256)
+MAMBA_TRAIN, MAMBA_CROSS, MAMBA_LAYERS = (1, 1024), (1, 300), 4
+HYMBA_TRAIN, HYMBA_LAYERS = (1, 512), 4
+SSM_STEPS = 3
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
 # the launcher, as a process, at llama3.2-1b's full width and depth
 LAUNCH_ARGS = ["--arch", "llama3.2-1b", "--no-reduced", "--steps", "3",
@@ -3880,14 +4003,16 @@ def moe_bwd_checks():
 
 
 TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd", "moe_gemm",
-                 "moe_gemm_wgrad")
+                 "moe_gemm_wgrad", "ssd_scan", "ssd_scan_bwd")
 
 
 def train_kernels():
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_bwd)
     from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_wgrad
-    return (flash_prefill, flash_prefill_bwd, moe_gemm, moe_gemm_wgrad)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    return (flash_prefill, flash_prefill_bwd, moe_gemm, moe_gemm_wgrad,
+            ssd_scan, ssd_scan_bwd)
 
 
 def train_run(model, label, batches, moments=None, expect=None):
@@ -3934,18 +4059,21 @@ def step_launches(cfg, remat=True, mtp=False):
     """Launches a train step makes, by wrapper: each attention forward
     once, and again in the backward under remat; its backward once; a MoE
     layer's three products forward (again under remat), their dX on
-    moe_gemm and their dW on moe_gemm_wgrad. An encoder-decoder's
-    encoder, self and cross attentions; an MTP head's layer once (no
-    remat)."""
+    moe_gemm and their dW on moe_gemm_wgrad; an SSM's (or a hybrid layer's
+    SSM branch's) scan like an attention: forward, again under remat, its
+    backward once. An encoder-decoder's encoder, self and cross
+    attentions; an MTP head's layer once (no remat)."""
+    ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     if cfg.family == "encdec":
         attn, moe = cfg.encdec.n_enc_layers + 2 * cfg.n_layers, 0
     else:
-        attn = cfg.n_layers
+        attn = 0 if cfg.family == "ssm" else cfg.n_layers
         moe = cfg.n_layers - cfg.moe.first_k_dense \
             if cfg.family == "moe" else 0
     r = 2 if remat else 1
     out = {"flash_prefill": r * attn, "flash_prefill_bwd": attn,
-           "moe_gemm": 3 * (r + 1) * moe, "moe_gemm_wgrad": 3 * moe}
+           "moe_gemm": 3 * (r + 1) * moe, "moe_gemm_wgrad": 3 * moe,
+           "ssd_scan": r * ssd, "ssd_scan_bwd": ssd}
     if mtp:
         out["flash_prefill"] += 1
         out["flash_prefill_bwd"] += 1
@@ -4041,41 +4169,13 @@ class Launcher:
                                  "failed (lines above)")
 
 
-def training_path(smi):
-    """The training phase: train steps on the card (every count set to 0
-    just before a run and read just after), then the backward kernel
-    checks: gemma3-270m at full width and depth in fp32 (GEMMA_STEPS
-    steps at GEMMA_TRAIN, the chunked CE; its loss must fall; first the
-    2-layer cut of the same model on the card and on the CPU on one
-    batch: loss and grad norm within 1e-4); granite cut to GRANITE_LAYERS
-    MoE layers in both dtypes (loss falls, aux > 0); whisper-base at full
-    width and depth in fp32 over 1500 frames; the deepseek-v3-671b dense
-    cut to 1 MLA layer with its MTP head, the MTP layer an MoE layer of
-    MTP_EXPERTS of its 256 experts (all 256 with AdamW would need ~112
-    GB), in bf16. The launcher has left the card before this phase (its
-    checkpoint is host work by then). Returns the JSON rows of the
-    backward kernels and the bf16 and fp32 launches by wrapper name."""
-    import dataclasses
-    import numpy as np
-    import torch
-    from repro_torch import clock
-    from repro_torch.configs import get_config
-    from repro_torch.configs.deepseek_v3_671b import dense_cut
-    from repro_torch.models.model import Model
+def train_cross_check(m, label, shape, seed):
+    """Loss and grad norm of ``m``'s first 2 layers on one batch of
+    ``shape`` (lm_batches, ``seed``), on the card and on the CPU: within
+    1e-4 relative."""
     from repro_torch.training.data import lm_batches
     from repro_torch.training.optimizer import global_norm
-    collect_profiles()
-    t0 = clock.monotonic()
-    totals = ({k: 0 for k in TRAIN_KERNELS}, {k: 0 for k in TRAIN_KERNELS})
-
-    def add(counts, dt):
-        for k, n in counts.items():
-            totals[dt == torch.float32][k] += n
-
-    # gemma3-270m, fp32, full width and depth
-    cfg = get_config("gemma3-270m")
-    m = Model(cfg, seed=0, remat=True)
-    cross = next(lm_batches(cfg, *GEMMA_CROSS, seed=1))
+    cross = next(lm_batches(m.cfg, *shape, seed=seed))
     got = {}
     for dev in ("cuda", "cpu"):
         c = cut_model(m, 2, dev)
@@ -4089,13 +4189,87 @@ def training_path(smi):
         del c
     d_loss, d_norm = (abs(a - b) / abs(b) for a, b in zip(got["cuda"],
                                                           got["cpu"]))
-    print(f"[gemma3-270m fp32 train] cpu cross-check (2 of {cfg.n_layers} "
-          f"layers, B, S = {GEMMA_CROSS}): loss cuda {got['cuda'][0]:.6f} "
-          f"cpu {got['cpu'][0]:.6f}, grad norm cuda {got['cuda'][1]:.6f} "
-          f"cpu {got['cpu'][1]:.6f}: relative {d_loss:.3g}, {d_norm:.3g} "
+    print(f"[{label}] cpu cross-check (2 of {m.cfg.n_layers} layers, B, "
+          f"S = {shape}): loss cuda {got['cuda'][0]:.6f} cpu "
+          f"{got['cpu'][0]:.6f}, grad norm cuda {got['cuda'][1]:.6f} cpu "
+          f"{got['cpu'][1]:.6f}: relative {d_loss:.3g}, {d_norm:.3g} "
           f"(tol 1e-4)")
     if d_loss > 1e-4 or d_norm > 1e-4:
-        raise AssertionError("card and CPU training steps disagree")
+        raise AssertionError(f"{label}: card and CPU training steps "
+                             "disagree")
+
+
+def ssm_train_runs(add):
+    """The SSD scan's backward on its training paths: mamba2-780m cut to
+    MAMBA_LAYERS layers (first its 2-layer card / CPU cross-check) and
+    hymba-1.5b cut to HYMBA_LAYERS (meta tokens and its window kept), at
+    full width, SSM_STEPS steps in bf16 then fp32, launches a step
+    asserted; every metric finite and the loss falling. ``add(counts,
+    dtype)`` takes each run's launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import lm_batches
+    for name, layers, shape, seed in (
+            ("mamba2-780m", MAMBA_LAYERS, MAMBA_TRAIN, 6),
+            ("hymba-1.5b", HYMBA_LAYERS, HYMBA_TRAIN, 8)):
+        base = get_config(name)
+        cfg = base.replace(n_layers=layers)
+        m32 = Model(cfg, seed=0, remat=True)
+        m16 = Model(cfg, dtype=torch.bfloat16, seed=None, remat=True)
+        m16.load_state_dict(m32.state_dict())
+        if name == "mamba2-780m":
+            train_cross_check(m32, f"{name} fp32 train", MAMBA_CROSS, 9)
+        data = lm_batches(cfg, *shape, seed=seed)
+        batches = [next(data) for _ in range(SSM_STEPS)]
+        for m, tag in ((m16, "bf16"), (m32, "fp32")):
+            mets, counts = train_run(
+                m, f"{name} {layers} of {base.n_layers} layers {tag} train "
+                   f"(B, S = {shape})", batches, moments=torch.bfloat16,
+                expect=step_launches(cfg))
+            add(counts, m.dtype)
+            if not mets[-1]["loss"] < mets[0]["loss"]:
+                raise AssertionError(f"{name} {tag}: the loss did not fall: "
+                                     f"{mets}")
+        del m, m16, m32
+        torch.cuda.empty_cache()
+
+
+def training_path(smi):
+    """The training phase: train steps on the card (every count set to 0
+    just before a run and read just after), then the backward kernel
+    checks: gemma3-270m at full width and depth in fp32 (GEMMA_STEPS
+    steps at GEMMA_TRAIN, the chunked CE; its loss must fall; first the
+    2-layer cut of the same model on the card and on the CPU on one
+    batch: loss and grad norm within 1e-4); granite cut to GRANITE_LAYERS
+    MoE layers in both dtypes (loss falls, aux > 0); whisper-base at full
+    width and depth in fp32 over 1500 frames; mamba2-780m and hymba-1.5b
+    (ssm_train_runs); the deepseek-v3-671b dense
+    cut to 1 MLA layer with its MTP head, the MTP layer an MoE layer of
+    MTP_EXPERTS of its 256 experts (all 256 with AdamW would need ~112
+    GB), in bf16. The launcher has left the card before this phase (its
+    checkpoint is host work by then). Returns the JSON rows of the
+    backward kernels and the bf16 and fp32 launches by wrapper name."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import clock
+    from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v3_671b import dense_cut
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import lm_batches
+    collect_profiles()
+    t0 = clock.monotonic()
+    totals = ({k: 0 for k in TRAIN_KERNELS}, {k: 0 for k in TRAIN_KERNELS})
+
+    def add(counts, dt):
+        for k, n in counts.items():
+            totals[dt == torch.float32][k] += n
+
+    # gemma3-270m, fp32, full width and depth
+    cfg = get_config("gemma3-270m")
+    m = Model(cfg, seed=0, remat=True)
+    train_cross_check(m, "gemma3-270m fp32 train", GEMMA_CROSS, 1)
     data = lm_batches(cfg, *GEMMA_TRAIN, seed=2)
     mets, counts = train_run(m, "gemma3-270m fp32 train", [
         next(data) for _ in range(GEMMA_STEPS)], expect=step_launches(cfg))
@@ -4139,6 +4313,9 @@ def training_path(smi):
     torch.cuda.empty_cache()
     t1 = clock.monotonic()
 
+    ssm_train_runs(add)
+    t_ssm = clock.monotonic()
+
     # deepseek-v3-671b: 1 dense MLA layer and the MTP head, bf16
     base = get_config("deepseek-v3-671b")
     cfg = dense_cut(base, 1).replace(mtp=True, moe=dataclasses.replace(
@@ -4166,9 +4343,9 @@ def training_path(smi):
     rows = {"flash_prefill_bwd": bwd_checks(),
             "moe_gemm_wgrad": moe_bwd_checks()}
     print(f"training phase: {clock.monotonic() - t0:.1f} s (gemma3-270m, "
-          f"granite and whisper-base runs {t1 - t0:.1f} s, the MTP run "
-          f"{t2 - t1:.1f} s, backward checks {clock.monotonic() - t2:.1f} "
-          f"s); {smi}")
+          f"granite and whisper-base runs {t1 - t0:.1f} s, mamba2-780m and "
+          f"hymba-1.5b {t_ssm - t1:.1f} s, the MTP run {t2 - t_ssm:.1f} s, "
+          f"backward checks {clock.monotonic() - t2:.1f} s); {smi}")
     return rows, totals[False], totals[True]
 
 
@@ -4250,6 +4427,7 @@ def main():
           f"after the device line")
     rows = kernel_checks()
     rows["ssd_scan"] = ssd_checks()
+    rows["ssd_scan_bwd"] = ssd_bwd_checks()
     rows["mla_decode"] = mla_checks()
     print(f"kernel checks: {clock.monotonic() - t_script:.1f} s after the "
           f"device line")

@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("flash_prefill", "flash_decode", "ssd_scan", "mla_decode",
            "moe_gemm", "flash_prefill_bwd")
 # entry points that live in another kernel's library: entry -> library
-ENTRY_LIBRARY = {"moe_gemm_wgrad": "moe_gemm"}
+ENTRY_LIBRARY = {"moe_gemm_wgrad": "moe_gemm", "ssd_scan_bwd": "ssd_scan"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -46,6 +46,7 @@ SIGNATURES = {
         [_c_p] * 9 + [_c_i] * 8 + [_c_i64] * 8
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "ssd_scan": [_c_p] * 9 + [_c_i] * 9 + [_c_i64] * 12 + [_c_p],
+    "ssd_scan_bwd": [_c_p] * 16 + [_c_i] * 9 + [_c_i64] * 12 + [_c_p],
     "mla_decode": (
         [_c_p] * 10 + [_c_i] * 11 + [_c_i64] * 8 + [_c_f, _c_p]),
     "moe_gemm": [_c_p] * 4 + [_c_i] * 7 + [_c_i64] * 5 + [_c_p],
@@ -130,15 +131,13 @@ def library(name: str) -> ctypes.CDLL:
 def refuse_grad(name: str, *tensors) -> None:
     """Raise where a kernel with no backward would be launched on an input
     that requires grad: its result would carry no gradient, and autograd
-    would not say so. The SSD scan's backward kernel, and training of the
-    SSM and hybrid families on the card with it, is ROADMAP item 10b."""
+    would not say so. The decode kernels (flash_decode, mla_decode) have
+    none: no training path runs them."""
     import torch                       # this module itself needs no torch
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: this kernel has no backward on the card yet (ROADMAP "
-            "item 10b: the SSD-scan backward, then mamba2-780m and "
-            "hymba-1.5b training); run it under torch.no_grad, or train "
-            "that family on the CPU")
+            f"{name}: this decode kernel has no backward (training runs "
+            "attention through flash_prefill); run it under torch.no_grad")
 
 
 def launch(name: str, *args) -> None:

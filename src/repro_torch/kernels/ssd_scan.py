@@ -19,10 +19,14 @@ passes slices of its conv output): nothing is copied or padded.
 On the card the wrapper launches the hand-written CUDA kernels
 (``csrc/ssd_scan.cu``: C·B once per group and chunk, each chunk's own
 state, then the state passing and the outputs; three launches, one
-wrapper call). On the CPU it runs :func:`ssd_scan_plain`, the
-reference model's chunked einsum form (``repro/models/ssm.py:90``). A
-CUDA tensor never falls back to the plain version: an input the kernel
-does not take raises.
+wrapper call). With grad enabled and an input that requires it, the call
+goes through :class:`SsdScanFn`, which keeps the forward's scratch (C·B,
+the chunks' states and decays) for :func:`ssd_scan_bwd`, the backward
+kernel (``ssd_scan_bwd_launch`` in the same source). On the CPU it runs
+:func:`ssd_scan_plain`, the reference model's chunked einsum form
+(``repro/models/ssm.py:90``), and its gradient is plain autograd. A CUDA
+tensor never falls back to the plain version: an input the kernel does
+not take raises.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ MAX_CHUNK = 256            # chunk positions the kernel's scan holds
 MAX_STATE = 128            # N the kernel's shared-memory tiles hold
 P_TILE = 16                # state rows of a warp's tile
 TILE = 64                  # positions (and state rows p) of a CTA's tile
+FOLD_ELEMS = 1024          # state elements a CTA of the backward's fold
 
 
 def ssd_scan_plain(x, dt, A, B_, C_, h0, *, chunk: int):
@@ -101,6 +106,25 @@ def scratch_plan(B: int, S: int, H: int, G: int, P: int, N: int,
     return (B, G, nc, QP, QP), (B, H, nc, P, N), (B, H, nc)
 
 
+def bwd_scratch_plan(B: int, S: int, H: int, G: int, P: int, N: int,
+                     chunk: int):
+    """Shapes of the parts of the backward kernel's fp32 scratch, kept in
+    one buffer in this order: U (each chunk's sum of exp(cum_i) dy_i
+    C_i^T), the state entering each chunk and the gradient of the state
+    leaving it, ``[B, H, nc, P, N]`` each; dB and dC of each head, ``[B,
+    H, S, N]`` each; each position's row part of dcum per 64-column block
+    of N, ``[B, H, nnb, S]``, and its direct d(dt), ``[B, H, S]``; x_j .
+    G B_j per 64-row block of P, ``[B, H, npb, S]``; and the fold CTAs'
+    shares of exp(cum_last) <G, h_in>, ``[B, H, nc, parts]``."""
+    Q = min(int(chunk), S)
+    nc = -(-S // Q)
+    npb, nnb = -(-P // TILE), -(-N // TILE)
+    parts = -(-(P * N) // FOLD_ELEMS)
+    state = (B, H, nc, P, N)
+    return (state, state, state, (B, H, S, N), (B, H, S, N), (B, H, nnb, S),
+            (B, H, S), (B, H, npb, S), (B, H, nc, parts))
+
+
 def rows_vectorizable(x, B_, C_) -> bool:
     """Whether the kernel may read the rows of x, B and C as 16-byte
     vectors: each starts on 16 bytes, every stride but the last is a
@@ -114,10 +138,35 @@ def rows_vectorizable(x, B_, C_) -> bool:
 def ssd_scan(x, dt, A, B_, C_, h0, *, chunk: int):
     """See :func:`ssd_scan_plain`. ``S`` and ``chunk`` are runtime
     values; the kernel takes ``min(chunk, S) <= 256``, ``N <= 128`` and
-    ``P`` a multiple of 16."""
+    ``P`` a multiple of 16. On the card, with grad enabled and an input
+    that requires it, the result carries its gradient (:class:`SsdScanFn`)."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B_, C_, h0, chunk=chunk)
-    build.refuse_grad("ssd_scan", x, dt, A, B_, C_, h0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_, C_, h0)):
+        return SsdScanFn.apply(x, dt, A, B_, C_, h0, int(chunk))
+    return _forward(x, dt, A, B_, C_, h0, chunk)[:2]
+
+
+ssd_scan.launches = 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on 16 bytes (the kernels read it as float4)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _strides(x, dt, B_, C_):
+    return (x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2),
+            B_.stride(0), B_.stride(1), B_.stride(2),
+            C_.stride(0), C_.stride(1), C_.stride(2))
+
+
+def _forward(x, dt, A, B_, C_, h0, chunk: int):
+    """One launch of the forward kernels: ``(y, h_final, scratch)``, the
+    scratch as :func:`scratch_plan` lays it out (what the backward reads)."""
     Bsz, S, H, Pd = x.shape
     G, N = B_.shape[2], B_.shape[3]
     Q = min(int(chunk), S)
@@ -127,8 +176,7 @@ def ssd_scan(x, dt, A, B_, C_, h0, *, chunk: int):
     h = torch.empty((Bsz, H, Pd, N), dtype=torch.float32, device=dev)
     scratch = torch.empty(sum(math.prod(p) for p in scratch_plan(
         Bsz, S, H, G, Pd, N, Q)), dtype=torch.float32, device=dev)
-    if h0.data_ptr() % 16:             # the kernel reads h0 as float4
-        h0 = h0.clone()
+    h0 = _aligned(h0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.launch(
@@ -136,15 +184,112 @@ def ssd_scan(x, dt, A, B_, C_, h0, *, chunk: int):
             B_.data_ptr(), C_.data_ptr(), h0.data_ptr(), y.data_ptr(),
             h.data_ptr(), scratch.data_ptr(), _DTYPES[x.dtype],
             Bsz, S, H, G, Pd, N, Q, int(rows_vectorizable(x, B_, C_)),
-            x.stride(0), x.stride(1), x.stride(2),
-            dt.stride(0), dt.stride(1), dt.stride(2),
-            B_.stride(0), B_.stride(1), B_.stride(2),
-            C_.stride(0), C_.stride(1), C_.stride(2), stream)
+            *_strides(x, dt, B_, C_), stream)
     ssd_scan.launches += 1
-    return y, h
+    return y, h, scratch
 
 
-ssd_scan.launches = 0
+class SsdScanFn(torch.autograd.Function):
+    """``ssd_scan`` on the card with its gradient: the forward keeps its
+    inputs and its scratch; the backward is :func:`ssd_scan_bwd`. A
+    result that takes no gradient (``h_final`` in training) is passed on
+    as ``None``, and the kernel reads it as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_, h0, chunk: int):
+        ctx.set_materialize_grads(False)
+        y, h, scratch = _forward(x, dt, A, B_, C_, h0, chunk)
+        ctx.save_for_backward(x, dt, A, B_, C_, h0, scratch)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, B_, C_, h0, scratch = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = ssd_scan_bwd(x, dt, A, B_, C_, h0, dy, dh, chunk=ctx.chunk,
+                             scratch=scratch)
+        return (*grads, None)
+
+
+def ssd_scan_bwd(x, dt, A, B_, C_, h0, dy, dh_final=None, *, chunk: int,
+                 scratch=None):
+    """The gradients ``(dx, ddt, dA, dB, dC, dh0)`` of ssd_scan's ``(y,
+    h_final)`` given ``dy`` [B,S,H,P] and ``dh_final`` [B,H,P,N] (fp32;
+    ``None`` is zero): dx, dB and dC in their inputs' dtypes (dB and dC
+    summed over a group's heads), ddt, dA and dh0 in fp32. ``scratch`` is
+    what the forward kernel left (:class:`SsdScanFn` keeps it); ``None``
+    runs the forward first. One wrapper call, six launches, no atomics:
+    two calls give the same bits. On the CPU: :func:`ssd_scan_bwd_plain`."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, A, B_, C_, h0, dy, dh_final,
+                                  chunk=chunk)
+    Bsz, S, H, Pd = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    Q = min(int(chunk), S)
+    _check(x, dt, A, B_, C_, h0, Q)
+    _check_bwd(x, dy, dh_final, (Bsz, S, H, Pd), (Bsz, H, Pd, N))
+    if scratch is None:
+        scratch = _forward(x, dt, A, B_, C_, h0, Q)[2]
+    if scratch.numel() != sum(math.prod(p) for p in scratch_plan(
+            Bsz, S, H, G, Pd, N, Q)) or scratch.dtype != torch.float32:
+        raise ValueError("ssd_scan_bwd: scratch is not the forward's at "
+                         "these shapes")
+    dev = x.device
+    dy, h0 = _aligned(dy), _aligned(h0)
+    dhf = None if dh_final is None else _aligned(dh_final)
+    dx = torch.empty((Bsz, S, H, Pd), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bsz, S, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
+    dB = torch.empty((Bsz, S, G, N), dtype=B_.dtype, device=dev)
+    dC = torch.empty((Bsz, S, G, N), dtype=C_.dtype, device=dev)
+    dh0 = torch.empty((Bsz, H, Pd, N), dtype=torch.float32, device=dev)
+    work = torch.empty(sum(math.prod(p) for p in bwd_scratch_plan(
+        Bsz, S, H, G, Pd, N, Q)), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.launch(
+            "ssd_scan_bwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            B_.data_ptr(), C_.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+            None if dhf is None else dhf.data_ptr(), scratch.data_ptr(),
+            work.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), dh0.data_ptr(), _DTYPES[x.dtype],
+            Bsz, S, H, G, Pd, N, Q, int(rows_vectorizable(x, B_, C_)),
+            *_strides(x, dt, B_, C_), stream)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
+def ssd_scan_bwd_plain(x, dt, A, B_, C_, h0, dy, dh_final=None, *,
+                       chunk: int):
+    """``(dx, ddt, dA, dB, dC, dh0)`` of :func:`ssd_scan_plain` by
+    autograd, dx, dB and dC in their inputs' dtypes: the backward kernel's
+    plain version."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (x, dt, A, B_, C_, h0)]
+        y, h = ssd_scan_plain(*ins, chunk=chunk)
+        outs, grads = [y], [dy]
+        if dh_final is not None:
+            outs.append(h)
+            grads.append(dh_final)
+        return torch.autograd.grad(outs, ins, grads)
+
+
+def _check_bwd(x, dy, dh_final, y_shape, h_shape) -> None:
+    for name, t, shape in (("dy", dy, y_shape),
+                           ("dh_final", dh_final, h_shape)):
+        if t is None:
+            continue
+        if t.device != x.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"ssd_scan_bwd: {name} must be float32 of shape "
+                             f"{shape} on {x.device}, not {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def _check(x, dt, A, B_, C_, h0, Q) -> None:

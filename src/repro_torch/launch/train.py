@@ -14,8 +14,8 @@ from ``--seed``, AdamW with bf16 moments, batches from the synthetic
 MMLU stream, and with ``--ckpt`` a checkpoint of ``{"params": ...,
 "opt": ...}`` in the reference's format after the last step. It runs on
 ``--device`` (default ``cuda``; a machine without a card needs
-``--device cpu``). The SSM and hybrid families train on the CPU only
-until ``ssd_scan`` has a backward kernel (ROADMAP item 10b).
+``--device cpu``), every family included: the SSM and hybrid families'
+scan has its backward kernel there (``ssd_scan_bwd``).
 """
 from __future__ import annotations
 

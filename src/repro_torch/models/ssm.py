@@ -12,9 +12,9 @@ cache's ``ssd``. Per layer:
 Unlike the reference, both functions write the new state into the cache
 tensors IN PLACE. :func:`ssm_decode` stays plain PyTorch ops, as the
 reference's decode has no kernel. :func:`ssm_forward` is the training
-path: the same scan from a zero state, with no cache. Its gradient runs
-on the CPU only: on the card ``ssd_scan`` has no backward kernel yet and
-refuses an input that requires grad (ROADMAP item 10b).
+path: the same scan from a zero state, with no cache; on the card its
+gradient runs through ``ssd_scan``'s backward kernel (``ssd_scan_bwd``),
+on the CPU through plain autograd.
 """
 from __future__ import annotations
 

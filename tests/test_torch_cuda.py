@@ -18,7 +18,11 @@ sums over K of up to 7168 reach tens. The backward kernels
 (``flash_prefill_bwd``, ``moe_gemm`` reading its weights transposed,
 ``moe_gemm_wgrad``) are held to the same 1e-5 / 2e-2 against the largest
 magnitude of each gradient of the plain version's autograd: bf16 rounds P
-and dS to bf16 once before their products, as the forward rounds P.
+and dS to bf16 once before their products, as the forward rounds P. The
+SSD scan's backward (``ssd_scan_bwd``) is held to 1e-4 (fp32: the port's
+training-gradient tolerance; its products split fp32 operands into bf16
+pieces, and d(dt) and dA sum thousands of terms) and 2e-2 (bf16: dx, dB
+and dC rounded to bf16 once) of each gradient's largest magnitude.
 """
 import math
 
@@ -36,6 +40,7 @@ from repro_torch.kernels.mla_decode import split_plan as mla_split_plan
 from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_plain,
                                           moe_gemm_wgrad)
 from repro_torch.kernels.ssd_scan import (rows_vectorizable, ssd_scan,
+                                          ssd_scan_bwd, ssd_scan_bwd_plain,
                                           ssd_scan_plain)
 
 PREFILL_CASES = [
@@ -607,6 +612,134 @@ def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda_device):
     assert ssd_scan.launches == n0
 
 
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _ssd_grads(args, dy, dh, chunk):
+    """The gradients of ssd_scan's (y, h_final) through autograd, x, B and
+    C as the views they are."""
+    ins = [t.detach().clone().requires_grad_() for t in args]
+    y, h = ssd_scan(*ins, chunk=chunk)
+    outs, grads = (y, h) if dh is not None else (y,), \
+        (dy, dh) if dh is not None else (dy,)
+    return torch.autograd.grad(outs, ins, grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh_final", [False, True])
+def test_ssd_scan_bwd_cuda_vs_plain(case, dtype, dh_final, cuda_device):
+    """Through autograd: one forward and one backward launch; every
+    gradient within SSD_BWD_TOL of the plain version's autograd."""
+    S, random_h0, chunk, H, P, N, G = case
+    gen = torch.Generator().manual_seed(17)
+    args = _ssd_inputs(gen, S, random_h0, H, P, N, G, dtype, cuda_device)
+    dy = torch.randn((1, S, H, P), generator=gen).to(cuda_device)
+    dh = torch.randn((1, H, P, N), generator=gen).to(cuda_device) \
+        if dh_final else None
+    n0, b0 = ssd_scan.launches, ssd_scan_bwd.launches
+    got = _ssd_grads(args, dy, dh, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n0 + 1
+    assert ssd_scan_bwd.launches == b0 + 1
+    ref = ssd_scan_bwd_plain(*args, dy, dh, chunk=chunk)
+    for g, r, t in zip(got, ref, args):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    assert _grad_err(got, ref) <= SSD_BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 300, 256, 8, 64, 128, 2),
+                                  (3, 100, 32, 4, 32, 16, 2),
+                                  (2, 130, 64, 2, 128, 64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_batch_cuda_vs_plain(case, dtype, cuda_device):
+    """B > 1 (the launcher trains batches): each row's state pass, and dA
+    summed over the batch as well as the positions."""
+    B, S, chunk, H, P, N, G = case
+    gen = torch.Generator().manual_seed(19)
+    xbc = (torch.randn((B, S, H * P + 2 * G * N), generator=gen)
+           * 0.5).to(cuda_device, dtype)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    B_ = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    C_ = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+    dt = (torch.rand((B, S, H), generator=gen) * 0.1 + 0.001).to(cuda_device)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=cuda_device)
+    h0 = (torch.randn((B, H, P, N), generator=gen) * 0.2).to(cuda_device)
+    dy = torch.randn((B, S, H, P), generator=gen).to(cuda_device)
+    dh = torch.randn((B, H, P, N), generator=gen).to(cuda_device)
+    args = (x, dt, A, B_, C_, h0)
+    got = _ssd_grads(args, dy, dh, chunk)
+    ref = ssd_scan_bwd_plain(*args, dy, dh, chunk=chunk)
+    assert _grad_err(got, ref) <= SSD_BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_unaligned_rows(dtype, cuda_device):
+    """x, B and C one element off 16 bytes: the backward reads them element
+    by element, with the same gradients."""
+    gen = torch.Generator().manual_seed(29)
+    H, P, N, G, S = 8, 32, 16, 2, 150
+    xbc = (torch.randn((1, S, 1 + H * P + 2 * G * N), generator=gen)
+           * 0.5).to(cuda_device, dtype)[..., 1:]
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    B_ = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    C_ = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+    _, dt, A, _, _, h0 = _ssd_inputs(gen, S, True, H, P, N, G, dtype,
+                                     cuda_device)
+    assert not rows_vectorizable(x, B_, C_)
+    dy = torch.randn((1, S, H, P), generator=gen).to(cuda_device)
+    dh = torch.randn((1, H, P, N), generator=gen).to(cuda_device)
+    args = (x, dt, A, B_, C_, h0)
+    got = _ssd_grads(args, dy, dh, 64)
+    ref = ssd_scan_bwd_plain(*args, dy, dh, chunk=64)
+    assert _grad_err(got, ref) <= SSD_BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", [(1024, 256, 48, 64, 128, 1),   # mamba2-780m
+                                 (640, 64, 50, 64, 16, 1)])     # hymba-1.5b
+def test_ssd_scan_bwd_gives_the_same_bits_twice(geo, cuda_device):
+    """No atomics: dB and dC summed over the group's heads and dA over the
+    positions in a fixed order, so two calls give the same bits."""
+    S, chunk, H, P, N, G = geo
+    gen = torch.Generator().manual_seed(31)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _ssd_inputs(gen, S, True, H, P, N, G, dtype, cuda_device)
+        dy = torch.randn((1, S, H, P), generator=gen).to(cuda_device)
+        dh = torch.randn((1, H, P, N), generator=gen).to(cuda_device)
+        one = ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+        two = ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+        assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_refuses_what_it_does_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(3)
+    args = _ssd_inputs(gen, 40, True, 4, 32, 16, 1, torch.float32,
+                       cuda_device)
+    dy = torch.randn((1, 40, 4, 32), generator=gen).to(cuda_device)
+    b0 = ssd_scan_bwd.launches
+    with pytest.raises(ValueError, match="dy must be float32"):
+        ssd_scan_bwd(*args, dy.bfloat16(), chunk=16)
+    with pytest.raises(ValueError, match="dy must be float32"):
+        ssd_scan_bwd(*args, dy[:, :30], chunk=16)
+    with pytest.raises(ValueError, match="dh_final must be float32"):
+        ssd_scan_bwd(*args, dy, torch.zeros((1, 4, 32, 8),
+                                            device=cuda_device), chunk=16)
+    with pytest.raises(ValueError, match="scratch"):
+        ssd_scan_bwd(*args, dy, chunk=16, scratch=torch.zeros(
+            10, device=cuda_device))
+    big = _ssd_inputs(gen, 300, False, 4, 32, 16, 1, torch.float32,
+                      cuda_device)
+    dy_big = torch.randn((1, 300, 4, 32), generator=gen).to(cuda_device)
+    with pytest.raises(ValueError, match="chunk up to 256"):
+        ssd_scan_bwd(*big, dy_big, chunk=300)
+    assert ssd_scan_bwd.launches == b0
+
+
 @pytest.mark.cuda
 def test_gateway_on_the_card_matches_a_direct_run(cuda_device):
     """A port ``Gateway`` on ``Fabric.local()`` serves reduced gemma3-270m
@@ -1041,27 +1174,32 @@ def test_backward_kernels_give_the_same_bits_twice(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_grad_on_the_card(cuda_device):
-    """ssd_scan, flash_decode and mla_decode have no backward on the card:
-    an input that requires grad raises (ROADMAP item 10b), rather than
-    returning a result that carries no gradient."""
+    """flash_decode and mla_decode have no backward on the card (no
+    training path runs them): an input that requires grad raises, rather
+    than returning a result that carries no gradient. ssd_scan's gradient
+    flows through its backward kernel."""
     gen = torch.Generator().manual_seed(2)
     dev = cuda_device
     q = _rand(gen, (1, 4, 64), torch.float32, dev).requires_grad_()
     kv = _rand(gen, (1, 32, 2, 64), torch.float32, dev)
-    with pytest.raises(RuntimeError, match="10b"):
+    with pytest.raises(RuntimeError, match="no backward"):
         flash_decode(q, kv, kv, kv_len=32)
     ql = _rand(gen, (1, 16, 512), torch.float32, dev).requires_grad_()
-    with pytest.raises(RuntimeError, match="10b"):
+    with pytest.raises(RuntimeError, match="no backward"):
         mla_decode(ql, _rand(gen, (1, 16, 64), torch.float32, dev),
                    _rand(gen, (1, 32, 512), torch.float32, dev),
                    _rand(gen, (1, 32, 64), torch.float32, dev), kv_len=32,
                    scale=0.1)
     x = _rand(gen, (1, 16, 2, 16), torch.float32, dev).requires_grad_()
-    with pytest.raises(RuntimeError, match="10b"):
-        ssd_scan(x, torch.rand((1, 16, 2), generator=gen).to(dev),
-                 -torch.ones(2, device=dev),
-                 _rand(gen, (1, 16, 1, 16), torch.float32, dev),
-                 _rand(gen, (1, 16, 1, 16), torch.float32, dev),
-                 torch.zeros((1, 2, 16, 16), device=dev), chunk=16)
+    b0 = ssd_scan_bwd.launches
+    y, _ = ssd_scan(x, torch.rand((1, 16, 2), generator=gen).to(dev),
+                    -torch.ones(2, device=dev),
+                    _rand(gen, (1, 16, 1, 16), torch.float32, dev),
+                    _rand(gen, (1, 16, 1, 16), torch.float32, dev),
+                    torch.zeros((1, 2, 16, 16), device=dev), chunk=16)
+    y.sum().backward()
+    assert ssd_scan_bwd.launches == b0 + 1
+    assert x.grad is not None and torch.isfinite(x.grad).all() \
+        and x.grad.abs().max() > 0
     with torch.no_grad():              # serving is untouched
         flash_decode(q, kv, kv, kv_len=32)
