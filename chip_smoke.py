@@ -276,6 +276,10 @@ SSD_TOL = dict(atol=2e-4, rtol=1e-3)           # tests/test_kernels.py:86-89
 # bf16
 SSD_BWD_SHAPES = {"mamba2-780m": [(1024, False), (271, True)],
                   "hymba-1.5b": [(640, False), (31, True)]}
+# and a reduced geometry with two B/C groups of 4 heads: the dCB slices of a
+# group of more than one head, the dC / dB products once a group
+SSD_BWD_EXTRA = {"two groups": (dict(H=8, P=64, N=128, G=2, chunk=256),
+                                [(300, True)])}
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSD_BWD_ROW = ("mamba2-780m", 1024)
 # moe_gemm at its paths' shapes: (model, product, K, N, stored experts,
@@ -1232,43 +1236,82 @@ def ssd_checks():
 def ssd_bwd_work(S, es, H, P, N, G, chunk, dh_final):
     """(bytes, flops) of the SSD scan's backward for S positions: x, dt, A,
     B, C, h0, dy (and dh_final) read once, dx, d(dt), dA, dB, dC and dh0
-    written once; flops as ssd_work counts the forward's (2 a multiply-add,
-    the causal half of each chunk's L x L products): per head dy.x^T, S^T
-    dy, V B and V^T C over the causal half, and the four L x P x N products
-    (U, h_in^T dy, x G, B G^T); C.B is the forward's, not recomputed."""
+    written once; flops the least the function needs, as ssd_work counts
+    the forward's (2 a multiply-add, the causal half of each chunk's L x L
+    products): per head dy.x^T and S^T dy over the causal half, per group
+    V B and V^T C (V summed over the group's heads first: B and C are the
+    group's), and per head the four L x P x N products (U, h_in^T dy, x G,
+    B G^T); C.B is the forward's, not recomputed."""
     io = es * S * (H * P + 2 * G * N) + 4 * S * H + 4 * H + 4 * H * P * N
     nbytes = 2 * io + 4 * S * H * P + (4 * H * P * N if dh_final else 0)
     flops = 0
     for t0 in range(0, S, chunk):
         L = min(chunk, S - t0)
-        flops += H * (2 * L * (L + 1) * (P + N) + 8 * L * N * P)
+        flops += (2 * L * (L + 1) * (H * P + G * N) + H * 8 * L * N * P)
     return nbytes, flops
+
+
+def device_split_us(fn, iters=20, tries=12):
+    """Device microseconds a call of each CUDA kernel ``fn`` launches, from
+    a profiler window checked whole as ``device_ms`` checks its windows (its
+    device events a multiple of ``iters`` and no fewer than any window
+    before; every kernel name counted ``iters`` times or a multiple). None
+    when no window of ``tries`` is whole."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen, best = [], None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = _device_rows(prof)
+        n = sum(e.count for e in rows)
+        seen.append(n)
+        if n and n % iters == 0 and n == max(seen) and all(
+                e.count % iters == 0 for e in rows):
+            best = {}
+            for e in rows:
+                m = re.search(r"(\w+_kernel)", e.key)
+                name = m.group(1) if m else e.key[:40]
+                best[name] = best.get(name, 0.0) + _dev_us(e) / iters
+            break
+    return best
 
 
 def ssd_bwd_checks():
     """ssd_scan's backward (ssd_scan_bwd, through autograd: the forward
     keeps its scratch) against the plain version's autograd at each
-    geometry of SSD_GEOS and shape of SSD_BWD_SHAPES, in both dtypes: the
-    error the largest over dx, d(dt), dA, dB, dC and dh0, each against its
-    own largest magnitude (SSD_BWD_TOL). Timed by CUDA events behind a
-    sleep beside the plain backward (autograd of the plain forward), with
-    the bound (ssd_bwd_work) and CUDA kernels a call; no single PyTorch
-    call computes it (library: none). At SSD_BWD_ROW in bf16 two calls
-    must give the same bits. Returns the JSON row."""
+    geometry of SSD_GEOS and shape of SSD_BWD_SHAPES, and SSD_BWD_EXTRA's,
+    in both dtypes: the error the largest over dx, d(dt), dA, dB, dC and
+    dh0, each against its own largest magnitude (SSD_BWD_TOL). Timed by
+    CUDA events behind a sleep beside the plain backward (autograd of the
+    plain forward), with the bound (ssd_bwd_work) and CUDA kernels a call;
+    no single PyTorch call computes it (library: none). At SSD_BWD_ROW in
+    bf16: the plan, each launch's device us (device_split_us), and two
+    calls must give the same bits. Returns the JSON row."""
     import torch
-    from repro_torch.kernels.ssd_scan import (_forward, ssd_scan,
+    from repro_torch.kernels.ssd_scan import (_forward, bwd_plan, ssd_scan,
                                               ssd_scan_bwd,
                                               ssd_scan_bwd_plain)
     gen = torch.Generator(device="cpu").manual_seed(12)
     dev = torch.device("cuda")
     row = {"max_abs_err": 0.0, "library_ms": None}
-    for name, (geo, _) in SSD_GEOS.items():
+    geos = [(name, geo, SSD_BWD_SHAPES[name])
+            for name, (geo, _) in SSD_GEOS.items()]
+    geos += [(name, geo, shapes)
+             for name, (geo, shapes) in SSD_BWD_EXTRA.items()]
+    for name, geo, shapes in geos:
         chunk = geo["chunk"]
         H, P, N = geo["H"], geo["P"], geo["N"]
         tag = "H={H} P={P} N={N} G={G} chunk={chunk}".format(**geo)
         for dname, dt_ in (("float32", torch.float32),
                            ("bfloat16", torch.bfloat16)):
-            for S, rand in SSD_BWD_SHAPES[name]:
+            for S, rand in shapes:
                 args = ssd_inputs(S, dt_, rand, gen, **geo)
                 dy = torch.randn((1, S, H, P), generator=gen).to(dev)
                 dh = torch.randn((1, H, P, N), generator=gen).to(dev) \
@@ -1308,6 +1351,17 @@ def ssd_bwd_checks():
                       f"{flops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.3f} of the "
                       f"bound")
                 if (name, S) == SSD_BWD_ROW and dname == "bfloat16":
+                    split = device_split_us(lambda: ssd_scan_bwd(
+                        *args, dy, dh, chunk=chunk, scratch=scratch))
+                    plan = bwd_plan(1, S, H, geo["G"], P, N, chunk, dt_)
+                    print(f"ssd_scan_bwd {name} {dname} S={S}: plan "
+                          f"{tuple(plan)} (slices, heads a slice, K "
+                          f"split); device us a call by launch (profiler, "
+                          f"dCB and dC / dB on a second stream beside U, "
+                          f"the fold and dx): " + (", ".join(
+                              f"{k} {v:.2f}" for k, v in split.items())
+                              if split else "not measured (no whole "
+                              "profiler window)"))
                     one = ssd_scan_bwd(*args, dy, dh, chunk=chunk,
                                        scratch=scratch)
                     two = ssd_scan_bwd(*args, dy, dh, chunk=chunk,

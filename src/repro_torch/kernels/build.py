@@ -46,7 +46,7 @@ SIGNATURES = {
         [_c_p] * 9 + [_c_i] * 8 + [_c_i64] * 8
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "ssd_scan": [_c_p] * 9 + [_c_i] * 9 + [_c_i64] * 12 + [_c_p],
-    "ssd_scan_bwd": [_c_p] * 16 + [_c_i] * 9 + [_c_i64] * 12 + [_c_p],
+    "ssd_scan_bwd": [_c_p] * 16 + [_c_i] * 11 + [_c_i64] * 12 + [_c_p],
     "mla_decode": (
         [_c_p] * 10 + [_c_i] * 11 + [_c_i64] * 8 + [_c_f, _c_p]),
     "moe_gemm": [_c_p] * 4 + [_c_i] * 7 + [_c_i64] * 5 + [_c_p],

@@ -62,21 +62,28 @@
 // the state entering chunk c (G_nc = dh_final), dM_ij = dy_i . x_j:
 //   U_c = sum_i exp(cum_i) dy_i C_i^T,  G_c = exp(cum_last) G_{c+1} + U_c,  dh0 = G_0
 //   dx_j = sum_{i>=j} (C_i . B_j) L_ij dt_j dy_i + w_j G_{c+1} B_j
-//   dC_i = sum_{j<=i} dM_ij L_ij dt_j B_j + exp(cum_i) h_in^T dy_i
-//   dB_j = sum_{i>=j} dM_ij L_ij dt_j C_i + w_j G_{c+1}^T x_j
-// and d(dt), dA through dcum, summed from the end of each chunk. Six
-// launches: U (the state kernel on dy and C); the fold (h_in forward from
-// the forward's chunk states, G backward); dC, dB and dx, each a CTA per
-// 64-position tile (dC and dB also per 64 columns of N, dx per 64 of P)
-// that recomputes dM over P on mma.sync with the forward's piece split;
-// and a last launch for dcum, d(dt) and dA (a CTA per head, its batches
-// and chunks in order) and for dB and dC summed over a group's heads. No
-// atomics: per-head parts go to fp32 scratch and are summed in a fixed
-// order, so two calls give the same bits. What bounds it: at mamba2-780m's
-// training shape (S = 1024, bf16) ~30 MB and ~8.1 GFLOP, 0.0089 ms at 3.35
-// TB/s; it takes 0.385 ms on an H100 80GB HBM3 at 700 W (PERF.md),
-// latency-bound: the dC and dB kernels hold 255 registers (two CTAs an SM)
-// and stage, wait and compute one tile pair at a time.
+//   dC_i = sum_{j<=i} dCB_ij B_j + sum_h exp(cum^h_i) h_in^h^T dy^h_i
+//   dB_j = sum_{i>=j} dCB_ij C_i + sum_h w^h_j G^h_{c+1}^T x^h_j
+// with dCB_ij = sum_h dM^h_ij L^h_ij dt^h_j over a group's heads: B and C
+// belong to the group, so their products run once a group, not once a
+// head. d(dt) and dA come through dcum, summed from the end of each chunk.
+// Six launches, on two streams. On the caller's: U (the state kernel on dy
+// and C) and the fold (h_in forward from the forward's chunk states, G
+// backward), while dCB runs on a second one (a CTA per causal 64 x 64 tile
+// pair and slice of a group's heads, dM over P on wgmma in bf16 and on
+// mma.sync in fp32, the slices of a cluster summed through distributed
+// shared memory); then dC and dB (a CTA per 64 rows and 64 columns of N,
+// K = the dCB tiles and the group's H P rows of the state term, split over
+// a cluster, on wgmma) beside dx (per tile and 64 rows of P); and, after
+// both, a last launch for dcum, d(dt) and dA (a CTA per head). No atomics:
+// every partial goes to its own slot or CTA and is summed in a fixed order,
+// so two calls give the same bits. What bounds it: at mamba2-780m's
+// training shape (S = 1024, bf16) ~30 MB and ~4.9 GFLOP, 0.0089 ms at 3.35
+// TB/s: bytes on paper; in practice the latency of short dependent steps in
+// CTAs of 4 warps, two an SM (their registers), so the design fills the
+// card with CTAs (slices and a K split, sized by ssd_scan.py::bwd_plan to
+// one wave) and runs launches that do not wait for each other side by side
+// (PERF.md has the times).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -86,6 +93,7 @@
 
 #include "async_copy.cuh"
 #include "mma_bf16.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -125,8 +133,10 @@ struct Params {
     const float *dy, *dhf;
     void *dx, *dB, *dC;
     float *ddt, *dA, *dh0;
-    float *U, *hin, *gn, *dbh, *dch, *rsum, *ddtd, *xT, *dotp;
+    float *U, *hin, *gn, *dcb, *rsum, *ddtd, *ecum, *wj, *xT, *dotp;
     int Bsz, npb, nnb, parts;    // batch; 64-row blocks of P and of N; fold CTAs a state
+    int ntq, nrs;                // 64-row tiles of a chunk; rsum's slots a position
+    int slices, hps, ks;         // the plan: dCB slices, heads a slice; dB / dC K split
 };
 
 template <typename D, int NP>
@@ -199,12 +209,20 @@ __device__ __forceinline__ void stage(D* dst, int pstride, const T* __restrict__
 
 // dt of the chunk's positions [t0, t0 + L) into sDt (0 past L) and the
 // inclusive cumsum of dt A into sCum, over QMAX positions
+// (the scan of d0, d1 = dt at positions 2 tid, 2 tid + 1, as scan_dt)
+__device__ void scan_dt(float* sDt, float* sCum, float* red, float d0, float d1, float A);
+
 __device__ void chunk_scan(float* sDt, float* sCum, float* red, const float* dtb,
                            int64_t dt_st, int t0, int L, float A) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int j = 2 * tid;
+    const int j = 2 * threadIdx.x;
     const float d0 = j < L ? dtb[(int64_t)(t0 + j) * dt_st] : 0.f;
     const float d1 = j + 1 < L ? dtb[(int64_t)(t0 + j + 1) * dt_st] : 0.f;
+    scan_dt(sDt, sCum, red, d0, d1, A);
+}
+
+__device__ void scan_dt(float* sDt, float* sCum, float* red, float d0, float d1, float A) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int j = 2 * tid;
     const float v0 = d0 * A, v1 = v0 + d1 * A;
     float s = v1;
 #pragma unroll
@@ -608,6 +626,11 @@ __global__ void __launch_bounds__(NT) ssd_out_kernel(Params a) {
 
 constexpr int FOLD_E = 8 * NT;       // state elements a fold CTA carries
 constexpr int LDC = TQ + 4;          // fp32 row of a staged C.B tile
+constexpr int LDR = TQ + 8;          // row of a raw 64-column tile, fp32 or the input's
+constexpr int PIECE = TQ * TQ * (int)sizeof(bf16);   // a swizzled [64][64] bf16 piece
+constexpr int HPS_MAX = 16;          // heads of a dCB slice (their tables in shared memory)
+constexpr int CLUSTER_MAX = 16;      // CTAs of a cluster (past 8: non-portable)
+constexpr int DCB_TAB = 7 * TQ;      // a head's table in the dCB kernel (floats)
 
 // the sum of v over the CTA, in a fixed order, to every thread; buf[4]
 // shared, free again on return
@@ -642,16 +665,105 @@ __device__ __forceinline__ void stage_cb(float* sCB, const float* cbt, int64_t Q
     }
 }
 
+// thread-block clusters (along x: a CTA's rank is blockIdx.x mod the
+// cluster's size): a barrier of every thread of the cluster (ordering shared
+// memory cluster-wide), and 16 bytes of the shared memory of CTA `rank` at
+// the address p has in this one
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                 "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ float4 ld_cluster_f4(const float* p, int rank) {
+    uint32_t addr;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+    float4 v;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+    return v;
+}
+
+// A fp32 tile [TQ][LDR] of each CTA of the cluster (the same address in
+// each), summed over the ns CTAs in rank order: this CTA's share of the
+// rows, rank * ceil(TQ / ns) onwards, as float4 (r, col, sum) to `out`
+template <typename F>
+__device__ __forceinline__ void cluster_tile_sum(const float* part, int rank, int ns, F out) {
+    const int rr = (TQ + ns - 1) / ns, lo = rank * rr, hi = min(TQ, lo + rr);
+    for (int e = threadIdx.x; e < (hi - lo) * (TQ / 4); e += NT) {
+        const int r = lo + e / (TQ / 4), col = (e % (TQ / 4)) * 4;
+        float4 s = ld_cluster_f4(part + r * LDR + col, 0);
+        for (int q = 1; q < ns; ++q) {
+            const float4 v = ld_cluster_f4(part + r * LDR + col, q);
+            s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+        }
+        out(r, col, s);
+    }
+}
+
+// 4 bytes global -> shared by cp.async (zero-filled when !valid), for rows
+// of fp32 that do not start on 16 bytes
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// TQ rows x 64 bf16 columns of src (row stride st) into the 128-byte-swizzled
+// tile at dst (wgmma.cuh's layout): by cp.async where vec (the caller
+// commits and waits), else by scalar loads; rows >= rows and columns >=
+// cols are 0
+__device__ __forceinline__ void stage_sw(uint8_t* dst, const bf16* __restrict__ src, int64_t st,
+                                         int rows, int cols, bool vec) {
+#pragma unroll
+    for (int k = 0; k < TQ * 8 / NT; ++k) {
+        const int e = threadIdx.x + NT * k, r = e >> 3, ch = e & 7;
+        const bool ok = r < rows && 8 * ch < cols;
+        uint8_t* d = dst + sw128(r, ch, TQ);
+        if (vec) {
+            cp_async16(d, ok ? src + (int64_t)r * st + 8 * ch : src, ok);
+        } else {
+            uint32_t w[4] = {0u, 0u, 0u, 0u};
+            if (ok) {
+                const bf16* q = src + (int64_t)r * st + 8 * ch;
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    w[i] = bf16x2_bits(__halves2bfloat162(q[2 * i], q[2 * i + 1]));
+            }
+            *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+    }
+}
+
+// 8 fp32 values as NP bf16 pieces (v ~ p0 + p1 + ...), 16 bytes a piece,
+// pstride bytes apart
+template <int NP>
+__device__ __forceinline__ void put8(float (&v)[8], uint8_t* dst, int pstride) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+        uint32_t w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+            w[k] = bf16x2_bits(h);
+            v[2 * k] -= __low2float(h);
+            v[2 * k + 1] -= __high2float(h);
+        }
+        *reinterpret_cast<uint4*>(dst + p * pstride) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+}
+
 // 5. per (batch, head) and FOLD_E elements of the [P, N] state (blockIdx.x):
 // h_in of every chunk, folded forward from h0 and the forward's chunk states
 // and decays (the forward's fold, kept); then G walked back from dh_final,
 // G_c = exp(cum_last,c) G_{c+1} + U_c, writing G_{c+1} of each chunk into gn
 // and G_0 into dh0; and per chunk this block's share of exp(cum_last)
-// <G_{c+1}, h_in>, the last position's dcum term of the state passing
+// <G_{c+1}, h_in>, the last position's dcum term of the state passing.
+// h_in and G_{c+1} lie [B, nc, H, P, N]: a chunk's are one [H P, N] matrix,
+// the B operand of the group products (7).
 __global__ void __launch_bounds__(NT) ssd_fold_kernel(Params a) {
     __shared__ float red[4];
-    const int bh = blockIdx.y, tid = threadIdx.x;
+    const int bh = blockIdx.y, tid = threadIdx.x, b = bh / a.H, h = bh % a.H;
     const int64_t PN = (int64_t)a.P * a.N, base = (int64_t)bh * a.nc * PN;
+    auto hg = [&](int c) { return (((int64_t)b * a.nc + c) * a.H + h) * PN; };
     int64_t e[2];
     bool ok[2];
     float4 hv[2], gv[2];
@@ -669,9 +781,8 @@ __global__ void __launch_bounds__(NT) ssd_fold_kernel(Params a) {
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
             if (!ok[k]) continue;
-            const int64_t o = base + c * PN + e[k];
-            *reinterpret_cast<float4*>(a.hin + o) = hv[k];
-            const float4 s = __ldg(reinterpret_cast<const float4*>(a.st + o));
+            *reinterpret_cast<float4*>(a.hin + hg(c) + e[k]) = hv[k];
+            const float4 s = __ldg(reinterpret_cast<const float4*>(a.st + base + c * PN + e[k]));
             hv[k] = make_float4(dec * hv[k].x + s.x, dec * hv[k].y + s.y,
                                 dec * hv[k].z + s.z, dec * hv[k].w + s.w);
         }
@@ -682,11 +793,10 @@ __global__ void __launch_bounds__(NT) ssd_fold_kernel(Params a) {
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
             if (!ok[k]) continue;
-            const int64_t o = base + c * PN + e[k];
-            *reinterpret_cast<float4*>(a.gn + o) = gv[k];
-            const float4 hi = *reinterpret_cast<const float4*>(a.hin + o);   // this thread's
+            *reinterpret_cast<float4*>(a.gn + hg(c) + e[k]) = gv[k];
+            const float4 hi = *reinterpret_cast<const float4*>(a.hin + hg(c) + e[k]);   // this thread's
             dot += gv[k].x * hi.x + gv[k].y * hi.y + gv[k].z * hi.z + gv[k].w * hi.w;
-            const float4 u = __ldg(reinterpret_cast<const float4*>(a.U + o));
+            const float4 u = __ldg(reinterpret_cast<const float4*>(a.U + base + c * PN + e[k]));
             gv[k] = make_float4(dec * gv[k].x + u.x, dec * gv[k].y + u.y,
                                 dec * gv[k].z + u.z, dec * gv[k].w + u.w);
         }
@@ -698,374 +808,566 @@ __global__ void __launch_bounds__(NT) ssd_fold_kernel(Params a) {
         if (ok[k]) *reinterpret_cast<float4*>(a.dh0 + bh * PN + e[k]) = gv[k];
 }
 
-// 6. dC of one head for the 64 positions i of tile blockIdx.x / nnb and the
-// 64 columns n of block blockIdx.x % nnb, chunk blockIdx.y, (batch, head)
-// blockIdx.z, into fp32 scratch dch (the last launch sums a group's heads),
-// and each position's row part of dcum:
-//   dC_i = sum_{j<=i} V_ij B_j + exp(cum_i) h_in^T dy_i,
-//   V_ij = (dy_i . x_j) exp(cum_i - cum_j) dt_j,
-//   rsum_i = sum_j V_ij (C_i . B_j) + C_i . exp(cum_i) h_in^T dy_i,
-// the first term from n block 0, the second from each block into its own
-// slot. dy . x is taken over P in 64-wide blocks; V is formed in registers.
+// 6. dCB, the gradient of the scores C.B summed over a group's heads, for the
+// causal 64 x 64 tile pair (it, jt <= it) of blockIdx.x / slices, chunk
+// blockIdx.y, (batch, group) blockIdx.z. The group's heads are cut into
+// a.slices slices of a.hps (the last may be shorter), one a CTA (its rank in
+// a cluster of a.slices along x). For each head of its slice a CTA forms
+//   dM_ij = dy_i . x_j over P (bf16: wgmma m64n64k16, dy split into two
+//   bf16 pieces in registers, x as it lies in a swizzled tile; fp32:
+//   mma.sync, the forward's three-piece split),
+//   V_ij = dM_ij L_ij dt_j,  L_ij = exp(cum_i - cum_j), masked (j <= i) before exp,
+// writes the head's row sums sum_j V_ij (C_i . B_j) into rsum's slot jt and
+// its column sums sum_i dM_ij L_ij (C_i . B_j) into ddtd's slot it, and adds
+// V to the slice's fp32 sum (in shared memory, so that it holds no registers
+// across the heads); the cluster then adds its slices' sums through
+// distributed shared memory in rank order into dcb [B, G, nc, QP, QP].
+// The chunk scans of all the slice's heads run first, their dt loaded at
+// once, into per-head tables, so the loop over heads holds no scan; the (0,
+// 0) CTAs also write each head's exp(cum_i) and w_j = exp(cum_last - cum_j)
+// dt_j, the row scales of the group products (7). dy and x go through a
+// 2-stage cp.async ring: the next (head, 64 rows p) block lands while this
+// one is multiplied. C.B is the forward's, staged once.
 template <typename T>
-__global__ void __launch_bounds__(NT) ssd_bwd_dc_kernel(Params a) {
+__global__ void __launch_bounds__(NT) ssd_bwd_dcb_kernel(Params a) {
     constexpr int NI = Pieces<T>::IN, NM = Pieces<T>::MID;
+    constexpr bool WG = std::is_same<T, bf16>::value;   // dM on wgmma; fp32 on mma.sync
+    constexpr int YB = TQ * LDR * (int)sizeof(float);
+    constexpr int XB = WG ? TQ * TQ * (int)sizeof(bf16) : TQ * LDR * (int)sizeof(T);
     extern __shared__ uint4 smem_u4[];
-    bf16* sDy = reinterpret_cast<bf16*>(smem_u4);  // [NM][TQ][LDP] dy rows i, a p block
-    bf16* sX = sDy + NM * TQ * LDP;                 // [NI][TQ][LDP] x rows j, a p block
-    bf16* sH = sX + NI * TQ * LDP;                  // [NM][TQ][LDP] h_in rows p, the n block
-    bf16* sB = sH + NM * TQ * LDP;                  // [NI][TQ][LDP] B rows j, the n block
-    bf16* sC = sB + NI * TQ * LDP;                  // [NI][TQ][LDP] C rows i, the n block
-    float* sDt = reinterpret_cast<float*>(sC + NI * TQ * LDP);   // [QMAX]
-    float* sCum = sDt + QMAX;                                    // [QMAX]
-    __shared__ float red[4];
+    uint8_t* ring = align1024(reinterpret_cast<uint8_t*>(smem_u4));   // 2 x x rows j, 2 x dy rows i
+    float* sCB = reinterpret_cast<float*>(ring + 2 * (YB + XB));   // [TQ][LDR] the tile's C.B
+    float* sV = sCB + TQ * LDR;                                    // [TQ][LDR] the slice's V
+    float* sCol = sV + TQ * LDR;                                   // [2][4 warps][TQ]
+    float* sTab = sCol + 8 * TQ;                                   // [hps][DCB_TAB]
+    __shared__ float red[4][HPS_MAX], last[HPS_MAX];
 
-    const int it = blockIdx.x / a.nnb, nb = blockIdx.x % a.nnb, n0 = nb * NB;
-    const int c = blockIdx.y, bh = blockIdx.z, b = bh / a.H, h = bh % a.H;
-    const int g = h / (a.H / a.G);
-    const int t0 = c * a.Q, L = min(a.Q, a.S - t0), i0 = it * TQ;
-    if (i0 >= L) return;
+    const int s = blockIdx.x % a.slices;
+    int it = 0, jt = blockIdx.x / a.slices;
+    while (jt > it) jt -= ++it;
+    const int c = blockIdx.y, bg = blockIdx.z, b = bg / a.G, g = bg % a.G;
+    const int t0 = c * a.Q, L = min(a.Q, a.S - t0), i0 = it * TQ, j0 = jt * TQ;
+    if (i0 >= L) return;                           // the whole cluster's pair
+    const int rep = a.H / a.G, h_lo = g * rep + s * a.hps, h_hi = min(h_lo + a.hps, (g + 1) * rep);
+    const int nh = h_hi - h_lo;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int gr = lane >> 2, c2 = 2 * (lane & 3);
-    const int a_row = warp * 16 + (lane & 15), a_col = (lane >> 4) * 8;
+    const int gr = lane >> 2, c2 = 2 * (lane & 3), r0 = warp * 16 + gr, ir = i0 + r0;
+    const int w0 = i0 + warp * 16;                 // the warp's first row
     const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
-    const int npb = a.npb, ncol = min(NB, a.N - n0), nkn = (ncol + 15) / 16;
-    const int64_t hp = (int64_t)a.H * a.P, PN = (int64_t)a.P * a.N;
-    const float* dyi = a.dy + ((int64_t)b * a.S + t0 + i0) * hp + (int64_t)h * a.P;
-    const T* xb = (const T*)a.x + b * a.x_sb + h * a.x_sh + (int64_t)t0 * a.x_st;
-    const T* Bb = (const T*)a.Bm + b * a.b_sb + g * a.b_sg + (int64_t)t0 * a.b_st + n0;
-    const T* Ci = (const T*)a.Cm + b * a.c_sb + g * a.c_sg + (int64_t)(t0 + i0) * a.c_st + n0;
-    const float* hin = a.hin + ((int64_t)bh * a.nc + c) * PN + n0;
+    const int npb = a.npb, nu = nh * npb;
+    const int64_t hp = (int64_t)a.H * a.P, QP = a.QP;
 
-    stage<T, bf16, NI, TQ, LDP>(sC, TQ * LDP, Ci, a.c_st, L - i0, ncol, a.vec);
-    chunk_scan(sDt, sCum, red, a.dt + b * a.dt_sb + h * a.dt_sh, a.dt_st, t0, L, a.A[h]);
-
-    // inter-chunk part: dy_i h_in over P (exp(cum_i) applied below)
-    float acc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    for (int pb = 0; pb < npb; ++pb) {
-        const int p0 = pb * TQ;
-        if (pb) __syncthreads();
-        stage<float, bf16, NM, TQ, LDP>(sDy, TQ * LDP, dyi + p0, hp, L - i0, a.P - p0, true);
-        stage<float, bf16, NM, TQ, LDP>(sH, TQ * LDP, hin + (int64_t)p0 * a.N, a.N, a.P - p0,
-                                        ncol, true);
+    // x first (a swizzled tile on 1024 bytes in bf16), then dy
+    auto sx = [&](int k) { return ring + k * XB; };
+    auto sy = [&](int k) { return reinterpret_cast<float*>(ring + 2 * XB + k * YB); };
+    auto issue = [&](int u) {          // (head, p block) u into stage u & 1
+        const int h = h_lo + u / npb, p0 = (u % npb) * TQ;
+        stage<float, float, 1, TQ, LDR>(
+            sy(u & 1), 0, a.dy + ((int64_t)b * a.S + t0 + i0) * hp + (int64_t)h * a.P + p0, hp,
+            L - i0, a.P - p0, true);
+        const T* xj = (const T*)a.x + b * a.x_sb + h * a.x_sh + (int64_t)(t0 + j0) * a.x_st + p0;
+        if constexpr (WG)
+            stage_sw(sx(u & 1), xj, a.x_st, L - j0, a.P - p0, a.vec);
+        else
+            stage<T, T, 1, TQ, LDR>(reinterpret_cast<T*>(sx(u & 1)), 0, xj, a.x_st, L - j0,
+                                    a.P - p0, a.vec);
         cp_async_commit();
-        cp_async_wait<0>();
+    };
+    // ddtd of head hh: the 4 warps' column sums, added in order
+    auto flush_cols = [&](int hh) {
+        const float* col = sCol + (hh & 1) * 4 * TQ;
+        if (tid < TQ && j0 + tid < L)
+            a.ddtd[(((int64_t)b * a.H + h_lo + hh) * a.ntq + it) * a.S + t0 + j0 + tid] =
+                (col[tid] + col[TQ + tid]) + (col[2 * TQ + tid] + col[3 * TQ + tid]);
+    };
+
+    // the tile's C.B and the first (head, p block) land while the scans run
+    stage<float, float, 1, TQ, LDR>(
+        sCB, 0, a.cb + (((int64_t)bg * a.nc + c) * QP + i0) * QP + j0, QP, TQ, TQ, true);
+    issue(0);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {               // this lane's elements of V (its own)
+        *reinterpret_cast<float2*>(sV + r0 * LDR + nt * 8 + c2) = make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(sV + (r0 + 8) * LDR + nt * 8 + c2) = make_float2(0.f, 0.f);
+    }
+
+    // every head's chunk scan at once: this thread's positions 2 tid, 2 tid +
+    // 1 of each head in registers, one barrier for the warps' carries. A
+    // head's table: cum of the tile's rows [TQ] and of its columns [TQ], dt
+    // of its columns [TQ], and per warp w exp(cum_w - cum_j) for j < w
+    // [4][TQ], cum_w at w's first row: L_ij = exp(cum_i - cum_w) exp(cum_w -
+    // cum_j) below the warp's diagonal block, both factors at most 1, so
+    // neither overflows (one that underflows leaves a product below fp32's
+    // range)
+    {
+        const int j = 2 * tid;
+        float d0[HPS_MAX], d1[HPS_MAX], c0[HPS_MAX], c1[HPS_MAX];
+#pragma unroll
+        for (int hh = 0; hh < HPS_MAX; ++hh) {
+            if (hh >= nh) break;
+            const float* dtb = a.dt + b * a.dt_sb + (h_lo + hh) * a.dt_sh;
+            d0[hh] = j < L ? __ldg(dtb + (int64_t)(t0 + j) * a.dt_st) : 0.f;
+            d1[hh] = j + 1 < L ? __ldg(dtb + (int64_t)(t0 + j + 1) * a.dt_st) : 0.f;
+            c1[hh] = __ldg(a.A + h_lo + hh);
+        }
+#pragma unroll
+        for (int hh = 0; hh < HPS_MAX; ++hh) {     // the warp's inclusive scans
+            if (hh >= nh) break;
+            const float v0 = d0[hh] * c1[hh], v1 = v0 + d1[hh] * c1[hh];
+            float sc = v1;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const float n = __shfl_up_sync(FULL, sc, o);
+                if (lane >= o) sc += n;
+            }
+            float ex = __shfl_up_sync(FULL, sc, 1);
+            if (lane == 0) ex = 0.f;
+            if (lane == 31) red[warp][hh] = sc;
+            c0[hh] = ex + v0;
+            c1[hh] = ex + v1;
+        }
         __syncthreads();
-        const int nkp = min(TQ, a.P - p0) / 16;
-        for (int kk = 0; kk < nkp; ++kk) {
-            uint32_t af[NM][4];
+        const bool row = j - i0 >= 0 && j - i0 < TQ, col = j - j0 >= 0 && j - j0 < TQ;
 #pragma unroll
-            for (int q = 0; q < NM; ++q)
-                ldsm_x4(af[q], sDy + q * TQ * LDP + a_row * LDP + kk * 16 + a_col);
+        for (int hh = 0; hh < HPS_MAX; ++hh) {
+            if (hh >= nh) break;
+            float off = 0.f;
+            for (int w = 0; w < warp; ++w) off += red[w][hh];
+            c0[hh] += off;
+            c1[hh] += off;
+            float* tab = sTab + hh * DCB_TAB;
+            if (row) {
+                tab[j - i0] = c0[hh];
+                tab[j - i0 + 1] = c1[hh];
+            }
+            if (col) {
+                tab[TQ + j - j0] = c0[hh];
+                tab[TQ + j - j0 + 1] = c1[hh];
+                tab[2 * TQ + j - j0] = d0[hh];
+                tab[2 * TQ + j - j0 + 1] = d1[hh];
+            }
+            if (j == L - 1) last[hh] = c0[hh];
+            if (j + 1 == L - 1) last[hh] = c1[hh];
+        }
+        __syncthreads();
 #pragma unroll
-            for (int np = 0; np < NB / 16; ++np) {
-                if (np >= nkn) break;
-                uint32_t bf[NM][4];
-#pragma unroll
-                for (int q = 0; q < NM; ++q)
-                    ldsm_x4_trans(bf[q], sH + q * TQ * LDP + (kk * 16 + (lane & 15)) * LDP
-                                         + np * 16 + (lane >> 4) * 8);
-                mma_pieces<NM, NM>(acc[2 * np], af, bf, 0);
-                mma_pieces<NM, NM>(acc[2 * np + 1], af, bf, 2);
+        for (int hh = 0; hh < HPS_MAX; ++hh) {
+            if (hh >= nh) break;
+            float* tab = sTab + hh * DCB_TAB;
+            for (int e = tid; e < 4 * TQ; e += NT) {
+                const int w = e / TQ, jj = e % TQ;
+                tab[3 * TQ + e] = j0 + jj < i0 + 16 * w ? expf(tab[16 * w] - tab[TQ + jj]) : 0.f;
+            }
+            if (it == 0 && jt == 0) {              // the group products' row scales
+                float* ec = a.ecum + ((int64_t)b * a.H + h_lo + hh) * a.S + t0;
+                float* wj = a.wj + ((int64_t)b * a.H + h_lo + hh) * a.S + t0;
+                if (j < L) {
+                    ec[j] = expf(c0[hh]);
+                    wj[j] = expf(last[hh] - c0[hh]) * d0[hh];
+                }
+                if (j + 1 < L) {
+                    ec[j + 1] = expf(c1[hh]);
+                    wj[j + 1] = expf(last[hh] - c1[hh]) * d1[hh];
+                }
             }
         }
-    }
-    // rows r0, r0 + 8 of the tile are this lane's: C_i . (h_in^T dy_i) over
-    // the block's columns, then exp(cum_i) on the row
-    const int r0 = warp * 16 + gr, ir = i0 + r0;
-    float q0 = 0.f, q1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-        const int n = nt * 8 + c2;
-        if (n >= ncol) break;
-        float cv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int q = 0; q < NI; ++q) {
-            const bf16* sp = sC + q * TQ * LDP + r0 * LDP + n;
-            cv[0] += __bfloat162float(sp[0]);
-            cv[1] += __bfloat162float(sp[1]);
-            cv[2] += __bfloat162float(sp[8 * LDP]);
-            cv[3] += __bfloat162float(sp[8 * LDP + 1]);
-        }
-        q0 += acc[nt][0] * cv[0] + acc[nt][1] * cv[1];
-        q1 += acc[nt][2] * cv[2] + acc[nt][3] * cv[3];
-    }
-    const float e0 = ir < L ? expf(sCum[ir]) : 0.f, e1 = ir + 8 < L ? expf(sCum[ir + 8]) : 0.f;
-    q0 = e0 * quad_sum(q0);
-    q1 = e1 * quad_sum(q1);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-        acc[n][0] *= e0; acc[n][1] *= e0; acc[n][2] *= e1; acc[n][3] *= e1;
+        // published by the ring's first barrier
     }
 
-    // intra-chunk part over the key tiles j0 <= i0
-    const float cum0 = sCum[ir], cum1 = sCum[ir + 8];
-    const float* cbt = a.cb + ((int64_t)(b * a.G + g) * a.nc + c) * a.QP * a.QP
-                     + (int64_t)ir * a.QP;
-    float rs0 = 0.f, rs1 = 0.f;
-    for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * TQ;
+    for (int hh = 0; hh < nh; ++hh) {
+        const int h = h_lo + hh;
         float dm[8][4];
 #pragma unroll
         for (int n = 0; n < 8; ++n) dm[n][0] = dm[n][1] = dm[n][2] = dm[n][3] = 0.f;
         for (int pb = 0; pb < npb; ++pb) {
-            const int p0 = pb * TQ;
-            __syncthreads();           // the reads of the last staging are done
-            if (npb > 1)
-                stage<float, bf16, NM, TQ, LDP>(sDy, TQ * LDP, dyi + p0, hp, L - i0, a.P - p0,
-                                                true);
-            stage<T, bf16, NI, TQ, LDP>(sX, TQ * LDP, xb + (int64_t)j0 * a.x_st + p0, a.x_st,
-                                        L - j0, a.P - p0, a.vec);
-            if (pb == 0)
-                stage<T, bf16, NI, TQ, LDP>(sB, TQ * LDP, Bb + (int64_t)j0 * a.b_st, a.b_st,
-                                            L - j0, ncol, a.vec);
-            cp_async_commit();
-            cp_async_wait<0>();
+            const int u = hh * npb + pb;
+            if (u + 1 < nu) issue(u + 1);
+            else cp_async_commit();
+            cp_async_wait<1>();
+            if constexpr (WG) fence_async_smem();
             __syncthreads();
-            const int nkp = min(TQ, a.P - p0) / 16;
-            for (int kk = 0; kk < nkp; ++kk) {    // dM = dy_i x_j^T
-                uint32_t af[NM][4];
+            if (pb == 0 && hh > 0) flush_cols(hh - 1);   // written before the barrier
+            const float* y = sy(u & 1);
+            const int nkp = min(TQ, a.P - pb * TQ) / 16;
+            if constexpr (WG) {
+                // dM += dy_i x_j^T on wgmma m64n64k16: A (dy, split into NM
+                // pieces) in registers, B the swizzled x tile (K-major)
+                uint32_t af[4][NM][4];
 #pragma unroll
-                for (int q = 0; q < NM; ++q)
-                    ldsm_x4(af[q], sDy + q * TQ * LDP + a_row * LDP + kk * 16 + a_col);
+                for (int kk = 0; kk < 4; ++kk) {
+                    if (kk >= nkp) break;
+                    const float* ya = y + r0 * LDR + kk * 16 + c2;
+                    const float2 v0 = *reinterpret_cast<const float2*>(ya);
+                    const float2 v1 = *reinterpret_cast<const float2*>(ya + 8 * LDR);
+                    const float2 v2 = *reinterpret_cast<const float2*>(ya + 8);
+                    const float2 v3 = *reinterpret_cast<const float2*>(ya + 8 * LDR + 8);
+                    split_pack<NM>(v0.x, v0.y, af[kk], 0);
+                    split_pack<NM>(v1.x, v1.y, af[kk], 1);
+                    split_pack<NM>(v2.x, v2.y, af[kk], 2);
+                    split_pack<NM>(v3.x, v3.y, af[kk], 3);
+                }
+                float (&d)[32] = *reinterpret_cast<float(*)[32]>(&dm[0][0]);
+                const uint32_t ub = smem_u32(sx(u & 1));
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    if (kk >= nkp) break;
+#pragma unroll
+                    for (int pa = NM - 1; pa >= 0; --pa) wgmma_rs<0>(d, af[kk][pa], desc_k(ub + kk * 32));
+                }
+                wg_commit();
+                wg_wait<0>();
+                reg_fence(d);
+            } else
+            for (int kk = 0; kk < nkp; ++kk) {     // dM += dy_i x_j^T, A and B split here
+                const T* xs = reinterpret_cast<const T*>(sx(u & 1));
+                uint32_t af[NM][4];
+                const float* ya = y + r0 * LDR + kk * 16 + c2;
+                const float2 v0 = *reinterpret_cast<const float2*>(ya);
+                const float2 v1 = *reinterpret_cast<const float2*>(ya + 8 * LDR);
+                const float2 v2 = *reinterpret_cast<const float2*>(ya + 8);
+                const float2 v3 = *reinterpret_cast<const float2*>(ya + 8 * LDR + 8);
+                split_pack<NM>(v0.x, v0.y, af, 0);
+                split_pack<NM>(v1.x, v1.y, af, 1);
+                split_pack<NM>(v2.x, v2.y, af, 2);
+                split_pack<NM>(v3.x, v3.y, af, 3);
 #pragma unroll
                 for (int jp = 0; jp < 4; ++jp) {
                     uint32_t bf[NI][4];
 #pragma unroll
-                    for (int q = 0; q < NI; ++q)
-                        ldsm_x4(bf[q], sX + q * TQ * LDP + (16 * jp + b_row) * LDP + kk * 16
-                                       + b_col);
+                    for (int hf = 0; hf < 2; ++hf) {
+                        const T* xb = xs + (16 * jp + 8 * hf + gr) * LDR + kk * 16 + c2;
+                        const float2 q0 = make_float2(to_f(xb[0]), to_f(xb[1]));
+                        const float2 q1 = make_float2(to_f(xb[8]), to_f(xb[9]));
+                        split_pack<NI>(q0.x, q0.y, bf, 2 * hf);
+                        split_pack<NI>(q1.x, q1.y, bf, 2 * hf + 1);
+                    }
                     mma_pieces<NM, NI>(dm[2 * jp], af, bf, 0);
                     mma_pieces<NM, NI>(dm[2 * jp + 1], af, bf, 2);
                 }
             }
+            __syncthreads();                   // the stage is free for unit u + 2
         }
+        // the head's V, its row and column sums against C.B
+        const float* tab = sTab + hh * DCB_TAB;
+        const float cum0 = tab[r0], cum1 = tab[r0 + 8], cw = tab[16 * warp];
+        const float rf0 = expf(cum0 - cw), rf1 = expf(cum1 - cw);
+        const float* lw = tab + (3 + warp) * TQ;
+        float rs0 = 0.f, rs1 = 0.f, cs[8][2];
 #pragma unroll
-        for (int kk = 0; kk < TQ / 16; ++kk) {
-            if (jt == it && kk > warp) break;     // columns past the warp's rows
-            uint32_t af[NM][4];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int nt = 2 * kk + half, j = j0 + nt * 8 + c2;
-                const float2 cb0 = __ldg(reinterpret_cast<const float2*>(cbt + j));
-                const float2 cb1 = __ldg(reinterpret_cast<const float2*>(cbt + 8 * a.QP + j));
-                const float d0 = sDt[j], d1 = sDt[j + 1], m0 = sCum[j], m1 = sCum[j + 1];
+        for (int nt = 0; nt < 8; ++nt) {
+            const int jj = nt * 8 + c2, j = j0 + jj;
+            const float2 d = *reinterpret_cast<const float2*>(tab + 2 * TQ + jj);
+            float l00, l01, l10, l11;              // L_ij; the branch is the warp's
+            if (j < w0) {
+                const float2 f = *reinterpret_cast<const float2*>(lw + jj);
+                l00 = rf0 * f.x;
+                l01 = rf0 * f.y;
+                l10 = rf1 * f.x;
+                l11 = rf1 * f.y;
+            } else if (j < w0 + 16) {              // the warp's diagonal block
+                const float m0 = tab[TQ + jj], m1 = tab[TQ + jj + 1];
                 // mask before exp: j > i would overflow
-                const float v00 = j <= ir ? dm[nt][0] * expf(cum0 - m0) * d0 : 0.f;
-                const float v01 = j + 1 <= ir ? dm[nt][1] * expf(cum0 - m1) * d1 : 0.f;
-                const float v10 = j <= ir + 8 ? dm[nt][2] * expf(cum1 - m0) * d0 : 0.f;
-                const float v11 = j + 1 <= ir + 8 ? dm[nt][3] * expf(cum1 - m1) * d1 : 0.f;
-                rs0 += v00 * cb0.x + v01 * cb0.y;
-                rs1 += v10 * cb1.x + v11 * cb1.y;
-                split_pack<NM>(v00, v01, af, 2 * half);
-                split_pack<NM>(v10, v11, af, 2 * half + 1);
+                l00 = j <= ir ? expf(cum0 - m0) : 0.f;
+                l01 = j + 1 <= ir ? expf(cum0 - m1) : 0.f;
+                l10 = j <= ir + 8 ? expf(cum1 - m0) : 0.f;
+                l11 = j + 1 <= ir + 8 ? expf(cum1 - m1) : 0.f;
+            } else {                               // past the warp's rows
+                l00 = l01 = l10 = l11 = 0.f;
             }
-#pragma unroll
-            for (int np = 0; np < NB / 16; ++np) {       // dC += V B_j
-                if (np >= nkn) break;
-                uint32_t bf[NI][4];
-#pragma unroll
-                for (int q = 0; q < NI; ++q)
-                    ldsm_x4_trans(bf[q], sB + q * TQ * LDP + (kk * 16 + (lane & 15)) * LDP
-                                         + np * 16 + (lane >> 4) * 8);
-                mma_pieces<NM, NI>(acc[2 * np], af, bf, 0);
-                mma_pieces<NM, NI>(acc[2 * np + 1], af, bf, 2);
-            }
+            const float t00 = dm[nt][0] * l00, t01 = dm[nt][1] * l01;
+            const float t10 = dm[nt][2] * l10, t11 = dm[nt][3] * l11;
+            const float2 cb0 = *reinterpret_cast<const float2*>(sCB + r0 * LDR + jj);
+            const float2 cb1 = *reinterpret_cast<const float2*>(sCB + (r0 + 8) * LDR + jj);
+            cs[nt][0] = t00 * cb0.x + t10 * cb1.x;
+            cs[nt][1] = t01 * cb0.y + t11 * cb1.y;
+            const float v00 = t00 * d.x, v01 = t01 * d.y, v10 = t10 * d.x, v11 = t11 * d.y;
+            rs0 += v00 * cb0.x + v01 * cb0.y;
+            rs1 += v10 * cb1.x + v11 * cb1.y;
+            float2* va = reinterpret_cast<float2*>(sV + r0 * LDR + jj);
+            float2* vb = reinterpret_cast<float2*>(sV + (r0 + 8) * LDR + jj);
+            const float2 pa = *va, pb = *vb;
+            *va = make_float2(pa.x + v00, pa.y + v01);
+            *vb = make_float2(pb.x + v10, pb.y + v11);
         }
-    }
-    rs0 = (nb == 0 ? quad_sum(rs0) : 0.f) + q0;
-    rs1 = (nb == 0 ? quad_sum(rs1) : 0.f) + q1;
-    float* out = a.dch + ((int64_t)bh * a.S + t0) * a.N + n0;
+        rs0 = quad_sum(rs0);
+        rs1 = quad_sum(rs1);
+        if ((lane & 3) == 0) {
+            float* rs = a.rsum + (((int64_t)b * a.H + h) * a.nrs + jt) * a.S + t0;
+            if (ir < L) rs[ir] = rs0;
+            if (ir + 8 < L) rs[ir + 8] = rs1;
+        }
+        // column sums over the warp's 16 rows (lanes of one lane & 3): each
+        // exchange halves the columns a lane keeps, so lane (gr, c2) ends
+        // with columns 8 gr + c2, + 1
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-        const int n = nt * 8 + c2;
-        if (n >= ncol) break;
-        if (ir < L)
-            *reinterpret_cast<float2*>(out + (int64_t)ir * a.N + n) = make_float2(acc[nt][0], acc[nt][1]);
-        if (ir + 8 < L)
-            *reinterpret_cast<float2*>(out + (int64_t)(ir + 8) * a.N + n) = make_float2(acc[nt][2], acc[nt][3]);
+        for (int st = 4; st >= 1; st >>= 1) {
+            const bool up = lane & (4 * st);
+#pragma unroll
+            for (int n = 0; n < st; ++n)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const float keep = up ? cs[n + st][e] : cs[n][e];
+                    const float send = up ? cs[n][e] : cs[n + st][e];
+                    cs[n][e] = keep + __shfl_xor_sync(FULL, send, 4 * st);
+                }
+        }
+        *reinterpret_cast<float2*>(sCol + ((hh & 1) * 4 + warp) * TQ + 8 * gr + c2) =
+            make_float2(cs[0][0], cs[0][1]);
     }
-    if ((lane & 3) == 0) {
-        float* rs = a.rsum + ((int64_t)bh * a.nnb + nb) * a.S + t0;
-        if (ir < L) rs[ir] = rs0;
-        if (ir + 8 < L) rs[ir + 8] = rs1;
-    }
+    __syncthreads();
+    flush_cols(nh - 1);
+
+    // the cluster's slices added in rank order
+    cluster_sync();
+    float* out = a.dcb + (((int64_t)bg * a.nc + c) * QP + i0) * QP + j0;
+    cluster_tile_sum(sV, s, a.slices, [&](int r, int col, float4 v) {
+        *reinterpret_cast<float4*>(out + r * QP + col) = v;
+    });
+    cluster_sync();                                // no CTA leaves while its tile is read
 }
 
-// 7. dB of one head for the 64 positions j of tile blockIdx.x / nnb and the
-// 64 columns n of block blockIdx.x % nnb, chunk blockIdx.y, (batch, head)
-// blockIdx.z, into fp32 scratch dbh, and (from n block 0) each position's
-// direct d(dt) of the intra-chunk term:
-//   dB_j = sum_{i>=j} V_ij C_i + w_j x_j^T G_{c+1},   w_j = exp(cum_last - cum_j) dt_j,
-//   ddtd_j = sum_{i>=j} (dy_i . x_j) (C_i . B_j) exp(cum_i - cum_j).
-// dM^T = x_j dy_i^T is taken over P in 64-wide blocks; V^T in registers.
+// 7. dC (side 0) or dB (side 1) of a group, in the input dtype, for 64 rows
+// (tile blockIdx.x / ks of the chunks' tiles, chunk-major) and 64 columns n
+// (blockIdx.y), (batch, group, side) blockIdx.z:
+//   dC_i = sum_{j<=i} dCB_ij B_j + sum_h exp(cum^h_i) dy^h_i h_in^h,
+//   dB_j = sum_{i>=j} dCB_ij C_i + sum_h w^h_j x^h_j G^h_{c+1}.
+// The reduction runs over units of 64: the dCB tiles of the row tile, then
+// each (head, 64 rows p) of the state term, K = H P (a row of dy, and of x,
+// is contiguous over (h, p); h_in and G lie [H P, N] a chunk). A cluster of
+// a.ks CTAs along x splits the units in order. Each unit goes through a
+// 2-stage cp.async ring as it lies (fp32, or the input's rows); B is then
+// split into bf16 pieces in the 128-byte-swizzled layout (MN-major), A is
+// formed in registers with its row scale (exp(cum^h_i), w^h_j: the dCB
+// kernel's tables) and split, and the products run on wgmma m64n64k16, the
+// piece pairs of mma_pieces. The cluster adds its ks partial tiles through
+// distributed shared memory in rank order. The dC side also writes, per
+// head and 64 rows p, its share of rsum's state term, C_i . (exp(cum^h_i)
+// dy^h_i h_in^h) over its 64 columns: the change the unit makes to C_i .
+// acc_i (no second accumulator).
 template <typename T>
-__global__ void __launch_bounds__(NT) ssd_bwd_db_kernel(Params a) {
+__global__ void __launch_bounds__(NT) ssd_bwd_dbc_kernel(Params a) {
     constexpr int NI = Pieces<T>::IN, NM = Pieces<T>::MID;
+    constexpr int NP = NI > NM ? NI : NM;        // pieces of B
+    constexpr int KEEP = NM > NP ? NM : NP;
+    constexpr int RAW = TQ * LDR * (int)sizeof(float);
     extern __shared__ uint4 smem_u4[];
-    bf16* sX = reinterpret_cast<bf16*>(smem_u4);  // [NI][TQ][LDP] x rows j, a p block
-    bf16* sDy = sX + NI * TQ * LDP;                // [NM][TQ][LDP] dy rows i, a p block
-    bf16* sG = sDy + NM * TQ * LDP;                // [NM][TQ][LDP] G_{c+1} rows p, the n block
-    bf16* sC = sG + NM * TQ * LDP;                 // [NI][TQ][LDP] C rows i, the n block
-    float* sCB = reinterpret_cast<float*>(sC + NI * TQ * LDP);   // [TQ][LDC] C.B rows i
-    float* sDt = sCB + TQ * LDC;                                 // [QMAX]
-    float* sCum = sDt + QMAX;                                    // [QMAX]
-    __shared__ float red[4];
+    uint8_t* sBp = align1024(reinterpret_cast<uint8_t*>(smem_u4));   // [NP][64 k][64 n] swizzled
+    uint8_t* ring = sBp + NP * PIECE;                     // 2 x [raw A | raw B | A's row scales]
 
-    const int jt = blockIdx.x / a.nnb, nb = blockIdx.x % a.nnb, n0 = nb * NB;
-    const int c = blockIdx.y, bh = blockIdx.z, b = bh / a.H, h = bh % a.H;
-    const int g = h / (a.H / a.G);
-    const int t0 = c * a.Q, L = min(a.Q, a.S - t0), j0 = jt * TQ;
-    if (j0 >= L) return;
+    const int ks = a.ks, rank = blockIdx.x % ks, tile = blockIdx.x / ks;
+    const int c = tile / a.ntq, it = tile % a.ntq;
+    const int n0 = blockIdx.y * TQ, ncol = min(TQ, a.N - n0);
+    const int side = blockIdx.z & 1, bg = blockIdx.z >> 1, b = bg / a.G, g = bg % a.G;
+    const int t0 = c * a.Q, L = min(a.Q, a.S - t0), r0 = it * TQ;
+    if (r0 >= L) return;                           // the whole cluster's tile
+    const int rows = min(TQ, L - r0), ntc = (L + TQ - 1) / TQ;
+    const int rep = a.H / a.G, npb = a.npb;
+    const int ndcb = side == 0 ? it + 1 : ntc - it;    // dCB tiles of the row tile
+    const int nk = ndcb + rep * npb;
+    const int u_lo = rank * nk / ks, u_hi = (rank + 1) * nk / ks;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int gr = lane >> 2, c2 = 2 * (lane & 3);
-    const int a_row = warp * 16 + (lane & 15), a_col = (lane >> 4) * 8;
-    const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
-    const int npb = a.npb, ncol = min(NB, a.N - n0), nkn = (ncol + 15) / 16;
-    const int nti = (L + TQ - 1) / TQ;
-    const int64_t hp = (int64_t)a.H * a.P, PN = (int64_t)a.P * a.N;
-    const float* dyb = a.dy + ((int64_t)b * a.S + t0) * hp + (int64_t)h * a.P;
-    const T* xj = (const T*)a.x + b * a.x_sb + h * a.x_sh + (int64_t)(t0 + j0) * a.x_st;
-    const T* Cb = (const T*)a.Cm + b * a.c_sb + g * a.c_sg + (int64_t)t0 * a.c_st + n0;
-    const float* gn = a.gn + ((int64_t)bh * a.nc + c) * PN + n0;
-    const float* cbt = a.cb + ((int64_t)(b * a.G + g) * a.nc + c) * a.QP * a.QP + j0;
+    const int gr = lane >> 2, c2 = 2 * (lane & 3), rw = warp * 16 + gr;   // rows rw, rw + 8
+    const int64_t hp = (int64_t)a.H * a.P, PN = (int64_t)a.P * a.N, QP = a.QP;
+    const T* other = side == 0 ? (const T*)a.Bm + b * a.b_sb + g * a.b_sg
+                               : (const T*)a.Cm + b * a.c_sb + g * a.c_sg;
+    const int64_t ost = side == 0 ? a.b_st : a.c_st;
+    const float* dcbc = a.dcb + ((int64_t)bg * a.nc + c) * QP * QP;
 
-    chunk_scan(sDt, sCum, red, a.dt + b * a.dt_sb + h * a.dt_sh, a.dt_st, t0, L, a.A[h]);
-
-    // the state passing's part: x_j G_{c+1} over P, then w_j on the row
-    float acc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    for (int pb = 0; pb < npb; ++pb) {
-        const int p0 = pb * TQ;
-        if (pb) __syncthreads();
-        stage<T, bf16, NI, TQ, LDP>(sX, TQ * LDP, xj + p0, a.x_st, L - j0, a.P - p0, a.vec);
-        stage<float, bf16, NM, TQ, LDP>(sG, TQ * LDP, gn + (int64_t)p0 * a.N, a.N, a.P - p0,
-                                        ncol, true);
+    constexpr int STAGE = 2 * RAW + TQ * (int)sizeof(float);
+    auto rawA = [&](int k) { return ring + k * STAGE; };
+    auto rawB = [&](int k) { return ring + k * STAGE + RAW; };
+    auto scales = [&](int k) { return reinterpret_cast<float*>(ring + k * STAGE + 2 * RAW); };
+    auto issue = [&](int u, int k) {
+        if (u < ndcb) {
+            // A: the dCB tile (it, kt) of dC, (kt, it) of dB (read transposed);
+            // B: rows kt of B (dC) or C (dB)
+            const int kt = side == 0 ? u : it + u;
+            const int ti = side == 0 ? it : kt, tj = side == 0 ? kt : it;
+            stage<float, float, 1, TQ, LDR>(reinterpret_cast<float*>(rawA(k)), 0,
+                                            dcbc + (int64_t)ti * TQ * QP + tj * TQ, QP, TQ, TQ,
+                                            true);
+            stage<T, T, 1, TQ, LDR>(reinterpret_cast<T*>(rawB(k)), 0,
+                                    other + (int64_t)(t0 + kt * TQ) * ost + n0, ost,
+                                    L - kt * TQ, ncol, a.vec);
+        } else {
+            // A: dy (dC) or x (dB) rows of the tile, head h, 64 columns p;
+            // B: h_in (dC) or G_{c+1} (dB) rows p of head h
+            const int h = g * rep + (u - ndcb) / npb, p0 = ((u - ndcb) % npb) * TQ;
+            if (side == 0)
+                stage<float, float, 1, TQ, LDR>(
+                    reinterpret_cast<float*>(rawA(k)), 0,
+                    a.dy + ((int64_t)b * a.S + t0 + r0) * hp + (int64_t)h * a.P + p0, hp, rows,
+                    a.P - p0, true);
+            else
+                stage<T, T, 1, TQ, LDR>(
+                    reinterpret_cast<T*>(rawA(k)), 0,
+                    (const T*)a.x + b * a.x_sb + h * a.x_sh + (int64_t)(t0 + r0) * a.x_st + p0,
+                    a.x_st, rows, a.P - p0, a.vec);
+            const float* st = (side == 0 ? a.hin : a.gn)
+                            + (((int64_t)b * a.nc + c) * a.H + h) * PN + (int64_t)p0 * a.N + n0;
+            stage<float, float, 1, TQ, LDR>(reinterpret_cast<float*>(rawB(k)), 0, st, a.N,
+                                            a.P - p0, ncol, true);
+            // A's row scales: exp(cum^h_i) (dC) or w^h_j (dB), the dCB kernel's
+            if (tid < TQ) {
+                const float* sc = (side == 0 ? a.ecum : a.wj) + ((int64_t)b * a.H + h) * a.S + t0 + r0;
+                cp_async4(scales(k) + tid, tid < rows ? sc + tid : sc, tid < rows);
+            }
+        }
         cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        const int nkp = min(TQ, a.P - p0) / 16;
-        for (int kk = 0; kk < nkp; ++kk) {
-            uint32_t af[NI][4];
+    };
+
+    // the dC side's C of this lane's rows and columns (rsum's share), as
+    // pairs of the input's dtype (bf16 pairs hold half the registers)
+    using T2 = typename std::conditional<std::is_same<T, bf16>::value, __nv_bfloat162,
+                                         float2>::type;
+    T2 cv[16];
 #pragma unroll
-            for (int q = 0; q < NI; ++q)
-                ldsm_x4(af[q], sX + q * TQ * LDP + a_row * LDP + kk * 16 + a_col);
-#pragma unroll
-            for (int np = 0; np < NB / 16; ++np) {
-                if (np >= nkn) break;
-                uint32_t bf[NM][4];
-#pragma unroll
-                for (int q = 0; q < NM; ++q)
-                    ldsm_x4_trans(bf[q], sG + q * TQ * LDP + (kk * 16 + (lane & 15)) * LDP
-                                         + np * 16 + (lane >> 4) * 8);
-                mma_pieces<NI, NM>(acc[2 * np], af, bf, 0);
-                mma_pieces<NI, NM>(acc[2 * np + 1], af, bf, 2);
-            }
+    for (int m = 0; m < 16; ++m) {
+        float lo = 0.f, hi = 0.f;
+        const int r = rw + 8 * (m & 1), col = 8 * (m >> 1) + c2;
+        if (side == 0 && r < rows && col < ncol) {
+            const T* cr = (const T*)a.Cm + b * a.c_sb + g * a.c_sg + (int64_t)(t0 + r0 + r) * a.c_st
+                        + n0 + col;
+            lo = to_f(cr[0]);
+            hi = to_f(cr[1]);
         }
-    }
-    const int r0 = warp * 16 + gr, jr = j0 + r0;  // this lane's rows jr, jr + 8
-    const float cum_last = sCum[L - 1];
-    const float cj0 = sCum[jr], cj1 = sCum[jr + 8], dt0 = sDt[jr], dt1 = sDt[jr + 8];
-    const float w0 = jr < L ? expf(cum_last - cj0) * dt0 : 0.f;
-    const float w1 = jr + 8 < L ? expf(cum_last - cj1) * dt1 : 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-        acc[n][0] *= w0; acc[n][1] *= w0; acc[n][2] *= w1; acc[n][3] *= w1;
+        if constexpr (std::is_same<T, bf16>::value) cv[m] = __floats2bfloat162_rn(lo, hi);
+        else cv[m] = make_float2(lo, hi);
     }
 
-    // intra-chunk part over the query tiles i0 >= j0
-    float dd0 = 0.f, dd1 = 0.f;
-    for (int it = jt; it < nti; ++it) {
-        const int i0 = it * TQ;
-        float dm[8][4];              // dM^T: rows j, columns i
+    float acc[32], cacc0 = 0.f, cacc1 = 0.f;      // the sum, C_i . acc_i of rows rw, rw + 8
 #pragma unroll
-        for (int n = 0; n < 8; ++n) dm[n][0] = dm[n][1] = dm[n][2] = dm[n][3] = 0.f;
-        for (int pb = 0; pb < npb; ++pb) {
-            const int p0 = pb * TQ;
-            __syncthreads();
-            if (npb > 1)
-                stage<T, bf16, NI, TQ, LDP>(sX, TQ * LDP, xj + p0, a.x_st, L - j0, a.P - p0,
-                                            a.vec);
-            stage<float, bf16, NM, TQ, LDP>(sDy, TQ * LDP, dyb + (int64_t)i0 * hp + p0, hp,
-                                            L - i0, a.P - p0, true);
-            if (pb == 0) {
-                stage<T, bf16, NI, TQ, LDP>(sC, TQ * LDP, Cb + (int64_t)i0 * a.c_st, a.c_st,
-                                            L - i0, ncol, a.vec);
-                stage_cb(sCB, cbt + (int64_t)i0 * a.QP, a.QP);
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    if (u_lo < u_hi) issue(u_lo, 0);
+    for (int u = u_lo; u < u_hi; ++u) {
+        const int k = (u - u_lo) & 1;
+        if (u + 1 < u_hi) issue(u + 1, k ^ 1);
+        else cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const bool dcbu = u < ndcb;
+        // B into NP bf16 pieces, [64 k][64 n] 128-byte swizzled (MN-major)
+        for (int e = tid; e < TQ * 8; e += NT) {
+            const int kr = e >> 3, ch = e & 7;
+            float v[8];
+            if (dcbu) {
+                const T* p = reinterpret_cast<const T*>(rawB(k)) + kr * LDR + 8 * ch;
+#pragma unroll
+                for (int q = 0; q < 8; ++q) v[q] = to_f(p[q]);
+            } else {
+                const float* p = reinterpret_cast<const float*>(rawB(k)) + kr * LDR + 8 * ch;
+                const float4 lo = *reinterpret_cast<const float4*>(p);
+                const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+                v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+                v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
             }
-            cp_async_commit();
-            cp_async_wait<0>();
-            __syncthreads();
-            const int nkp = min(TQ, a.P - p0) / 16;
-            for (int kk = 0; kk < nkp; ++kk) {
-                uint32_t af[NI][4];
-#pragma unroll
-                for (int q = 0; q < NI; ++q)
-                    ldsm_x4(af[q], sX + q * TQ * LDP + a_row * LDP + kk * 16 + a_col);
-#pragma unroll
-                for (int ip = 0; ip < 4; ++ip) {
-                    uint32_t bf[NM][4];
-#pragma unroll
-                    for (int q = 0; q < NM; ++q)
-                        ldsm_x4(bf[q], sDy + q * TQ * LDP + (16 * ip + b_row) * LDP + kk * 16
-                                       + b_col);
-                    mma_pieces<NI, NM>(dm[2 * ip], af, bf, 0);
-                    mma_pieces<NI, NM>(dm[2 * ip + 1], af, bf, 2);
-                }
-            }
+            put8<NP>(v, sBp + sw128(kr, ch, TQ), PIECE);
         }
-#pragma unroll
-        for (int kk = 0; kk < TQ / 16; ++kk) {
-            if (it == jt && kk < warp) continue;  // columns before the warp's rows
-            uint32_t af[NM][4];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int nt = 2 * kk + half, il = nt * 8 + c2, i = i0 + il;
-                const float* cb = sCB + il * LDC + r0;   // C.B[i][j], read transposed
-                const float ci0 = sCum[i], ci1 = sCum[i + 1];
-                // mask before exp: i < j would overflow
-                const float t00 = i >= jr ? dm[nt][0] * expf(ci0 - cj0) : 0.f;
-                const float t01 = i + 1 >= jr ? dm[nt][1] * expf(ci1 - cj0) : 0.f;
-                const float t10 = i >= jr + 8 ? dm[nt][2] * expf(ci0 - cj1) : 0.f;
-                const float t11 = i + 1 >= jr + 8 ? dm[nt][3] * expf(ci1 - cj1) : 0.f;
-                dd0 += t00 * cb[0] + t01 * cb[LDC];
-                dd1 += t10 * cb[8] + t11 * cb[LDC + 8];
-                split_pack<NM>(t00 * dt0, t01 * dt0, af, 2 * half);
-                split_pack<NM>(t10 * dt1, t11 * dt1, af, 2 * half + 1);
-            }
-#pragma unroll
-            for (int np = 0; np < NB / 16; ++np) {       // dB += V^T C_i
-                if (np >= nkn) break;
-                uint32_t bf[NI][4];
-#pragma unroll
-                for (int q = 0; q < NI; ++q)
-                    ldsm_x4_trans(bf[q], sC + q * TQ * LDP + (kk * 16 + (lane & 15)) * LDP
-                                         + np * 16 + (lane >> 4) * 8);
-                mma_pieces<NM, NI>(acc[2 * np], af, bf, 0);
-                mma_pieces<NM, NI>(acc[2 * np + 1], af, bf, 2);
-            }
+        fence_async_smem();
+        __syncthreads();
+
+        // A of the unit's k-steps in registers: scaled, split into NM pieces
+        int h = 0, nks = TQ / 16;
+        float s0 = 1.f, s1 = 1.f;
+        if (!dcbu) {
+            h = g * rep + (u - ndcb) / npb;
+            nks = min(TQ, a.P - ((u - ndcb) % npb) * TQ) / 16;
+            s0 = scales(k)[rw];
+            s1 = scales(k)[rw + 8];
         }
-    }
-    dd0 = quad_sum(dd0);
-    dd1 = quad_sum(dd1);
-    float* out = a.dbh + ((int64_t)bh * a.S + t0) * a.N + n0;
+        uint32_t af[4][NM][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-        const int n = nt * 8 + c2;
-        if (n >= ncol) break;
-        if (jr < L)
-            *reinterpret_cast<float2*>(out + (int64_t)jr * a.N + n) = make_float2(acc[nt][0], acc[nt][1]);
-        if (jr + 8 < L)
-            *reinterpret_cast<float2*>(out + (int64_t)(jr + 8) * a.N + n) = make_float2(acc[nt][2], acc[nt][3]);
+        for (int kk = 0; kk < 4; ++kk) {
+            if (kk >= nks) break;
+            const int kc = kk * 16 + c2;
+            float2 v0, v1, v2, v3;
+            if (dcbu && side == 1) {               // dCB^T: rows j, columns i
+                const float* p = reinterpret_cast<const float*>(rawA(k));
+                v0 = make_float2(p[kc * LDR + rw], p[(kc + 1) * LDR + rw]);
+                v1 = make_float2(p[kc * LDR + rw + 8], p[(kc + 1) * LDR + rw + 8]);
+                v2 = make_float2(p[(kc + 8) * LDR + rw], p[(kc + 9) * LDR + rw]);
+                v3 = make_float2(p[(kc + 8) * LDR + rw + 8], p[(kc + 9) * LDR + rw + 8]);
+            } else if (!dcbu && side == 1) {       // x rows, the input's dtype
+                const T* p = reinterpret_cast<const T*>(rawA(k)) + rw * LDR + kc;
+                v0 = make_float2(to_f(p[0]), to_f(p[1]));
+                v1 = make_float2(to_f(p[8 * LDR]), to_f(p[8 * LDR + 1]));
+                v2 = make_float2(to_f(p[8]), to_f(p[9]));
+                v3 = make_float2(to_f(p[8 * LDR + 8]), to_f(p[8 * LDR + 9]));
+            } else {                               // dCB or dy rows, fp32
+                const float* p = reinterpret_cast<const float*>(rawA(k)) + rw * LDR + kc;
+                v0 = *reinterpret_cast<const float2*>(p);
+                v1 = *reinterpret_cast<const float2*>(p + 8 * LDR);
+                v2 = *reinterpret_cast<const float2*>(p + 8);
+                v3 = *reinterpret_cast<const float2*>(p + 8 * LDR + 8);
+            }
+            split_pack<NM>(s0 * v0.x, s0 * v0.y, af[kk], 0);
+            split_pack<NM>(s1 * v1.x, s1 * v1.y, af[kk], 1);
+            split_pack<NM>(s0 * v2.x, s0 * v2.y, af[kk], 2);
+            split_pack<NM>(s1 * v3.x, s1 * v3.y, af[kk], 3);
+        }
+        const uint32_t ub = smem_u32(sBp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            if (kk >= nks) break;
+#pragma unroll
+            for (int pa = NM - 1; pa >= 0; --pa)
+#pragma unroll
+                for (int pb = NP - 1; pb >= 0; --pb)
+                    if (pa + pb < KEEP)
+                        wgmma_rs<1>(acc, af[kk][pa], desc_mn(ub + pb * PIECE + kk * 2048, TQ * 128));
+        }
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(acc);
+        if (side == 0) {
+            // C_i . acc_i after the unit; a state unit's own share is the
+            // change (a head's term, small against fp32's 24 bits of the sum)
+            float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+            for (int m = 0; m < 16; ++m) {          // acc[2 m], acc[2 m + 1]: row rw + 8 (m & 1)
+                float2 cf;
+                if constexpr (std::is_same<T, bf16>::value) cf = __bfloat1622float2(cv[m]);
+                else cf = cv[m];
+                const float q = acc[2 * m] * cf.x + acc[2 * m + 1] * cf.y;
+                if (m & 1) q1 += q;
+                else q0 += q;
+            }
+            q0 = quad_sum(q0);
+            q1 = quad_sum(q1);
+            if (!dcbu && (lane & 3) == 0) {
+                const int slot = a.ntq + ((u - ndcb) % npb) * a.nnb + blockIdx.y;
+                float* rs = a.rsum + (((int64_t)b * a.H + h) * a.nrs + slot) * a.S + t0 + r0;
+                if (rw < rows) rs[rw] = q0 - cacc0;
+                if (rw + 8 < rows) rs[rw + 8] = q1 - cacc1;
+            }
+            cacc0 = q0;
+            cacc1 = q1;
+        }
+        __syncthreads();                           // the stage and the pieces are free
     }
-    if ((lane & 3) == 0 && nb == 0) {
-        float* dd = a.ddtd + (int64_t)bh * a.S + t0;
-        if (jr < L) dd[jr] = dd0;
-        if (jr + 8 < L) dd[jr + 8] = dd1;
+
+    // the CTA's partial tile into shared memory, then the cluster's sum
+    cp_async_wait<0>();
+    __syncthreads();
+    float* part = reinterpret_cast<float*>(ring);  // [TQ][LDR]
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<float2*>(part + rw * LDR + 8 * j + c2) = make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(part + (rw + 8) * LDR + 8 * j + c2) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
     }
+    cluster_sync();
+    T* out = (T*)(side == 0 ? a.dC : a.dB) + (((int64_t)b * a.S + t0 + r0) * a.G + g) * a.N + n0;
+    const int64_t ost_out = (int64_t)a.G * a.N;
+    cluster_tile_sum(part, rank, ks, [&](int r, int col, float4 v) {
+        if (r < rows && col < ncol) {
+            store_pair(out + r * ost_out + col, v.x, v.y);
+            store_pair(out + r * ost_out + col + 2, v.z, v.w);
+        }
+    });
+    cluster_sync();                                // no CTA leaves while its tile is read
 }
 
 // 8. dx of one head for the 64 positions j of tile blockIdx.x / npb and 64
@@ -1098,7 +1400,7 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(Params a) {
     const float* dyb = a.dy + ((int64_t)b * a.S + t0) * hp + (int64_t)h * a.P + p0;
     const T* xj = (const T*)a.x + b * a.x_sb + h * a.x_sh + (int64_t)(t0 + j0) * a.x_st + p0;
     const T* Bj = (const T*)a.Bm + b * a.b_sb + g * a.b_sg + (int64_t)(t0 + j0) * a.b_st;
-    const float* gn = a.gn + ((int64_t)bh * a.nc + c) * PN + (int64_t)p0 * a.N;
+    const float* gn = a.gn + (((int64_t)b * a.nc + c) * a.H + h) * PN + (int64_t)p0 * a.N;
     const float* cbt = a.cb + ((int64_t)(b * a.G + g) * a.nc + c) * a.QP * a.QP + j0;
 
     stage<T, bf16, NI, NMAX, LDN>(sB, TQ * LDN, Bj, a.b_st, L - j0, a.N, a.vec);
@@ -1204,53 +1506,78 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dx_kernel(Params a) {
     }
 }
 
-// 9. the last launch. CTAs 0 .. H-1: head blockIdx.x, its batches and
-// chunks in order: dcum_i = rsum_i (its n blocks' slots summed) - dt_i
-// ddtd_i - W_i, W_j = w_j x_j . T_j
-// (plus sum_j W_j and the fold's exp(cum_last) <G_{c+1}, h_in> at the
-// chunk's last position); da = dcum summed from the end of the chunk;
-// d(dt)_j = ddtd_j + exp(cum_last - cum_j) x_j . T_j + A da_j, and dA the sum
-// of dt da over the head's batches and positions. The other CTAs: dB and
-// dC, 4 columns n a thread, the group's heads summed in order, in the
-// input dtype.
-template <typename T>
+
+// p[0], p[st], ..., p[7 st] where q < n, else 0 (the loads go out together)
+__device__ __forceinline__ void gather8(float (&v)[8], const float* p, int64_t st, int n) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = q < n ? p[q * st] : 0.f;
+}
+// their sum in order, then p[8 st] ... p[(n - 1) st] (slots past 8: P > 512)
+__device__ __forceinline__ float sum8(const float (&v)[8], const float* p, int64_t st, int n) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) s += v[q];
+    for (int q = 8; q < n; ++q) s += p[q * st];
+    return s;
+}
+
+// 9. the last launch, a CTA per head (blockIdx.x), its batches and chunks
+// in order: dcum_i = rsum_i (its slots: the key tiles jt <= i's, then the
+// state term's 64 rows p x 64 columns n) - dt_i ddtd_i (its slots: the
+// query tiles it >= i's) - W_i, W_j = w_j x_j . T_j (plus sum_j W_j and the
+// fold's exp(cum_last) <G_{c+1}, h_in> at the chunk's last position); da =
+// dcum summed from the end of the chunk; d(dt)_j = ddtd_j + exp(cum_last -
+// cum_j) x_j . T_j + A da_j, and dA the sum of dt da over the head's
+// batches and positions.
 __global__ void __launch_bounds__(NT) ssd_bwd_final_kernel(Params a) {
     __shared__ float sDt[QMAX], sCum[QMAX];
     __shared__ float red[4], red2[4];
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    if (blockIdx.x >= a.H) {
-        const int n4 = a.N / 4, rep = a.H / a.G;
-        const int64_t e = (int64_t)(blockIdx.x - a.H) * NT + tid;   // [B, S, G, N / 4]
-        if (e >= (int64_t)a.Bsz * a.S * a.G * n4) return;
-        int64_t r = e / n4;
-        const int gg = (int)(r % a.G);
-        r /= a.G;
-        const int t = (int)(r % a.S), b = (int)(r / a.S);
-        const int64_t hs = (int64_t)a.S * a.N;
-        const int64_t src = (((int64_t)b * a.H + (int64_t)gg * rep) * a.S + t) * a.N + 4 * (e % n4);
-        float4 sb = make_float4(0.f, 0.f, 0.f, 0.f), sc = sb;
-        for (int k = 0; k < rep; ++k) {
-            const float4 vb = __ldg(reinterpret_cast<const float4*>(a.dbh + src + k * hs));
-            const float4 vc = __ldg(reinterpret_cast<const float4*>(a.dch + src + k * hs));
-            sb.x += vb.x; sb.y += vb.y; sb.z += vb.z; sb.w += vb.w;
-            sc.x += vc.x; sc.y += vc.y; sc.z += vc.z; sc.w += vc.w;
-        }
-        T* dB = (T*)a.dB + 4 * e;
-        T* dC = (T*)a.dC + 4 * e;
-        store_pair(dB, sb.x, sb.y);
-        store_pair(dB + 2, sb.z, sb.w);
-        store_pair(dC, sc.x, sc.y);
-        store_pair(dC + 2, sc.z, sc.w);
-        return;
-    }
     const int h = blockIdx.x;
     const float A = a.A[h];
     float dA_acc = 0.f;
     for (int b = 0; b < a.Bsz; ++b) {
         const int64_t bh = (int64_t)b * a.H + h;
         for (int c = 0; c < a.nc; ++c) {
-            const int t0 = c * a.Q, L = min(a.Q, a.S - t0);
-            chunk_scan(sDt, sCum, red, a.dt + b * a.dt_sb + h * a.dt_sh, a.dt_st, t0, L, A);
+            const int t0 = c * a.Q, L = min(a.Q, a.S - t0), ntc = (L + TQ - 1) / TQ;
+            // the chunk's loads first, so that they are in flight together
+            const float* dtb = a.dt + b * a.dt_sb + h * a.dt_sh;
+            float dtv[2], xt[2], dd[2], rs[2];
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                const int j = 2 * tid + k;
+                dtv[k] = j < L ? dtb[(int64_t)(t0 + j) * a.dt_st] : 0.f;
+            }
+            {
+                const int64_t S = a.S;
+                const float* px[2], *pd[2], *pr[2], *pq[2];
+                int nd[2], nr[2];
+                float vx[2][8], vd[2][8], vr[2][8], vq[2][8];
+#pragma unroll
+                for (int k = 0; k < 2; ++k) {
+                    const int j = 2 * tid + k, jt = j / TQ, live = j < L;
+                    const int64_t o = bh * S + t0 + min(j, L - 1);
+                    px[k] = a.xT + bh * (a.npb - 1) * S + o;
+                    pd[k] = a.ddtd + bh * (a.ntq - 1) * S + o + jt * S;
+                    pr[k] = a.rsum + bh * (a.nrs - 1) * S + o;
+                    pq[k] = pr[k] + a.ntq * S;
+                    nd[k] = live * (ntc - jt);
+                    nr[k] = live * (jt + 1);
+                    gather8(vx[k], px[k], S, live * a.npb);
+                    gather8(vd[k], pd[k], S, nd[k]);
+                    gather8(vr[k], pr[k], S, nr[k]);
+                    gather8(vq[k], pq[k], S, live * (a.nrs - a.ntq));
+                }
+#pragma unroll
+                for (int k = 0; k < 2; ++k) {
+                    const int live = 2 * tid + k < L;
+                    xt[k] = sum8(vx[k], px[k], S, live * a.npb);
+                    dd[k] = sum8(vd[k], pd[k], S, nd[k]);
+                    rs[k] = sum8(vr[k], pr[k], S, nr[k])
+                          + sum8(vq[k], pq[k], S, live * (a.nrs - a.ntq));
+                }
+            }
+            scan_dt(sDt, sCum, red, dtv[0], dtv[1], A);
             const float cum_last = sCum[L - 1];
             float dc[2], part[2], W[2];
 #pragma unroll
@@ -1258,16 +1585,10 @@ __global__ void __launch_bounds__(NT) ssd_bwd_final_kernel(Params a) {
                 const int j = 2 * tid + k;
                 dc[k] = part[k] = W[k] = 0.f;
                 if (j >= L) continue;
-                const int64_t o = bh * a.S + t0 + j;
-                float xt = 0.f;
-                for (int pb = 0; pb < a.npb; ++pb) xt += a.xT[(bh * a.npb + pb) * a.S + t0 + j];
-                const float ds = expf(cum_last - sCum[j]) * xt;   // the state passing's d(dt)
-                const float dd = a.ddtd[o];
+                const float ds = expf(cum_last - sCum[j]) * xt[k];   // the state passing's d(dt)
                 W[k] = sDt[j] * ds;
-                float rs = 0.f;
-                for (int nb = 0; nb < a.nnb; ++nb) rs += a.rsum[(bh * a.nnb + nb) * a.S + t0 + j];
-                dc[k] = rs - sDt[j] * dd - W[k];
-                part[k] = dd + ds;
+                dc[k] = rs[k] - sDt[j] * dd[k] - W[k];
+                part[k] = dd[k] + ds;
             }
             const float wsum = block_sum(W[0] + W[1], red2);
             if (tid == (L - 1) / 2) {
@@ -1319,13 +1640,18 @@ struct Smem {
     static constexpr int STATE_BWD = NBLK * NI * TQ * LDP * (int)sizeof(bf16)
                                    + NBLK * TQ * LDX * (int)sizeof(float)
                                    + 2 * QMAX * (int)sizeof(float);
-    static constexpr int DC = (2 * NM + 3 * NI) * TQ * LDP * (int)sizeof(bf16)
-                            + 2 * QMAX * (int)sizeof(float);
-    static constexpr int DB = 2 * (NI + NM) * TQ * LDP * (int)sizeof(bf16)
-                            + (TQ * LDC + 2 * QMAX) * (int)sizeof(float);
+    // the dCB kernel's with hps heads a slice (their scan tables)
+    static constexpr int dcb(int hps) {
+        return 1024 + 2 * (std::is_same<T, bf16>::value ? TQ * TQ * (int)sizeof(bf16)
+                                                        : TQ * LDR * (int)sizeof(T))
+             + (4 * TQ * LDR + 8 * TQ + hps * DCB_TAB) * (int)sizeof(float);
+    }
+    static constexpr int DCB = dcb(HPS_MAX);
+    static constexpr int NP = NI > NM ? NI : NM;
+    static constexpr int DBC = 1024 + NP * PIECE + 2 * (2 * TQ * LDR + TQ) * (int)sizeof(float);
     static constexpr int DX = (NM * TQ * LDP + (NI + NM) * TQ * LDN) * (int)sizeof(bf16)
                             + (TQ * LDC + 2 * QMAX) * (int)sizeof(float);
-    static_assert(STATE_BWD <= 232448 - 64 && DC <= 232448 - 64 && DB <= 232448 - 64 &&
+    static_assert(STATE_BWD <= 232448 - 64 && DCB <= 232448 - 64 && DBC <= 232448 - 64 &&
                   DX <= 232448 - 64, "shared memory of an sm_90 block");
 };
 
@@ -1357,6 +1683,58 @@ cudaError_t launch(const Params& a, int B, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// a launch with thread-block clusters of `cluster` CTAs along x (past 8, the
+// non-portable sizes an H100 takes, up to 16)
+template <typename K>
+cudaError_t launch_clustered(K kern, dim3 grid, int cluster, int smem, cudaStream_t stream,
+                             const Params& a) {
+    if (cluster > 8) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return err;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(NT, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
+// A second stream a device for the backward's launches that need neither U
+// nor the fold (dCB) or not dx (dC / dB), and the events that fork it from
+// the caller's stream and join it back; made at a device's first backward.
+struct SideStream {
+    cudaStream_t s = nullptr;
+    cudaEvent_t fork = nullptr, folded = nullptr, join = nullptr;
+};
+
+cudaError_t side_stream(SideStream*& out) {
+    static SideStream sides[64];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+    SideStream& sd = sides[dev];
+    if (!sd.s) {
+        err = cudaStreamCreateWithFlags(&sd.s, cudaStreamNonBlocking);
+        for (cudaEvent_t* e : {&sd.fork, &sd.folded, &sd.join})
+            if (err == cudaSuccess) err = cudaEventCreateWithFlags(e, cudaEventDisableTiming);
+        if (err != cudaSuccess) return err;
+    }
+    out = &sd;
+    return cudaSuccess;
+}
+
 template <typename T>
 cudaError_t launch_bwd(const Params& a, cudaStream_t stream) {
     using M = Smem<T>;
@@ -1365,31 +1743,54 @@ cudaError_t launch_bwd(const Params& a, cudaStream_t stream) {
         cudaError_t err = cudaFuncSetAttribute(
             ssd_state_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, M::STATE_BWD);
         if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(ssd_bwd_dc_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, M::DC);
+            err = cudaFuncSetAttribute(ssd_bwd_dcb_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, M::DCB);
         if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(ssd_bwd_db_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, M::DB);
+            err = cudaFuncSetAttribute(ssd_bwd_dbc_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, M::DBC);
         if (err == cudaSuccess)
             err = cudaFuncSetAttribute(ssd_bwd_dx_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, M::DX);
+        // the largest shared-memory carveout, so that two CTAs fit an SM
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(ssd_bwd_dcb_kernel<T>,
+                                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(ssd_bwd_dbc_kernel<T>,
+                                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
         if (err != cudaSuccess) return err;
         ready = true;
     }
-    const int BH = a.Bsz * a.H, nt = (a.Q + TQ - 1) / TQ, nnb = (a.N + NB - 1) / NB;
-    ssd_state_kernel<T, true><<<dim3(a.npb * nnb, a.nc, BH), NT, M::STATE_BWD, stream>>>(a);
-    cudaError_t err = cudaGetLastError();
+    // caller's stream: U, the fold, dx, the last launch; the side stream:
+    // dCB beside U and the fold, then dC / dB (after the fold) beside dx;
+    // the last launch waits for both, so the caller's stream orders
+    // everything after it
+    SideStream* sd = nullptr;
+    cudaError_t err = side_stream(sd);
     if (err != cudaSuccess) return err;
+    const int BH = a.Bsz * a.H, nt = a.ntq;
+    if ((err = cudaEventRecord(sd->fork, stream)) != cudaSuccess) return err;
+    if ((err = cudaStreamWaitEvent(sd->s, sd->fork, 0)) != cudaSuccess) return err;
+    err = launch_clustered(ssd_bwd_dcb_kernel<T>,
+                           dim3(nt * (nt + 1) / 2 * a.slices, a.nc, a.Bsz * a.G), a.slices,
+                           M::dcb(a.hps), sd->s, a);
+    if (err != cudaSuccess) return err;
+    ssd_state_kernel<T, true><<<dim3(a.npb * a.nnb, a.nc, BH), NT, M::STATE_BWD, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ssd_fold_kernel<<<dim3(a.parts, BH), NT, 0, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ssd_bwd_dc_kernel<T><<<dim3(nt * a.nnb, a.nc, BH), NT, M::DC, stream>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ssd_bwd_db_kernel<T><<<dim3(nt * a.nnb, a.nc, BH), NT, M::DB, stream>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = cudaEventRecord(sd->folded, stream)) != cudaSuccess) return err;
+    if ((err = cudaStreamWaitEvent(sd->s, sd->folded, 0)) != cudaSuccess) return err;
+    err = launch_clustered(ssd_bwd_dbc_kernel<T>, dim3(a.nc * nt * a.ks, a.nnb, a.Bsz * a.G * 2),
+                           a.ks, M::DBC, sd->s, a);
+    if (err != cudaSuccess) return err;
+    if ((err = cudaEventRecord(sd->join, sd->s)) != cudaSuccess) return err;
     ssd_bwd_dx_kernel<T><<<dim3(nt * a.npb, a.nc, BH), NT, M::DX, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const int64_t quads = (int64_t)a.Bsz * a.S * a.G * (a.N / 4);
-    ssd_bwd_final_kernel<T><<<a.H + (int)((quads + NT - 1) / NT), NT, 0, stream>>>(a);
+    if ((err = cudaStreamWaitEvent(stream, sd->join, 0)) != cudaSuccess) return err;
+    ssd_bwd_final_kernel<<<a.H, NT, 0, stream>>>(a);
     return cudaGetLastError();
 }
 
@@ -1435,22 +1836,27 @@ extern "C" int ssd_scan_launch(
 // H, P] contiguous fp32 on 16 bytes, dhf [B, H, P, N] fp32 on 16 bytes or
 // null (zero). Out: dx [B, S, H, P], dB and dC [B, S, G, N] contiguous in the
 // dtype of x; ddt [B, S, H], dA [H] and dh0 [B, H, P, N] contiguous fp32.
-// scratch holds, in fp32: U, h_in and G_{c+1} [B, H, nc, P, N] each; dB and
-// dC of each head [B, H, S, N] each; rsum [B, H, nnb, S]; ddtd [B, H, S];
-// x . T [B, H, npb, S]; the fold's dots [B, H, nc, parts] (npb = ceil(P /
-// 64), nnb = ceil(N / 64), parts = ceil(P N / 1024)). Six launches, no
+// The plan (ssd_scan.py::bwd_plan): hps heads of a group a dCB slice
+// (slices = ceil(H / G / hps) <= 16, a cluster; hps <= 16), ks <= 16 CTAs a
+// dB / dC cluster. scratch holds, in fp32: U [B, H, nc, P, N]; h_in and
+// G_{c+1} [B, nc, H, P, N] each; dCB [B, G, nc, QP, QP]; rsum [B, H, nt +
+// nnb npb, S]; ddtd [B, H, nt, S]; exp(cum) and w [B, H, S] each; x . T [B,
+// H, npb, S]; the fold's dots [B, H, nc, parts] (nt = QP / 64, npb = ceil(P
+// / 64), nnb = ceil(N / 64), parts = ceil(P N / 1024)). Six launches, no
 // atomics; returns the first cudaError_t (0 on success).
 extern "C" int ssd_scan_bwd_launch(
     const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
     const void* h0, const void* dy, const void* dhf, void* fwd_scratch, void* scratch,
     void* dx, void* ddt, void* dA, void* dB, void* dC, void* dh0,
-    int dtype, int B, int S, int H, int G, int P, int N, int Q, int vec,
+    int dtype, int B, int S, int H, int G, int P, int N, int Q, int vec, int hps, int ks,
     int64_t x_sb, int64_t x_st, int64_t x_sh,
     int64_t dt_sb, int64_t dt_st, int64_t dt_sh,
     int64_t b_sb, int64_t b_st, int64_t b_sg,
     int64_t c_sb, int64_t c_st, int64_t c_sg, void* stream) {
     if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || P <= 0 || P % 16 ||
-        N <= 0 || N > NMAX || N % 4 || Q <= 0 || Q > QMAX)
+        N <= 0 || N > NMAX || N % 4 || Q <= 0 || Q > QMAX || hps <= 0 || hps > H / G ||
+        hps > HPS_MAX ||
+        (H / G + hps - 1) / hps > CLUSTER_MAX || ks <= 0 || ks > CLUSTER_MAX)
         return cudaErrorInvalidValue;
     const int nc = (S + Q - 1) / Q, QP = (Q + TQ - 1) / TQ * TQ;
     float* cb = (float*)fwd_scratch;
@@ -1472,15 +1878,21 @@ extern "C" int ssd_scan_bwd_launch(
     a.npb = (P + TQ - 1) / TQ;
     a.nnb = (N + NB - 1) / NB;
     a.parts = (int)(((int64_t)P * N + FOLD_E - 1) / FOLD_E);
+    a.ntq = QP / TQ;
+    a.nrs = a.ntq + a.nnb * a.npb;
+    a.hps = hps;
+    a.slices = (H / G + hps - 1) / hps;
+    a.ks = ks;
     const int64_t states = (int64_t)B * H * nc * P * N, rows = (int64_t)B * H * S;
     a.U = (float*)scratch;
     a.hin = a.U + states;
     a.gn = a.hin + states;
-    a.dbh = a.gn + states;
-    a.dch = a.dbh + rows * N;
-    a.rsum = a.dch + rows * N;
-    a.ddtd = a.rsum + rows * a.nnb;
-    a.xT = a.ddtd + rows;
+    a.dcb = a.gn + states;
+    a.rsum = a.dcb + (int64_t)B * G * nc * QP * QP;
+    a.ddtd = a.rsum + rows * a.nrs;
+    a.ecum = a.ddtd + rows * a.ntq;
+    a.wj = a.ecum + rows;
+    a.xT = a.wj + rows;
     a.dotp = a.xT + rows * a.npb;
     if (dtype == 0) return launch_bwd<float>(a, (cudaStream_t)stream);
     if (dtype == 1) return launch_bwd<bf16>(a, (cudaStream_t)stream);

@@ -22,7 +22,8 @@ state, then the state passing and the outputs; three launches, one
 wrapper call). With grad enabled and an input that requires it, the call
 goes through :class:`SsdScanFn`, which keeps the forward's scratch (C·B,
 the chunks' states and decays) for :func:`ssd_scan_bwd`, the backward
-kernel (``ssd_scan_bwd_launch`` in the same source). On the CPU it runs
+kernel (``ssd_scan_bwd_launch`` in the same source; its launch shape is
+:func:`bwd_plan`'s). On the CPU it runs
 :func:`ssd_scan_plain`, the reference model's chunked einsum form
 (``repro/models/ssm.py:90``), and its gradient is plain autograd. A CUDA
 tensor never falls back to the plain version: an input the kernel does
@@ -31,6 +32,7 @@ not take raises.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +44,14 @@ MAX_STATE = 128            # N the kernel's shared-memory tiles hold
 P_TILE = 16                # state rows of a warp's tile
 TILE = 64                  # positions (and state rows p) of a CTA's tile
 FOLD_ELEMS = 1024          # state elements a CTA of the backward's fold
+H100_SMS = 132             # SMs of the card the backward's plan fills
+CLUSTER_MAX = 16           # CTAs of a thread-block cluster (an H100's largest; past 8
+                           # non-portable)
+HPS_MAX = 16               # heads of a dCB slice (their scan tables in shared memory)
+SM_SMEM = 233472           # shared memory of an H100 SM, bytes (1 KB a CTA reserved)
+# the share of an SM's CTA slots that clusters fill: a cluster's CTAs share
+# one GPC, and the GPCs leave a few slots over
+CLUSTER_FILL = 0.9
 
 
 def ssd_scan_plain(x, dt, A, B_, C_, h0, *, chunk: int):
@@ -110,19 +120,100 @@ def bwd_scratch_plan(B: int, S: int, H: int, G: int, P: int, N: int,
                      chunk: int):
     """Shapes of the parts of the backward kernel's fp32 scratch, kept in
     one buffer in this order: U (each chunk's sum of exp(cum_i) dy_i
-    C_i^T), the state entering each chunk and the gradient of the state
-    leaving it, ``[B, H, nc, P, N]`` each; dB and dC of each head, ``[B,
-    H, S, N]`` each; each position's row part of dcum per 64-column block
-    of N, ``[B, H, nnb, S]``, and its direct d(dt), ``[B, H, S]``; x_j .
-    G B_j per 64-row block of P, ``[B, H, npb, S]``; and the fold CTAs'
-    shares of exp(cum_last) <G, h_in>, ``[B, H, nc, parts]``."""
+    C_i^T), ``[B, H, nc, P, N]``; the state entering each chunk and the
+    gradient of the state leaving it, ``[B, nc, H, P, N]`` each (a chunk's
+    is one ``[H P, N]`` matrix, the B operand of the dC / dB products);
+    dCB, the scores' gradient summed over a group's heads, ``[B, G, nc,
+    QP, QP]``; each position's row part of dcum, ``[B, H, nt + nnb npb,
+    S]`` (a slot per key tile, then one per 64 rows p and 64 columns n of
+    the state term), and its direct d(dt), ``[B, H, nt, S]`` (a slot per
+    query tile); exp(cum_i) and w_j, ``[B, H, S]`` each; x_j . G B_j per
+    64-row block of P, ``[B, H, npb, S]``; and the fold CTAs' shares of
+    exp(cum_last) <G, h_in>, ``[B, H, nc, parts]``."""
     Q = min(int(chunk), S)
     nc = -(-S // Q)
+    QP = -(-Q // TILE) * TILE
+    nt = QP // TILE
     npb, nnb = -(-P // TILE), -(-N // TILE)
     parts = -(-(P * N) // FOLD_ELEMS)
-    state = (B, H, nc, P, N)
-    return (state, state, state, (B, H, S, N), (B, H, S, N), (B, H, nnb, S),
-            (B, H, S), (B, H, npb, S), (B, H, nc, parts))
+    state, by_chunk = (B, H, nc, P, N), (B, nc, H, P, N)
+    return (state, by_chunk, by_chunk, (B, G, nc, QP, QP),
+            (B, H, nt + nnb * npb, S), (B, H, nt, S), (B, H, S), (B, H, S),
+            (B, H, npb, S), (B, H, nc, parts))
+
+
+class SsdBwdPlan(NamedTuple):
+    """The backward's launch shape: the dCB kernel cuts a group's heads
+    into ``slices`` slices of ``heads_per_slice`` (the last may be
+    shorter), a CTA each; the dC / dB kernel splits its reduction over
+    ``k_split`` CTAs. Both sum their CTAs' shares through a cluster, in
+    rank order."""
+    slices: int
+    heads_per_slice: int
+    k_split: int
+
+
+def _ctas_an_sm(smem: int) -> int:
+    """CTAs of 128 threads an SM holds at ``smem`` bytes of shared memory
+    each (two at most: their registers)."""
+    return max(1, min(2, SM_SMEM // (smem + 1024)))
+
+
+def bwd_plan(B: int, S: int, H: int, G: int, P: int, N: int, chunk: int,
+             dtype: torch.dtype) -> SsdBwdPlan:
+    """The plan of :func:`ssd_scan_bwd`'s two cluster launches, from the
+    shapes alone.
+
+    The dCB kernel has a CTA per causal 64 x 64 tile pair of a chunk, per
+    (batch, group) and per slice of the group's heads, and walks its
+    slice's heads in turn. Without slices it has few CTAs (mamba2-780m at
+    B=1, S=1024: 10 pairs x 4 chunks = 40 on 132 SMs), so the group's
+    ``H / G`` heads are cut into up to 16 slices (a cluster) of
+    ``heads_per_slice = ceil(H / G / slices)`` (at most ``HPS_MAX``), the
+    last slice shorter where they do not divide. The dC / dB kernel has a
+    CTA per (64 rows, 64 columns of N, side, batch, group) and splits its
+    reduction (the dCB tiles and the group's ``H / G x ceil(P / 64)``
+    blocks of the state term) over ``k_split`` CTAs, up to 16 and at most
+    those blocks. Each takes the cut whose waves times its CTAs' serial
+    work (heads or blocks, plus two for a CTA's set-up and its cluster's
+    sum) is least, the waves counted against the CTA slots its clusters
+    fill (``CLUSTER_FILL`` of two an SM, or one where its shared memory
+    allows no more); ties go to the fewer waves, then to the most CTAs.
+    Timed on an H100 at the training shapes (PERF.md), the model's picks
+    were the fastest of the plans tried or within a few percent."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    Q = min(int(chunk), S)
+    nc = -(-S // Q)
+    nt = -(-Q // TILE)
+    rep = H // G
+    if rep > CLUSTER_MAX * HPS_MAX:
+        raise ValueError(f"ssd_scan_bwd: {rep} heads a group; the kernel "
+                         f"takes at most {CLUSTER_MAX * HPS_MAX}")
+
+    def waves(ctas, smem):
+        return math.ceil(ctas / (CLUSTER_FILL * _ctas_an_sm(smem) * H100_SMS))
+
+    def best(cands):                   # (value, waves, serial work, CTAs)
+        return min(cands, key=lambda c: (c[1] * (c[2] + 2), c[1], -c[3]))[0]
+
+    raw = TILE * (TILE + 8)            # a raw 64 x 64 tile's elements, rows padded
+    pairs = nt * (nt + 1) // 2 * nc * B * G
+    xb = 2 * TILE * TILE if es == 2 else 4 * raw
+    cands = []
+    for n in range(min(CLUSTER_MAX, rep), 0, -1):
+        hps = -(-rep // n)
+        if -(-rep // hps) != n or hps > HPS_MAX:
+            continue
+        smem = 1024 + 2 * xb + 4 * (4 * raw + 8 * TILE + 7 * TILE * hps)
+        cands.append(((n, hps), waves(pairs * n, smem), hps, pairs * n))
+    slices, hps = best(cands)
+    tiles = 2 * nt * nc * B * G * -(-N // TILE)
+    units = rep * -(-P // TILE)
+    smem = 1024 + (2 if es == 2 else 3) * TILE * TILE * 2 + 4 * (
+        4 * raw + 2 * TILE)
+    cands = [(k, waves(tiles * k, smem), -(-(units + nt) // k), tiles * k)
+             for k in range(1, min(CLUSTER_MAX, max(units, 1)) + 1)]
+    return SsdBwdPlan(slices, hps, best(cands))
 
 
 def rows_vectorizable(x, B_, C_) -> bool:
@@ -220,8 +311,13 @@ def ssd_scan_bwd(x, dt, A, B_, C_, h0, dy, dh_final=None, *, chunk: int,
     ``None`` is zero): dx, dB and dC in their inputs' dtypes (dB and dC
     summed over a group's heads), ddt, dA and dh0 in fp32. ``scratch`` is
     what the forward kernel left (:class:`SsdScanFn` keeps it); ``None``
-    runs the forward first. One wrapper call, six launches, no atomics:
-    two calls give the same bits. On the CPU: :func:`ssd_scan_bwd_plain`."""
+    runs the forward first. One wrapper call, six launches: U, the fold,
+    dCB (the scores' gradient summed over a group's heads, in
+    :func:`bwd_plan`'s slices), dC and dB once per group (on ``wgmma`` in
+    bf16), dx, and the last launch for d(dt) and dA; dCB, then dC and dB,
+    run on a second stream beside U and the fold, then dx, and the last
+    launch waits for them on the caller's stream. No atomics: two calls
+    give the same bits. On the CPU: :func:`ssd_scan_bwd_plain`."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, A, B_, C_, h0, dy, dh_final,
                                   chunk=chunk)
@@ -247,6 +343,7 @@ def ssd_scan_bwd(x, dt, A, B_, C_, h0, dy, dh_final=None, *, chunk: int,
     dh0 = torch.empty((Bsz, H, Pd, N), dtype=torch.float32, device=dev)
     work = torch.empty(sum(math.prod(p) for p in bwd_scratch_plan(
         Bsz, S, H, G, Pd, N, Q)), dtype=torch.float32, device=dev)
+    plan = bwd_plan(Bsz, S, H, G, Pd, N, Q, x.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.launch(
@@ -256,7 +353,8 @@ def ssd_scan_bwd(x, dt, A, B_, C_, h0, dy, dh_final=None, *, chunk: int,
             work.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
             dB.data_ptr(), dC.data_ptr(), dh0.data_ptr(), _DTYPES[x.dtype],
             Bsz, S, H, G, Pd, N, Q, int(rows_vectorizable(x, B_, C_)),
-            *_strides(x, dt, B_, C_), stream)
+            plan.heads_per_slice, plan.k_split, *_strides(x, dt, B_, C_),
+            stream)
     ssd_scan_bwd.launches += 1
     return dx, ddt, dA, dB, dC, dh0
 

@@ -531,6 +531,7 @@ SSD_CASES = [
     (130, True, 64, 2, 128, 64, 1),        # two 64-row p blocks, N = 64
     (419, False, 64, 50, 64, 16, 1),       # hymba-1.5b's SSM, cold
     (31, True, 64, 50, 64, 16, 1),         # hymba-1.5b, a resume
+    (1024, True, 256, 48, 64, 128, 2),     # two groups of 24 heads at full width
 ]
 
 
@@ -700,10 +701,11 @@ def test_ssd_scan_bwd_unaligned_rows(dtype, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("geo", [(1024, 256, 48, 64, 128, 1),   # mamba2-780m
-                                 (640, 64, 50, 64, 16, 1)])     # hymba-1.5b
+                                 (640, 64, 50, 64, 16, 1),      # hymba-1.5b
+                                 (1024, 256, 48, 64, 128, 2)])  # two groups
 def test_ssd_scan_bwd_gives_the_same_bits_twice(geo, cuda_device):
-    """No atomics: dB and dC summed over the group's heads and dA over the
-    positions in a fixed order, so two calls give the same bits."""
+    """No atomics: dCB's slices, the dC / dB K split and dA over the
+    positions summed in a fixed order, so two calls give the same bits."""
     S, chunk, H, P, N, G = geo
     gen = torch.Generator().manual_seed(31)
     for dtype in (torch.bfloat16, torch.float32):

@@ -1,12 +1,17 @@
 """The SSD scan's backward on the CPU: the algebra the CUDA kernel
-implements, its plain version, and the reference's gradient.
+implements, its plain version, the reference's gradient, and the plan and
+scratch of its launches.
 
 * ``chunked_bwd`` below is the kernel's algebra written in plain torch, part
   by part as ``csrc/ssd_scan.cu``'s backward launches compute it (the reverse
-  state pass, the per-chunk dC / dB / dx terms, dcum and its suffix sum over
-  the chunk, padding, groups). It must equal ``ssd_scan_bwd_plain``
-  (autograd of ``ssd_scan_plain``) within 1e-5 of each gradient's largest
-  magnitude: the same fp32 function, summed in another order.
+  state pass; dCB, the scores' gradient summed over a group's heads in
+  slices, the slices in order, with each head's row and column sums per
+  64-position tile; dC and dB once per group from dCB and the K = H P state
+  products, rsum's state term per head from those products; dx; dcum from
+  the per-tile slots and its suffix sum over the chunk; padding, groups).
+  It must equal ``ssd_scan_bwd_plain`` (autograd of ``ssd_scan_plain``)
+  within 1e-5 of each gradient's largest magnitude: the same fp32
+  function, summed in another order.
 * ``ssd_scan_bwd_plain`` against ``jax.vjp`` of the reference's
   ``repro.models.ssm._ssd_scan`` on the same numpy inputs, where the
   reference's gradients are finite (small decay, chunk 16-32): 1e-5 of each
@@ -14,6 +19,8 @@ implements, its plain version, and the reference's gradient.
 * The reference's gradient is NaN at a realistic decay: its decay is
   ``where(causal, exp(seg), 0)``, and on the masked side ``seg`` overflows
   exp, so the gradient there is 0 * inf. The port masks before exp.
+* ``bwd_plan`` and ``bwd_scratch_plan``: the launches' slices and K split,
+  and the scratch layout the kernel reads.
 """
 import math
 
@@ -32,15 +39,19 @@ TOL = 1e-5
 GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
 
 
-def chunked_bwd(x, dt, A, B_, C_, h0, dy, dhf, chunk):
+def chunked_bwd(x, dt, A, B_, C_, h0, dy, dhf, chunk, slices=1):
     """(dx, ddt, dA, dB, dC, dh0) of ssd_scan as the backward kernel forms
-    them, in fp32; ``dhf`` None is zero."""
+    them, in fp32; ``dhf`` None is zero. A group's heads are cut into
+    ``slices`` slices of ceil(H / G / slices) heads, the last shorter, as
+    the dCB launch cuts them."""
     Bsz, S, H, P = x.shape
     G, N = B_.shape[2:]
     rep = H // G
     Q = min(chunk, S)
     nc = -(-S // Q)
     pad = nc * Q - S
+    T = ssd_mod.TILE
+    nt = -(-Q // T)
 
     def chunks(t):                      # padded positions: zero, dt = 0
         t = t.float()
@@ -49,8 +60,9 @@ def chunked_bwd(x, dt, A, B_, C_, h0, dy, dhf, chunk):
         return t.reshape(Bsz, nc, Q, *t.shape[2:])
 
     xf, dtf, dyf = chunks(x), chunks(dt), chunks(dy)
-    Bh = chunks(B_).repeat_interleave(rep, 3)
-    Ch = chunks(C_).repeat_interleave(rep, 3)
+    Bg, Cg = chunks(B_), chunks(C_)                         # [b, c, q, g, n]
+    Bh = Bg.repeat_interleave(rep, 3)
+    Ch = Cg.repeat_interleave(rep, 3)
     cum = torch.cumsum(dtf * A.float(), 2)                 # [b, c, q, h]
     last = cum[:, :, -1]
     dec = torch.exp(last)
@@ -60,6 +72,7 @@ def chunked_bwd(x, dt, A, B_, C_, h0, dy, dhf, chunk):
                   .masked_fill(~causal, -math.inf))        # [b, c, i, j, h]
     CB = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
     w = torch.exp(last[:, :, None] - cum) * dtf            # [b, c, j, h]
+    ecum = torch.exp(cum)
     st = torch.einsum("bcjh,bcjhp,bcjhn->bchpn", w, xf, Bh)
     # the fold: h_in of each chunk forward, then G back from dh_final,
     # G_c = exp(cum_last) G_{c+1} + U_c, U_c = sum_i exp(cum_i) dy_i C_i^T
@@ -68,8 +81,8 @@ def chunked_bwd(x, dt, A, B_, C_, h0, dy, dhf, chunk):
     for c in range(nc):
         hin.append(h)
         h = dec[:, c, :, None, None] * h + st[:, c]
-    hin = torch.stack(hin, 1)                               # [b, c, h, p, n]
-    U = torch.einsum("bcih,bcihp,bcihn->bchpn", torch.exp(cum), dyf, Ch)
+    hin = torch.stack(hin, 1)                  # [b, c, h, p, n], as the kernel lays it
+    U = torch.einsum("bcih,bcihp,bcihn->bchpn", ecum, dyf, Ch)
     g = torch.zeros_like(h) if dhf is None else dhf.float()
     gn, dot = [None] * nc, [None] * nc
     for c in reversed(range(nc)):
@@ -77,23 +90,61 @@ def chunked_bwd(x, dt, A, B_, C_, h0, dy, dhf, chunk):
         dot[c] = dec[:, c] * (g * hin[:, c]).sum((-1, -2))
         g = dec[:, c, :, None, None] * g + U[:, c]
     gn, dot, dh0 = torch.stack(gn, 1), torch.stack(dot, 1), g
-    # dC (rows i): V = dM o L o dt_j with dM = dy_i . x_j; rsum = sum_j V CB
-    # plus C_i . exp(cum_i) h_in^T dy_i
+    # the dCB launch, per head and 64 x 64 tile pair: dM = dy_i . x_j,
+    # V = dM o L o dt_j; rsum's slot jt the row sums of V o CB over key tile
+    # jt, ddtd's slot it the column sums of dM o L o CB over query tile it
     dM = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf)
-    V = dM * L * dtf[:, :, None]
-    dC_in = torch.einsum("bcihp,bchpn->bcihn", dyf, hin) \
-        * torch.exp(cum)[..., None]
-    dCh = torch.einsum("bcijh,bcjhn->bcihn", V, Bh) + dC_in
-    rsum = (V * CB).sum(3) + (Ch * dC_in).sum(-1)
-    # dB (rows j): V^T C_i plus the state passing's w_j x_j G_{c+1}; ddtd
-    dBh = torch.einsum("bcijh,bcihn->bcjhn", V, Ch) \
-        + w[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", xf, gn)
-    ddtd = (dM * CB * L).sum(2)
+    ML = dM * L
+    V = ML * dtf[:, :, None]
+    tiles = torch.nn.functional.one_hot(ii // T, nt).float()   # [q, tile]
+    rs_slot = torch.einsum("bcijh,jt->bciht", V * CB, tiles)
+    dd_slot = torch.einsum("bcijh,it->bcjht", ML * CB, tiles)
+    # ... and V summed over a slice's heads in order, then the slices in
+    # order (the cluster's ranks)
+    hps = -(-rep // slices)
+    dCB = []
+    for gi in range(G):
+        total = None
+        for h_lo in range(gi * rep, (gi + 1) * rep, hps):
+            part = V[..., h_lo]
+            for hh in range(h_lo + 1, min(h_lo + hps, (gi + 1) * rep)):
+                part = part + V[..., hh]
+            total = part if total is None else total + part
+        dCB.append(total)
+    dCB = torch.stack(dCB, -1)                              # [b, c, i, j, g]
+    # the dC / dB launch, once per group: dCB times B (C), plus the state
+    # term as one product over K = H P, its rows scaled per head
+    dy_s = (ecum[..., None] * dyf).reshape(Bsz, nc, Q, G, rep * P)
+    x_s = (w[..., None] * xf).reshape(Bsz, nc, Q, G, rep * P)
+    hin_k = hin.reshape(Bsz, nc, G, rep * P, N)
+    gn_k = gn.reshape(Bsz, nc, G, rep * P, N)
+    dCg = torch.einsum("bcijg,bcjgn->bcign", dCB, Bg) \
+        + torch.einsum("bcigk,bcgkn->bcign", dy_s, hin_k)
+    dBg = torch.einsum("bcijg,bcign->bcjgn", dCB, Cg) \
+        + torch.einsum("bcjgk,bcgkn->bcjgn", x_s, gn_k)
+    # ... and each head's share of rsum's state term, C_i . (exp(cum_i)
+    # dy_i h_in), a slot per 64 rows p and 64 columns n of its product
+    dy_h = ecum[..., None] * dyf                           # [b, c, i, h, p]
+    q_slots = []
+    for p0 in range(0, P, T):
+        for n0 in range(0, N, T):
+            prod = torch.einsum("bcihp,bchpn->bcihn", dy_h[..., p0:p0 + T],
+                                hin[:, :, :, p0:p0 + T, n0:n0 + T])
+            q_slots.append((prod * Ch[..., n0:n0 + T]).sum(-1))
+    # the last launch's sums of the slots: rsum over key tiles jt <= the
+    # row's, then the state term's; ddtd over query tiles it >= the column's
+    own = ii // T
+    rsum = (rs_slot * (torch.arange(nt)[None, :] <= own[:, None])
+            [None, None, :, None, :]).sum(-1)
+    for q in q_slots:
+        rsum = rsum + q
+    ddtd = (dd_slot * (torch.arange(nt)[None, :] >= own[:, None])
+            [None, None, :, None, :]).sum(-1)
     # dx (rows j): S^T dy plus w_j T_j, T_j = G_{c+1} B_j; x . T
-    T = torch.einsum("bcjhn,bchpn->bcjhp", Bh, gn)
+    Tj = torch.einsum("bcjhn,bchpn->bcjhp", Bh, gn)
     dx = torch.einsum("bcijh,bcihp->bcjhp", CB * L * dtf[:, :, None], dyf) \
-        + w[..., None] * T
-    xT = (xf * T).sum(-1)
+        + w[..., None] * Tj
+    xT = (xf * Tj).sum(-1)
     # the last launch: dcum, its suffix sum over the chunk, d(dt), dA
     ds = torch.exp(last[:, :, None] - cum) * xT
     W = dtf * ds
@@ -109,9 +160,7 @@ def chunked_bwd(x, dt, A, B_, C_, h0, dy, dhf, chunk):
     def rows(t):
         return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :S]
 
-    dB = rows(dBh).reshape(Bsz, S, G, rep, N).sum(3)
-    dC = rows(dCh).reshape(Bsz, S, G, rep, N).sum(3)
-    return rows(dx), rows(ddt), dA, dB, dC, dh0
+    return rows(dx), rows(ddt), dA, rows(dBg), rows(dCg), dh0
 
 
 def _inputs(B, S, H, P, N, G, random_h0=True, dh_final=True, seed=0,
@@ -149,16 +198,20 @@ ALGEBRA_CASES = [
     (1, 100, 6, 16, 16, 3, 32, True, True),      # 4 chunks, ragged
     (1, 1, 3, 16, 4, 3, 16, True, True),         # S = 1, G = H
     (2, 50, 4, 16, 8, 2, 64, True, False),       # one chunk past S
+    (1, 200, 6, 16, 8, 2, 128, True, True),      # 2 tiles a chunk, 3 heads a group
 ]
 
 
+@pytest.mark.parametrize("slices", [1, 2])
 @pytest.mark.parametrize("case", ALGEBRA_CASES)
-def test_the_kernels_chunked_algebra_equals_plain_autograd(case):
+def test_the_kernels_chunked_algebra_equals_plain_autograd(case, slices):
+    """One slice a group, and two: even where a group has 2 heads, one
+    head and two where it has 3 (the last slice shorter)."""
     B, S, H, P, N, G, chunk, rh0, dhf = case
     x, dt, A, Bg, Cg, h0, dy, dh = (None if a is None else torch.tensor(a)
                                     for a in _inputs(B, S, H, P, N, G, rh0,
                                                      dhf, seed=S))
-    got = chunked_bwd(x, dt, A, Bg, Cg, h0, dy, dh, chunk)
+    got = chunked_bwd(x, dt, A, Bg, Cg, h0, dy, dh, chunk, slices)
     ref = ssd_scan_bwd_plain(x, dt, A, Bg, Cg, h0, dy, dh, chunk=chunk)
     for k, g, r in zip(GRADS, got, ref):
         assert g.shape == r.shape, k
@@ -202,15 +255,74 @@ def test_the_cpu_wrapper_is_plain_autograd():
 
 
 def test_bwd_scratch_plan_matches_the_kernels_layout():
-    """The backward's scratch: U, h_in, G [B,H,nc,P,N]; per-head dB, dC
-    [B,H,S,N]; rsum per 64-column block of N; ddtd [B,H,S]; x . T per
-    64-row block of P; the fold's shares, one a 1024 state elements."""
+    """The backward's scratch: U [B,H,nc,P,N]; h_in and G [B,nc,H,P,N];
+    dCB [B,G,nc,QP,QP]; rsum a slot per key tile and per 64 x 64 block of
+    the state term; ddtd a slot per query tile; exp(cum) and w [B,H,S];
+    x . T per 64-row block of P; the fold's shares, one a 1024 state
+    elements. No per-head dB or dC: at mamba2-780m's training shape the
+    buffer is at least 35 MB under the per-head form's."""
     plan = ssd_mod.bwd_scratch_plan(2, 300, 48, 1, 128, 128, 256)
-    assert plan == ((2, 48, 2, 128, 128),) * 3 + ((2, 48, 300, 128),) * 2 \
-        + ((2, 48, 2, 300), (2, 48, 300), (2, 48, 2, 300), (2, 48, 2, 16))
+    assert plan == ((2, 48, 2, 128, 128), (2, 2, 48, 128, 128),
+                    (2, 2, 48, 128, 128), (2, 1, 2, 256, 256),
+                    (2, 48, 8, 300), (2, 48, 4, 300), (2, 48, 300),
+                    (2, 48, 300), (2, 48, 2, 300), (2, 48, 2, 16))
     plan = ssd_mod.bwd_scratch_plan(1, 31, 50, 1, 64, 16, 64)
-    assert plan[0] == (1, 50, 1, 64, 16) and plan[5] == (1, 50, 1, 31) \
-        and plan[-1] == (1, 50, 1, 1)
+    assert plan[0] == (1, 50, 1, 64, 16) and plan[4] == (1, 50, 2, 31) \
+        and plan[5] == (1, 50, 1, 31) and plan[-1] == (1, 50, 1, 1)
+    B, S, H, G, P, N = 1, 1024, 48, 1, 64, 128
+    plan = ssd_mod.bwd_scratch_plan(B, S, H, G, P, N, 256)
+    assert (B, H, S, N) not in plan
+    nc, npb, nnb, parts = 4, 1, 2, 8
+    per_head = (3 * B * H * nc * P * N + 2 * B * H * S * N
+                + B * H * nnb * S + B * H * S + B * H * npb * S
+                + B * H * nc * parts)
+    assert 4 * (per_head - sum(math.prod(p) for p in plan)) >= 35e6
+
+
+def _plan_holds(plan, B, S, H, G, P, N, chunk):
+    """The plan's invariants: slices a cluster of up to 16, every slice
+    non-empty, only the last shorter, at most HPS_MAX heads; the K split a
+    cluster of up to 16 and at most the state term's blocks."""
+    rep = H // G
+    assert 1 <= plan.slices <= 16 and 1 <= plan.k_split <= 16
+    assert plan.heads_per_slice == -(-rep // plan.slices) <= ssd_mod.HPS_MAX
+    assert plan.heads_per_slice * (plan.slices - 1) < rep \
+        <= plan.heads_per_slice * plan.slices
+    assert plan.k_split == 1 or plan.k_split <= rep * -(-P // 64)
+
+
+def _dcb_ctas(plan, B, S, H, G, chunk):
+    Q = min(chunk, S)
+    nt = -(-Q // 64)
+    return nt * (nt + 1) // 2 * -(-S // Q) * B * G * plan.slices
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape, want", [
+    # B, S, H, G, P, N, chunk; what the plan must show
+    ((1, 1024, 48, 1, 64, 128, 256), "fills"),   # mamba2-780m's training shape
+    ((1, 271, 48, 1, 64, 128, 256), None),       # its cold prompt
+    ((1, 640, 50, 1, 64, 16, 64), None),         # hymba-1.5b training: 50 heads
+    ((1, 31, 50, 1, 64, 16, 64), "uneven"),      # hymba-1.5b, a resume
+    ((1, 100, 4, 4, 32, 16, 32), "one head"),    # G = H: a slice is one head
+    ((1, 200, 6, 2, 16, 8, 128), None),          # 3 heads a group
+    ((2, 300, 8, 2, 64, 128, 256), None),        # G = 2, B = 2
+])
+def test_bwd_plan(shape, want, dtype):
+    """At mamba2-780m's training shape the dCB launch fills the card (at
+    least 132 CTAs); at hymba-1.5b's 50 heads in one tile the last slice
+    is shorter;
+    at G = H a slice is one head; every plan holds its invariants."""
+    B, S, H, G, P, N, chunk = shape
+    plan = ssd_mod.bwd_plan(B, S, H, G, P, N, chunk, dtype)
+    _plan_holds(plan, B, S, H, G, P, N, chunk)
+    rep = H // G
+    if want == "fills":
+        assert _dcb_ctas(plan, B, S, H, G, chunk) >= 132
+    if want == "uneven":
+        assert rep % plan.heads_per_slice and plan.slices > 1
+    if want == "one head":
+        assert (plan.slices, plan.heads_per_slice) == (1, 1)
 
 
 def _jax_vjp(x, dt, A, Bg, Cg, h0, dy, dh, chunk):
