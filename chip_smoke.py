@@ -70,7 +70,15 @@ lengths in every run. It
    cut to 4 layers (B=1, S=1024: 4 chunks; first its 2-layer card / CPU
    cross-check at S=300) and hymba-1.5b cut to 4 (B=1, S=512, meta tokens
    and window) in both dtypes (loss falls; the SSD scan's backward
-   kernel once a layer a step);
+   kernel once a layer a step), qwen2-vl-2b at full width cut to 4 of
+   its 28 layers on merged image embeddings (B=2, S=1024, a 16 x 16
+   patch grid at one temporal index, so attention runs under a key limit)
+   in both dtypes (loss falls; first its 2-layer fp32 card / CPU
+   cross-check at S=320); then both attention kernels under that key
+   limit at qwen2-vl-2b's (12/2, 128), B=2, S=1024, in both dtypes,
+   against their plain versions, two calls bit-identical, lim = arange + 1
+   equal to the null path's bits, timed beside the null path, the plain
+   versions and SDPA with the same boolean mask (forward and backward);
 3b. on an empty card, deepseek-v3-671b at full width cut to its three
    dense MLA layers and its first MoE layer (15.1B parameters), drawn in
    bf16 only: a Case 1 miss, a Case 5 hit with Case 1's tokens, a Case 4;
@@ -83,7 +91,8 @@ lengths in every run. It
 4. runs the paper's edge request on full-width gemma3-270m, on full-width
    mamba2-780m cut to 12 of its 48 layers (for the script's time), on
    full-width deepseek-v3-671b cut to its
-   three dense MLA layers, on full-width, full-depth llama3.2-1b, on
+   three dense MLA layers, on full-width llama3.2-1b cut to 8 of its 16
+   layers (for the script's time), on
    full-width qwen2-vl-2b cut to 8 of its 28 layers since the training
    phase joined (text prompts: M-RoPE with its three position components
    equal), on full-width hymba-1.5b cut to 4 of its 32 layers (a ring KV
@@ -367,11 +376,14 @@ SOURCES = {   # kernel -> (its CUDA source, the TPU kernel it replaces)
 # 116 and 90 s of it (at full depth mamba2-780m's edge and fabric phases
 # had taken 143-159 s, hymba-1.5b's 209.8 s); qwen2-vl-2b 8 of its 28
 # since the training phase joined (the script took 1254.9 s with it at
-# 28, and 92.4-129.0 s of it)
+# 28, and 92.4-129.0 s of it); llama3.2-1b 8 of its 16 since qwen2-vl-2b's
+# image training and the key-limit checks joined (~30 s with the build's
+# doubled instantiations; the script took 1099.9 s with llama at 16, its
+# phases 76.2 s)
 PATHS = [("gemma3-270m", None, None, True, None),
          ("mamba2-780m", 12, 4, True, 4),
          ("deepseek-v3-671b", 3, 1, True, None),
-         ("llama3.2-1b", None, 2, True, 4),
+         ("llama3.2-1b", 8, 2, True, 4),
          ("qwen2-vl-2b", 8, 2, True, 4),
          ("hymba-1.5b", 4, 2, True, 4),
          ("granite-moe-3b-a800m", None, 2, True, 4),
@@ -429,24 +441,51 @@ def build_phase():
               f"spilling: {', '.join(spilled) or 'none'}")
         for fn, regs, _ in funcs:
             print(f"    {fn}: {regs} registers")
+        if name not in ("flash_prefill", "flash_prefill_bwd"):
+            continue
+        spills = {fn: (r, n) for fn, r, n in funcs}
+        for fn, (r, n) in spills.items():   # <..., LIM>: true beside false
+            if fn.endswith(",true>"):
+                r0, n0 = spills.get(fn[:-len("true>")] + "false>",
+                                    (None, None))
+                print(f"    key limit: {fn} {r} registers, {n} B spilled; "
+                      f"its null instantiation {r0} registers, {n0} B")
+
+
+def kernel_name(mangled):
+    """A templated kernel's mangled name cut to ``name<args>``: the
+    identifier ending in ``kernel`` whose length prefix matches it (an
+    anonymous namespace's hash may end in digits), then its template
+    arguments; other names as they are."""
+    import re
+    for m in re.finditer(r"kernelI", mangled):
+        end = m.start() + len("kernel")
+        for n in range(len("kernel"), end):
+            start = end - n
+            if mangled[start - len(str(n)):start] == str(n) and \
+                    re.fullmatch(r"[A-Za-z_]\w*", mangled[start:end]):
+                a = re.match(r"(\w*?)EEv", mangled[end + 1:])
+                if not a:
+                    break
+                args = a.group(1).replace("13__nv_bfloat16", "bf16,")
+                args = re.sub(r"Li(\d+)E", r"\1,",
+                              re.sub(r"^f", "float,", args))
+                args = args.replace("Lb0E", "false,").replace("Lb1E", "true,")
+                return f"{mangled[start:end]}<{args.rstrip(',')}>"
+    return mangled
 
 
 def ptxas_report(log):
     """[(kernel, registers, spill-store bytes)] from ``nvcc -Xptxas -v``:
     each "Compiling entry function" line, with the registers and spills
-    reported after it. Kernel names are cut to their template arguments."""
+    reported after it. Kernel names are cut to their template arguments
+    (:func:`kernel_name`)."""
     import re
     out = []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+kernel)I(\w*?)EEv", m.group(1))
-            name = m.group(1)
-            if k:
-                args = k.group(2).replace("13__nv_bfloat16", "bf16,")
-                args = re.sub(r"Li(\d+)E", r"\1,", re.sub(r"^f", "float,", args))
-                name = f"{k.group(1)}<{args.rstrip(',')}>"
-            out.append([name, 0, 0])
+            out.append([kernel_name(m.group(1)), 0, 0])
             continue
         if not out:
             continue
@@ -3836,6 +3875,15 @@ WHISPER_TRAIN, WHISPER_STEPS = (2, 256), 3
 MAMBA_TRAIN, MAMBA_CROSS, MAMBA_LAYERS = (1, 1024), (1, 300), 4
 HYMBA_TRAIN, HYMBA_LAYERS = (1, 512), 4
 SSM_STEPS = 3
+# qwen2-vl-2b on merged image embeddings: (B, S), the image (text tokens
+# before it, grid side: 16 x 16 = 256 patches at one temporal index), layers
+# of its 28, steps; its 2-layer card / CPU cross-check's (B, S, text before
+# the same image)
+VLM_TRAIN, VLM_IMAGE, VLM_LAYERS, VLM_STEPS = (2, 1024), (100, 16), 4, 3
+VLM_CROSS = (1, 320, 32)
+# flash_prefill and its backward under that batch's key limit, at
+# qwen2-vl-2b's attention width (H, KV, dh) and VLM_TRAIN's shape
+LIMIT_ATTN = ("qwen2-vl-2b (12/2, 128)", 12, 2, 128)
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
 # the launcher, as a process, at llama3.2-1b's full width and depth
 LAUNCH_ARGS = ["--arch", "llama3.2-1b", "--no-reduced", "--steps", "3",
@@ -4223,13 +4271,11 @@ class Launcher:
                                  "failed (lines above)")
 
 
-def train_cross_check(m, label, shape, seed):
-    """Loss and grad norm of ``m``'s first 2 layers on one batch of
-    ``shape`` (lm_batches, ``seed``), on the card and on the CPU: within
-    1e-4 relative."""
-    from repro_torch.training.data import lm_batches
+def train_cross_check(m, label, cross):
+    """Loss and grad norm of ``m``'s first 2 layers on the batch ``cross``,
+    on the card and on the CPU: within 1e-4 relative."""
     from repro_torch.training.optimizer import global_norm
-    cross = next(lm_batches(m.cfg, *shape, seed=seed))
+    shape = tuple(cross["targets"].shape)
     got = {}
     for dev in ("cuda", "cpu"):
         c = cut_model(m, 2, dev)
@@ -4273,7 +4319,8 @@ def ssm_train_runs(add):
         m16 = Model(cfg, dtype=torch.bfloat16, seed=None, remat=True)
         m16.load_state_dict(m32.state_dict())
         if name == "mamba2-780m":
-            train_cross_check(m32, f"{name} fp32 train", MAMBA_CROSS, 9)
+            train_cross_check(m32, f"{name} fp32 train", next(lm_batches(
+                cfg, *MAMBA_CROSS, seed=9)))
         data = lm_batches(cfg, *shape, seed=seed)
         batches = [next(data) for _ in range(SSM_STEPS)]
         for m, tag in ((m16, "bf16"), (m32, "fp32")):
@@ -4289,6 +4336,175 @@ def ssm_train_runs(add):
         torch.cuda.empty_cache()
 
 
+def vlm_train_runs(add):
+    """qwen2-vl-2b at full width cut to VLM_LAYERS of its 28 layers, on
+    merged image embeddings (``vlm_image_batches``: VLM_TRAIN, VLM_IMAGE's
+    patches at one temporal index, so attention runs flash_prefill and its
+    backward under a key limit), VLM_STEPS steps in bf16 then fp32,
+    launches a step asserted, every metric finite and the loss falling;
+    first its 2-layer fp32 card / CPU cross-check on one batch at
+    VLM_CROSS. ``add(counts, dtype)`` takes each run's launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import vlm_image_batches
+    base = get_config("qwen2-vl-2b")
+    cfg = base.replace(n_layers=VLM_LAYERS)
+    m32 = Model(cfg, seed=0, remat=True)
+    m16 = Model(cfg, dtype=torch.bfloat16, seed=None, remat=True)
+    m16.load_state_dict(m32.state_dict())
+    B, S, text = VLM_CROSS
+    grid = VLM_IMAGE[1]
+    train_cross_check(m32, "qwen2-vl-2b fp32 image train", next(
+        vlm_image_batches(cfg, B, S, text, grid, seed=11)))
+    data = vlm_image_batches(cfg, *VLM_TRAIN, *VLM_IMAGE, seed=10)
+    batches = [next(data) for _ in range(VLM_STEPS)]
+    lim = m32._key_limit(batches[0])
+    S = VLM_TRAIN[1]
+    past = int((lim.cpu() > torch.arange(1, S + 1)).sum()) \
+        if lim is not None else 0
+    if not past:
+        raise AssertionError("qwen2-vl-2b image batches: no key limit")
+    for m, tag in ((m16, "bf16"), (m32, "fp32")):
+        mets, counts = train_run(
+            m, f"qwen2-vl-2b {VLM_LAYERS} of {base.n_layers} layers {tag} "
+               f"image train (B, S = {VLM_TRAIN}, {grid}x{grid} patches at "
+               f"one temporal index after {VLM_IMAGE[0]} text tokens: "
+               f"{past} queries see keys past their own, every attention "
+               f"launch on the key-limit path)", batches,
+            moments=torch.bfloat16, expect=step_launches(cfg))
+        add(counts, m.dtype)
+        if not mets[-1]["loss"] < mets[0]["loss"]:
+            raise AssertionError(f"qwen2-vl-2b {tag}: the loss did not "
+                                 f"fall: {mets}")
+    del m, m16, m32
+    torch.cuda.empty_cache()
+
+
+def limit_checks():
+    """flash_prefill and flash_prefill_bwd under a key limit (the training
+    mask of a VLM batch: VLM_IMAGE's patches at one temporal index) at
+    LIMIT_ATTN's width and VLM_TRAIN's shape, in both dtypes: each against
+    its plain version (TOL; the backward each gradient against its largest
+    magnitude), two calls bit-identical, and with lim = arange + 1 the null
+    path's bits. Timed by CUDA events beside the null (causal) path at the
+    same shape, the plain versions and SDPA with the equivalent boolean
+    ``attn_mask`` (its backward by autograd), with the bound over the live
+    (query, key) pairs only: q, k, v read and the output written (the
+    backward: also dO, the lse, and dq, dk, dv written) over 3.35 TB/s, or
+    2 (dh + dv) (backward 2 (3 dh + 2 dv)) flops a (head, live pair).
+    Returns the largest errors of the two kernels."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models.attention import training_key_limit
+    from repro_torch.training.data import image_positions
+    tag, h, kv, dh = LIMIT_ATTN
+    B, S = VLM_TRAIN
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(12)
+    lim = torch.as_tensor(training_key_limit(image_positions(
+        S, *VLM_IMAGE)[0]), device=dev)
+    causal = torch.arange(1, S + 1, dtype=torch.int32, device=dev)
+    pairs, null_pairs = int(lim.sum()), S * (S + 1) // 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {"flash_prefill": 0.0, "flash_prefill_bwd": 0.0}
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        q = torch.randn((B, S, h, dh), generator=gen).to(dev, dt)
+        k = torch.randn((B, S, kv, dh), generator=gen).to(dev, dt)
+        v = torch.randn((B, S, kv, dh), generator=gen).to(dev, dt)
+        dout = torch.randn((B, S, h, dh), generator=gen).to(dev, dt)
+        out = fp.flash_prefill(q, k, v, key_limit=lim)
+        f_err = (out.float() - fp.flash_prefill_plain(
+            q, k, v, key_limit=lim).float()).abs().max().item()
+        f_same = torch.equal(out, fp.flash_prefill(q, k, v, key_limit=lim))
+        f_null = torch.equal(fp.flash_prefill(q, k, v, key_limit=causal),
+                             fp.flash_prefill(q, k, v))
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        fp.flash_prefill(qq, kk, vv, key_limit=lim).backward(dout)
+        ref = fp.flash_prefill_bwd_plain(q, k, v, dout, key_limit=lim)
+        b_err = max((g.float() - r.float()).abs().max().item()
+                    / r.float().abs().max().item()
+                    for g, r in zip((qq.grad, kk.grad, vv.grad), ref))
+        del qq, kk, vv, ref
+
+        def saved(key_limit):          # the forward's output and lse
+            lse = torch.empty((B, h, S), dtype=torch.float32, device=dev)
+            return fp._forward(q, k, v, 0, S, None, lse, key_limit), lse
+
+        def bwd(key_limit, o_lse):
+            return fp.flash_prefill_bwd(q, k, v, o_lse[0], dout, o_lse[1],
+                                        key_limit=key_limit)
+        with_lim, with_null = saved(lim), saved(None)
+        b_same = all(torch.equal(x, y) for x, y in zip(
+            bwd(lim, with_lim), bwd(lim, with_lim)))
+        b_null = all(torch.equal(x, y) for x, y in zip(
+            bwd(causal, saved(causal)), bwd(None, with_null)))
+        torch.cuda.synchronize()
+        print(f"flash_prefill key limit {tag} {dname} B={B} S={S}, "
+              f"{VLM_IMAGE[1]}x{VLM_IMAGE[1]} patches at one temporal index "
+              f"after {VLM_IMAGE[0]} text tokens ({pairs} live pairs a head, "
+              f"causal {null_pairs}): forward max err {f_err:.3g}, backward "
+              f"{b_err:.3g} of the largest gradient (tol {TOL[dname]}); two "
+              f"calls bit-identical: forward {f_same}, backward {b_same}; "
+              f"lim = arange + 1 gives the null path's bits: forward "
+              f"{f_null}, backward {b_null}")
+        if not (f_err <= TOL[dname] and b_err <= TOL[dname] and f_same
+                and b_same and f_null and b_null):
+            raise AssertionError(f"flash_prefill key limit {dname}: failed "
+                                 "(line above)")
+        errs["flash_prefill"] = max(errs["flash_prefill"], f_err)
+        errs["flash_prefill_bwd"] = max(errs["flash_prefill_bwd"], b_err)
+        es = q.element_size()
+        ms = {"forward": events_ms(lambda: fp.flash_prefill(
+                  q, k, v, key_limit=lim)),
+              "forward null": events_ms(lambda: fp.flash_prefill(q, k, v)),
+              "forward plain": events_ms(lambda: fp.flash_prefill_plain(
+                  q, k, v, key_limit=lim)),
+              "backward": events_ms(lambda: bwd(lim, with_lim)),
+              "backward null": events_ms(lambda: bwd(None, with_null)),
+              "backward plain": events_ms(lambda: fp.flash_prefill_bwd_plain(
+                  q, k, v, dout, key_limit=lim))}
+        mask = torch.arange(S, device=dev)[None, :] < lim[:, None]
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        lib = {}
+        try:
+            lib["forward"] = events_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True))
+            qg, kg, vg = (t.detach().requires_grad_() for t in (qs, ks, vs))
+            o_s = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                 enable_gqa=True)
+            d_s = dout.transpose(1, 2)
+            lib["backward"] = events_ms(lambda: torch.autograd.grad(
+                o_s, (qg, kg, vg), d_s, retain_graph=True))
+            del o_s, qg, kg, vg
+        except RuntimeError as e:
+            print(f"  sdpa with the mask refused: {str(e)[:80]}")
+        lim_host = fp.limit_on_host(lim, q, S, 0, None)
+        plans = {n: fp.bwd_plan(dt, B, S, S, h, kv, dh, dh, 0, S, -1, sms, x)
+                 for n, x in (("limit", lim_host), ("null", None))}
+        for part, mul, extra in (("forward", 2 * (dh + dh), 0),
+                                 ("backward", 2 * (3 * dh + 2 * dh),
+                                  4 * B * h * S)):
+            n_io = 1 if part == "forward" else 2
+            nbytes = es * B * n_io * (S * h * 2 * dh + S * kv * 2 * dh) + extra
+            b_ms, b_by = bound(nbytes, mul * h * pairs * B, dname)
+            n_ms, _ = bound(nbytes, mul * h * null_pairs * B, dname)
+            t, t0 = ms[part], ms[part + " null"]
+            sd = lib.get(part)
+            print(f"  {part} ms (CUDA events): kernel {t:.4f} (null path "
+                  f"{t0:.4f}, {t / t0:.3f}x; bound {n_ms:.5f}) plain "
+                  f"{ms[part + ' plain']:.4f} sdpa attn_mask "
+                  + (f"{sd:.4f} ({t / sd:.2f}x)" if sd else "refused")
+                  + f" bound {b_ms:.5f} ({b_by}); {b_ms / t:.3f} of the bound"
+                  + (f"; plan (kv_parts, dq_splits) {plans['limit']}, null "
+                     f"{plans['null']}" if part == "backward" and
+                     dname == "bfloat16" else ""))
+        del with_lim, with_null
+    return errs
+
+
 def training_path(smi):
     """The training phase: train steps on the card (every count set to 0
     just before a run and read just after), then the backward kernel
@@ -4298,12 +4514,15 @@ def training_path(smi):
     batch: loss and grad norm within 1e-4); granite cut to GRANITE_LAYERS
     MoE layers in both dtypes (loss falls, aux > 0); whisper-base at full
     width and depth in fp32 over 1500 frames; mamba2-780m and hymba-1.5b
-    (ssm_train_runs); the deepseek-v3-671b dense
+    (ssm_train_runs); qwen2-vl-2b on merged image embeddings
+    (vlm_train_runs); the deepseek-v3-671b dense
     cut to 1 MLA layer with its MTP head, the MTP layer an MoE layer of
     MTP_EXPERTS of its 256 experts (all 256 with AdamW would need ~112
-    GB), in bf16. The launcher has left the card before this phase (its
-    checkpoint is host work by then). Returns the JSON rows of the
-    backward kernels and the bf16 and fp32 launches by wrapper name."""
+    GB), in bf16; then the backward kernels' checks and the key-limit
+    checks (limit_checks). The launcher has left the card before this
+    phase (its checkpoint is host work by then). Returns the JSON rows of
+    the backward kernels, the key-limit checks' largest errors and the
+    bf16 and fp32 launches by wrapper name."""
     import dataclasses
     import numpy as np
     import torch
@@ -4323,7 +4542,8 @@ def training_path(smi):
     # gemma3-270m, fp32, full width and depth
     cfg = get_config("gemma3-270m")
     m = Model(cfg, seed=0, remat=True)
-    train_cross_check(m, "gemma3-270m fp32 train", GEMMA_CROSS, 1)
+    train_cross_check(m, "gemma3-270m fp32 train",
+                      next(lm_batches(cfg, *GEMMA_CROSS, seed=1)))
     data = lm_batches(cfg, *GEMMA_TRAIN, seed=2)
     mets, counts = train_run(m, "gemma3-270m fp32 train", [
         next(data) for _ in range(GEMMA_STEPS)], expect=step_launches(cfg))
@@ -4369,6 +4589,8 @@ def training_path(smi):
 
     ssm_train_runs(add)
     t_ssm = clock.monotonic()
+    vlm_train_runs(add)
+    t_vlm = clock.monotonic()
 
     # deepseek-v3-671b: 1 dense MLA layer and the MTP head, bf16
     base = get_config("deepseek-v3-671b")
@@ -4396,11 +4618,14 @@ def training_path(smi):
     t2 = clock.monotonic()
     rows = {"flash_prefill_bwd": bwd_checks(),
             "moe_gemm_wgrad": moe_bwd_checks()}
+    limit_errs = limit_checks()
     print(f"training phase: {clock.monotonic() - t0:.1f} s (gemma3-270m, "
           f"granite and whisper-base runs {t1 - t0:.1f} s, mamba2-780m and "
-          f"hymba-1.5b {t_ssm - t1:.1f} s, the MTP run {t2 - t_ssm:.1f} s, "
-          f"backward checks {clock.monotonic() - t2:.1f} s); {smi}")
-    return rows, totals[False], totals[True]
+          f"hymba-1.5b {t_ssm - t1:.1f} s, qwen2-vl-2b on image embeddings "
+          f"{t_vlm - t_ssm:.1f} s, the MTP run {t2 - t_vlm:.1f} s, "
+          f"backward and key-limit checks {clock.monotonic() - t2:.1f} s); "
+          f"{smi}")
+    return rows, limit_errs, totals[False], totals[True]
 
 
 def cut_model(model, n_layers, device="cuda"):
@@ -4488,8 +4713,10 @@ def main():
     rows["moe_gemm"] = moe_checks()
     print(f"moe_gemm checks: {clock.monotonic() - t_script:.1f} s after the "
           f"device line")
-    train_rows, train16, train32 = training_path(smi)
+    train_rows, limit_errs, train16, train32 = training_path(smi)
     rows.update(train_rows)
+    for name, err in limit_errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     print(f"training phase: {clock.monotonic() - t_script:.1f} s after the "
           f"device line")
 

@@ -37,10 +37,10 @@ _c_p, _c_i, _c_i64, _c_f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # each library also exports <library>_error_string(int) -> const char*
 SIGNATURES = {
     "flash_prefill": (
-        [_c_p] * 5 + [_c_i] * 9 + [_c_i64] * 9
+        [_c_p] * 6 + [_c_i] * 9 + [_c_i64] * 9
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "flash_prefill_bwd": (
-        [_c_p] * 12 + [_c_i] * 10 + [_c_i64] * 9
+        [_c_p] * 13 + [_c_i] * 10 + [_c_i64] * 9
         + [_c_i, _c_i, _c_i, _c_f, _c_p]),
     "flash_decode": (
         [_c_p] * 9 + [_c_i] * 8 + [_c_i64] * 8

@@ -10,6 +10,17 @@
 // The softmax runs online in fp32 (m, l, acc); a row with no live key gives 0.
 // The cache is read in place through the strides it is given.
 //
+// A key limit (int32 lim[Sq], non-decreasing, at most kv_len; q_offset 0 and
+// no window, as the wrapper checks) replaces the causal rule: the key at kpos
+// is live for query row i when kpos < lim[i] && kpos < kv_len. It is the
+// reference's training mask for a VLM batch whose temporal positions repeat
+// (image patches at one index see each other). Each kernel takes it as a
+// template flag (LIM), so the null instantiation is the code without it.
+// Since lim is non-decreasing, a query tile's keys end at min(kv_len,
+// lim[last row]); a chunk of keys from k0 is dead for rows i..j when k0 >=
+// lim[j] and live for all of them when k0 + n - 1 < lim[i]; only chunks
+// between pay for the per-element test kpos < lim[row].
+//
 // bf16: flash_prefill_tc_kernel, FlashAttention-2 form on the tensor cores.
 // What bounds it: at the card's peak rates the path's shapes are bound by
 // bytes. deepseek-v3's (192, 128) with H = KV = 128 and Sq = 512 moves ~84
@@ -123,11 +134,11 @@ __host__ __device__ constexpr int group_of(int n) {
     return 1;
 }
 
-template <typename T, int DH, int DV>
+template <typename T, int DH, int DV, bool LIM>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse,
+                     float* __restrict__ lse, const int* __restrict__ lim,
                      int Sq, int Sk, int H, int rep,
                      int64_t q_sb, int64_t q_ss, int64_t q_sh,
                      int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -174,9 +185,15 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // live key range of this CTA's queries
     const int qpos_lo = q_offset + q0;
     const int qpos_hi = q_offset + q0 + q_rows - 1;
-    const int k_end = min(min(kv_len, qpos_hi + 1), Sk);
+    const int k_end = min(min(kv_len, LIM ? lim[q0 + q_rows - 1] : qpos_hi + 1), Sk);
     int k_begin = window > 0 ? max(0, qpos_lo - window + 1) : 0;
     k_begin = (k_begin / BK) * BK;
+    int lim_r[ROWS];                   // the warp's rows' limits (LIM)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+        const int qi = q0 + warp * ROWS + r;
+        lim_r[r] = LIM && qi < Sq ? lim[qi] : 0;
+    }
 
     const T* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
     const T* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
@@ -235,7 +252,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
             const int qpos = q_offset + q0 + warp * ROWS + r;
-            const bool live = kp < k_end && kp <= qpos &&
+            const bool live = kp < k_end && (LIM ? kp < lim_r[r] : kp <= qpos) &&
                               (window <= 0 || kp > qpos - window);
             const float sc = live ? s[r] * scale : -INFINITY;
             const float m_new = fmaxf(m[r], warp_max(sc));
@@ -331,13 +348,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 //   C/D 0..3:    (row g, cols c, c+1), (row g+8, cols c, c+1)
 // CTA row r is query q0 + r % qb of head h_first + r / qb (qb = 64 / hp);
 // warp w owns rows 16 w .. 16 w + 15.
-template <int DH, int DV>
+template <int DH, int DV, bool LIM>
 __global__ void __launch_bounds__(TC_WARPS * 32, 1)
 flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         __nv_bfloat16* __restrict__ out,
-                        float* __restrict__ lse,
+                        float* __restrict__ lse, const int* __restrict__ lim,
                         int Sq, int Sk, int H, int rep, int hp,
                         int64_t q_sb, int64_t q_ss, int64_t q_sh,
                         int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -369,7 +386,7 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // the CTA's live key range
     const int qpos_lo = q_offset + q0;
     const int qpos_hi = q_offset + min(q0 + qb, Sq) - 1;
-    const int k_end = min(min(kv_len, qpos_hi + 1), Sk);
+    const int k_end = min(min(kv_len, LIM ? lim[min(q0 + qb, Sq) - 1] : qpos_hi + 1), Sk);
     int k_begin = window > 0 ? max(0, qpos_lo - window + 1) : 0;
     k_begin = (k_begin / BN) * BN;
     const int ntiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
@@ -380,6 +397,14 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const bool w_live = wq0 < Sq;
     const int wpos_lo = q_offset + wq0;
     const int wpos_hi = q_offset + min(wq0 + 15, Sq - 1);
+    // LIM: keys below lim_lo are live for all the warp's rows, keys from
+    // lim_hi on for none; lim_g[i] is row g + 8 i's own (0 past Sq)
+    const int lim_lo = LIM && w_live ? lim[wq0] : 0;
+    const int lim_hi = LIM && w_live ? lim[min(wq0 + 15, Sq - 1)] : 0;
+    int lim_g[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+        lim_g[i] = LIM && wq0 + g + 8 * i < Sq ? lim[wq0 + g + 8 * i] : 0;
 
     const __nv_bfloat16* qbase = q + (int64_t)b * q_sb;
     const __nv_bfloat16* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
@@ -439,7 +464,7 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int c = 0; c < BN / BC; ++c) {       // compute chunks of the tile
             const int k0 = k_begin + t * BN + c * BC;
-            const bool dead = !w_live || k0 > wpos_hi || k0 >= k_end ||
+            const bool dead = !w_live || (LIM ? k0 >= lim_hi : k0 > wpos_hi) || k0 >= k_end ||
                               (window > 0 && k0 + BC - 1 <= wpos_lo - window);
             float s[NSN][4];
             float alpha[2];
@@ -466,7 +491,8 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 }
 
                 // mask only a tile that crosses an edge for this warp
-                const bool full = k0 + BC - 1 <= wpos_lo && k0 + BC <= k_end &&
+                const bool full = (LIM ? k0 + BC <= lim_lo : k0 + BC - 1 <= wpos_lo) &&
+                                  k0 + BC <= k_end &&
                                   (window <= 0 || k0 > wpos_hi - window);
                 if (!full) {
 #pragma unroll
@@ -475,7 +501,8 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         for (int e = 0; e < 4; ++e) {
                             const int kp = k0 + 8 * n + c2 + (e & 1);
                             const int qp = wpos_lo + g + (e >> 1) * 8;
-                            const bool live = kp < k_end && kp <= qp &&
+                            const bool live = kp < k_end &&
+                                              (LIM ? kp < lim_g[e >> 1] : kp <= qp) &&
                                               (window <= 0 || kp > qp - window);
                             if (!live) s[n][e] = -INFINITY;
                         }
@@ -573,17 +600,18 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <typename T, int DH, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int Sq, int Sk, int H, int KV,
+                   float* lse, const int* lim, int B, int Sq, int Sk, int H, int KV,
                    const int64_t* st, int q_offset, int kv_len, int window,
                    float scale, cudaStream_t stream) {
-    auto kern = flash_prefill_kernel<T, DH, DV>;
+    auto kern = lim ? flash_prefill_kernel<T, DH, DV, true>
+                    : flash_prefill_kernel<T, DH, DV, false>;
     constexpr size_t smem = smem_bytes<DH, DV>();
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     kern<<<grid, NWARPS * 32, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Sq, Sk, H, H / KV,
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, lim, Sq, Sk, H, H / KV,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
         q_offset, kv_len, window, scale);
     return cudaGetLastError();
@@ -591,10 +619,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 template <int DH, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      float* lse, int B, int Sq, int Sk, int H, int KV, int hp,
-                      const int64_t* st, int q_offset, int kv_len, int window,
+                      float* lse, const int* lim, int B, int Sq, int Sk, int H, int KV,
+                      int hp, const int64_t* st, int q_offset, int kv_len, int window,
                       float scale, cudaStream_t stream) {
-    auto kern = flash_prefill_tc_kernel<DH, DV>;
+    auto kern = lim ? flash_prefill_tc_kernel<DH, DV, true>
+                    : flash_prefill_tc_kernel<DH, DV, false>;
     constexpr size_t smem = Tc<DH, DV>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -603,7 +632,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
     dim3 grid((Sq + qb - 1) / qb, H / hp, B);
     kern<<<grid, TC_WARPS * 32, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, Sq, Sk, H, H / KV, hp,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, lim, Sq, Sk, H, H / KV, hp,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
         q_offset, kv_len, window, scale * LOG2E);
     return cudaGetLastError();
@@ -613,13 +642,13 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 // on the scalar kernel
 template <int DH, int DV>
 cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
-                     void* out, float* lse, int B, int Sq, int Sk, int H, int KV, int hp,
-                     const int64_t* st, int q_offset, int kv_len, int window,
-                     float scale, cudaStream_t s) {
+                     void* out, float* lse, const int* lim, int B, int Sq, int Sk, int H,
+                     int KV, int hp, const int64_t* st, int q_offset, int kv_len,
+                     int window, float scale, cudaStream_t s) {
     if (dtype == 0 && hp == 1)
-        return launch<float, DH, DV>(q, k, v, out, lse, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
+        return launch<float, DH, DV>(q, k, v, out, lse, lim, B, Sq, Sk, H, KV, st, q_offset, kv_len, window, scale, s);
     if (dtype == 1)
-        return launch_tc<DH, DV>(q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+        return launch_tc<DH, DV>(q, k, v, out, lse, lim, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
     return cudaErrorInvalidValue;
 }
 
@@ -629,32 +658,33 @@ cudaError_t by_dtype(int dtype, const void* q, const void* k, const void* v,
 // of q, k and v must be contiguous and rows must start on 16 bytes. q and k
 // are dh wide, v dv wide; out is a contiguous [B, Sq, H, dv]; lse, when not
 // null, a contiguous fp32 [B, H, Sq] that takes each row's log-sum-exp (the
-// backward's input; serving passes null). hp is the
+// backward's input; serving passes null); key_limit, when not null, a
+// contiguous int32 [Sq] (see the top; q_offset 0, window <= 0). hp is the
 // number of query heads a CTA packs (the wrapper's grid_plan): 1 for
 // float32; for bfloat16 4, 2 or 1, dividing H / KV. Returns the launch's
 // cudaError_t (0 on success).
 extern "C" int flash_prefill_launch(
     const void* q, const void* k, const void* v, void* out, float* lse,
-    int dtype, int B, int Sq, int Sk, int H, int KV, int dh, int dv, int hp,
+    const int* key_limit, int dtype, int B, int Sq, int Sk, int H, int KV, int dh, int dv, int hp,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int q_offset, int kv_len, int window, float scale, void* stream) {
     if (B <= 0 || Sq <= 0 || H <= 0 || KV <= 0 || H % KV || hp <= 0 ||
-        hp > 4 || (H / KV) % hp)
+        hp > 4 || (H / KV) % hp || (key_limit && (q_offset != 0 || window > 0)))
         return cudaErrorInvalidValue;
     const int64_t st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
     cudaStream_t s = (cudaStream_t)stream;
     if (dh == dv) {
         switch (dh) {
-            case 32: return by_dtype<32, 32>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
-            case 64: return by_dtype<64, 64>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
-            case 128: return by_dtype<128, 128>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
-            case 256: return by_dtype<256, 256>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+            case 32: return by_dtype<32, 32>(dtype, q, k, v, out, lse, key_limit, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+            case 64: return by_dtype<64, 64>(dtype, q, k, v, out, lse, key_limit, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+            case 128: return by_dtype<128, 128>(dtype, q, k, v, out, lse, key_limit, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+            case 256: return by_dtype<256, 256>(dtype, q, k, v, out, lse, key_limit, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
         }
     }
     if (dh == 192 && dv == 128)        // MLA: [k_nope; k_rope] against v
-        return by_dtype<192, 128>(dtype, q, k, v, out, lse, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
+        return by_dtype<192, 128>(dtype, q, k, v, out, lse, key_limit, B, Sq, Sk, H, KV, hp, st, q_offset, kv_len, window, scale, s);
     return cudaErrorInvalidValue;
 }
 

@@ -5,7 +5,18 @@
 //   kpos <= qpos  &&  kpos < kv_len  &&  (window <= 0 || kpos > qpos - window),
 // (dh, dv) is one of the forward's WIDTHS, MLA's (192, 128) included, and H
 // query heads share KV kv heads. whisper's bidirectional attention is the
-// forward's q_offset = kv_len = Sk and needs nothing of its own here.
+// forward's q_offset = kv_len = Sk and needs nothing of its own here. The
+// forward's key limit (lim[Sq], non-decreasing, at most kv_len; q_offset 0,
+// no window) replaces the causal rule as there: kpos < lim[qi] && kpos <
+// kv_len. Each kernel takes it as a template flag (LIM), so the null
+// instantiation is the code without it. Under it, a dQ tile's keys end at
+// min(kv_len, lim[last row]); a dK/dV CTA's first query tile is the first
+// whose last row's limit passes its first key (first_query: a warp's ballot
+// over the tiles' last rows, 32 tiles a round; the fp32 kernel starts at that
+// row itself, first_row, as its causal form starts at the key's own query),
+// and every tile after it sees the keys too; a tile pair needs no per-element
+// mask when its last key is below its first query's limit. With lim[i] = i + 1
+// every loop bound equals the causal form's, so the results are its bits.
 //
 // Replaces no TPU kernel: no Pallas kernel of the reference has a backward
 // (it trains on plain JAX, src/repro/models/attention.py:99 attend). It is
@@ -85,6 +96,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 struct Args {
     const void* q; const void* k; const void* v; const void* o; const void* dout;
     const float* lse;                  // the forward's [B, H, Sq]
+    const int* lim;                    // the key limit [Sq], or null
     float* delta;                      // D [B, H, sq_pad] (rows padded to 16 bytes)
     float* l2;                         // lse * log2(e) [B, H, sq_pad], after delta
     void* dq; void* dk; void* dv;
@@ -106,6 +118,31 @@ __device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x)
 
 __device__ __forceinline__ bool live(int kp, int qp, int k_lim, int window) {
     return kp < k_lim && kp <= qp && (window <= 0 || kp > qp - window);
+}
+
+// the first query of the first STEP-query tile whose last row's limit passes
+// k0 (under a non-decreasing limit, that tile and every later one see the key
+// at k0), or the tiles' end where none does; a warp's ballot over 32 tiles a
+// round, every lane converged
+template <int STEP>
+__device__ __forceinline__ int first_query(const int* lim, int Sq, int k0) {
+    const int lane = threadIdx.x & 31, nt = (Sq + STEP - 1) / STEP;
+    for (int t0 = 0; t0 < nt; t0 += 32) {
+        const int t = t0 + lane;
+        const unsigned hit = __ballot_sync(
+            FULL, t < nt && lim[min(t * STEP + STEP - 1, Sq - 1)] > k0);
+        if (hit) return (t0 + __ffs(hit) - 1) * STEP;
+    }
+    return nt * STEP;
+}
+
+// the first query whose limit passes k0 (Sq where none does): the tile of
+// first_query<32>, then a ballot over its rows
+__device__ __forceinline__ int first_row(const int* lim, int Sq, int k0) {
+    const int q0 = first_query<32>(lim, Sq, k0);
+    if (q0 >= Sq) return Sq;
+    const int qi = q0 + (threadIdx.x & 31);
+    return q0 + __ffs(__ballot_sync(FULL, qi < Sq && lim[qi] > k0)) - 1;
 }
 
 // o and dout are contiguous [B, Sq, H, DV]; delta [B, H, Sq]
@@ -138,7 +175,7 @@ constexpr int FROWS = 4 * FR;          // rows a CTA
 constexpr int FC = 32;                 // columns a tile: one a lane
 
 // dQ: CTA (16 queries, head, batch); lane j takes key k0 + j of a 32-key tile
-template <int DH, int DV>
+template <int DH, int DV, bool LIM>
 __global__ void __launch_bounds__(NT) dq_fp32_kernel(const Args a) {
     constexpr int KST = DH + 4, VST = DV + 4, NI = DH / 32;
     extern __shared__ float4 smem_f[];
@@ -160,17 +197,19 @@ __global__ void __launch_bounds__(NT) dq_fp32_kernel(const Args a) {
     cp_async_commit();
 
     float L[FR], Dl[FR], acc[FR][NI];
+    int lim_r[FR];                                 // the rows' limits (LIM)
 #pragma unroll
     for (int r = 0; r < FR; ++r) {
         const int qi = q0 + warp * FR + r;
         const int64_t li = ((int64_t)b * a.H + h) * a.Sq + qi;
+        lim_r[r] = LIM && qi < a.Sq ? a.lim[qi] : 0;
         L[r] = qi < a.Sq ? a.lse[li] : INFINITY;
         Dl[r] = qi < a.Sq ? a.delta[li - (int64_t)(b * a.H + h) * (a.Sq - a.sq_pad)] : 0.f;
 #pragma unroll
         for (int i = 0; i < NI; ++i) acc[r][i] = 0.f;
     }
     const int qpos_lo = a.q_offset + q0, qpos_hi = a.q_offset + q0 + rows - 1;
-    const int k_end = min(a.k_lim, qpos_hi + 1);
+    const int k_end = min(a.k_lim, LIM ? a.lim[q0 + rows - 1] : qpos_hi + 1);
     int k_begin = a.window > 0 ? max(0, qpos_lo - a.window + 1) : 0;
     k_begin = (k_begin / FC) * FC;
     for (int k0 = k_begin; k0 < k_end; k0 += FC) {
@@ -207,7 +246,8 @@ __global__ void __launch_bounds__(NT) dq_fp32_kernel(const Args a) {
 #pragma unroll
         for (int r = 0; r < FR; ++r) {
             const int qp = a.q_offset + q0 + warp * FR + r;
-            const float p = live(kp, qp, k_end, a.window) ? expf(s[r] * a.scale - L[r]) : 0.f;
+            const bool ok = LIM ? kp < k_end && kp < lim_r[r] : live(kp, qp, k_end, a.window);
+            const float p = ok ? expf(s[r] * a.scale - L[r]) : 0.f;
             s[r] = p * (dp[r] - Dl[r]);            // dS
         }
 #pragma unroll 2
@@ -237,7 +277,7 @@ __global__ void __launch_bounds__(NT) dq_fp32_kernel(const Args a) {
 
 // dK/dV: CTA (16 keys, kv head, batch); lane j takes query q0 + j of a
 // 32-query tile; the rep heads of the group in turn
-template <int DH, int DV>
+template <int DH, int DV, bool LIM>
 __global__ void __launch_bounds__(NT) dkv_fp32_kernel(const Args a) {
     constexpr int QST = DH + 4, OST = DV + 4, NK = DH / 32, NV = DV / 32;
     extern __shared__ float4 smem_f[];
@@ -268,7 +308,7 @@ __global__ void __launch_bounds__(NT) dkv_fp32_kernel(const Args a) {
     }
     // queries that can see a key of [k0, k_last]
     const int k_last = min(k0 + FROWS, a.k_lim) - 1;
-    int qi_lo = max(0, k0 - a.q_offset);
+    int qi_lo = LIM ? first_row(a.lim, a.Sq, k0) : max(0, k0 - a.q_offset);
     int qi_hi = a.Sq - 1;
     if (a.window > 0) qi_hi = min(qi_hi, k_last + a.window - 1 - a.q_offset);
     if (k_last < k0) qi_hi = -1;                   // no live key here
@@ -315,11 +355,13 @@ __global__ void __launch_bounds__(NT) dkv_fp32_kernel(const Args a) {
             }
             const int qp = a.q_offset + q0 + lane;
             const float Lq = sL[lane], Dq = sDl[lane];
+            const int lq = LIM && lane < qrows ? a.lim[q0 + lane] : 0;
             float p[FR];
 #pragma unroll
             for (int r = 0; r < FR; ++r) {
                 const int kp = k0 + warp * FR + r;
-                p[r] = lane < qrows && live(kp, qp, a.k_lim, a.window)
+                p[r] = lane < qrows && (LIM ? kp < a.k_lim && kp < lq
+                                            : live(kp, qp, a.k_lim, a.window))
                            ? expf(s[r] * a.scale - Lq) : 0.f;
                 s[r] = p[r] * (dp[r] - Dq);        // dS
             }
@@ -454,7 +496,7 @@ __device__ __forceinline__ uint32_t kstep(int kk) {
 //             which issues the copies, is past it by program order)
 //   pready[j] P^T of the tile in hand-off buffer j is written (128 arrivals)
 //   pfree[j]  warpgroup 1 has read it (128 arrivals)
-template <int DH, int DV>
+template <int DH, int DV, bool LIM>
 __global__ void __launch_bounds__(256, (DH + DV <= 256 ? 2 : 1))
 dkv_wg_kernel(const Args a, const __grid_constant__ Maps m) {
     using W = Wg<DH, DV>;
@@ -483,7 +525,8 @@ dkv_wg_kernel(const Args a, const __grid_constant__ Maps m) {
     // the queries that can see a key of the tile, in 64-query tiles from a
     // multiple of 64 (TMA reads L and D from a 16-byte boundary)
     const int k_last = min(k0 + WR, a.k_lim) - 1;
-    const int qi_lo = max(0, k0 - a.q_offset) / WR * WR;
+    const int qi_lo = LIM ? first_query<WR>(a.lim, a.Sq, k0)
+                          : max(0, k0 - a.q_offset) / WR * WR;
     int qi_hi = a.Sq - 1;
     if (a.window > 0) qi_hi = min(qi_hi, k_last + a.window - 1 - a.q_offset);
     if (k_last < k0) qi_hi = -1;
@@ -583,7 +626,8 @@ dkv_wg_kernel(const Args a, const __grid_constant__ Maps m) {
         uint32_t* pbuf = sP + j * 16 * 128;
         uint32_t pa[4][4];
         if (vside) {
-            if (all_live(k0, a.q_offset + q0, qrows, a.k_lim, a.window)) {
+            if (LIM ? qrows == WR && k0 + WR - 1 < a.k_lim && k0 + WR - 1 < a.lim[q0]
+                    : all_live(k0, a.q_offset + q0, qrows, a.k_lim, a.window)) {
 #pragma unroll
                 for (int i = 0; i < 32; ++i)
                     s[i] = ex2(fmaf(s[i], scale_log2, -sL[8 * (i >> 2) + c2 + (i & 1)]));
@@ -593,7 +637,8 @@ dkv_wg_kernel(const Args a, const __grid_constant__ Maps m) {
                     const int row = 16 * warp + g + 8 * ((i & 3) >> 1);
                     const int col = 8 * (i >> 2) + c2 + (i & 1);
                     const bool ok = col < qrows &&
-                                    live(k0 + row, a.q_offset + q0 + col, a.k_lim, a.window);
+                        (LIM ? k0 + row < a.k_lim && k0 + row < a.lim[q0 + col]
+                             : live(k0 + row, a.q_offset + q0 + col, a.k_lim, a.window));
                     s[i] = ok ? ex2(fmaf(s[i], scale_log2, -sL[col])) : 0.f;
                 }
             }
@@ -679,7 +724,7 @@ dkv_wg_kernel(const Args a, const __grid_constant__ Maps m) {
 // then dQ += dS K with dS as the register A operand and K read MN-major,
 // warpgroup 0 over dQ's first NC0 64-column parts, warpgroup 1 over the
 // rest (at (192, 128): one and two, so each does 256 columns' products).
-template <int DH, int DV>
+template <int DH, int DV, bool LIM>
 __global__ void __launch_bounds__(256, (DH <= 128 ? 2 : 1))
 dq_wg_kernel(const Args a, const __grid_constant__ Maps m) {
     using W = Wg<DH, DV>;
@@ -741,9 +786,18 @@ dq_wg_kernel(const Args a, const __grid_constant__ Maps m) {
     }
     // this split's key tiles
     const int qpos_lo = a.q_offset + q0, qpos_hi = a.q_offset + q0 + rows - 1;
-    const int k_end = min(a.k_lim, qpos_hi + 1);
+    const int k_end = min(a.k_lim, LIM ? a.lim[q0 + rows - 1] : qpos_hi + 1);
     int k_begin = a.window > 0 ? max(0, qpos_lo - a.window + 1) : 0;
     k_begin = (k_begin / WR) * WR;
+    // LIM: keys below lim_lo are live for every row of the tile; lim_q[i]
+    // is row g + 8 i of this warp's (0 past Sq)
+    const int lim_lo = LIM ? a.lim[q0] : 0;
+    int lim_q[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int qi = q0 + 16 * warp + g + 8 * i;
+        lim_q[i] = LIM && qi < a.Sq ? a.lim[qi] : 0;
+    }
     const int nkt = k_end > k_begin ? (k_end - k_begin + WR - 1) / WR : 0;
     const int per = (nkt + a.dq_splits - 1) / a.dq_splits;
     const int t_lo = min(nkt, sp * per), t_hi = min(nkt, t_lo + per);
@@ -821,7 +875,8 @@ dq_wg_kernel(const Args a, const __grid_constant__ Maps m) {
         }
         uint32_t da[4][4];
         if (pside) {
-            if (all_live(kt0, qpos_lo, rows, k_end, a.window)) {
+            if (LIM ? rows == WR && kt0 + WR - 1 < k_end && kt0 + WR - 1 < lim_lo
+                    : all_live(kt0, qpos_lo, rows, k_end, a.window)) {
 #pragma unroll
                 for (int i = 0; i < 32; ++i)
                     s[i] = ex2(fmaf(s[i], scale_log2, -L[(i & 3) >> 1]));
@@ -831,7 +886,8 @@ dq_wg_kernel(const Args a, const __grid_constant__ Maps m) {
                     const int r = (i & 3) >> 1;
                     const int qi = q0 + 16 * warp + g + 8 * r;
                     const int kp = kt0 + 8 * (i >> 2) + c2 + (i & 1);
-                    const bool ok = qi < a.Sq && live(kp, a.q_offset + qi, k_end, a.window);
+                    const bool ok = qi < a.Sq &&
+                        (LIM ? kp < k_end && kp < lim_q[r] : live(kp, a.q_offset + qi, k_end, a.window));
                     s[i] = ok ? ex2(fmaf(s[i], scale_log2, -L[r])) : 0.f;
                 }
             }
@@ -944,7 +1000,7 @@ cudaError_t reduce(const Args& a, cudaStream_t s) {
     return cudaGetLastError();
 }
 
-template <int DH, int DV>
+template <int DH, int DV, bool LIM>
 cudaError_t run(int dtype, const Args& a, cudaStream_t s) {
     const dim3 dgrid((a.B * a.Sq * a.H + 3) / 4);
     cudaError_t err;
@@ -953,13 +1009,13 @@ cudaError_t run(int dtype, const Args& a, cudaStream_t s) {
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
         constexpr size_t sm_kv = sizeof(float) *
             ((size_t)FROWS * (DH + DV) + FC * (DH + 4) + FC * (DV + 4) + 2 * FC);
-        err = go(dkv_fp32_kernel<DH, DV>, dim3((a.Sk + FROWS - 1) / FROWS, a.H, a.B),
+        err = go(dkv_fp32_kernel<DH, DV, LIM>, dim3((a.Sk + FROWS - 1) / FROWS, a.H, a.B),
                  NT, sm_kv, s, a);
         if (err == cudaSuccess && a.part) err = reduce<float, DH, DV>(a, s);
         if (err != cudaSuccess) return err;
         constexpr size_t sm_q = sizeof(float) *
             ((size_t)FROWS * (DH + DV) + FC * (DH + 4) + FC * (DV + 4));
-        return go(dq_fp32_kernel<DH, DV>, dim3((a.Sq + FROWS - 1) / FROWS, a.H, a.B),
+        return go(dq_fp32_kernel<DH, DV, LIM>, dim3((a.Sq + FROWS - 1) / FROWS, a.H, a.B),
                   NT, sm_q, s, a);
     }
     using W = Wg<DH, DV>;
@@ -978,7 +1034,7 @@ cudaError_t run(int dtype, const Args& a, cudaStream_t s) {
     // a thread of autograd's may not have yet: cudaFree(0) binds it
     if (!encode() && (cudaFree(nullptr) != cudaSuccess || !encode()))
         return cudaErrorInvalidValue;
-    err = go(dq_wg_kernel<DH, DV>, dim3(a.B * a.H * a.dq_splits, (a.Sq + WR - 1) / WR),
+    err = go(dq_wg_kernel<DH, DV, LIM>, dim3(a.B * a.H * a.dq_splits, (a.Sq + WR - 1) / WR),
              256, W::SMEM_Q, s, a, m);
     if (err == cudaSuccess && a.dq_splits > 1) {
         dq_reduce_kernel<<<grid_stride_blocks((int64_t)a.B * a.Sq * a.H * DH), NT, 0, s>>>(
@@ -986,10 +1042,16 @@ cudaError_t run(int dtype, const Args& a, cudaStream_t s) {
         err = cudaGetLastError();
     }
     if (err != cudaSuccess) return err;
-    err = go(dkv_wg_kernel<DH, DV>, dim3(a.B * a.KV * a.kv_parts, (a.Sk + WR - 1) / WR),
+    err = go(dkv_wg_kernel<DH, DV, LIM>, dim3(a.B * a.KV * a.kv_parts, (a.Sk + WR - 1) / WR),
              256, W::SMEM_KV, s, a, m);
     if (err == cudaSuccess && a.part) err = reduce<bf16, DH, DV>(a, s);
     return err;
+}
+
+// the LIM instantiation where the call has a key limit
+template <int DH, int DV>
+cudaError_t by_limit(int dtype, const Args& a, cudaStream_t s) {
+    return a.lim ? run<DH, DV, true>(dtype, a, s) : run<DH, DV, false>(dtype, a, s);
 }
 
 }  // namespace
@@ -997,7 +1059,8 @@ cudaError_t run(int dtype, const Args& a, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16. q [B, Sq, H, dh], k [B, Sk, KV, dh] and
 // v [B, Sk, KV, dv] through their strides (last axis contiguous, rows on 16
 // bytes), as the forward read them; o and dout contiguous [B, Sq, H, dv];
-// lse the forward's fp32 [B, H, Sq]; delta fp32 scratch [2, B, H, sq_pad]
+// lse the forward's fp32 [B, H, Sq]; key_limit the forward's int32 [Sq] or
+// null (q_offset 0 and window <= 0 with one); delta fp32 scratch [2, B, H, sq_pad]
 // with sq_pad = Sq rounded up to a multiple of 4; dq,
 // dk [B, Sk, KV, dh] and dv [B, Sk, KV, dv] contiguous, of dtype, every
 // element written (a key no query sees gets 0). kv_parts (dividing H / KV)
@@ -1010,7 +1073,7 @@ cudaError_t run(int dtype, const Args& a, cudaStream_t s) {
 // dq_splits > 1 on `stream`; returns the first cudaError_t (0 on success).
 extern "C" int flash_prefill_bwd_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const void* lse, void* delta, void* part, void* dq_part, void* dq, void* dk,
+    const void* lse, const void* key_limit, void* delta, void* part, void* dq_part, void* dq, void* dk,
     void* dv, int dtype, int B, int Sq, int Sk, int H, int KV, int dh, int dv_,
     int kv_parts, int dq_splits,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
@@ -1024,9 +1087,11 @@ extern "C" int flash_prefill_bwd_launch(
         return cudaErrorInvalidValue;
     if (dtype == 0 && (kv_parts != H / KV || dq_splits != 1))
         return cudaErrorInvalidValue;
+    if (key_limit && (q_offset != 0 || window > 0)) return cudaErrorInvalidValue;
     float* dl = static_cast<float*>(delta);
     const int sq_pad = (Sq + 3) / 4 * 4;
-    Args a{q, k, v, o, dout, static_cast<const float*>(lse), dl,
+    Args a{q, k, v, o, dout, static_cast<const float*>(lse),
+           static_cast<const int*>(key_limit), dl,
            dl + (int64_t)B * H * sq_pad, dq, dk, dv, static_cast<float*>(part),
            static_cast<float*>(dq_part), B, Sq, Sk, H, KV, H / KV, kv_parts, dq_splits, sq_pad,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
@@ -1034,13 +1099,13 @@ extern "C" int flash_prefill_bwd_launch(
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dh == dv_) {
         switch (dh) {
-            case 32: return run<32, 32>(dtype, a, s);
-            case 64: return run<64, 64>(dtype, a, s);
-            case 128: return run<128, 128>(dtype, a, s);
-            case 256: return run<256, 256>(dtype, a, s);
+            case 32: return by_limit<32, 32>(dtype, a, s);
+            case 64: return by_limit<64, 64>(dtype, a, s);
+            case 128: return by_limit<128, 128>(dtype, a, s);
+            case 256: return by_limit<256, 256>(dtype, a, s);
         }
     }
-    if (dh == 192 && dv_ == 128) return run<192, 128>(dtype, a, s);
+    if (dh == 192 && dv_ == 128) return by_limit<192, 128>(dtype, a, s);
     return cudaErrorInvalidValue;
 }
 

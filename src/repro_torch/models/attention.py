@@ -36,12 +36,17 @@ where it lies (a ring prefill reads the gathered buffer).
 :func:`attn_forward` is the training path: no cache, the S tokens at
 positions ``0..S-1`` attending causally (and within the window) on
 ``flash_prefill`` at ``q_offset = 0``, whose gradient runs on its
-backward kernel on the card.
+backward kernel on the card. As in the reference, the training mask
+follows batch row 0's temporal positions, not the index: where they
+repeat (a VLM batch's image patches), the model passes the kernel the
+key limit :func:`training_key_limit` gives. Serving prefills mask by
+index, in both packages.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_decode import flash_decode
@@ -193,15 +198,42 @@ def cache_write_decode(cache, k1, v1, pos: Pos, window) -> None:
     write_rows(cache["v"], v1[:, 0], slot)
 
 
+def training_key_limit(pos) -> Optional[np.ndarray]:
+    """The reference's training mask as a key limit. Its ``attn_forward``
+    takes batch row 0's positions (the temporal row under M-RoPE) as both
+    ``qpos`` and ``kpos``, and ``attend`` keeps the key at ``j`` for the
+    query at ``i`` when ``0 <= pos[j] <= pos[i]``: image patches at one
+    temporal index see each other, and every row of the batch is masked
+    by row 0's positions. For non-decreasing, non-negative ``pos`` (host
+    ints ``[S]``: Qwen2-VL's layout, text, an image at one index, text
+    after it) that is ``j < lim[i]``, ``lim[i]`` the count of positions at
+    most ``pos[i]``. Returns ``lim`` (int32 ``[S]``), or None where it is
+    ``arange(S) + 1`` (strictly increasing positions: the causal rule).
+    Raises ValueError for positions that decrease or are negative: the
+    reference's mask is then no key limit."""
+    pos = np.asarray(pos, dtype=np.int64)
+    if pos.size and (pos.min() < 0 or np.any(np.diff(pos) < 0)):
+        raise ValueError(
+            "training attention masks by batch row 0's temporal positions "
+            "(the reference's rule: the key at j is live for the query at i "
+            "when 0 <= pos[j] <= pos[i]); the port takes them non-negative "
+            "and non-decreasing, as Qwen2-VL lays out text and images")
+    lim = np.searchsorted(pos, pos, side="right").astype(np.int32)
+    return None if np.array_equal(lim, np.arange(1, pos.size + 1)) else lim
+
+
 def attn_forward(p: Params, cfg, x, positions, *,
-                 window: Optional[int] = None) -> torch.Tensor:
-    """Training / no-cache forward of ``x`` [B, S, D] at positions
-    ``0..S-1`` (the reference's ``attn_forward``, which masks by
-    ``positions[0]``: a text batch's, or one with meta tokens before it,
-    are those). Returns y [B, S, D]."""
+                 window: Optional[int] = None,
+                 key_limit: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training / no-cache forward of ``x`` [B, S, D] (the reference's
+    ``attn_forward``, which masks every row by batch row 0's positions:
+    a text batch's, or one with meta tokens before it, are ``0..S-1``, the
+    causal rule). ``key_limit`` (int32 ``[S]`` on the device, from
+    :func:`training_key_limit`) carries that mask where the positions
+    repeat; None for the causal rule. Returns y [B, S, D]."""
     q, k, v = project_qkv(p, cfg, x, positions)
     o = flash_prefill(q, k, v, q_offset=0, kv_len=x.shape[1],
-                      window=window or cfg.window)
+                      window=window or cfg.window, key_limit=key_limit)
     return out_proj(p, cfg, o)
 
 

@@ -30,6 +30,11 @@ cache: each layer's training forward, under a checkpoint a layer with
 ``remat``; the cross-entropy sequence-chunked, each chunk under a
 checkpoint, under the reference's condition; deepseek's MTP head (its
 params under ``mtp``, built when ``cfg.mtp``) adds its loss at weight 0.3.
+A VLM also trains on a batch of the stub vision encoder's merged
+embeddings (``embeds`` [B, S, D], ``positions`` [3, B, S], ``targets``),
+its attention masked, as the reference's is, by batch row 0's temporal
+positions: where they repeat, by a key limit computed once a batch on
+the host (``attention.training_key_limit``).
 Parameters are registered frozen: ``model.requires_grad_(True)`` makes
 them trainable (``training.train_step`` does). Serving runs under
 ``torch.no_grad`` and ignores the MTP head, as the reference's does.
@@ -55,6 +60,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import training_key_limit
 from repro_torch.models.common import (add_sinusoidal, apply_norm,
                                        embed_init, tree_map)
 
@@ -200,22 +206,35 @@ class Model(nn.Module):
         """Hidden states of the whole sequence ``[B, S, D]`` (text rows
         only: a meta-token model's prefix is dropped) and the MoE layers'
         summed aux loss. ``batch["tokens"]`` [B, S]; an encoder-decoder
-        also takes ``batch["frames"]`` [B, n_frames, d]."""
+        also takes ``batch["frames"]`` [B, n_frames, d]; a VLM takes
+        ``batch["embeds"]`` [B, S, D] and ``batch["positions"]`` [3, B, S]
+        instead of tokens (:meth:`_key_limit`)."""
         cfg = self.cfg
         if self.is_encdec:
             return self._backbone_encdec(batch), 0.0
-        if cfg.family == "vlm" and "embeds" in batch:
-            raise NotImplementedError(
-                "training on merged image embeddings (their M-RoPE "
-                "positions mask attention) is not in this port; train the "
-                "VLM's text stack on tokens")
         x, positions, _ = self._embed(batch, 0, resume=False)
+        key_limit = self._key_limit(batch)
         aux = 0.0
         for sp, spec in zip(self.segments, self.segment_specs):
             x, a = tf.stack_forward(sp.tree(), cfg, spec, x, positions,
-                                    remat=self.remat)
+                                    remat=self.remat, key_limit=key_limit)
             aux = aux + a
         return x[:, cfg.n_meta_tokens:], aux
+
+    def _key_limit(self, batch) -> Optional[torch.Tensor]:
+        """The training mask of a VLM batch of embeddings: the key limit
+        of batch row 0's temporal positions (``training_key_limit``, which
+        raises for positions that decrease or are negative), computed on
+        the host and copied to the device once (int32 ``[S]``); None where
+        they strictly increase, as a text batch's do (the causal rule)."""
+        if not (self.cfg.family == "vlm" and "embeds" in batch):
+            return None
+        pos = batch["positions"]
+        pos_t = pos[0, 0].cpu().numpy() if torch.is_tensor(pos) \
+            else np.asarray(pos)[0, 0]
+        lim = training_key_limit(pos_t)
+        return None if lim is None else torch.as_tensor(lim,
+                                                        device=self.device)
 
     def _backbone_encdec(self, batch) -> torch.Tensor:
         cfg = self.cfg

@@ -152,9 +152,12 @@ def _ffn(lp, cfg, seg: Segment, x):
     return mlp_forward(lp["mlp"], cfg, x)
 
 
-def layer_forward(lp, cfg, seg: Segment, x, positions, window=None):
+def layer_forward(lp, cfg, seg: Segment, x, positions, window=None,
+                  key_limit=None):
     """One layer's training forward (no cache): ``(x, aux)``, ``aux`` the
-    MoE layer's load-balance loss (0.0 for the other kinds)."""
+    MoE layer's load-balance loss (0.0 for the other kinds). ``key_limit``
+    (a VLM batch's training mask, ``attention.training_key_limit``) goes to
+    the GQA attention; the other kinds never see a VLM batch."""
     h = apply_norm(lp["ln1"], x)
     if seg.kind == "ssm":
         return x + ssm_mod.ssm_forward(lp["ssm"], cfg, h), 0.0
@@ -163,7 +166,8 @@ def layer_forward(lp, cfg, seg: Segment, x, positions, window=None):
     elif seg.kind.startswith("mla_"):
         y = mla_mod.mla_forward(lp["mla"], cfg, h, positions, window=window)
     else:
-        y = attn.attn_forward(lp["attn"], cfg, h, positions, window=window)
+        y = attn.attn_forward(lp["attn"], cfg, h, positions, window=window,
+                              key_limit=key_limit)
     x = x + y
     h = apply_norm(lp["ln2"], x)
     if seg.kind.endswith("moe"):
@@ -172,16 +176,18 @@ def layer_forward(lp, cfg, seg: Segment, x, positions, window=None):
     return x + mlp_forward(lp["mlp"], cfg, h), 0.0
 
 
-def stack_forward(sp, cfg, seg: Segment, x, positions, remat: bool = False):
+def stack_forward(sp, cfg, seg: Segment, x, positions, remat: bool = False,
+                  key_limit=None):
     """Every layer's :func:`layer_forward`, each under a checkpoint with
     ``remat``. Returns ``(x, aux)``, the aux losses summed."""
     aux = 0.0
     for lp in unbind_layers(sp, seg.n_layers):
         if remat:
             x, a = checkpoint(layer_forward, lp, cfg, seg, x, positions,
-                              use_reentrant=False)
+                              None, key_limit, use_reentrant=False)
         else:
-            x, a = layer_forward(lp, cfg, seg, x, positions)
+            x, a = layer_forward(lp, cfg, seg, x, positions,
+                                 key_limit=key_limit)
         aux = aux + a
     return x, aux
 

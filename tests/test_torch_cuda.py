@@ -1174,6 +1174,88 @@ def test_backward_kernels_give_the_same_bits_twice(cuda_device):
                        moe_gemm_wgrad(xs, dy, offsets, 48))
 
 
+# flash_prefill and its backward under a key limit (a VLM batch's training
+# mask, ``models.attention.training_key_limit``): B, S, H, KV, dh, dv and
+# the image layout (text tokens before it, grid side), every row at
+# ``training.data.image_positions``
+LIMIT_CASES = [
+    (2, 1024, 12, 2, 128, 128, 100, 16),   # qwen2-vl-2b's training shape
+    (2, 130, 8, 2, 64, 64, 3, 8),          # 64 patches across tile edges
+    (1, 333, 6, 2, 32, 32, 60, 12),        # ragged S, GQA 3
+    (1, 200, 4, 1, 256, 256, 10, 5),       # (256, 256): Q read from smem
+    (1, 70, 8, 8, 192, 128, 0, 6),         # the image first; MLA's widths
+]
+
+
+def _limit_inputs(case, dtype, dev, seed=13):
+    from repro_torch.models.attention import training_key_limit
+    from repro_torch.training.data import image_positions
+    B, S, H, KV, dh, dv, text, grid = case
+    gen = torch.Generator().manual_seed(seed)
+    q = _rand(gen, (B, S, H, dh), dtype, dev)
+    k = _rand(gen, (B, S, KV, dh), dtype, dev)
+    v = _rand(gen, (B, S, KV, dv), dtype, dev)
+    dout = _rand(gen, (B, S, H, dv), dtype, dev)
+    lim = torch.as_tensor(training_key_limit(
+        image_positions(S, text, grid)[0]), device=dev)
+    return q, k, v, dout, lim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LIMIT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_key_limit_cuda_vs_plain(case, dtype, cuda_device):
+    """The forward under a key limit against the plain version (the
+    forward's tolerance), the same bits on two calls, and with lim =
+    arange + 1 the null path's bits."""
+    q, k, v, _, lim = _limit_inputs(case, dtype, cuda_device)
+    n0 = flash_prefill.launches
+    out = flash_prefill(q, k, v, key_limit=lim)
+    assert flash_prefill.launches == n0 + 1
+    plain = flash_prefill_plain(q, k, v, key_limit=lim)
+    err = (out.float() - plain.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    assert not torch.allclose(out.float(), flash_prefill_plain(
+        q, k, v).float(), atol=TOL[dtype])
+    assert torch.equal(out, flash_prefill(q, k, v, key_limit=lim))
+    causal = torch.arange(1, q.shape[1] + 1, dtype=torch.int32,
+                          device=cuda_device)
+    assert torch.equal(flash_prefill(q, k, v, key_limit=causal),
+                       flash_prefill(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LIMIT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_bwd_key_limit_cuda_vs_plain(case, dtype, cuda_device):
+    """The backward under a key limit, through autograd, against the plain
+    version's autograd (each gradient against its largest magnitude), the
+    same bits on two calls, and with lim = arange + 1 the null path's
+    bits."""
+    from repro_torch.kernels import flash_prefill as fp
+    q, k, v, dout, lim = _limit_inputs(case, dtype, cuda_device)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    n_b = flash_prefill_bwd.launches
+    flash_prefill(qq, kk, vv, key_limit=lim).backward(dout)
+    torch.cuda.synchronize()
+    assert flash_prefill_bwd.launches == n_b + 1
+    ref = flash_prefill_bwd_plain(q, k, v, dout, key_limit=lim)
+    assert _grad_err((qq.grad, kk.grad, vv.grad), ref) <= TOL[dtype]
+    B, S, H = q.shape[:3]
+
+    def bwd(key_limit):
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda_device)
+        out = fp._forward(q, k, v, 0, S, None, lse, key_limit)
+        return flash_prefill_bwd(q, k, v, out, dout, lse,
+                                 key_limit=key_limit)
+    one, two = bwd(lim), bwd(lim)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    assert all(torch.equal(x, y) for x, y in zip(one, (qq.grad, kk.grad,
+                                                       vv.grad)))
+    causal = torch.arange(1, S + 1, dtype=torch.int32, device=cuda_device)
+    assert all(torch.equal(x, y) for x, y in zip(bwd(causal), bwd(None)))
+
+
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_grad_on_the_card(cuda_device):
     """flash_decode and mla_decode have no backward on the card (no

@@ -42,8 +42,10 @@ def vlm():
 
 
 def _image_inputs(cfg, S=16, B=1):
-    """Stub patch embeddings; patches at 4..7 share a temporal index and
-    span a 2x2 grid (tests/test_mrope_vlm.py)."""
+    """Stub patch embeddings; patches at 4..7 span a 2x2 grid in height
+    and width, their temporal index each its own position (``pos_t =
+    arange(S)``, as in tests/test_mrope_vlm.py, whose comment says they
+    share one; tests/test_torch_vlm_train.py repeats it)."""
     rng = np.random.default_rng(1)
     embeds = (rng.normal(size=(B, S, cfg.d_model)) * 0.02).astype(np.float32)
     pos_t, pos_h, pos_w = np.arange(S), np.arange(S), np.arange(S)
