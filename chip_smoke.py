@@ -166,6 +166,24 @@ lengths in every run. It
    ``python -m repro_torch.launch.serve``: a server process and a client
    process at llama3.2-1b's full width (``--no-reduced``) on 3 prompts of
    one domain, both exiting 0;
+6c. within the paths above: after granite's phases, expert parallelism
+   on the one card: a real NCCL process group of world size 1
+   (``file://`` rendezvous) and its (1, 1) mesh serve granite through
+   ``Model(mesh=...)`` and ``InferenceEngine`` (a 291-token prompt, 8
+   greedy tokens) with tokens and logits bit-identical to the run with no
+   mesh in both dtypes, and ``moe_ep`` / ``moe_ep_resident`` called on
+   the mesh (its NCCL ``all_reduce`` and ``all_gather``) equal bit for
+   bit to their rank's share at capacity factors 8 and 0.5 (rows
+   dropped); then 2, 4 and 8 ranks emulated in one process at
+   granite's full width (each rank's share of a MoE layer from its
+   coordinates and its expert slice, summed) against ``moe_local`` at
+   capacity factor 8, for a 291-token prefill and a decode step, and the
+   rows each rank drops at the config's factor 2.0; after the deepseek
+   cut's phases, the cut with a window of 256 in fp32: a 300-token prompt
+   and 16 decode steps on a linear latent cache, 250 and 16 past the wrap
+   of its ring of 256, each step's argmax equal to the plain versions' on
+   the card and its logits within 1e-4 of theirs, while the cut with no
+   window is more than 1e-3 away (the check sees the window);
 7. once every other phase has run (after a gateway phase the profiler
    loses device events, so every profiler reading comes before), for
    gemma3-270m and the deepseek cut, in bf16 and fp32, serves the
@@ -224,6 +242,9 @@ DECODE_KV_LENS = [1, 300, 1024]
 CACHE_LEN, H, KV, DH = 1024, 4, 1, 256
 # flash_prefill at MLA's widths: deepseek-v3's 128 heads, keys 192, values 128
 MLA_PREFILL = dict(H=128, KV=128, dh=192, dv=128)
+# (Sq, q_offset) of the windowed deepseek cut's prefills (WIN_MLA):
+# its 300-token prompt, and a 64-query resume at 448, both past the window
+WIN_MLA_PREFILL = [(300, 0), (64, 448)]
 # mla_decode at deepseek-v3's widths: (kv_len, window) over a 1024 cache
 MLA_H, MLA_R, MLA_DR, MLA_SCALE = 128, 512, 64, 1.0 / 192 ** 0.5
 MLA_DECODE_CASES = [(1, None), (300, None), (1024, None), (700, 256)]
@@ -407,6 +428,24 @@ VLM_TOL = dict(atol=2e-5, rtol=1e-4)
 # the configurations the gateway phase serves, after every other phase
 # (mamba2-780m waits: a hit's restore blocks the engine thread ~0.85 s)
 GATEWAY_PATHS = ("gemma3-270m", "deepseek-v3-671b")
+# expert parallelism on the one card, after granite's phases (EP_PATH):
+# a world-1 NCCL mesh serving EP_PROMPT tokens and EP_NEW greedy ones;
+# then EP_RANKS ranks emulated in one process at granite's full width, a
+# prefill of EP_PROMPT tokens and a decode step, at capacity factor
+# EP_NO_DROP (nothing dropped) and at the config's own
+EP_PATH, EP_PROMPT, EP_NEW, EP_RANKS, EP_NO_DROP = \
+    "granite-moe-3b-a800m", 291, 8, (2, 4, 8), 8.0
+EP_DROP = 0.5        # a capacity factor that drops rows even at one rank
+EP_BACKEND = {"cuda": "nccl", "cpu": "gloo"}   # the CPU for a rehearsal
+# the windowed MLA phase, after the deepseek cut's phases: window, prompt
+# and decode tokens on a linear cache (the decode passes the window), and
+# on the ring (a cache of RING_MLA[0] slots, the window) a prompt within
+# it and decode tokens past its wrap
+WIN_MLA = (256, 300, 16)
+RING_MLA = (256, 250, 16)
+# its logits against the plain path's (fp32, |logit| up to ~7), and the
+# least multiple of that tolerance the window must move them by
+WIN_TOL, WIN_SEEN = 1e-4, 10
 
 
 def device_line():
@@ -761,6 +800,12 @@ def kernel_checks():
                 ("(192, 128)", MLA_PREFILL, 512)):
             got = prefill_checks(dname, dt, gen, **geo, cache_len=cache_len,
                                  shapes=PREFILL_SHAPES, tag=tag)
+            if geo is MLA_PREFILL:      # the windowed deepseek cut's prefill
+                got.update({("window",) + key: row for key, row in
+                            prefill_checks(
+                                dname, dt, gen, **geo, cache_len=cache_len,
+                                shapes=WIN_MLA_PREFILL, tag=tag,
+                                timed=False, window=WIN_MLA[0]).items()})
             r["max_abs_err"] = max([r["max_abs_err"]]
                                    + [g["max_abs_err"] for g in got.values()])
             if dname == "bfloat16" and geo["dh"] == DH:
@@ -4628,6 +4673,303 @@ def training_path(smi):
     return rows, limit_errs, totals[False], totals[True]
 
 
+def _serve(model, prompt, n_new, max_len=1024):
+    """A cold prefill of ``prompt`` and ``n_new`` greedy tokens through
+    ``InferenceEngine``: (tokens, the logits of every step stacked)."""
+    import numpy as np
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(model, max_len=max_len)
+    st = eng.start({"tokens": prompt})
+    logits, toks = [st.last_logits], []
+    for _ in range(n_new):
+        toks.append(int(np.argmax(st.last_logits[0])))
+        logits.append(eng.decode_one(st, np.asarray([[toks[-1]]])))
+    return toks, np.stack(logits)
+
+
+def ep_mesh_path(m32, m16, smi):
+    """Expert parallelism over a real NCCL process group of world size 1
+    (``file://`` rendezvous) and its (1, 1) cuda mesh: granite served
+    through ``Model(mesh=...)`` (the weights of ``m32`` / ``m16``, shared:
+    with one model rank a rank's slice is all the experts) and
+    ``InferenceEngine``, EP_PROMPT tokens and EP_NEW greedy ones.
+    ``moe_forward`` takes the resident path (a sum over one rank, the
+    identity; the capacity never binds at one rank), so tokens and logits
+    must be bit-identical to the run with no mesh, in both dtypes. The
+    counts are set to 0 just before the meshed request and read just
+    after: one prefill and EP_NEW decode steps of every layer. Then
+    :func:`ep_collectives` runs both paths' NCCL calls. Returns the
+    launches (bf16, fp32)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import clock
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import Model
+    t0 = clock.monotonic()
+    store = tempfile.mkdtemp(prefix="ep_store")
+    dist.init_process_group(EP_BACKEND[m32.device.type], init_method="file://"
+                            + os.path.join(store, "store"), rank=0,
+                            world_size=1)
+    kernels = (flash_prefill, flash_decode, moe_gemm)
+    out = []
+    try:
+        mesh = make_debug_mesh(1, 1, m32.device.type)
+        cfg = m32.cfg
+        prompt = np.random.default_rng(11).integers(
+            3, cfg.vocab, (1, EP_PROMPT)).astype(np.int32)
+        want = path_launches(cfg, 1, EP_NEW)
+        for m in (m16, m32):
+            label = f"{cfg.name} {'bf16' if m is m16 else 'fp32'} mesh 1x1"
+            t1 = clock.monotonic()
+            mm = Model(cfg, dtype=m.dtype, device=m.device, seed=None,
+                       mesh=mesh)
+            mm.load_state_dict(m.state_dict(), assign=True)
+            ref_toks, ref_lg = _serve(m, prompt, EP_NEW)
+            for k in kernels:
+                k.launches = 0
+            toks, lg = _serve(mm, prompt, EP_NEW)
+            launches = {k.__name__: k.launches for k in kernels}
+            print(f"[{label}] NCCL world 1: tokens {toks} (no mesh "
+                  f"{ref_toks}); logits bit-identical to no mesh: "
+                  f"{np.array_equal(lg, ref_lg)} (max |diff| "
+                  f"{float(np.abs(lg - ref_lg).max()):.3g}); launches "
+                  f"{launches} (the request needs {want}); "
+                  f"{clock.monotonic() - t1:.1f} s ({smi})")
+            if toks != ref_toks or not np.array_equal(lg, ref_lg):
+                raise AssertionError(f"[{label}] a world-1 mesh changed the "
+                                     "tokens or the logits")
+            if launches != want:
+                raise AssertionError(f"[{label}] launches {launches}, the "
+                                     f"path needs {want}")
+            if not np.isfinite(lg[:, :, :cfg.vocab]).all():
+                raise AssertionError(f"[{label}] logits not finite")
+            out.append(launches)
+            del mm
+            ep_collectives(m, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"[{cfg.name}] mesh 1x1 phase: {clock.monotonic() - t0:.1f} s")
+    return out[0], out[1]
+
+
+def _kept(part) -> int:
+    """Rows a rank's share kept within its capacity (every chunk's)."""
+    return sum(int(o[-1]) for o in part.offsets)
+
+
+def ep_collectives(m, mesh):
+    """``moe_ep`` and ``moe_ep_resident`` called on ``mesh`` (world 1) for
+    layer 0 of ``m`` on EP_PROMPT random rows, at capacity factor
+    EP_NO_DROP and at EP_DROP, which drops rows even at one rank: each
+    must equal its rank's share (``moe_ep_partial`` /
+    ``moe_ep_resident_partial`` at index 0 of 1) plus the shared expert,
+    bit for bit, through the NCCL ``all_reduce`` (and ``moe_ep``'s
+    ``all_gather`` over ``data``). These launches are checks, not a
+    path's."""
+    import dataclasses
+    import torch
+    from repro_torch.models import moe
+    cfg = m.cfg
+    p = {k: v[0] for k, v in m.segments[0]["moe"].tree().items()}
+    gen = torch.Generator(device=m.device).manual_seed(7)
+    x = torch.randn(1, EP_PROMPT, cfg.d_model, generator=gen,
+                    device=m.device).to(m.dtype)
+    rows = EP_PROMPT * cfg.moe.top_k
+    dname = "bf16" if m.dtype == torch.bfloat16 else "fp32"
+    for cf in (EP_NO_DROP, EP_DROP):
+        c = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+        for name, fn, part in (
+                ("moe_ep", moe.moe_ep, moe.moe_ep_partial(
+                    p, c, x, 0, 1, aux=False)),
+                ("moe_ep_resident", moe.moe_ep_resident,
+                 moe.moe_ep_resident_partial(moe.resident_slice(p, 0, 1),
+                                             c, x, 0, 1, aux=False))):
+            got = fn(p, c, x, mesh, aux=False)[0]
+            want = moe._with_shared(part.out, p, c, x)
+            dropped = rows - _kept(part)
+            same = torch.equal(got, want)
+            print(f"[{cfg.name} {dname} mesh 1x1] {name} over NCCL, capacity "
+                  f"factor {cf}: {dropped} of {rows} rows dropped; equal to "
+                  f"its rank's share bit for bit: {same}")
+            if not same or (dropped > 0) != (cf == EP_DROP):
+                raise AssertionError(f"[{cfg.name} {dname}] {name} at factor "
+                                     f"{cf}: equal {same}, dropped {dropped}")
+
+
+def ep_emulated(m32, m16, smi):
+    """EP_RANKS ranks emulated in one process on the card at granite's
+    full width (layer 0's router and its 48 stored experts of d 1536, ff
+    512): each rank's share from its coordinates and its expert slice
+    (``moe_ep_partial`` on the model axis, ``moe_ep_resident_partial``
+    over n resident ranks), the n shares summed, for a prefill of
+    EP_PROMPT tokens and a decode step. At capacity factor EP_NO_DROP
+    nothing is dropped and the sum must equal ``moe_local`` within TOL of
+    its largest magnitude (a MoE layer's output is of order 100 on
+    unit-scale rows); at the config's factor the rows each rank dropped
+    are printed. These launches are checks, not a path's."""
+    import dataclasses
+    import torch
+    from repro_torch import clock
+    from repro_torch.models import moe
+    from repro_torch.params import expert_slice
+    t0 = clock.monotonic()
+    cfg = m32.cfg
+    cfgs = {EP_NO_DROP: cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_NO_DROP)), cfg.moe.capacity_factor: cfg}
+    E = moe.stored_experts(cfg)
+    gen = torch.Generator(device=m32.device).manual_seed(5)
+    for m in (m32, m16):
+        dname = "float32" if m is m32 else "bfloat16"
+        p = {k: v[0] for k, v in m.segments[0]["moe"].tree().items()}
+        ranks = {n: [{k: (expert_slice(v, r, n, E)
+                          if k in moe.EXPERT_LEAVES else v)
+                      for k, v in p.items()} for r in range(n)]
+                 for n in EP_RANKS}
+        for tag, T in (("prefill", EP_PROMPT), ("decode", 1)):
+            x = torch.randn(1, T, cfg.d_model, generator=gen,
+                            device=m.device).to(m.dtype)
+            want = moe.moe_local(p, cfg, x, aux=False)[0].float()
+            scale = want.abs().max().item()
+            ids = moe.route(p, cfg, x.reshape(T, -1), aux=False)[1]
+            for n in EP_RANKS:
+                e_loc = moe.ep_layout(E, n)[1]  # E / n: 48 splits evenly
+                routed = [int(((ids >= r * e_loc)
+                               & (ids < (r + 1) * e_loc)).sum())
+                          for r in range(n)]
+                row = []
+                for path in ("moe_ep", "resident"):
+                    for cf, c in cfgs.items():
+                        if path == "moe_ep":
+                            parts = [moe.moe_ep_partial(
+                                pr, c, x, r, n, aux=False)
+                                for r, pr in enumerate(ranks[n])]
+                        else:
+                            parts = [moe.moe_ep_resident_partial(
+                                pr, c, x, r, n, aux=False)
+                                for r, pr in enumerate(ranks[n])]
+                        total = parts[0].out
+                        for q in parts[1:]:
+                            total = total + q.out
+                        dropped = [a - _kept(q)
+                                   for a, q in zip(routed, parts)]
+                        if cf == EP_NO_DROP:
+                            err = (total.float() - want).abs().max().item()
+                            row.append(f"{path} err {err / scale:.3g}")
+                            if any(dropped) or not err <= TOL[dname] * scale:
+                                raise AssertionError(
+                                    f"[{cfg.name} {dname} {tag} {n} ranks] "
+                                    f"{path}: {err:.3g} of {scale:.3g}, "
+                                    f"dropped {dropped}")
+                        else:
+                            row.append(f"{path} cf {cf} dropped {dropped} "
+                                       f"of {routed}")
+                print(f"[{cfg.name} {dname} {tag} T={T}] {n} emulated ranks,"
+                      f" shares summed against moe_local (error / |max| "
+                      f"{scale:.3g}, tol {TOL[dname]}): " + "; ".join(row))
+        del ranks
+    torch.cuda.empty_cache()
+    print(f"[{cfg.name}] emulated ranks phase: "
+          f"{clock.monotonic() - t0:.1f} s ({smi})")
+
+
+def windowed_mla_path(m32, smi):
+    """The deepseek cut (fp32, the weights of ``m32`` shared) with window
+    WIN_MLA[0]: a prompt of WIN_MLA[1] tokens and WIN_MLA[2] decode steps
+    on a linear latent cache (the cut's own rows, as the model without a
+    window builds it: the decode passes the window), then on the ring the
+    windowed model keeps (``min(max_len, window)`` rows) a prompt of
+    RING_MLA[1] tokens and RING_MLA[2] steps past the wrap. Each decode
+    step is fed the next token of one random sequence (not the greedy
+    token: the random cut's greedy tokens settle on one token, so its
+    queries would barely change). flash_prefill at (192, 128) and
+    mla_decode run with the window (on the ring, unordered, with none);
+    the counts are set to 0 just before each kernel run and read just
+    after. Then the same runs on the plain versions
+    (``flash_prefill_plain``, ``mla_decode_plain`` on the card): every
+    step's argmax equal, logits within WIN_TOL. The check must be able to
+    see a window: the cut with no window, on the same tokens, must differ
+    from the windowed kernels' logits by more than WIN_SEEN x WIN_TOL.
+    Returns the kernel runs' launches."""
+    import numpy as np
+    import torch
+    from repro_torch import clock
+    from repro_torch.kernels import flash_prefill as fp_mod
+    from repro_torch.kernels import mla_decode as md_mod
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models.model import Model
+    t0 = clock.monotonic()
+    w = WIN_MLA[0]
+    cfg = m32.cfg.replace(window=w)
+    mw = Model(cfg, dtype=torch.float32, device=m32.device, seed=None)
+    mw.load_state_dict(m32.state_dict(), assign=True)
+    kernels = (fp_mod.flash_prefill, md_mod.mla_decode)
+    total = {k.__name__: 0 for k in kernels}
+    seq = np.random.default_rng(13).integers(
+        3, cfg.vocab, (1, WIN_MLA[1] + WIN_MLA[2])).astype(np.int32)
+
+    def run(model, n_prompt, n_new, cache):
+        lg, cache = model.prefill({"tokens": seq[:, :n_prompt]}, cache)
+        logits = [lg.cpu().numpy()]
+        for i in range(n_new):
+            pos = n_prompt + i
+            lg, cache = model.decode_step(cache, seq[:, pos:pos + 1], pos)
+            logits.append(lg.cpu().numpy())
+        logits = np.stack(logits)
+        return logits[:, 0, :cfg.vocab].argmax(-1).tolist(), logits
+
+    for tag, (n_prompt, n_new), make in (
+            ("linear", WIN_MLA[1:], lambda: m32.init_cache(
+                1, WIN_MLA[1] + WIN_MLA[2])),
+            ("ring", RING_MLA[1:], lambda: mw.init_cache(1, 1024))):
+        cache = make()
+        rows = cache["segments"][0]["ckv"].shape[2]
+        for k in kernels:
+            k.launches = 0
+        toks, lg = run(mw, n_prompt, n_new, cache)
+        launches = {k.__name__: k.launches for k in kernels}
+        saved = mla_mod.flash_prefill, mla_mod.mla_decode_kernel
+        mla_mod.flash_prefill = fp_mod.flash_prefill_plain
+        mla_mod.mla_decode_kernel = md_mod.mla_decode_plain
+        try:
+            ptoks, plg = run(mw, n_prompt, n_new, make())
+        finally:
+            mla_mod.flash_prefill, mla_mod.mla_decode_kernel = saved
+        gap = float(np.abs(lg - plg).max())
+        no_window = float(np.abs(run(m32, n_prompt, n_new, m32.init_cache(
+            1, n_prompt + n_new))[1] - lg).max())
+        want = path_launches(cfg, 1, n_new)
+        label = f"{cfg.name} fp32 window {w} {tag} cache of {rows} rows"
+        print(f"[{label}] prompt {n_prompt}, decode to position "
+              f"{n_prompt + n_new - 1}: argmax {toks} ({len(set(toks))} "
+              f"distinct); plain path's {ptoks}; logits max |kernel - "
+              f"plain| {gap:.3g} (tol {WIN_TOL}); the cut with no window "
+              f"{no_window:.3g} away; launches {launches} (the path needs "
+              f"{want})")
+        if toks != ptoks or not gap <= WIN_TOL:
+            raise AssertionError(f"[{label}] argmax or logits differ from "
+                                 f"the plain path's ({gap:.3g})")
+        if not no_window > WIN_SEEN * WIN_TOL:
+            raise AssertionError(f"[{label}] the window moves the logits by "
+                                 f"{no_window:.3g} only: the check cannot "
+                                 "see it")
+        if launches != want or not np.isfinite(lg[:, :, :cfg.vocab]).all():
+            raise AssertionError(f"[{label}] launches {launches} or "
+                                 "logits not finite")
+        for k, n in launches.items():
+            total[k] += n
+    del mw
+    print(f"[{cfg.name}] windowed MLA phase: {clock.monotonic() - t0:.1f} s "
+          f"({smi})")
+    return total
+
+
 def cut_model(model, n_layers, device="cuda"):
     """``model`` cut to its first ``n_layers`` layers (its weights and
     dtypes) on ``device``."""
@@ -4793,6 +5135,15 @@ def main():
             cpu_cross_check(m32, prompts[1], cross_layers or m32.cfg.n_layers)
         if m32.cfg.family == "vlm":
             vlm_roundtrip((m32, m16))
+        if name == EP_PATH:
+            for total, got in zip((launches, launches32),
+                                  ep_mesh_path(m32, m16, smi)):
+                for k, n in got.items():
+                    total[k] += n
+            ep_emulated(m32, m16, smi)
+        if m32.cfg.uses_mla:
+            for k, n in windowed_mla_path(m32, smi).items():
+                launches32[k] += n
         if name in GATEWAY_PATHS:
             served.append((name, m16, m32))
         del m32, m16

@@ -18,8 +18,21 @@ state the prompt cache ships.
   ``1/sqrt(qk_nope + qk_rope)``, the width before absorption. ``pos`` is
   one int for the batch or a ``[B]`` int32 tensor, one position a row.
 
-Both write the new latents into the cache tensors IN PLACE. A windowed
-MLA cache (a ring) is not in this port and raises.
+Both write the new latents into the cache tensors IN PLACE.
+
+A windowed config keeps the reference's cache: ``min(max_len, window)``
+latent rows (``models/transformer.py``), with the window applied by
+mask. A prefill writes linearly at ``start_pos`` and must fit the cache
+(``start_pos + S <= size``; the reference's ``dynamic_update_slice``
+would clamp the write onto earlier positions, or fail). A decode writes
+slot ``pos % size``; where ``size == window`` the cache is a ring, read
+unordered with ``kv_len = min(pos + 1, size)`` and no mask (every slot
+holds one of the last ``window`` positions), else it is linear and read
+with ``kv_len = pos + 1`` under the window. A decode past a linear
+cache is refused: there the reference overwrites slot ``pos % size``
+but still reads slot ``s`` as position ``s``, so from ``pos >= window``
+on its window drops keys the cache holds within it (ROADMAP Queue 3;
+``tests/test_torch_mla_window.py``).
 
 * :func:`mla_forward` is the training path: per-head K/V materialised
   from the S tokens' latents into ``flash_prefill`` at (qk_nope + qk_rope,
@@ -62,12 +75,8 @@ def init_mla(cfg, dtype, gen: Optional[torch.Generator],
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype, device=None):
-    """One layer's latent cache. A windowed config would keep a ring of
-    ``window`` slots, which this port does not run."""
-    if cfg.window:
-        raise NotImplementedError(
-            "windowed (ring) MLA caches are not in this port yet (ROADMAP "
-            "Queue 1: ring caches and windowed configs)")
+    """One layer's latent cache of ``max_len`` rows (a windowed model's
+    caller passes ``min(max_len, window)``, as the reference's does)."""
     m = cfg.mla
     return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
                                dtype=dtype, device=device),
@@ -157,6 +166,20 @@ def mla_decode(p: Params, cfg, x1, pos: Pos, cache, *,
     positions = decode_positions(cfg, pos, x1.shape[0], x1.device)
     q_nope, q_rope = _queries(p, cfg, x1, positions)
     ckv1, krope1 = _latents(p, cfg, x1, positions)
+    w = window or cfg.window
+    size = cache["ckv"].shape[1]
+    kv_len = pos + 1
+    if w and size == w:                # a ring: every slot in the window
+        pos = pos % size
+        kv_len = kv_len.clamp(max=size) if torch.is_tensor(kv_len) \
+            else min(kv_len, size)
+        kv_max = size if kv_max is None else min(kv_max, size)
+        w = None
+    elif not torch.is_tensor(pos) and pos >= size:
+        raise ValueError(
+            f"decode at position {pos} past a linear MLA cache of {size} "
+            "positions (the reference overwrites slot pos % size and reads "
+            "it as position slot)")
     write_rows(cache["ckv"], ckv1[:, 0], pos)
     write_rows(cache["krope"], krope1[:, 0], pos)
     # q_lat[b, h] = q_nope[b, h] @ wk_b[:, h]^T, as one batched matmul
@@ -164,7 +187,7 @@ def mla_decode(p: Params, cfg, x1, pos: Pos, cache, *,
                          p["wk_b"].permute(1, 2, 0)).transpose(0, 1)
     o_lat = mla_decode_kernel(
         q_lat.contiguous(), q_rope[:, 0], cache["ckv"], cache["krope"],
-        kv_len=pos + 1, window=window or cfg.window, kv_max=kv_max,
+        kv_len=kv_len, window=w, kv_max=kv_max,
         scale=1.0 / (m.qk_nope_dim + m.qk_rope_dim) ** 0.5)
     o = torch.matmul(o_lat.transpose(0, 1), p["wv_b"].transpose(0, 1))
     return out_proj(p, cfg, o.transpose(0, 1)[:, None]), cache

@@ -35,6 +35,21 @@ embeddings (``embeds`` [B, S, D], ``positions`` [3, B, S], ``targets``),
 its attention masked, as the reference's is, by batch row 0's temporal
 positions: where they repeat, by a key limit computed once a batch on
 the host (``attention.training_key_limit``).
+
+Under a mesh (``Model(..., mesh=...)``, a ``torch.distributed`` mesh of
+``data`` x ``model`` ranks, ``launch/mesh.py``) every rank serves the
+same request: the mesh goes to the MoE layers alone, which run
+expert-parallel (``moe_forward``: ``moe_ep`` or ``moe_ep_resident``),
+each rank holding its slice of the experts, decided once when the
+model is built (``moe.init_moe``'s ``ep``): drawn from a seed, each
+layer's stacks are drawn whole and cut; loaded, each whole stack of the
+state dict is cut as it is loaded (:meth:`Model.load_state_dict`).
+The reference's other uses of a mesh (``constrain_bh``, ``act_pspec``,
+the logits' sharding, ``repro/models/model.py:113-141``) are layout
+hints to GSPMD that change no number, so every other layer runs
+replicated on every rank. Training under a mesh raises (ROADMAP item
+11a-2).
+
 Parameters are registered frozen: ``model.requires_grad_(True)`` makes
 them trainable (``training.train_step`` does). Serving runs under
 ``torch.no_grad`` and ignores the MTP head, as the reference's does.
@@ -48,6 +63,7 @@ position ``pos`` runs at ``pos + R``. Positions the caller passes
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
@@ -58,11 +74,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import axis_index, axis_size
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import training_key_limit
 from repro_torch.models.common import (add_sinusoidal, apply_norm,
                                        embed_init, tree_map)
+from repro_torch.models.moe import EXPERT_LEAVES, stored_experts
+from repro_torch.params import expert_slice
 
 CE_CHUNK = 512                 # positions a chunk of the chunked CE
 CE_CHUNKED_ABOVE = 1 << 25     # S * V past which the CE is chunked
@@ -113,13 +132,20 @@ class Model(nn.Module):
     layer's activations in the backward (training only). With
     ``cfg.mtp`` the MTP head's params are built too (``mtp.layer`` of the
     last segment's kind, ``mtp.proj``, ``mtp.ln_h``, ``mtp.ln_e``): the
-    loss trains them, serving leaves them unused."""
+    loss trains them, serving leaves them unused. Under ``mesh`` every
+    MoE expert stack holds only the rank's ``model``-axis slice
+    (``[L, e_pad / n_model, ...]``)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, seed: Optional[int] = 0,
-                 remat: bool = False):
+                 remat: bool = False, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
+        # (model index, model ranks): the expert slice this rank holds;
+        # axis_size refuses a mesh with a pod axis
+        self.ep = (0, 1) if mesh is None else \
+            (axis_index(mesh, "model"), axis_size(mesh, "model"))
         self.remat = remat
         self.is_encdec = cfg.family == "encdec"
         self.segment_specs = [] if self.is_encdec else tf.segments_for(cfg)
@@ -141,7 +167,7 @@ class Model(nn.Module):
                 embed_init((cfg.n_meta_tokens, cfg.d_model), dtype, gen,
                            device=self.device), requires_grad=False)
         self.segments = nn.ModuleList([ParamTree(tf.init_segment(
-            cfg, spec, dtype, gen, device=self.device))
+            cfg, spec, dtype, gen, device=self.device, ep=self.ep))
             for spec in self.segment_specs])
         if self.is_encdec:
             def stacked(init, n):
@@ -155,11 +181,30 @@ class Model(nn.Module):
             d = cfg.d_model
             self.mtp = ParamTree({
                 "layer": tf.init_layer(cfg, self.segment_specs[-1], dtype,
-                                       gen, device=self.device),
+                                       gen, device=self.device, ep=self.ep),
                 "proj": embed_init((2 * d, d), dtype, gen,
                                    device=self.device),
                 "ln_h": tf.init_norm(cfg, dtype, self.device),
                 "ln_e": tf.init_norm(cfg, dtype, self.device)})
+
+    def load_state_dict(self, state_dict, *args, **kwargs):
+        """``nn.Module.load_state_dict``; under a mesh each MoE expert stack
+        that comes whole (the reference's ``[L, E, d, f]``) is cut to the
+        rank's slice as it is loaded (``params.expert_slice``)."""
+        m, n_model = self.ep
+        if n_model > 1:
+            es = stored_experts(self.cfg)
+            meta = getattr(state_dict, "_metadata", None)
+            state_dict = OrderedDict(state_dict)
+            if meta is not None:
+                state_dict._metadata = meta
+            for k, t in state_dict.items():
+                path = k.split(".")
+                axis = t.dim() - 3              # [L,] E, d, f
+                if path[-2:-1] == ["moe"] and path[-1] in EXPERT_LEAVES \
+                        and axis >= 0 and t.shape[axis] == es:
+                    state_dict[k] = expert_slice(t, m, n_model, es, axis)
+        return super().load_state_dict(state_dict, *args, **kwargs)
 
     @property
     def has_recurrent_state(self) -> bool:
@@ -210,6 +255,10 @@ class Model(nn.Module):
         ``batch["embeds"]`` [B, S, D] and ``batch["positions"]`` [3, B, S]
         instead of tokens (:meth:`_key_limit`)."""
         cfg = self.cfg
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "training under a mesh (the collectives' gradients) is not "
+                "in this port yet (ROADMAP item 11a-2)")
         if self.is_encdec:
             return self._backbone_encdec(batch), 0.0
         x, positions, _ = self._embed(batch, 0, resume=False)
@@ -452,7 +501,7 @@ class Model(nn.Module):
         sp = tree_map(lambda t: t[lo:hi], self.segments[si].tree())
         spec = self.segment_specs[si]._replace(n_layers=hi - lo)
         x = tf.stack_prefill(sp, self.cfg, spec, x, positions, cache_group,
-                             eff_start)
+                             eff_start, self.mesh)
         return x, cache_group
 
     @torch.no_grad()
@@ -495,5 +544,6 @@ class Model(nn.Module):
         x1 = F.embedding(self._tokens(tokens), self.embed)
         for si, sc in enumerate(cache["segments"]):
             x1 = tf.stack_decode(self.segments[si].tree(), self.cfg,
-                                 self.segment_specs[si], x1, pos, sc, kv_max)
+                                 self.segment_specs[si], x1, pos, sc, kv_max,
+                                 self.mesh)
         return self._head(x1)[:, 0], cache

@@ -8,7 +8,9 @@ layer axis on every leaf of their nested dicts, so parameter trees and
 state blobs line up leaf for leaf; the loop over layers replaces
 ``lax.scan``. A MoE layer's FFN is :func:`repro_torch.models.moe.moe_forward`;
 an empty segment (deepseek-v3 cut to its leading dense layers) keeps the
-reference's leaves with a zero layer axis.
+reference's leaves with a zero layer axis. The serving paths take the
+model's mesh and hand it to the MoE layers alone (``moe_forward``); the
+other layers run replicated on every rank.
 
 :func:`stack_forward` is the training path (no cache): each layer's
 :func:`layer_forward`, under ``torch.utils.checkpoint`` with ``remat``
@@ -18,7 +20,7 @@ returns the MoE layers' summed aux loss beside the hidden states.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -67,8 +69,10 @@ def init_norm(cfg, dtype, device):
 
 
 def init_layer(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
-               device=None) -> Dict:
-    """One layer's parameters; with no generator, allocated and unset."""
+               device=None, ep: Tuple[int, int] = (0, 1)) -> Dict:
+    """One layer's parameters; with no generator, allocated and unset. A
+    MoE layer's experts are model index ``ep[0]``'s slice of ``ep[1]``
+    (``moe.init_moe``)."""
     if seg.kind == "ssm":
         return {"ln1": init_norm(cfg, dtype, device),
                 "ssm": ssm_mod.init_ssm(cfg, dtype, gen, device=device)}
@@ -84,21 +88,23 @@ def init_layer(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
     else:
         p["attn"] = attn.init_attention(cfg, dtype, gen, device=device)
     if seg.kind.endswith("moe"):
-        p["moe"] = moe_mod.init_moe(cfg, dtype, gen, device=device)
+        p["moe"] = moe_mod.init_moe(cfg, dtype, gen, device=device, ep=ep)
     else:
         p["mlp"] = init_mlp(cfg, dtype, gen, seg.d_ff, device=device)
     return p
 
 
 def init_segment(cfg, seg: Segment, dtype, gen: Optional[torch.Generator],
-                 device=None) -> Dict:
+                 device=None, ep: Tuple[int, int] = (0, 1)) -> Dict:
     """Stacked ``[L, ...]`` parameters of one segment. A segment of zero
-    layers has the leaves of one layer, each with a zero layer axis."""
+    layers has the leaves of one layer, each with a zero layer axis.
+    Layers are drawn one at a time, so under a mesh (``ep``) a layer's
+    whole expert stacks live only until they are cut."""
     if seg.n_layers == 0:
-        one = init_layer(cfg, seg, dtype, None, device="meta")
+        one = init_layer(cfg, seg, dtype, None, device="meta", ep=ep)
         return tree_map(lambda t: torch.empty(
             (0,) + tuple(t.shape), dtype=t.dtype, device=device), one)
-    return stack_layers([init_layer(cfg, seg, dtype, gen, device)
+    return stack_layers([init_layer(cfg, seg, dtype, gen, device, ep)
                          for _ in range(seg.n_layers)])
 
 
@@ -118,7 +124,8 @@ def init_segment_cache(cfg, seg: Segment, batch: int, max_len: int, dtype,
     elif seg.kind == "hybrid":
         single = hyb.init_hybrid_cache(cfg, batch, max_len, dtype, device)
     elif seg.kind.startswith("mla_"):
-        single = mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
+        size = min(max_len, cfg.window) if cfg.window else max_len
+        single = mla_mod.init_mla_cache(cfg, batch, size, dtype, device)
     else:
         single = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
     return tree_map(lambda t: torch.zeros(
@@ -144,11 +151,12 @@ def unbind_layers(sp: Dict, n_layers: int) -> List[Dict]:
     return list(split(sp)) if n_layers else []
 
 
-def _ffn(lp, cfg, seg: Segment, x):
+def _ffn(lp, cfg, seg: Segment, x, mesh=None):
     """The layer's FFN: the routed experts of a MoE layer (its aux loss
-    unused in serving), else the dense MLP."""
+    unused in serving; expert-parallel under a mesh), else the dense
+    MLP."""
     if seg.kind.endswith("moe"):
-        return moe_mod.moe_forward(lp["moe"], cfg, x, aux=False)[0]
+        return moe_mod.moe_forward(lp["moe"], cfg, x, mesh, aux=False)[0]
     return mlp_forward(lp["mlp"], cfg, x)
 
 
@@ -192,7 +200,8 @@ def stack_forward(sp, cfg, seg: Segment, x, positions, remat: bool = False,
     return x, aux
 
 
-def layer_prefill(lp, cfg, seg: Segment, x, positions, lc, start_pos: int):
+def layer_prefill(lp, cfg, seg: Segment, x, positions, lc, start_pos: int,
+                  mesh=None):
     h = apply_norm(lp["ln1"], x)
     if seg.kind == "ssm":
         y, _ = ssm_mod.ssm_prefill(lp["ssm"], cfg, h, lc)
@@ -207,11 +216,11 @@ def layer_prefill(lp, cfg, seg: Segment, x, positions, lc, start_pos: int):
         y, _ = attn.attn_prefill(lp["attn"], cfg, h, positions, lc,
                                  start_pos)
     x = x + y
-    return x + _ffn(lp, cfg, seg, apply_norm(lp["ln2"], x))
+    return x + _ffn(lp, cfg, seg, apply_norm(lp["ln2"], x), mesh)
 
 
 def layer_decode(lp, cfg, seg: Segment, x1, pos: attn.Pos, lc,
-                 kv_max: Optional[int] = None):
+                 kv_max: Optional[int] = None, mesh=None):
     """One token a row at ``pos`` (an int, or one a row with ``kv_max`` a
     host bound of ``pos + 1``); an SSM layer takes no position."""
     h = apply_norm(lp["ln1"], x1)
@@ -225,22 +234,22 @@ def layer_decode(lp, cfg, seg: Segment, x1, pos: attn.Pos, lc,
     else:
         y, _ = attn.attn_decode(lp["attn"], cfg, h, pos, lc, kv_max=kv_max)
     x1 = x1 + y
-    return x1 + _ffn(lp, cfg, seg, apply_norm(lp["ln2"], x1))
+    return x1 + _ffn(lp, cfg, seg, apply_norm(lp["ln2"], x1), mesh)
 
 
 def stack_prefill(sp, cfg, seg: Segment, x, positions, cache,
-                  start_pos: int):
+                  start_pos: int, mesh=None):
     """Run every layer; ``cache`` (the segment's stacked leaves) is
     updated in place, one layer slice at a time."""
     for i in range(seg.n_layers):
         x = layer_prefill(layer_params(sp, i), cfg, seg, x, positions,
-                          layer_params(cache, i), start_pos)
+                          layer_params(cache, i), start_pos, mesh)
     return x
 
 
 def stack_decode(sp, cfg, seg: Segment, x1, pos: attn.Pos, cache,
-                 kv_max: Optional[int] = None):
+                 kv_max: Optional[int] = None, mesh=None):
     for i in range(seg.n_layers):
         x1 = layer_decode(layer_params(sp, i), cfg, seg, x1, pos,
-                          layer_params(cache, i), kv_max)
+                          layer_params(cache, i), kv_max, mesh)
     return x1

@@ -14,6 +14,10 @@ elements (an empty MoE segment's ``[0, ...]`` stacks) come across as
 empty tensors of the same shape. :func:`to_tree` is the inverse: a
 state dict back to the reference's nested tree (``segments`` a list),
 as a checkpoint in the reference's format holds it.
+
+:func:`expert_slice` is a rank's slice of an expert stack under a mesh:
+a ``Model`` built with a mesh holds only that (``models/moe.py::init_moe``)
+and cuts every whole stack it loads to it.
 """
 from __future__ import annotations
 
@@ -66,3 +70,22 @@ def _lists(node):
     if node and all(k.isdigit() for k in node):
         return [_lists(node[k]) for k in sorted(node, key=int)]
     return {k: _lists(v) for k, v in node.items()}
+
+
+def expert_slice(t: torch.Tensor, m: int, n_model: int, e_stored: int,
+                 axis: int = 0) -> torch.Tensor:
+    """Model index ``m``'s slice of the expert stack ``t`` along ``axis``:
+    experts ``[m e_loc, (m + 1) e_loc)`` of the stack padded with zero
+    experts to ``e_pad`` (a multiple of ``n_model``), as a new tensor that
+    holds no reference to ``t``; ``t`` itself with one model rank."""
+    from repro_torch.models.moe import ep_layout
+    if n_model == 1:
+        return t
+    e_loc = ep_layout(e_stored, n_model)[1]
+    lo = min(m * e_loc, e_stored)
+    part = t.narrow(axis, lo, min(e_loc, e_stored - lo))
+    if part.shape[axis] == e_loc:
+        return part.clone()
+    shape = list(t.shape)
+    shape[axis] = e_loc - part.shape[axis]
+    return torch.cat([part, part.new_zeros(shape)], dim=axis)

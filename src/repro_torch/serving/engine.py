@@ -28,6 +28,12 @@ advance its state (the reference pads an SSM; ROADMAP Queue 3). An
 encoder-decoder's ``frames`` pass through the padding untouched, and a
 resume takes none (the cache holds the audio's K/V).
 
+A model built on a mesh (``Model(..., mesh=...)``, expert-parallel MoE
+layers) is served unchanged: every rank of the mesh runs the same
+request through its own engine, and the MoE layers' collectives pair
+the ranks' calls layer by layer, as the reference's engine serves a
+meshed ``Model``.
+
 :class:`BatchedEngine` is the counterpart of
 ``repro.serving.engine.BatchedEngine``: a fixed pool of cache slots, each
 at its own position.

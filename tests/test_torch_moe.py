@@ -252,11 +252,27 @@ def test_moe_gemm_plain_matches_ragged_dot(dtype):
     torch.testing.assert_close(got, moe_gemm_plain(_t(jxs), _t(jw), offsets))
 
 
+class _PodMesh:
+    """A production mesh's axes (``pod``, ``data``, ``model``)."""
+    mesh_dim_names = ("pod", "data", "model")
+
+    def size(self, i=None):
+        return 2 if i is None else (2, 1, 1)[i]
+
+    def get_local_rank(self, name):
+        return 0
+
+
 def test_moe_forward_refuses_a_mesh():
+    """A mesh with a ``pod`` axis (the reference's multi-pod production
+    mesh) is refused, naming the ROADMAP item that adds it; so is a
+    model built on one."""
     _, tcfg, _, tp = _layer("granite", "float32")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="pod.*item 11b"):
         moe.moe_forward(tp, tcfg, torch.zeros(1, 2, tcfg.d_model),
-                        mesh=object())
+                        mesh=_PodMesh())
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        Model(tcfg, device="cpu", seed=None, mesh=_PodMesh())
 
 
 # ---------------------------------------------------------------------------
